@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port (``fedml_tpu_torch``) starts
+and is right on one NVIDIA Hopper card.
+
+    python3 chip_smoke.py [--layers N]
+
+Phases, each printing its own lines:
+
+1. device — ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
+2. build — the three flash-attention kernels compiled from ``csrc/`` (one
+   ``nvcc`` per source, in parallel), with registers and shared memory;
+3. kernels — K1 (forward), K2 (dQ) and K3 (dK/dV), each against its plain
+   PyTorch version on the same inputs, and the autograd Function bitwise
+   equal to them, at the slice's shape, a ragged GQA shape and a small f32
+   shape, each output held per element and per 64-row block to
+   ``attention.KERNEL_TOL``; times (CUDA events, warm) beside the plain
+   version, one library call as a yardstick (``scaled_dot_product_attention``
+   for K1, PyTorch's flash-attention backward for K2 and K3 together), and
+   the least time the card could take;
+4. slice — ``build_fedllm`` → ``FedLLMAPI.train()`` + ``evaluate()`` at
+   Llama-2-7B width (dim 4096, 32 heads, ffn 11008, bf16, LoRA rank 8 on
+   wq/wk/wv/wo) on the synthetic Shakespeare LM data at seq 1024, 4 clients
+   per round, batch 2, 2 local steps, random weights from seed 0; checks
+   finite losses, a bitwise-unchanged base, moved adapters and each
+   kernel's launch count; then a small f32 model trained on the card and
+   on the CPU from the same weights must agree.
+
+The second-to-last lines are a JSON object of per-kernel numbers (with the
+forward+backward times and the slice's round numbers beside them) and the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
+that line; so does a host without CUDA, or a directory without the port.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+REPLACES = {
+    "flash_fwd": "fedml_tpu/ops/attention.py:114",
+    "flash_bwd_dq": "fedml_tpu/ops/attention.py:332",
+    "flash_bwd_dkv": "fedml_tpu/ops/attention.py:381",
+}
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def check_close(att, what, got, ref):
+    """Hold a kernel's output to its plain version's (``KERNEL_TOL``)."""
+    st = att.compare_with_plain(got, ref)
+    line = (f"{what} err {st['err']:.2e} (|plain| median {st['median']:.2e}"
+            f", max {st['max']:.2e}; worst element {st['elem']:.2f} and "
+            f"worst 64-row block {st['block']:.2f} of their limits)")
+    if not (st["elem"] <= 1 and st["block"] <= 1):
+        fail(line)
+    return st["err"], line
+
+
+def time_ms(torch, fn, reps, warm=2):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(kernel, b, h, hkv, s, d, causal, dtype):
+    """(ms, "bytes"|"operations"): the larger of the bytes the function
+    must move (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate for its type.  The
+    unmasked (q, k) pairs are counted exactly for causal attention."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    esz = 2 if dtype == "bfloat16" else 4
+    qb, kvb, row = b * h * s * d * esz, b * hkv * s * d * esz, b * h * s * 4
+    if kernel == "flash_fwd":
+        flops, nbytes = 4 * pairs * d, qb + 2 * kvb + qb + row
+    elif kernel == "flash_bwd_dq":   # S, dP, dQ products + Δ; q k v o dO lse
+        flops = 6 * pairs * d + 2 * b * h * s * d
+        nbytes = 3 * qb + 2 * kvb + row + qb + row
+    else:                            # S, dP, dV, dK; q k v dO lse Δ → dK dV
+        flops, nbytes = 8 * pairs * d, 2 * qb + 2 * kvb + 2 * row + 2 * kvb
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32,
+                    help="transformer depth (widths are never cut)")
+    opts = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import fedml_tpu_torch
+        from fedml_tpu_torch.llm.configurations import (
+            build_fedllm, llama2_7b_round_arguments)
+        from fedml_tpu_torch.llm.fedllm import FedLLMAPI
+        from fedml_tpu_torch.ops import attention as att
+        from fedml_tpu_torch.ops import cuda_build
+    except ImportError as e:
+        fail(f"the port is not beside this script: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # -- 1. device ------------------------------------------------------
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    say("device", f"nvidia-smi: {smi}")
+    say("device", f"torch: {kind}, {torch.cuda.device_count()} visible, "
+                  f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.time()
+    info = cuda_build.build()
+    say("build", f"{len(info)} kernels in {time.time() - t0:.1f} s "
+                 "(parallel nvcc, sm_90a)")
+    for name, rec in info.items():
+        regs = {}
+        for entry, n in re.findall(
+                r"entry function '(\S+)'.*?Used (\d+) registers",
+                rec["ptxas"], flags=re.S):
+            regs["bf16" if "bfloat16" in entry else "f32"] = int(n)
+        smem = {t: cuda_build.smem_bytes(name, 128, t == "bf16")
+                for t in ("bf16", "f32")}
+        say("build", f"{name}: {'cached' if rec['cached'] else 'built'}; "
+                     f"registers/thread {regs or 'n/a (cached)'}; dynamic "
+                     f"shared memory/block at head_dim 128 {smem} bytes")
+
+    # -- 3. kernels vs plain ----------------------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    shapes = [("slice", 2, 32, 32, 1024, 128, True, "bfloat16"),
+              ("ragged_gqa", 1, 8, 2, 1000, 128, False, "bfloat16"),
+              ("small_f32", 1, 4, 2, 200, 64, True, "float32")]
+    rows = {}
+    for tag, b, h, hkv, s, d, causal, dt in shapes:
+        dtype = getattr(torch, dt)
+        mk = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                        dtype=torch.float32).to(dtype)
+        q, k, v, do = mk(b, h, s, d), mk(b, hkv, s, d), mk(b, hkv, s, d), \
+            mk(b, h, s, d)
+        o, lse = att.flash_attention_fwd(q, k, v, causal)
+        po, plse = att.flash_attention_fwd_plain(q, k, v, causal)
+        e_o, l_o = check_close(att, "K1 O", o, po)
+        e_l, l_l = check_close(att, "K1 lse", lse, plse)
+        # K2 and K3 each against its plain version on the same inputs: the
+        # O and lse that K1 gave, and the Δ that K2 gave
+        dq, delta = att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        pdq, pdelta = att.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                       causal)
+        dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        pdk, pdv = att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
+                                                     causal)
+        e_dq, l_dq = check_close(att, "K2 dQ", dq, pdq)
+        _, l_de = check_close(att, "K2 delta", delta, pdelta)
+        e_dk, l_dk = check_close(att, "K3 dK", dk, pdk)
+        e_dv, l_dv = check_close(att, "K3 dV", dv, pdv)
+        # the autograd Function runs the same kernels: bitwise the same
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = att.flash_attention(*leaves, causal)
+        grads = torch.autograd.grad(out, leaves, do)
+        if not all(map(torch.equal, (out, *grads), (o, dq, dk, dv))):
+            fail(f"{tag}: the autograd Function's O/dQ/dK/dV differ from "
+                 "the kernels' own")
+        say("kernels", f"{tag} B{b} H{h} Hkv{hkv} S{s} D{d} "
+                       f"{'causal' if causal else 'full'} {dt}: ok, "
+                       "autograd Function bitwise equal to the kernels")
+        for line in (l_o, l_l, l_dq, l_de, l_dk, l_dv):
+            say("kernels", f"  {line}")
+        if tag != "slice":
+            continue
+        calls = {
+            "flash_fwd": (lambda: att.flash_attention_fwd(q, k, v, causal),
+                          lambda: att.flash_attention_fwd_plain(q, k, v,
+                                                                causal)),
+            "flash_bwd_dq": (
+                lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                   causal),
+                lambda: att.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                         causal)),
+            "flash_bwd_dkv": (
+                lambda: att.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                    causal),
+                lambda: att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta,
+                                                          do, causal)),
+        }
+        errs = {"flash_fwd": e_o, "flash_bwd_dq": e_dq,
+                "flash_bwd_dkv": max(e_dk, e_dv)}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
+        # the backward's yardstick: one call of PyTorch's flash-attention
+        # backward gives dQ, dK and dV together from its own O and lse
+        lo, llse, cq, ck, mq, mk, seed, offset, _ = \
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, causal)
+        lib_bwd = time_ms(
+            torch, lambda: torch.ops.aten
+            ._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, lo, llse, cq, ck, mq, mk, 0.0, causal, seed,
+                offset), 20)
+        library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+                   "flash_bwd_dkv": lib_bwd}
+        for name, (kern, plain) in calls.items():
+            b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"fedml_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": 0,
+                "max_abs_err": errs[name],
+                "ms": time_ms(torch, kern, 20),
+                "plain_ms": time_ms(torch, plain, 5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library[name]}
+            r = rows[name]
+            say("kernels", f"{name} @slice: {r['ms']:.3f} ms kernel, "
+                           f"{r['plain_ms']:.3f} ms plain, bound "
+                           f"{b_ms:.3f} ms ({b_by}), library "
+                           f"{r['library_ms']:.3f} ms [{smi}]")
+        # forward+backward through autograd: K1+K2+K3 vs SDPA
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def lib_fb():
+            torch.autograd.grad(sdpa(ql, kl, vl, is_causal=causal),
+                                (ql, kl, vl), do)
+
+        def ours_fb():
+            torch.autograd.grad(att.flash_attention(ql, kl, vl, causal),
+                                (ql, kl, vl), do)
+
+        fwd_bwd = {"ms": time_ms(torch, ours_fb, 10),
+                   "library_ms": time_ms(torch, lib_fb, 10)}
+        say("kernels", f"fwd+bwd @slice: ours {fwd_bwd['ms']:.3f} ms, "
+                       f"scaled_dot_product_attention "
+                       f"{fwd_bwd['library_ms']:.3f} ms [{smi}]")
+
+    # -- 4. the slice: federated LoRA rounds at Llama-2-7B width ----------
+    t0 = time.time()
+    api = build_fedllm(llama2_7b_round_arguments(opts.layers), device="cuda")
+    cfg = api.cfg
+    if (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim, cfg.lora_rank,
+            cfg.dtype) != (4096, 32, 32, 11008, 8, torch.bfloat16):
+        fail(f"not Llama-2-7B width: {cfg}")
+    n_params = sum(p.numel() for p in api.model.parameters())
+    say("slice", f"Llama-2-7B width, depth {cfg.n_layers} of 32 "
+                 f"({n_params / 1e9:.2f} B base params, bf16), LoRA rank "
+                 f"{cfg.lora_rank}, vocab {cfg.vocab_size}, seq 1024; built "
+                 f"in {time.time() - t0:.1f} s")
+    base = {n: p.detach().cpu() for n, p in api.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    api.train()
+    nll = api.evaluate()
+    torch.cuda.synchronize()
+    launches = {f.__name__.replace("flash_attention", "flash"): f.launches
+                for f in att.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = sum(hr["steps"] for hr in api.history)
+    n_eval = len(api.dataset.test_batches(api.batch_size)[0])
+    layers = cfg.n_layers
+    expect = {"flash_fwd": layers * (2 * steps + n_eval),   # fwd + remat
+              "flash_bwd_dq": layers * steps,
+              "flash_bwd_dkv": layers * steps}
+    for hr in api.history:
+        toks = hr["steps"] * api.batch_size * 1024
+        say("slice", f"round {hr['round']}: loss {hr['train_loss']:.4f}, "
+                     f"{hr['steps']} client steps, {hr['seconds']:.2f} s, "
+                     f"{toks / hr['seconds']:.0f} train tokens/s [{smi}]")
+    slice_rec = {"layers": layers, "peak_gib": peak, "eval_nll": nll,
+                 "rounds": [{"loss": hr["train_loss"], "steps": hr["steps"],
+                             "seconds": hr["seconds"]} for hr in api.history]}
+    say("slice", f"eval NLL {nll:.4f} over {n_eval} batches; peak "
+                 f"max_memory_allocated {peak:.2f} GiB [{smi}]")
+    say("slice", f"launches {launches}, expected {expect} (remat=full "
+                 f"runs K1 twice per layer per step)")
+    losses = [hr["train_loss"] for hr in api.history] + [nll]
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"non-finite loss: {losses}")
+    if launches != expect:
+        fail(f"launch counts {launches} != expected {expect}")
+    for n, p in api.model.named_parameters():
+        if not torch.equal(p.detach().cpu(), base[n]):
+            fail(f"base weight {n} changed")
+    del base
+    moved = [k for k, t in api.global_lora.items()
+             if k.endswith("/B") and t.abs().max().item() > 0]
+    n_b = sum(k.endswith("/B") for k in api.global_lora)
+    if len(moved) != n_b:
+        fail(f"only {len(moved)} of {n_b} B adapters moved off zero")
+    say("slice", f"base bitwise unchanged; {n_b}/{n_b} B adapters non-zero")
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    del api
+    torch.cuda.empty_cache()
+
+    # small-input reference: one f32 round on the card vs the CPU
+    targs = fedml_tpu_torch.load_arguments()
+    targs.update(model="tiny_llama", dataset="shakespeare", seq_len=64,
+                 client_num_in_total=4, client_num_per_round=2, comm_round=1,
+                 batch_size=2, llm_max_local_steps=2, lora_rank=4,
+                 learning_rate=1e-3, random_seed=1, partition_method="homo",
+                 train_size=32, test_size=4)
+    gpu_api = build_fedllm(targs, device="cuda")
+    cpu_api = FedLLMAPI(targs, gpu_api.dataset, device="cpu")
+    with torch.no_grad():
+        for (_, pc), (_, pg) in zip(cpu_api.model.named_parameters(),
+                                    gpu_api.model.named_parameters()):
+            pc.copy_(pg.cpu())
+    cpu_api.global_lora = {k: t.cpu() for k, t in gpu_api.global_lora.items()}
+    lg = gpu_api.train_one_round(0)["train_loss"]
+    lc = cpu_api.train_one_round(0)["train_loss"]
+    err = max(max_err(gpu_api.global_lora[k].cpu(), cpu_api.global_lora[k])
+              for k in cpu_api.global_lora)
+    say("slice", f"small f32 reference: round loss card {lg:.6f} vs CPU "
+                 f"{lc:.6f}; adapters max abs diff {err:.2e} (tol 1e-4)")
+    if abs(lg - lc) > 1e-4 * max(1.0, abs(lc)) or err > 1e-4:
+        fail("card and CPU disagree on the small f32 round")
+
+    print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
+                      "slice": slice_rec}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

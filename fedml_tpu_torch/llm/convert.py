@@ -1,0 +1,95 @@
+"""Weight carry-over between the JAX package's flax trees and the port.
+
+Threefry draws cannot be reproduced in PyTorch, so parity runs start both
+packages from the same weights: :func:`from_flax` loads the JAX package's
+``params`` and ``lora`` trees (nested dicts of numpy arrays, e.g.
+``layer_0/attention/wq/base/kernel`` of shape ``(in, out)``,
+``layer_0/attention/wq/A``, ``attn_norm/scale``, ``tok_embed/embedding``,
+``lm_head/kernel``) into a :class:`~fedml_tpu_torch.llm.model.LlamaLM`
+and a flat adapter dict; :func:`to_flax` is the inverse.  The port keeps the
+flax names and layouts, so the mapping is the path with ``.`` for ``/``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .model import LlamaConfig, LlamaLM
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict → ``{"a/b/c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def from_flax(params_np: Mapping, lora_np: Optional[Mapping],
+              cfg: LlamaConfig, device="cpu",
+              model: Optional[LlamaLM] = None
+              ) -> Tuple[LlamaLM, Dict[str, torch.Tensor]]:
+    """Load flax ``params``/``lora`` trees into ``model`` (a new
+    ``LlamaLM(cfg)`` on ``device`` if none is given).  Returns the model
+    and the flat f32 adapter dict.  Every parameter must be present with
+    its exact shape."""
+    if model is None:
+        model = LlamaLM(cfg).to(device)
+    flat = flatten(params_np)
+    seen = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key = name.replace(".", "/")
+            arr = np.asarray(flat[key])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: flax shape {arr.shape} vs port "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(np.asarray(arr, np.float32)).to(p.dtype))
+            seen.add(key)
+    extra = set(flat) - seen
+    if extra:
+        raise ValueError(f"flax params not in the port's model: "
+                         f"{sorted(extra)[:5]}")
+    lora = {}
+    if lora_np:
+        dev = next(model.parameters()).device
+        shapes = model.lora_shapes()
+        for key, arr in flatten(lora_np).items():
+            if tuple(np.shape(arr)) != shapes.get(key):
+                raise ValueError(f"lora {key}: shape {np.shape(arr)} vs "
+                                 f"{shapes.get(key)}")
+            lora[key] = torch.tensor(np.asarray(arr, np.float32), device=dev)
+    return model, lora
+
+
+def to_flax(model: Optional[LlamaLM], lora: Optional[Mapping] = None):
+    """Inverse of :func:`from_flax`: ``(params_np, lora_np)`` nested dicts
+    of f32 numpy arrays (``None`` for an argument that is ``None``)."""
+    params = None
+    if model is not None:
+        params = unflatten({
+            n.replace(".", "/"): p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()})
+    lora_np = None
+    if lora is not None:
+        lora_np = unflatten({k: v.detach().float().cpu().numpy()
+                             for k, v in lora.items()})
+    return params, lora_np

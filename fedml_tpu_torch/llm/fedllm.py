@@ -1,0 +1,216 @@
+"""Federated LoRA fine-tuning of a causal LM (port of
+``fedml_tpu.llm.fedllm``, single-device path).
+
+ONE copy of the frozen base weights lives in :class:`LlamaLM`; per-client
+state is only the flat LoRA adapter dict.  A round runs the cohort's
+clients one after another against the shared base (the JAX package vmaps
+them; each client's numbers are the same either way), then merges the
+adapters by a per-rank-component weighted average.
+
+The local optimizer is Adam as ``optax.adamw(lr, weight_decay=0)`` computes
+it, written as a functional update on the adapter dict: a step whose mask
+is 0 leaves the adapters AND the optimizer state (step count included)
+exactly as they were, so such a step is skipped outright.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core import rng as rng_util
+from ..core import tree as tree_util
+from ..data.federated_dataset import FederatedDataset
+from .model import LlamaLM, causal_nll, config_from_args, per_sequence_loglik
+
+log = logging.getLogger(__name__)
+
+LoRA = Dict[str, torch.Tensor]
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def lora_init(generator: torch.Generator, lora_shapes: Dict[str, tuple],
+              device) -> LoRA:
+    """Every 'A' leaf N(0, 0.02²) from ``generator``, every 'B' zero:
+    adapters start as the identity."""
+    out = {}
+    for path, shape in lora_shapes.items():
+        if path.endswith("/A"):
+            out[path] = 0.02 * torch.randn(shape, generator=generator,
+                                           device=device, dtype=torch.float32)
+        else:
+            out[path] = torch.zeros(shape, device=device, dtype=torch.float32)
+    return out
+
+
+def rank_mask_tree(lora_template: LoRA, mask_vec: torch.Tensor) -> LoRA:
+    """Per-leaf masks zeroing every rank component a client does not hold:
+    'A' leaves ``(in, R)`` mask the last axis, 'B' leaves ``(R, out)`` the
+    first.  ``mask_vec`` is the client's ``(R,)`` 0/1 vector."""
+    out = {}
+    for path, leaf in lora_template.items():
+        if path.endswith("/A"):
+            out[path] = mask_vec[None, :].to(leaf.dtype)
+        else:
+            out[path] = mask_vec[:, None].to(leaf.dtype)
+    return out
+
+
+class FedLLMAPI:
+    """FedAvg over LoRA adapters of a causal LM."""
+
+    def __init__(self, args, dataset: FederatedDataset, device="cuda"):
+        self.args = args
+        self.dataset = dataset
+        self.device = torch.device(device)
+        self.seed = int(getattr(args, "random_seed", 0))
+        self.batch_size = int(getattr(args, "batch_size", 2))
+        self.epochs = int(getattr(args, "epochs", 1))
+        self.comm_rounds = int(getattr(args, "comm_round", 5))
+        self.clients_per_round = int(getattr(args, "client_num_per_round", 4))
+        self.max_steps = int(getattr(args, "llm_max_local_steps", 4))
+        self.lr = float(getattr(args, "learning_rate", 1e-3))
+
+        cfg = config_from_args(args, dataset.num_classes)
+        if cfg.lora_rank == 0:
+            import dataclasses
+            cfg = dataclasses.replace(
+                cfg, lora_rank=int(getattr(args, "lora_rank", 8)),
+                lora_alpha=float(getattr(args, "lora_alpha", 16.0)))
+        self.cfg = cfg
+
+        # heterogeneous adapter capacity (HetLoRA-style): device classes
+        # train different ranks of the same global adapters
+        ranks = getattr(args, "lora_rank_per_client", None)
+        self.client_ranks = None
+        if ranks is not None:
+            ranks = np.asarray(ranks, np.int32)
+            if len(ranks) != dataset.num_clients:
+                raise ValueError(
+                    f"lora_rank_per_client has {len(ranks)} entries for "
+                    f"{dataset.num_clients} clients")
+            if ranks.min() < 1 or ranks.max() > cfg.lora_rank:
+                raise ValueError(
+                    f"per-client ranks must be in [1, {cfg.lora_rank}], "
+                    f"got [{ranks.min()}, {ranks.max()}]")
+            self.client_ranks = ranks
+
+        key = rng_util.root_key(self.seed, self.device)
+        self.model = LlamaLM(cfg).to(self.device)
+        self.model.init_weights(rng_util.purpose_key(key, "init"))
+        self.global_lora = lora_init(rng_util.purpose_key(key, "lora"),
+                                     self.model.lora_shapes(), self.device)
+        #: per-round {"round", "train_loss", "steps", "seconds"} records
+        #: of train()
+        self.history = []
+
+    # -- local training ---------------------------------------------------
+    def _local_train(self, lora0: LoRA, xb, yb, mask: np.ndarray,
+                     rank_vec: torch.Tensor):
+        """One client's local Adam steps over its real steps (``mask`` is 1
+        there, 0 on padding).  Returns (adapters, mean loss over its real
+        steps)."""
+        mtree = rank_mask_tree(lora0, rank_vec)
+        lora = tree_util.tree_map(torch.mul, lora0, mtree)
+        mu = tree_util.tree_zeros_like(lora)
+        nu = tree_util.tree_zeros_like(lora)
+        count = 0
+        losses = []
+        keys = list(lora)
+        for s in range(len(mask)):
+            if mask[s] <= 0:
+                continue      # masked: adapters and optimizer state unchanged
+            params = {k: lora[k].detach().requires_grad_(True) for k in keys}
+            x = torch.as_tensor(xb[s], device=self.device)
+            y = torch.as_tensor(yb[s], device=self.device)
+            loss = causal_nll(self.model(x, params), y)
+            grads = torch.autograd.grad(loss, [params[k] for k in keys])
+            count += 1
+            bc1 = 1.0 - _B1 ** count
+            bc2 = 1.0 - _B2 ** count
+            with torch.no_grad():
+                for k, g in zip(keys, grads):
+                    g = g * mtree[k]
+                    mu[k] = (1 - _B1) * g + _B1 * mu[k]
+                    nu[k] = (1 - _B2) * (g * g) + _B2 * nu[k]
+                    upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + _EPS)
+                    lora[k] = lora[k] + (-self.lr) * upd
+            losses.append(loss.detach())
+        if not losses:
+            return lora, torch.zeros((), device=self.device)
+        return lora, torch.stack(losses).mean()
+
+    def _cohort_rank_masks(self, clients) -> np.ndarray:
+        """(C, R) 0/1 masks: which rank components each sampled client
+        holds (all ones when ranks are homogeneous)."""
+        R = self.cfg.lora_rank
+        if self.client_ranks is None:
+            return np.ones((len(clients), R), np.float32)
+        ranks = self.client_ranks[np.asarray(clients)]
+        return (np.arange(R)[None, :] < ranks[:, None]).astype(np.float32)
+
+    def train_one_round(self, round_idx: int):
+        clients = rng_util.sample_clients(self.seed, round_idx,
+                                          self.dataset.num_clients,
+                                          self.clients_per_round)
+        rank_masks = torch.as_tensor(self._cohort_rank_masks(clients),
+                                     device=self.device)
+        x, y, mask, w = self.dataset.cohort_batches(
+            clients, self.batch_size, self.seed, round_idx, self.epochs,
+            max_steps=self.max_steps)
+        loras, losses = [], []
+        for c in range(len(clients)):
+            lora_c, loss_c = self._local_train(self.global_lora, x[c], y[c],
+                                               mask[c], rank_masks[c])
+            loras.append(lora_c)
+            losses.append(loss_c)
+        weights = torch.as_tensor(w, device=self.device)
+        self.global_lora = self._merge(loras, rank_masks, weights)
+        losses = torch.stack(losses)
+        round_loss = (losses * weights).sum() / weights.sum()
+        # "steps": the real (unmasked) local steps the cohort took
+        return {"train_loss": float(round_loss), "steps": int(mask.sum())}
+
+    def _merge(self, loras, rank_masks, weights) -> LoRA:
+        """Each rank component averages over the clients that hold it; a
+        component nobody in the cohort holds keeps its global value."""
+        merged = {}
+        for k, g in self.global_lora.items():
+            stacked = torch.stack([l[k] for l in loras])
+            m = torch.stack([rank_mask_tree({k: g}, rv)[k]
+                             for rv in rank_masks])
+            wm = weights.reshape((-1,) + (1,) * g.dim()) * m.expand_as(stacked)
+            tot = wm.sum(0)
+            avg = (stacked * wm).sum(0) / torch.clamp_min(tot, 1e-12)
+            merged[k] = torch.where(tot > 0, avg, g)
+        return merged
+
+    # -- evaluation ---------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self) -> float:
+        xb, yb, mb = self.dataset.test_batches(batch_size=self.batch_size)
+        nll = torch.zeros((), device=self.device)
+        n = 0.0
+        for x, y, m in zip(xb, yb, mb):
+            logits = self.model(torch.as_tensor(x, device=self.device),
+                                self.global_lora)
+            ll = per_sequence_loglik(logits,
+                                     torch.as_tensor(y, device=self.device))
+            nll = nll - (ll * torch.as_tensor(m, device=self.device)).sum()
+            n += float(m.sum())
+        return float(nll / n)
+
+    def train(self) -> LoRA:
+        for r in range(self.comm_rounds):
+            t0 = time.time()
+            m = self.train_one_round(r)
+            dt = time.time() - t0
+            self.history.append(dict(m, round=r, seconds=dt))
+            log.info("fedllm round %d: loss=%.4f (%.2fs)", r,
+                     m["train_loss"], dt)
+        return self.global_lora

@@ -1,0 +1,79 @@
+"""Card-only tests of the port's CUDA kernels: K1/K2/K3 against their plain
+PyTorch versions on the same inputs.  They skip where no CUDA device is
+visible; on the card run them with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
+does not have; this file imports neither JAX nor the JAX package.)
+
+Tolerance: ``attention.KERNEL_TOL`` through ``compare_with_plain`` — per
+element ``|kernel − plain| <= atol + rtol·|plain|`` and per 64-row block
+``‖kernel − plain‖ <= nrel·‖plain‖``, with (atol, rtol, nrel) =
+(2e-3, 1.6e-2, 1e-2) in bf16 (both versions round P and dS to bf16 before
+their products, at other points of the online softmax, and round their
+outputs to bf16) and (1e-5, 1e-4, 1e-4) in f32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu_torch.ops import attention as tatt
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (none visible)")
+    return torch.device("cuda")
+
+
+def _inputs(b, h, hkv, s, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.tensor(
+        rng.standard_normal(shape).astype(np.float32), device=device,
+        dtype=dtype)
+    return mk(b, h, s, d), mk(b, hkv, s, d), mk(b, hkv, s, d), mk(b, h, s, d)
+
+
+def _close(got, ref):
+    st = tatt.compare_with_plain(got, ref)
+    assert st["elem"] <= 1 and st["block"] <= 1, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", [
+    (1, 8, 2, 200, 64, True), (1, 8, 2, 200, 64, False),
+    (2, 4, 4, 128, 128, True), (1, 2, 1, 1000, 128, False)])
+def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
+                                     causal):
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(b, h, hkv, s, d, dt, cuda_device)
+    tatt.reset_launch_counts()
+    o, lse = tatt.flash_attention_fwd(q, k, v, causal)
+    po, plse = tatt.flash_attention_fwd_plain(q, k, v, causal)
+    dq, delta = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    pdq, pdelta = tatt.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                    causal)
+    dk, dv = tatt.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+    pdk, pdv = tatt.flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
+                                                  causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in tatt.KERNELS] == [1, 1, 1]
+    for got, ref in ((o, po), (lse, plse), (delta, pdelta), (dq, pdq),
+                     (dk, pdk), (dv, pdv)):
+        _close(got, ref)
+
+
+@pytest.mark.gpu
+def test_autograd_function_launches_kernels(cuda_device):
+    q, k, v, do = _inputs(1, 4, 2, 96, 64, torch.bfloat16, cuda_device)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    tatt.reset_launch_counts()
+    out = tatt.flash_attention(q, k, v, True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in tatt.KERNELS] == [1, 1, 1]
+    assert all(torch.isfinite(g).all() for g in grads)
