@@ -8,15 +8,19 @@ Phases, each printing its own lines:
 
 1. device — ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build — the three flash-attention kernels compiled from ``csrc/`` (one
-   ``nvcc`` per source, in parallel), with registers and shared memory;
+   ``nvcc`` per source, in parallel), with each kernel's registers, spill
+   bytes and shared memory per block from ``-Xptxas -v`` (kept beside each
+   library, so a cached build reports it too; a bf16 K1 or K3 that spills,
+   or has no report, fails);
 3. kernels — K1 (forward), K2 (dQ) and K3 (dK/dV), each against its plain
    PyTorch version on the same inputs, and the autograd Function bitwise
-   equal to them, at the slice's shape, a ragged GQA shape and a small f32
-   shape, each output held per element and per 64-row block to
+   equal to them, at the slice's shape, a ragged GQA shape, a head dim the
+   bf16 kernels pad (80) and a small f32 shape, each output held per element and per 64-row block to
    ``attention.KERNEL_TOL``; times (CUDA events, warm) beside the plain
    version, one library call as a yardstick (``scaled_dot_product_attention``
    for K1, PyTorch's flash-attention backward for K2 and K3 together), and
-   the least time the card could take;
+   the least time the card could take, with the achieved TFLOP/s and the
+   share of that bound;
 4. slice — ``build_fedllm`` → ``FedLLMAPI.train()`` + ``evaluate()`` at
    Llama-2-7B width (dim 4096, 32 heads, ffn 11008, bf16, LoRA rank 8 on
    wq/wk/wv/wo) on the synthetic Shakespeare LM data at seq 1024, 4 clients
@@ -35,7 +39,6 @@ that line; so does a host without CUDA, or a directory without the port.
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -95,21 +98,28 @@ def time_ms(torch, fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def bound(kernel, b, h, hkv, s, d, causal, dtype):
-    """(ms, "bytes"|"operations"): the larger of the bytes the function
-    must move (each input read once, each output written once) over the
-    memory rate and its operations over the peak rate for its type.  The
-    unmasked (q, k) pairs are counted exactly for causal attention."""
+def work(kernel, b, h, hkv, s, d, causal, dtype):
+    """(operations, bytes) of one call: the products' flops over the
+    unmasked (q, k) pairs (counted exactly for causal attention), and the
+    bytes the function must move (each input read once, each output
+    written once)."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     esz = 2 if dtype == "bfloat16" else 4
     qb, kvb, row = b * h * s * d * esz, b * hkv * s * d * esz, b * h * s * 4
     if kernel == "flash_fwd":
-        flops, nbytes = 4 * pairs * d, qb + 2 * kvb + qb + row
-    elif kernel == "flash_bwd_dq":   # S, dP, dQ products + Δ; q k v o dO lse
-        flops = 6 * pairs * d + 2 * b * h * s * d
-        nbytes = 3 * qb + 2 * kvb + row + qb + row
-    else:                            # S, dP, dV, dK; q k v dO lse Δ → dK dV
-        flops, nbytes = 8 * pairs * d, 2 * qb + 2 * kvb + 2 * row + 2 * kvb
+        return 4 * pairs * d, qb + 2 * kvb + qb + row
+    if kernel == "flash_bwd_dq":     # S, dP, dQ products + Δ; q k v o dO lse
+        return (6 * pairs * d + 2 * b * h * s * d,
+                3 * qb + 2 * kvb + row + qb + row)
+    # S, dP, dV, dK; q k v dO lse Δ → dK dV
+    return 8 * pairs * d, 2 * qb + 2 * kvb + 2 * row + 2 * kvb
+
+
+def bound(kernel, b, h, hkv, s, d, causal, dtype):
+    """(ms, "bytes"|"operations"): the larger of the bytes the function
+    must move over the memory rate and its operations over the peak rate
+    for its type (:func:`work`)."""
+    flops, nbytes = work(kernel, b, h, hkv, s, d, causal, dtype)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -151,22 +161,29 @@ def main():
     say("build", f"{len(info)} kernels in {time.time() - t0:.1f} s "
                  "(parallel nvcc, sm_90a)")
     for name, rec in info.items():
-        regs = {}
-        for entry, n in re.findall(
-                r"entry function '(\S+)'.*?Used (\d+) registers",
-                rec["ptxas"], flags=re.S):
-            regs["bf16" if "bfloat16" in entry else "f32"] = int(n)
         smem = {t: cuda_build.smem_bytes(name, 128, t == "bf16")
                 for t in ("bf16", "f32")}
-        say("build", f"{name}: {'cached' if rec['cached'] else 'built'}; "
-                     f"registers/thread {regs or 'n/a (cached)'}; dynamic "
-                     f"shared memory/block at head_dim 128 {smem} bytes")
+        say("build", f"{name}: {'cached' if rec['cached'] else 'built'} in "
+                     f"{rec['seconds']:.1f} s; dynamic shared memory/block "
+                     f"at head_dim 128 {smem} bytes")
+        report = cuda_build.ptxas_report(rec["ptxas"])
+        if name != "flash_bwd_dq" and not any("bf16" in k for k in report):
+            fail(f"{name}: no -Xptxas -v report of its bf16 kernels")
+        for kern, r in report.items():
+            say("build", f"  {kern}: {r['registers']} registers/thread, "
+                         f"spill bytes {r['spill_stores']} stored / "
+                         f"{r['spill_loads']} loaded, static shared memory "
+                         f"{r['smem']} bytes")
+            if (name != "flash_bwd_dq" and "bf16" in kern
+                    and r["spill_stores"] + r["spill_loads"]):
+                fail(f"{kern} spills registers to local memory")
 
     # -- 3. kernels vs plain ----------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     shapes = [("slice", 2, 32, 32, 1024, 128, True, "bfloat16"),
               ("ragged_gqa", 1, 8, 2, 1000, 128, False, "bfloat16"),
+              ("padded_head", 1, 8, 2, 300, 80, True, "bfloat16"),
               ("small_f32", 1, 4, 2, 200, 64, True, "float32")]
     rows = {}
     for tag, b, h, hkv, s, d, causal, dt in shapes:
@@ -238,20 +255,25 @@ def main():
                    "flash_bwd_dkv": lib_bwd}
         for name, (kern, plain) in calls.items():
             b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
+            ms = time_ms(torch, kern, 20)
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"fedml_tpu_torch/csrc/{name}.cu",
                 "replaces": REPLACES[name], "launches": 0,
-                "max_abs_err": errs[name],
-                "ms": time_ms(torch, kern, 20),
+                "max_abs_err": errs[name], "ms": ms,
                 "plain_ms": time_ms(torch, plain, 5),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library[name]}
+                "library_ms": library[name],
+                "tflops": work(name, b, h, hkv, s, d, causal, dt)[0]
+                / ms / 1e9,
+                "bound_share": b_ms / ms}
             r = rows[name]
-            say("kernels", f"{name} @slice: {r['ms']:.3f} ms kernel, "
+            say("kernels", f"{name} @slice: {ms:.4f} ms kernel "
+                           f"({r['tflops']:.1f} TFLOP/s, "
+                           f"{100 * r['bound_share']:.1f}% of bound), "
                            f"{r['plain_ms']:.3f} ms plain, bound "
-                           f"{b_ms:.3f} ms ({b_by}), library "
-                           f"{r['library_ms']:.3f} ms [{smi}]")
+                           f"{b_ms:.4f} ms ({b_by}), library "
+                           f"{r['library_ms']:.4f} ms [{smi}]")
         # forward+backward through autograd: K1+K2+K3 vs SDPA
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))

@@ -12,48 +12,257 @@
 //
 // Bound on the H100: 8·Sq·Sk·D flops (half of it for causal) over reads of
 // Q, K, V, dO, lse and Δ — at the training shape 34 GFLOP (35 µs) against
-// 101 MB (30 µs): operation-bound.  Design:
-// one block of four warps per (b·h_kv, 64-row k tile).  It keeps its K/V
-// tile and the f32 dK/dV accumulators in shared memory and loops over the
-// H/H_kv q heads of its group and over their q tiles, so the group sum
-// happens inside the block: no atomics and no per-q-head dK/dV buffer.
-// All four products run on the tensor cores (wmma, f32 accumulation); q
-// tiles wholly above the causal diagonal are skipped.
-#include "flash_common.cuh"
+// 101 MB (30 µs): operation-bound.
+//
+// bf16 design (D any multiple of 16 up to 128, held in tiles of DP = 64 or
+// 128 columns whose columns past D are zero), in the transposed form: one
+// warpgroup per (b·h_kv, 64-row k tile), heaviest k tiles (the first,
+// under a causal mask) first.  It owns the 64 k rows (each warp 16), so k
+// is the row dimension of every product and every sum stays in registers:
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (K and V resident in shared memory for the
+// whole block, Q and dO K-major B operands), Pᵀ = exp(Sᵀ·scale − lse[col])
+// and dSᵀ = Pᵀ∘(dPᵀ − Δ[col])·scale in registers, then dV += Pᵀ·dO and
+// dK += dSᵀ·Q with Pᵀ and dSᵀ, rounded to bf16, as register A operands and
+// dO and Q read as stored ([q][d], MN-major B operands); all four products
+// are warpgroup wgmma m64nNk16 with f32 sums (flash_sm90.cuh).  The block
+// loops over the H/H_kv q heads of its KV head and their q tiles, so the
+// group sum happens in f32 inside the block: no atomics, no per-head
+// buffer.  64-row Q, dO, lse and Δ tiles go through a two-stage ring of
+// 128-byte-swizzled shared memory filled by cp.async, the next q tile's
+// copies in flight during the current one's products.  Only tiles that
+// cross the causal diagonal or a ragged end evaluate the mask; q tiles
+// wholly above the diagonal are skipped.  Registers are the limit: dK and
+// dV take 128 a thread at D 128, Sᵀ and dPᵀ 64 (248 in all, no spills).
+// The tiles, 64 × 64, won a measured sweep of 64/128 k rows × 32/64 q rows
+// at the training shape (PERF.md).
+//
+// f32 (the small parity shapes only) keeps the first design: tiles and
+// f32 accumulators in shared memory, FMA products (flash_common.cuh).
+#include "flash_sm90.cuh"
 
 namespace fa {
 
-template <typename T>
-size_t dkv_smem(int D) {
-  constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK, P = Tiles<T>::PAD;
-  return 2 * region(BK * (D + P) * sizeof(T)) +
-         2 * region(BQ * (D + P) * sizeof(T)) +
+constexpr int DKV_BK = 64, DKV_BQ = 64;
+
+// K and V, then two stages of (Q, dO, lse, Δ), each stage 1024-aligned
+template <int DP>
+__host__ __device__ constexpr size_t dkv_stage_bytes() {
+  return (2 * size_t(DKV_BQ) * DP * 2 + 2 * DKV_BQ * 4 + 1023) & ~size_t(1023);
+}
+template <int DP>
+__host__ __device__ constexpr size_t dkv_bf16_smem() {
+  return 2 * size_t(DKV_BK) * DP * 2 + 2 * dkv_stage_bytes<DP>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(DKV_BK * 2)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const bf16* __restrict__ dout, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int H, int Hkv, int Sq,
+                          int Sk, float scale, float scale_log2, int causal) {
+  using namespace sm90;
+  constexpr int BK = DKV_BK, BQ = DKV_BQ, NT = BK * 2, DP = padded_dim(D);
+  constexpr int KBYTES = BK * DP * 2, QBYTES = BQ * DP * 2;
+  constexpr int STAGE = (int)dkv_stage_bytes<DP>();
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sK = smem_u32(smem), sV = sK + KBYTES;
+  // stage j: Q, dO, lse, Δ
+  auto stage = [&](int j) { return sK + 2 * KBYTES + (j & 1) * STAGE; };
+
+  const int kvr = blockIdx.x, k0 = blockIdx.y * BK;
+  const int b = kvr / Hkv, hk = kvr % Hkv, rep = H / Hkv;
+  const size_t koff = (size_t)kvr * Sk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int qi0 = causal ? min(k0 / BQ, nq) : 0;   // first q tile seeing k0
+  const int per_head = nq - qi0, ntiles = rep * per_head;
+
+  // (head g_, q tile qi) of the it-th step: g_ = it / per_head
+  auto load_step = [&](int it) {
+    const int bh = b * H + hk * rep + it / per_head;
+    const int q0 = (qi0 + it % per_head) * BQ;
+    const size_t qoff = (size_t)bh * Sq * D;
+    const uint32_t st = stage(it);
+    load_tile<BQ, DP, D, NT>(st, q + qoff, q0, Sq);
+    load_tile<BQ, DP, D, NT>(st + QBYTES, dout + qoff, q0, Sq);
+    load_row<NT>(st + 2 * QBYTES, lse + (size_t)bh * Sq, q0, Sq, BQ);
+    load_row<NT>(st + 2 * QBYTES + 4 * BQ, delta + (size_t)bh * Sq, q0, Sq,
+                 BQ);
+  };
+  load_tile<BK, DP, D, NT>(sK, k + koff, k0, Sk);
+  load_tile<BK, DP, D, NT>(sV, v + koff, k0, Sk);
+  if (ntiles > 0) load_step(0);
+  cp_commit();
+
+  float dka[DP / 8][4], dva[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_step(it + 1);   // in flight during this step
+    cp_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int q0 = (qi0 + it % per_head) * BQ;
+    const uint32_t sQ = stage(it), sdO = sQ + QBYTES;
+    const float* sL = reinterpret_cast<const float*>(
+        smem + (sQ - sK) + 2 * QBYTES);
+    const float* sD = sL + BQ;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows k, columns q
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+    wgmma_fence();   // this warpgroup's 64 k rows; all operands in smem
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {   // past D the columns are zero
+      wgmma_ss<BQ>(st, desc_k<BK>(sK, r0 & ~63, kk), desc_k<BQ>(sQ, 0, kk),
+                   1);
+      wgmma_ss<BQ>(dpt, desc_k<BK>(sV, r0 & ~63, kk), desc_k<BQ>(sdO, 0, kk),
+                   1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // Pᵀ (in st) and dSᵀ (in dpt), per column q: lse[q], Δ[q]
+    const bool edge = q0 + BQ > Sq || k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = nt * 8 + 2 * t + c;
+        const float l2 = sL[col] * LOG2E, dl = sD[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          float p = ex2(st[nt][e] * scale_log2 - l2);
+          if (edge) {
+            const int kpos = k0 + r0 + g + 8 * h, qpos = q0 + col;
+            if (kpos >= Sk || qpos >= Sq || (causal && kpos > qpos)) p = 0.f;
+          }
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - dl) * scale;
+        }
+      }
+    }
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+    c_to_a<BQ / 16>(pa, st);
+    c_to_a<BQ / 16>(dsa, dpt);
+
+    // dV += Pᵀ·dO, dK += dSᵀ·Q: dO and Q read as stored, [q][d], as
+    // MN-major B operands
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<DP>(dva, pa[kk], desc_mn<BQ>(sdO, kk), 1);
+      wgmma_rs<DP>(dka, dsa[kk], desc_mn<BQ>(sQ, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncthreads();   // the stage is refilled by the next step
+  }
+  cp_async_wait<0>();   // with no q tile at all, K/V copies may still be pending
+  __syncthreads();
+
+  // dK, dV in bf16, staged through this warp's own rows of the K and V
+  // tiles (every read of them is done) so that the global stores are whole
+  // rows
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      *reinterpret_cast<uint32_t*>(smem + swz<BK>(r, nt) + 4 * t) =
+          pack_bf16(dka[nt][2 * h], dka[nt][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(smem + KBYTES + swz<BK>(r, nt) + 4 * t) =
+          pack_bf16(dva[nt][2 * h], dva[nt][2 * h + 1]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * (D / 8) / 32; ++i) {
+    const int idx = i * 32 + lane;
+    const int r = r0 + idx / (D / 8), c = idx % (D / 8);
+    if (k0 + r < Sk) {
+      const size_t off = koff + (size_t)(k0 + r) * D + c * 8;
+      *reinterpret_cast<uint4*>(dk + off) =
+          *reinterpret_cast<const uint4*>(smem + swz<BK>(r, c));
+      *reinterpret_cast<uint4*>(dv + off) =
+          *reinterpret_cast<const uint4*>(smem + KBYTES + swz<BK>(r, c));
+    }
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* lse,
+                const void* delta, const void* dout, void* dk, void* dv, int B,
+                int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                cudaStream_t stream) {
+  constexpr size_t smem = dkv_bf16_smem<padded_dim(D)>();
+  auto kern = flash_bwd_dkv_bf16_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * Hkv, (Sk + DKV_BK - 1) / DKV_BK);
+  kern<<<grid, DKV_BK * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale,
+      scale * sm90::LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+// ---- f32: the first design ------------------------------------------------
+size_t dkv_f32_smem(int D) {
+  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
+  constexpr int P = Tiles<float>::PAD;
+  return 2 * region(BK * (D + P) * sizeof(float)) +
+         2 * region(BQ * (D + P) * sizeof(float)) +
          2 * region(BQ * (BK + FPAD) * sizeof(float)) +
-         2 * region(BQ * (BK + P) * sizeof(T)) +
+         2 * region(BQ * (BK + P) * sizeof(float)) +
          2 * region(BK * (D + FPAD) * sizeof(float)) +
          2 * region(BQ * sizeof(float));
 }
 
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const T* __restrict__ dout, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hkv, int Sq, int Sk, int D,
-                     float scale, int causal) {
-  constexpr int lds = BK + FPAD, ldp = BK + Tiles<T>::PAD;
-  const int ldt = D + Tiles<T>::PAD, ldf = D + FPAD;
-  extern __shared__ __align__(128) unsigned char smem[];
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Hkv, int Sq, int Sk, int D, float scale,
+                         int causal) {
+  constexpr int lds = BK + FPAD, ldp = BK + Tiles<float>::PAD;
+  const int ldt = D + Tiles<float>::PAD, ldf = D + FPAD;
+  extern __shared__ __align__(1024) unsigned char smem[];
   Carver cv{smem};
-  T* sK = cv.take<T>(BK * ldt);
-  T* sV = cv.take<T>(BK * ldt);
-  T* sQ = cv.take<T>(BQ * ldt);
-  T* sdO = cv.take<T>(BQ * ldt);
+  float* sK = cv.take<float>(BK * ldt);
+  float* sV = cv.take<float>(BK * ldt);
+  float* sQ = cv.take<float>(BQ * ldt);
+  float* sdO = cv.take<float>(BQ * ldt);
   float* sS = cv.take<float>(BQ * lds);
   float* sdP = cv.take<float>(BQ * lds);
-  T* sP = cv.take<T>(BQ * ldp);
-  T* sdS = cv.take<T>(BQ * ldp);
+  float* sP = cv.take<float>(BQ * ldp);
+  float* sdS = cv.take<float>(BQ * ldp);
   float* sdK = cv.take<float>(BK * ldf);
   float* sdV = cv.take<float>(BK * ldf);
   float* sLse = cv.take<float>(BQ);
@@ -95,9 +304,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qpos = q0 + r, kpos = k0 + j;
         const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
         const float p = ok ? expf(sS[r * lds + j] * scale - sLse[r]) : 0.f;
-        sP[r * ldp + j] = from_f<T>(p);
-        sdS[r * ldp + j] =
-            from_f<T>(p * (sdP[r * lds + j] - sDelta[r]) * scale);
+        sP[r * ldp + j] = p;
+        sdS[r * ldp + j] = p * (sdP[r * lds + j] - sDelta[r]) * scale;
       }
       __syncthreads();
       mm<true, false>(sP, ldp, sdO, ldt, sdV, ldf, BK, D, BQ, true);  // Pᵀ·dO
@@ -110,36 +318,36 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
     const int r = idx / D, c = idx - r * D;
     if (k0 + r < Sk) {
-      dk[koff + (size_t)k0 * D + idx] = from_f<T>(sdK[r * ldf + c]);
-      dv[koff + (size_t)k0 * D + idx] = from_f<T>(sdV[r * ldf + c]);
+      dk[koff + (size_t)k0 * D + idx] = sdK[r * ldf + c];
+      dv[koff + (size_t)k0 * D + idx] = sdV[r * ldf + c];
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* lse,
-           const void* delta, const void* dout, void* dk, void* dv, int B,
-           int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
-           cudaStream_t stream) {
-  constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-  const size_t smem = dkv_smem<T>(D);
-  auto kern = flash_bwd_dkv_kernel<T, BQ, BK>;
+int launch_f32(const void* q, const void* k, const void* v, const void* lse,
+               const void* delta, const void* dout, void* dk, void* dv, int B,
+               int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
+  const size_t smem = dkv_f32_smem(D);
+  auto kern = flash_bwd_dkv_f32_kernel<BQ, BK>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sk + BK - 1) / BK, B * Hkv);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, D, scale,
-      causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(dout),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Sk, D,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fa
 
-// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16.
+// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16;
+// D a multiple of 16 up to 128.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* lse, const void* delta,
                              const void* dout, void* dk, void* dv, int B,
@@ -147,15 +355,23 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              float scale, int causal, int dtype,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return fa::launch<fa::bf16>(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv,
-                                Sq, Sk, D, scale, causal, s);
-  return fa::launch<float>(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv, Sq,
-                           Sk, D, scale, causal, s);
+  if (dtype == 0)
+    return fa::launch_f32(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv, Sq,
+                          Sk, D, scale, causal, s);
+  switch (D) {
+#define FA_CASE(d)                                                          \
+  case d:                                                                   \
+    return fa::launch_bf16<d>(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv, \
+                              Sq, Sk, scale, causal, s);
+    FA_BF16_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory one block of the kernel takes at head_dim D.
 extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
-  return dtype == 1 ? (int)fa::dkv_smem<fa::bf16>(D)
-                    : (int)fa::dkv_smem<float>(D);
+  if (dtype == 0) return (int)fa::dkv_f32_smem(D);
+  return fa::padded_dim(D) == 64 ? (int)fa::dkv_bf16_smem<64>()
+                                 : (int)fa::dkv_bf16_smem<128>();
 }

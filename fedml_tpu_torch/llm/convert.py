@@ -44,7 +44,7 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
 
 
 def from_flax(params_np: Mapping, lora_np: Optional[Mapping],
-              cfg: LlamaConfig, device="cpu",
+              cfg: LlamaConfig, device="cuda",
               model: Optional[LlamaLM] = None
               ) -> Tuple[LlamaLM, Dict[str, torch.Tensor]]:
     """Load flax ``params``/``lora`` trees into ``model`` (a new

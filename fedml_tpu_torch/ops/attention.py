@@ -134,24 +134,37 @@ def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(q, k, v, **more):
-    """Raise on anything the kernels do not take."""
+def shape_error(q_shape, k_shape, v_shape,
+                dtype: torch.dtype) -> Optional[str]:
+    """Why the kernels cannot take q/k/v of these shapes and ``dtype``, or
+    None if they can.  Every kernel takes head dims that are multiples of 16
+    up to 128, in f32 and in bf16 (the bf16 K1 and K3 pad them to tiles of
+    64 or 128 columns)."""
+    if dtype not in _DTYPES:
+        return f"flash-attention kernels take f32 or bf16, got {dtype}"
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return (f"q/k/v must be (B, H, S, D), got {tuple(q_shape)} and "
+                f"{tuple(k_shape)}")
+    b, h, s_q, d = q_shape
+    h_kv = k_shape[1]
+    if (k_shape[0] != b or k_shape[3] != d or tuple(v_shape) != tuple(k_shape)
+            or h % h_kv or d % 16 or d > 128 or s_q == 0 or k_shape[2] == 0):
+        return (f"unsupported shapes q {tuple(q_shape)} k {tuple(k_shape)} "
+                f"v {tuple(v_shape)} (need H_kv | H, head_dim a multiple of "
+                "16 up to 128)")
+    return None
+
+
+def _check(kernel: str, q, k, v, **more):
+    """Raise on anything the kernel does not take."""
     if q.device.type != "cuda":
         raise RuntimeError(f"flash-attention kernels need CUDA tensors, got "
                            f"{q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash-attention kernels take f32 or bf16, got "
-                        f"{q.dtype}")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q/k/v must be (B, H, S, D), got {tuple(q.shape)} "
-                         f"and {tuple(k.shape)}")
-    b, h, s_q, d = q.shape
-    h_kv = k.shape[1]
-    if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape
-            or h % h_kv or d % 16 or d > 128 or s_q == 0 or k.shape[2] == 0):
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} (need H_kv | "
-                         "H, head_dim a multiple of 16 up to 128)")
+    msg = shape_error(q.shape, k.shape, v.shape, q.dtype)
+    if msg is not None:
+        raise (TypeError if q.dtype not in _DTYPES else ValueError)(
+            f"{kernel}: {msg}")
+    b, h, s_q, _ = q.shape
     lse_shape = (b, h, s_q)
     for name, t in dict(q=q, k=k, v=v, **more).items():
         if t.device != q.device:
@@ -193,7 +206,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     """K1: (O, lse).  CPU tensors take :func:`flash_attention_fwd_plain`."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
-    _check(q, k, v)
+    _check("flash_fwd", q, k, v)
     q, k, v = map(_aligned, (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -208,7 +221,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal,
                                             sm_scale)
-    _check(q, k, v, o=o, lse=lse, do=do)
+    _check("flash_bwd_dq", q, k, v, o=o, lse=lse, do=do)
     q, k, v, o, do = map(_aligned, (q, k, v, o, do))
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -224,7 +237,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal,
                                              sm_scale)
-    _check(q, k, v, lse=lse, delta=delta, do=do)
+    _check("flash_bwd_dkv", q, k, v, lse=lse, delta=delta, do=do)
     q, k, v, do = map(_aligned, (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", (q, k, v, lse, delta, do, dk, dv), q, k, causal,

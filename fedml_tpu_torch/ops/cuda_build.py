@@ -6,6 +6,11 @@ for ``sm_90a`` into its own shared library under ``fedml_tpu_torch/build/``
 PyTorch's headers, so a build takes seconds.  A library's file name carries
 a hash of its sources and flags, so an edited source is rebuilt at first
 use.  :func:`build` starts one ``nvcc`` per source, all at once.
+
+``nvcc``'s ``-Xptxas -v`` log is kept beside each library
+(``lib<name>-<hash>.ptxas``), so a cached build still reports it;
+:func:`ptxas_report` reads each kernel's registers, spills and static
+shared memory from it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import re
 import time
 from typing import Dict, Iterable
 
@@ -58,21 +64,27 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".ptxas"
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """Compile every library in ``names`` that is missing, one ``nvcc`` per
     source, all started together.  Returns per-name ``{"seconds", "ptxas",
-    "cached"}``; raises with the compiler's output if any build fails."""
+    "cached"}`` (``ptxas``: the build's log, kept beside the library); raises
+    with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, out = {}, {}
     t0 = time.time()
     for name in names:
         path = _lib_path(name)
-        if os.path.exists(path):
-            out[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
+        if os.path.exists(path) and os.path.exists(_log_path(path)):
+            with open(_log_path(path)) as f:
+                out[name] = {"seconds": 0.0, "ptxas": f.read(), "cached": True}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path()] + FLAGS + ["-I", CSRC, "-o", tmp,
-                                       os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc_path()] + FLAGS + [
+            "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
@@ -85,6 +97,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
                           f"{log}")
         else:
+            with open(f"{tmp}.ptxas", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.ptxas", _log_path(path))
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -121,3 +136,27 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.fa_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """Per kernel in an ``nvcc -Xptxas -v`` log: ``registers`` (per
+    thread), ``spill_stores`` and ``spill_loads`` (bytes) and ``smem``
+    (static shared memory, bytes; the kernels' tiles are dynamic), keyed
+    ``"<kernel>[<dtype>]<template ints>"``, e.g.
+    ``flash_fwd_bf16_kernel<128>``."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        entry = chunk.split("'", 1)[0]
+        targs = entry.split("Ev", 1)[0]   # name and template arguments
+        names = [entry[m.end():m.end() + int(m[0])]
+                 for m in re.finditer(r"\d+", targs)]
+        ints = re.findall(r"Li(\d+)E", targs)
+        key = (next((n for n in names if n.endswith("kernel")), entry)
+               + ("[bf16]" if "bfloat16" in targs else "")
+               + (f"<{','.join(ints)}>" if ints else ""))
+        num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
+        out[key] = {"registers": num(r"Used (\d+) registers"),
+                    "spill_stores": num(r"(\d+) bytes spill stores"),
+                    "spill_loads": num(r"(\d+) bytes spill loads"),
+                    "smem": num(r"(\d+) bytes smem")}
+    return out

@@ -10,6 +10,8 @@ The CUDA kernels themselves are held to their plain versions on the card
 by tests/test_torch_gpu.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from fedml_tpu.ops.attention import (flash_attention_bwd_pallas,
                                      flash_attention_fwd_pallas)
 from fedml_tpu_torch.ops import attention as tatt
+from fedml_tpu_torch.ops import cuda_build
 
 
 def _inputs(b, h, hkv, s, d, seed=0):
@@ -41,9 +44,12 @@ def _jax_ref(q, k, v, do, causal, block):
     return [np.asarray(a) for a in (out, lse, dq, dk, dv)]
 
 
+# the last four: head dims that the bf16 K1/K3 pad to 64 or 128 columns
 CASES = [(1, 2, 2, 128, 32, True), (1, 2, 2, 128, 32, False),
          (1, 2, 2, 96, 32, True), (1, 2, 2, 96, 32, False),
-         (2, 8, 2, 96, 32, True), (2, 8, 2, 128, 32, False)]
+         (2, 8, 2, 96, 32, True), (2, 8, 2, 128, 32, False),
+         (1, 4, 2, 96, 16, True), (1, 4, 1, 128, 48, False),
+         (1, 4, 2, 96, 80, True), (1, 2, 1, 128, 112, False)]
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,causal", CASES)
@@ -130,4 +136,76 @@ def test_cuda_wrappers_refuse_cpu_kernel_launch():
     tatt.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
     assert [f.launches for f in tatt.KERNELS] == [0, 0, 0]
     with pytest.raises(RuntimeError):
-        tatt._check(q, k, v)
+        tatt._check("flash_fwd", q, k, v)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shape_gate_holds_bf16_k1_k3_to_their_head_dims(dtype, d):
+    """Every kernel, bf16 K1 and K3 included (they pad the head dim to tiles
+    of 64 or 128 columns), takes any head dim that is a multiple of 16 up
+    to 128."""
+    q = (1, 4, 100, d)
+    for kv in ((1, 2, 100, d), (1, 4, 60, d)):
+        assert tatt.shape_error(q, kv, kv, dtype) is None
+
+
+@pytest.mark.parametrize("q,kv,dtype,needle", [
+    ((1, 4, 8, 144), (1, 2, 8, 144), torch.float32, "multiple of 16 up to"),
+    ((1, 4, 8, 40), (1, 2, 8, 40), torch.float32, "multiple of 16 up to"),
+    ((1, 3, 8, 64), (1, 2, 8, 64), torch.bfloat16, "H_kv | H"),
+    ((1, 4, 0, 64), (1, 2, 8, 64), torch.bfloat16, "unsupported shapes"),
+    ((1, 4, 8, 64), (1, 2, 8, 64), torch.float16, "f32 or bf16"),
+    ((4, 8, 64), (1, 2, 8, 64), torch.float32, "(B, H, S, D)")])
+def test_shape_gate_names_what_no_kernel_takes(q, kv, dtype, needle):
+    assert needle in tatt.shape_error(q, kv, kv, dtype)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2fa21flash_fwd_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN2fa21flash_fwd_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiifi
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN2fa19flash_bwd_dq_kernelI13__nv_bfloat16Li64ELi64EEEvPKT_S4_S4_S4_PKfS4_PS2_Pfiiiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN2fa19flash_bwd_dq_kernelI13__nv_bfloat16Li64ELi64EEEvPKT_S4_S4_S4_PKfS4_PS2_Pfiiiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 16 bytes smem, 404 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_spills_and_shared_memory():
+    assert cuda_build.ptxas_report(PTXAS_LOG) == {
+        "flash_fwd_bf16_kernel<128>": {
+            "registers": 168, "spill_stores": 8, "spill_loads": 12,
+            "smem": 0},
+        "flash_bwd_dq_kernel[bf16]<64,64>": {
+            "registers": 96, "spill_stores": 0, "spill_loads": 0,
+            "smem": 16}}
+    assert cuda_build.ptxas_report("") == {}
+
+
+def test_cached_build_still_reports_its_ptxas_log(tmp_path, monkeypatch):
+    """The ``-Xptxas -v`` log is kept beside the library, so a second build
+    (a cache hit, no compiler run) returns the same report; a library
+    without its log is built again."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').close()\n"
+        f"sys.stdout.write({PTXAS_LOG!r})\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    first = cuda_build.build(["flash_fwd"])["flash_fwd"]
+    second = cuda_build.build(["flash_fwd"])["flash_fwd"]
+    assert (first["cached"], second["cached"]) == (False, True)
+    assert first["ptxas"] == second["ptxas"] == PTXAS_LOG
+    assert "flash_fwd_bf16_kernel<128>" in cuda_build.ptxas_report(
+        second["ptxas"])
+    lib = cuda_build._lib_path("flash_fwd")
+    assert lib.startswith(str(tmp_path / "build"))
+    os.remove(lib[:-len(".so")] + ".ptxas")
+    assert not cuda_build.build(["flash_fwd"])["flash_fwd"]["cached"]

@@ -64,7 +64,7 @@ def test_two_rounds_match_jax(case):
     tapi = TFedLLM(t_args, td, device="cpu")
     params = jax.tree_util.tree_map(np.asarray, japi.base_params)
     lora0 = jax.tree_util.tree_map(np.asarray, japi.global_lora)
-    _, tapi.global_lora = from_flax(params, lora0, tapi.cfg,
+    _, tapi.global_lora = from_flax(params, lora0, tapi.cfg, device="cpu",
                                     model=tapi.model)
 
     for r in range(2):

@@ -42,15 +42,9 @@ def _close(got, ref):
     assert st["elem"] <= 1 and st["block"] <= 1, st
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("b,h,hkv,s,d,causal", [
-    (1, 8, 2, 200, 64, True), (1, 8, 2, 200, 64, False),
-    (2, 4, 4, 128, 128, True), (1, 2, 1, 1000, 128, False)])
-def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
-                                     causal):
+def _kernels_vs_plain(device, dtype, b, h, hkv, s, d, causal):
     dt = getattr(torch, dtype)
-    q, k, v, do = _inputs(b, h, hkv, s, d, dt, cuda_device)
+    q, k, v, do = _inputs(b, h, hkv, s, d, dt, device)
     tatt.reset_launch_counts()
     o, lse = tatt.flash_attention_fwd(q, k, v, causal)
     po, plse = tatt.flash_attention_fwd_plain(q, k, v, causal)
@@ -65,6 +59,55 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
     for got, ref in ((o, po), (lse, plse), (delta, pdelta), (dq, pdq),
                      (dk, pdk), (dv, pdv)):
         _close(got, ref)
+    # the autograd Function runs the same three kernels: bitwise the same
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tatt.flash_attention(*leaves, causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert all(map(torch.equal, (out, *grads), (o, dq, dk, dv)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", [
+    (1, 8, 2, 200, 64, True), (1, 8, 2, 200, 64, False),
+    (2, 4, 4, 128, 128, True), (1, 2, 1, 1000, 128, False)])
+def test_kernels_match_plain_on_card(cuda_device, dtype, b, h, hkv, s, d,
+                                     causal):
+    _kernels_vs_plain(cuda_device, dtype, b, h, hkv, s, d, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 4, 1, 64, 64), (2, 4, 1, 129, 128), (1, 8, 2, 1000, 64),
+    (1, 4, 1, 1000, 128), (1, 4, 1, 2048, 128), (1, 4, 1, 2048, 64),
+    (1, 4, 1, 129, 16), (1, 4, 1, 200, 32), (1, 8, 2, 1000, 48),
+    (2, 4, 1, 129, 80), (1, 4, 1, 1000, 96), (1, 4, 1, 200, 112)])
+def test_kernels_match_plain_across_tile_edges(cuda_device, dtype, causal, b,
+                                               h, hkv, s, d):
+    """Sequence lengths of one tile (64), one past two tiles (129), ragged
+    (1000) and long (2048), GQA with H/H_kv = 4: every causal case has
+    diagonal, below-diagonal and skipped tiles of K1 and K3.  Head dims
+    other than 64 and 128 are padded by the bf16 K1 and K3 to tiles of 64
+    or 128 columns."""
+    _kernels_vs_plain(cuda_device, dtype, b, h, hkv, s, d, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 144])
+def test_head_dims_no_kernel_takes_raise(cuda_device, d):
+    q, k, v, do = _inputs(1, 2, 1, 64, d, torch.bfloat16, cuda_device)
+    o = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    tatt.reset_launch_counts()
+    with pytest.raises(ValueError, match="flash_fwd: .*multiple of 16 up to"):
+        tatt.flash_attention_fwd(q, k, v, True)
+    with pytest.raises(ValueError, match="flash_bwd_dq: "):
+        tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    with pytest.raises(ValueError, match="flash_bwd_dkv: "):
+        tatt.flash_attention_bwd_dkv(q, k, v, lse, lse, do, True)
+    assert [f.launches for f in tatt.KERNELS] == [0, 0, 0]
 
 
 @pytest.mark.gpu

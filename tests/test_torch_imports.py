@@ -1,5 +1,5 @@
 """The port stands alone: no module of fedml_tpu_torch, and neither
-chip_smoke.py nor tools/torch_round_profile.py, imports JAX or anything of
+chip_smoke.py nor the tools/torch_*.py scripts, imports JAX or anything of
 the JAX package."""
 
 import ast
@@ -23,7 +23,8 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "fedml_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_round_profile.py"]
+    files += [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob(
+        "torch_*.py"))
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)

@@ -44,7 +44,8 @@ def _flax_setup(dtype=jnp.float32, seed=0):
 
 def _port(params, lora, dtype):
     cfg = dataclasses.replace(tmodel.TINY, lora_rank=RANK, dtype=dtype)
-    return from_flax(jax.tree_util.tree_map(np.asarray, params), lora, cfg)
+    return from_flax(jax.tree_util.tree_map(np.asarray, params), lora, cfg,
+                     device="cpu")
 
 
 def test_logits_loss_and_lora_grads_match_flax():
@@ -137,3 +138,22 @@ def test_to_flax_round_trips_params():
     for a, b in zip(jax.tree_util.tree_leaves(lora),
                     jax.tree_util.tree_leaves(l_np)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_from_flax_builds_on_the_card_unless_asked(monkeypatch):
+    """Like every entry point of the port, ``from_flax`` puts a model it
+    builds on the card by default; the CPU only when the caller asks."""
+    _, _, params, lora, _, _ = _flax_setup(seed=5)
+    moved = []
+    real_to = tmodel.LlamaLM.to
+
+    def record_to(self, *args, **kwargs):
+        moved.append(str(args[0] if args else kwargs.get("device")))
+        return real_to(self, "cpu")
+
+    monkeypatch.setattr(tmodel.LlamaLM, "to", record_to)
+    cfg = dataclasses.replace(tmodel.TINY, lora_rank=RANK)
+    from_flax(jax.tree_util.tree_map(np.asarray, params), lora, cfg)
+    from_flax(jax.tree_util.tree_map(np.asarray, params), lora, cfg,
+              device="cpu")
+    assert moved == ["cuda", "cpu"]
