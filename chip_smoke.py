@@ -10,8 +10,9 @@ Phases, each printing its own lines:
 2. build — the three flash-attention kernels compiled from ``csrc/`` (one
    ``nvcc`` per source, in parallel), with each kernel's registers, spill
    bytes and shared memory per block from ``-Xptxas -v`` (kept beside each
-   library, so a cached build reports it too; a bf16 K1 or K3 that spills,
-   or has no report, fails);
+   library, so a cached build reports it too; a bf16 K1, K2 or K3 that
+   spills, or has no report at one of the head dims 16, 32, ..., 128,
+   fails);
 3. kernels — K1 (forward), K2 (dQ) and K3 (dK/dV), each against its plain
    PyTorch version on the same inputs, and the autograd Function bitwise
    equal to them, at the slice's shape, a ragged GQA shape, a head dim the
@@ -45,6 +46,7 @@ import time
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
+BF16_HEAD_DIMS = range(16, 129, 16)   # csrc/flash_sm90.cuh FA_BF16_HEAD_DIMS
 REPLACES = {
     "flash_fwd": "fedml_tpu/ops/attention.py:114",
     "flash_bwd_dq": "fedml_tpu/ops/attention.py:332",
@@ -167,15 +169,17 @@ def main():
                      f"{rec['seconds']:.1f} s; dynamic shared memory/block "
                      f"at head_dim 128 {smem} bytes")
         report = cuda_build.ptxas_report(rec["ptxas"])
-        if name != "flash_bwd_dq" and not any("bf16" in k for k in report):
-            fail(f"{name}: no -Xptxas -v report of its bf16 kernels")
+        missing = [d for d in BF16_HEAD_DIMS
+                   if f"{name}_bf16_kernel<{d}>" not in report]
+        if missing:
+            fail(f"{name}: no -Xptxas -v report of its bf16 kernel at head "
+                 f"dims {missing}")
         for kern, r in report.items():
             say("build", f"  {kern}: {r['registers']} registers/thread, "
                          f"spill bytes {r['spill_stores']} stored / "
                          f"{r['spill_loads']} loaded, static shared memory "
                          f"{r['smem']} bytes")
-            if (name != "flash_bwd_dq" and "bf16" in kern
-                    and r["spill_stores"] + r["spill_loads"]):
+            if "bf16" in kern and r["spill_stores"] + r["spill_loads"]:
                 fail(f"{kern} spills registers to local memory")
 
     # -- 3. kernels vs plain ----------------------------------------------

@@ -1,21 +1,17 @@
-// Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): tile sizes, shared-memory carving,
-// row loads with ragged-edge zeroing, warp reductions and the block-level
-// tile product C (+)= A·B with f32 accumulation.
-//
-// Products: bf16 tiles go through the tensor cores with nvcuda::wmma
-// (16x16x16, f32 accumulator); f32 tiles (the small parity shapes) use
-// plain FMA loops.  Both keep every partial sum in f32, as the TPU kernels'
-// preferred_element_type=f32 dots do.
+// Shared pieces of the flash-attention kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) used by their f32 builds (the small
+// parity shapes): tile sizes, shared-memory carving, row loads with
+// ragged-edge zeroing, warp reductions and the block-level tile product
+// C (+)= A·B as plain FMA loops with f32 sums; also the three kernels'
+// bf16 type, mask value and CUDA error string.  The bf16 kernels keep their
+// sums in registers and run their products on the tensor cores
+// (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
-
-#include <type_traits>
 
 namespace fa {
 
@@ -25,15 +21,11 @@ constexpr float NEG_INF = -1e30f;   // mask value of the reference, not -inf
 constexpr int NTHREADS = 128;       // four warps per block
 constexpr int NWARPS = NTHREADS / 32;
 
-// (BQ, BK) query/key tile rows per element type.  bf16 tiles are multiples
-// of the 16-row wmma shape; f32 tiles are smaller so that the f32 dK/dV
-// block still fits in shared memory at head_dim 128.  Every shared-memory
-// row is padded by 16 bytes (PAD elements of T, 4 of f32): rows of 128 or
-// 256 bytes would put the rows of a 16x16 fragment on the same banks.
+// (BQ, BK) query/key tile rows of the f32 kernels, small enough that the
+// f32 dK/dV block fits in shared memory at head_dim 128.  Every
+// shared-memory row is padded by 16 bytes (PAD elements): rows of a power
+// of two bytes would put the rows a warp reads on the same banks.
 template <typename T> struct Tiles;
-template <> struct Tiles<bf16> {
-  static constexpr int BQ = 64, BK = 64, PAD = 8;
-};
 template <> struct Tiles<float> {
   static constexpr int BQ = 32, BK = 32, PAD = 4;
 };
@@ -51,16 +43,6 @@ struct Carver {
     return r;
   }
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -113,36 +95,6 @@ __device__ void mm(const float* A, int lda, const float* B, int ldb,
       s = fmaf(a, b, s);
     }
     C[m * ldc + n] = s;
-  }
-}
-
-template <bool A_T, bool B_T>
-__device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                   int ldc, int M, int N, int K, bool acc) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_T, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major,
-                                       wmma::row_major>::type;
-  const int warp = threadIdx.x / 32;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += NWARPS) {
-    const int m0 = (t / tn) * 16, n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (acc)
-      wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda + m0 : A + m0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(b, B_T ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
-                             ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
   }
 }
 

@@ -1,8 +1,8 @@
-// Register-tile pieces of the bf16 kernels K1 (flash_fwd.cu) and K3
-// (flash_bwd_dkv.cu): the 128-byte-swizzled shared-memory tile that wgmma
-// reads, 16-byte cp.async tile loads into it (ragged rows zero-filled),
-// wgmma descriptors and wrappers, and the register-fragment helpers of the
-// softmax.
+// Register-tile pieces of the bf16 kernels K1 (flash_fwd.cu), K2
+// (flash_bwd_dq.cu) and K3 (flash_bwd_dkv.cu): the 128-byte-swizzled
+// shared-memory tile that wgmma reads, 16-byte cp.async tile loads into it
+// (ragged rows zero-filled), wgmma descriptors and wrappers, and the
+// register-fragment helpers of the softmax.
 //
 // Per warp, a wgmma accumulator and a register A operand use the layouts
 // of mma.m16n8k16 (PTX ISA; g = lane / 4, t = lane % 4), warp w of a

@@ -6,7 +6,10 @@
 - :func:`flash_attention` — an ``autograd.Function`` over three hand-written
   Hopper kernels (``csrc/``): K1 forward (O and logsumexp), K2 dQ (with the
   Δ = rowsum(dO∘O) preprocess folded in), K3 dK/dV (group-summed over the
-  q heads of each KV head inside the kernel).
+  q heads of each KV head inside the kernel).  In bf16 all three keep their
+  sums in registers and run their products as warpgroup ``wgmma`` from
+  128-byte-swizzled shared-memory tiles (``csrc/flash_sm90.cuh``); their
+  f32 builds, for the small parity shapes, use FMA loops.
 
 Each kernel has a wrapper (:func:`flash_attention_fwd`,
 :func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`) that
@@ -138,8 +141,8 @@ def shape_error(q_shape, k_shape, v_shape,
                 dtype: torch.dtype) -> Optional[str]:
     """Why the kernels cannot take q/k/v of these shapes and ``dtype``, or
     None if they can.  Every kernel takes head dims that are multiples of 16
-    up to 128, in f32 and in bf16 (the bf16 K1 and K3 pad them to tiles of
-    64 or 128 columns)."""
+    up to 128, in f32 and in bf16 (the bf16 kernels pad them to tiles of 64
+    or 128 columns)."""
     if dtype not in _DTYPES:
         return f"flash-attention kernels take f32 or bf16, got {dtype}"
     if len(q_shape) != 4 or len(k_shape) != 4:

@@ -142,8 +142,7 @@ def ptxas_report(log: str) -> Dict[str, dict]:
     """Per kernel in an ``nvcc -Xptxas -v`` log: ``registers`` (per
     thread), ``spill_stores`` and ``spill_loads`` (bytes) and ``smem``
     (static shared memory, bytes; the kernels' tiles are dynamic), keyed
-    ``"<kernel>[<dtype>]<template ints>"``, e.g.
-    ``flash_fwd_bf16_kernel<128>``."""
+    ``"<kernel><template ints>"``, e.g. ``flash_fwd_bf16_kernel<128>``."""
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         entry = chunk.split("'", 1)[0]
@@ -152,7 +151,6 @@ def ptxas_report(log: str) -> Dict[str, dict]:
                  for m in re.finditer(r"\d+", targs)]
         ints = re.findall(r"Li(\d+)E", targs)
         key = (next((n for n in names if n.endswith("kernel")), entry)
-               + ("[bf16]" if "bfloat16" in targs else "")
                + (f"<{','.join(ints)}>" if ints else ""))
         num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
         out[key] = {"registers": num(r"Used (\d+) registers"),

@@ -29,12 +29,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(b, h, hkv, s, d, dtype, device, seed=0):
+def _inputs(b, h, hkv, s, d, dtype, device, seed=0, sk=None):
+    """q, k, v, dO; k and v have ``sk`` rows (default ``s``)."""
     rng = np.random.default_rng(seed)
     mk = lambda *shape: torch.tensor(
         rng.standard_normal(shape).astype(np.float32), device=device,
         dtype=dtype)
-    return mk(b, h, s, d), mk(b, hkv, s, d), mk(b, hkv, s, d), mk(b, h, s, d)
+    sk = s if sk is None else sk
+    return (mk(b, h, s, d), mk(b, hkv, sk, d), mk(b, hkv, sk, d),
+            mk(b, h, s, d))
 
 
 def _close(got, ref):
@@ -42,9 +45,9 @@ def _close(got, ref):
     assert st["elem"] <= 1 and st["block"] <= 1, st
 
 
-def _kernels_vs_plain(device, dtype, b, h, hkv, s, d, causal):
+def _kernels_vs_plain(device, dtype, b, h, hkv, s, d, causal, sk=None):
     dt = getattr(torch, dtype)
-    q, k, v, do = _inputs(b, h, hkv, s, d, dt, device)
+    q, k, v, do = _inputs(b, h, hkv, s, d, dt, device, sk=sk)
     tatt.reset_launch_counts()
     o, lse = tatt.flash_attention_fwd(q, k, v, causal)
     po, plse = tatt.flash_attention_fwd_plain(q, k, v, causal)
@@ -92,6 +95,31 @@ def test_kernels_match_plain_across_tile_edges(cuda_device, dtype, causal, b,
     other than 64 and 128 are padded by the bf16 K1 and K3 to tiles of 64
     or 128 columns."""
     _kernels_vs_plain(cuda_device, dtype, b, h, hkv, s, d, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 1000), (1000, 200)])
+def test_kernels_match_plain_when_sq_differs_from_sk(cuda_device, dtype,
+                                                     causal, sq, sk):
+    """Fewer queries than keys (causal: every q tile stops at its diagonal
+    long before the last KV tile; K3's k tiles past Sq see no query) and
+    more (causal: q rows past Sk see every key, and K2's heaviest tiles
+    carry a ragged last KV tile)."""
+    _kernels_vs_plain(cuda_device, dtype, 1, 8, 2, sq, 128, causal, sk=sk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dq_kernel_is_deterministic(cuda_device, dtype):
+    """K2 sums in a fixed order (no atomics): two launches on the same
+    inputs give bitwise the same dQ and Δ."""
+    q, k, v, do = _inputs(2, 8, 2, 1000, 128, dtype, cuda_device)
+    o, lse = tatt.flash_attention_fwd(q, k, v, True)
+    first = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    second = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    assert all(map(torch.equal, first, second))
 
 
 @pytest.mark.gpu

@@ -3,7 +3,8 @@
 card: the ``chip_smoke.py`` slice (Llama-2-7B width, seq 1024, 4 clients ×
 2 steps, batch 2), one warm-up round, then one round under
 ``torch.profiler``.  Prints the round's wall time, the device's busy and
-idle share, and device time by kernel group and by kernel; writes the
+idle share, and device time by kernel group, by kernel (the top 15) and
+by flash-attention kernel (each of K1, K2 and K3); writes the
 same as JSON to ``chiprun_out/round_profile.json``.
 
     python3 tools/torch_round_profile.py [--layers N]
@@ -64,21 +65,28 @@ def main():
                 break
         else:
             groups["other"] += rec["us"] / 1e6
-    top = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15]
+    by_time = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])
+    top = by_time[:15]
+    flash = [(k, rec) for k, rec in by_time
+             if any(p in k.lower() for p in GROUPS[0][1])]
     print(f"card: {smi}; depth {opts.layers}; round 1: {wall:.3f} s wall, "
           f"{m['steps']} client steps, loss {m['train_loss']:.4f}")
     print(f"device busy {busy:.3f} s ({100 * busy / wall:.1f}% of wall), "
           f"idle {100 * (1 - busy / wall):.1f}%")
     for name, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name:28s} {sec:8.3f} s  {100 * sec / wall:5.1f}% of wall")
-    for key, rec in top:
-        print(f"  {rec['us'] / 1e3:10.2f} ms  x{rec['count']:<6d} "
-              f"{key[:90]}")
+    for title, rows in (("top kernels", top), ("flash attention", flash)):
+        print(f"{title}:")
+        for key, rec in rows:
+            print(f"  {rec['us'] / 1e3:10.2f} ms  x{rec['count']:<6d} "
+                  f"{key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "round_profile.json"), "w") as f:
         json.dump({"card": smi, "layers": opts.layers, "wall_s": wall,
                    "busy_s": busy, "groups_s": groups,
-                   "top": [{"kernel": k, **v} for k, v in top]}, f, indent=1)
+                   "top": [{"kernel": k, **v} for k, v in top],
+                   "flash": [{"kernel": k, **v} for k, v in flash]}, f,
+                  indent=1)
 
 
 if __name__ == "__main__":
