@@ -28,11 +28,28 @@ Phases, each printing its own lines:
    per round, batch 2, 2 local steps, random weights from seed 0; checks
    finite losses, a bitwise-unchanged base, moved adapters and each
    kernel's launch count; then a small f32 model trained on the card and
-   on the CPU from the same weights must agree.
+   on the CPU from the same weights must agree;
+5. sp — the single-process FedAvg simulation (``FedAvgAPI``, built as a
+   user script builds it: ``device.get_device``, ``data.load``,
+   ``model.create``, ``FedMLRunner``, or through ``run_simulation``):
+   (a) ``lr`` at ``bench.py``'s FedAvg shape (synthetic 28×28×1, 10
+   classes, 60,000 samples over 1,000 clients, 256 a round, batch 10, 6
+   steps each), one warm round then 10 timed; (b) the FEMNIST CNN
+   (``CNNDropOut``, 62 classes) on the synthetic FEMNIST stand-in at its
+   reference cardinality (60,000 / 10,000), 100 clients, Dirichlet α 0.5,
+   10 a round, batch 20, one warm round then 2 timed; (c) the CNN on the
+   committed real 8×8 digits (``data_shards/digits``, a round-robin split
+   into 15 users) through ``run_simulation`` for 8 rounds, test accuracy
+   above 0.6; (d) small f32 ``lr`` and ``cnn_web`` rounds on the card and
+   the CPU from the same weights, TF32 off as ``get_device`` sets it
+   (checked), params within 1e-6, with the reading a TF32 run would give
+   printed beside them.  The sp path launches none of the
+   flash-attention kernels (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (with the
-forward+backward times and the slice's round numbers beside them) and the
-card's name and power limit; the last line is
+forward+backward times, the slice's round numbers and phase 5's numbers
+under ``"sp"`` beside them) and the card's name and power limit; the last
+line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line; so does a host without CUDA, or a directory without the port.
 """
@@ -125,6 +142,172 @@ def bound(kernel, b, h, hkv, s, d, causal, dtype):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+#: phase 5's configurations (a) and (b) (also profiled by
+#: tools/torch_sp_profile.py)
+SP_LR_BENCH = dict(dataset="synthetic", num_classes=10,
+                   input_shape=(28, 28, 1), train_size=60000, test_size=1000,
+                   model="lr", client_num_in_total=1000,
+                   client_num_per_round=256, batch_size=10,
+                   learning_rate=0.03, partition_method="homo",
+                   comm_round=11, sp_client_mode="vmap")
+SP_FEMNIST_CNN = dict(dataset="femnist", model="cnn",
+                      client_num_in_total=100, client_num_per_round=10,
+                      partition_method="hetero", partition_alpha=0.5,
+                      batch_size=20, learning_rate=0.06, comm_round=3)
+
+
+def sp_args(fedml_tpu_torch, **over):
+    cfg = dict(epochs=1, frequency_of_the_test=10 ** 9, random_seed=0)
+    cfg.update(over)
+    return fedml_tpu_torch.load_arguments().update(**cfg)
+
+
+def build_sp(args):
+    """The FedAvg simulation as a user script builds it; returns its
+    ``FedAvgAPI``."""
+    from fedml_tpu_torch import data, device, model
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    dev = device.get_device(args)
+    dataset, output_dim = data.load(args)
+    runner = FedMLRunner(args, dev, dataset, model.create(args, output_dim))
+    return runner.runner.fl_trainer
+
+
+def timed_rounds(torch, api, phase, timed, smi):
+    """One warm round, then ``timed`` rounds each ended by a synchronise:
+    seconds a round, real training samples a second, peak device memory,
+    the round losses and the test loss/accuracy after the last round."""
+    before = {k: v.clone() for k, v in api.state.global_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, samples = [], [], 0
+    for r in range(timed + 1):
+        t0 = time.time()
+        m = api.train_one_round(r)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        losses.append(float(m["train_loss"]))
+        say(phase, f"round {r}{' (warm)' if r == 0 else ''}: loss "
+                   f"{losses[-1]:.4f}, {float(m['total_steps']):.0f} real of "
+                   f"{m['allocated_steps']} client steps, {dt:.4f} s")
+        if r:
+            seconds.append(dt)
+            samples += int(float(m["total_steps"])) * api.batch_size
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    test_loss, test_acc = api.evaluate()
+    if not all(x == x and abs(x) < float("inf")
+               for x in losses + [test_loss]):
+        fail(f"{phase}: non-finite loss {losses}, test {test_loss}")
+    moved = all(not torch.equal(v, before[k])
+                for k, v in api.state.global_params.items())
+    if not moved:
+        fail(f"{phase}: some global params did not move")
+    rec = {"s_per_round": sum(seconds) / timed,
+           "samples_per_s": samples / sum(seconds), "peak_gib": peak,
+           "round_losses": losses, "test_loss": test_loss,
+           "test_acc": test_acc, "timed_rounds": timed}
+    say(phase, f"{rec['s_per_round']:.4f} s/round, "
+               f"{rec['samples_per_s']:.0f} samples/s, peak "
+               f"max_memory_allocated {peak:.3f} GiB, test acc "
+               f"{test_acc:.4f} [{smi}]")
+    return rec
+
+
+def sp_phase(torch, fedml_tpu_torch, smi):
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.ml.trainer.local_trainer import LocalTrainer
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    out = {}
+    # (a) lr at bench.py's FedAvg shape
+    t0 = time.time()
+    api = build_sp(sp_args(fedml_tpu_torch, **SP_LR_BENCH))
+    say("sp", f"(a) lr, 1000 clients (256 a round, batch 10), synthetic "
+              f"60,000 × 28×28×1; built in {time.time() - t0:.1f} s")
+    out["lr_bench"] = timed_rounds(torch, api, "sp a", 10, smi)
+    del api
+
+    # (b) the FEMNIST CNN on the synthetic FEMNIST stand-in
+    t0 = time.time()
+    api = build_sp(sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN))
+    n_out = api.state.global_params["Dense_1.bias"].shape[0]
+    say("sp", f"(b) CNNDropOut ({n_out} classes), femnist synthetic "
+              f"{api.dataset.train_data_num:,} / {api.dataset.test_data_num:,}"
+              f", 100 clients (α 0.5), 10 a round, batch 20; built in "
+              f"{time.time() - t0:.1f} s")
+    if n_out != 62 or api.dataset.train_x.shape[1:] != (28, 28, 1):
+        fail(f"(b) is not FEMNIST width: {n_out} classes, "
+             f"{api.dataset.train_x.shape}")
+    out["femnist_cnn"] = timed_rounds(torch, api, "sp b", 2, smi)
+    del api
+
+    # (c) real bytes: the CNN on the committed digits shard, end to end
+    shards = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data_shards")
+    args = sp_args(fedml_tpu_torch, dataset="digits", model="cnn",
+                   input_shape=(8, 8, 1), data_cache_dir=shards,
+                   client_num_in_total=15, client_num_per_round=5,
+                   comm_round=8, batch_size=16, learning_rate=0.05)
+    t0 = time.time()
+    params = fedml_tpu_torch.run_simulation(backend="sp", args=args)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    ds, n_out = data.load(args)
+    loss, acc = LocalTrainer(model.create(args, n_out), args).evaluate(
+        params, *ds.test_batches())
+    say("sp", f"(c) digits CNN via run_simulation: 8 rounds in {dt:.2f} s, "
+              f"{ds.provenance}, {ds.num_clients} users; test loss "
+              f"{loss:.4f}, accuracy {acc:.4f} (bar 0.6) [{smi}]")
+    if not acc > 0.6:
+        fail(f"(c) real-digits CNN reached only {acc:.4f}")
+    out["digits_cnn"] = {"seconds": dt, "test_loss": loss, "test_acc": acc,
+                         "provenance": ds.provenance}
+
+    # (d) card ≡ CPU on small f32 rounds from the same weights, under the
+    # device policy (TF32 off); a third run with TF32 on shows what the
+    # check would read if the policy were lost
+    out["card_vs_cpu"], out["card_tf32_vs_cpu"] = {}, {}
+    for name, tol in (("lr", 1e-6), ("cnn_web", 1e-6)):
+        args = sp_args(fedml_tpu_torch, dataset="synthetic", num_classes=10,
+                       input_shape=(28, 28, 1), train_size=512,
+                       test_size=128, model=name, client_num_in_total=8,
+                       client_num_per_round=4, batch_size=16,
+                       learning_rate=0.05, partition_method="hetero",
+                       partition_alpha=0.3, momentum=0.9, random_seed=3)
+        ds, n_out = data.load(args)
+        card, cpu, tf32 = [FedAvgAPI(args, d, ds, model.create(args, n_out))
+                           for d in ("cuda", "cpu", "cuda")]
+        if torch.backends.cudnn.allow_tf32 or \
+                torch.backends.cuda.matmul.allow_tf32:
+            fail("(d) get_device left TF32 on")
+        start = card.state.global_params
+        cpu.state = cpu.state.replace(
+            global_params={k: v.cpu() for k, v in start.items()})
+        tf32.state = tf32.state.replace(
+            global_params={k: v.clone() for k, v in start.items()})
+        for r in range(2):
+            card.train_one_round(r)
+            cpu.train_one_round(r)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32.train_one_round(r)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        err, err_tf32 = (
+            max(max_err(a.state.global_params[k].cpu(), v)
+                for k, v in cpu.state.global_params.items())
+            for a in (card, tf32))
+        say("sp", f"(d) {name}: 2 f32 rounds card vs CPU from the same "
+                  f"weights, params max abs diff {err:.2e} (tol {tol:g}); "
+                  f"with TF32 on it would read {err_tf32:.2e}")
+        if not err <= tol:
+            fail(f"(d) {name}: card and CPU disagree ({err:.2e} > {tol:g})")
+        out["card_vs_cpu"][name] = err
+        out["card_tf32_vs_cpu"][name] = err_tf32
+    return out
 
 
 def main():
@@ -379,8 +562,14 @@ def main():
     if abs(lg - lc) > 1e-4 * max(1.0, abs(lc)) or err > 1e-4:
         fail("card and CPU disagree on the small f32 round")
 
+    # -- 5. sp: the FedAvg simulation on lr and the CNNs -------------------
+    att.reset_launch_counts()
+    sp = sp_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("the sp path launched a flash-attention kernel")
+
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
-                      "slice": slice_rec}))
+                      "slice": slice_rec, "sp": sp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

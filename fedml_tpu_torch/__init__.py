@@ -2,11 +2,16 @@
 H100.
 
 Same module layout and names as the JAX package, so each module's
-counterpart is found at the same path.  The ported slice is the federated
-LoRA round of a Llama model (``llm/fedllm.py::FedLLMAPI``) with its
-hand-written Hopper flash-attention kernels (``csrc/``, bound in
-``ops/attention.py``).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+counterpart is found at the same path.  Ported so far:
+
+- the single-process FedAvg simulation, ``run_simulation(backend="sp",
+  args=...)`` (``simulation/sp/fedavg_api.py::FedAvgAPI``) on the ``lr``,
+  ``mlp`` and CNN models;
+- the federated LoRA round of a Llama model (``llm/fedllm.py::FedLLMAPI``)
+  with its hand-written Hopper flash-attention kernels (``csrc/``, bound in
+  ``ops/attention.py``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,30 @@ def init(args: Optional[Arguments] = None,
     return args
 
 
+def run_simulation(backend: str = "sp", args: Optional[Arguments] = None,
+                   client_trainer=None, server_aggregator=None,
+                   device: Optional[str] = None):
+    """Load the dataset and model that ``args`` names and run the simulation
+    ``backend`` (port of ``fedml_tpu.run_simulation``; only ``"sp"`` is
+    ported).  Runs on the card unless ``device="cpu"`` (or ``args.device``)
+    asks for the CPU.  Returns the final global params."""
+    if args is None:
+        args = init()
+    args.training_type = "simulation"
+    args.backend = backend
+    from . import data as data_mod
+    from . import device as device_mod
+    from . import model as model_mod
+    from .runner import FedMLRunner
+
+    dev = device_mod.get_device(args, device)
+    dataset, output_dim = data_mod.load(args)
+    model = model_mod.create(args, output_dim)
+    return FedMLRunner(args, dev, dataset, model, client_trainer,
+                       server_aggregator).run()
+
+
 from . import data  # noqa: E402
 
-__all__ = ["init", "Arguments", "load_arguments", "data", "__version__"]
+__all__ = ["init", "run_simulation", "Arguments", "load_arguments", "data",
+           "__version__"]

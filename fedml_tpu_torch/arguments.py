@@ -1,7 +1,7 @@
 """Configuration namespace (port of ``fedml_tpu.arguments``): one flat
 namespace so code reads ``args.learning_rate`` etc.  Only the defaults the
-ported slice reads are filled in; YAML and command-line loading are not
-ported yet.
+ported slices read are filled in, with the JAX package's values; YAML and
+command-line loading are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,10 +32,14 @@ _DEFAULTS: Dict[str, Any] = dict(
     training_type="simulation",
     random_seed=0,
     scenario="horizontal",
-    # data_args (no data_cache_dir: the port generates its LM data)
+    # data_args.  data_cache_dir is empty: the JAX package's default points
+    # under the user's home, and the port reads nothing outside the paths
+    # it is given (an absent cache means the synthetic fallback either way)
     dataset="shakespeare",
+    data_cache_dir="",
     partition_method="hetero",
     partition_alpha=0.5,
+    synthetic_noise=0.35,
     # model_args
     model="tiny_llama",
     # train_args
@@ -45,11 +49,21 @@ _DEFAULTS: Dict[str, Any] = dict(
     comm_round=200,
     epochs=1,
     batch_size=10,
+    client_optimizer="sgd",
     learning_rate=0.03,
+    momentum=0.0,
+    weight_decay=0.001,
+    clip_grad_norm=0.0,
+    server_lr=1.0,
     # validation_args
     frequency_of_the_test=5,
     # comm_args
     backend="sp",
+    # sp engine: clients batched by torch.func.vmap ("vmap") or one after
+    # another ("scan"); the training set lives on the device once and rounds
+    # ship index tensors (device_data)
+    sp_client_mode="vmap",
+    device_data=True,
 )
 
 

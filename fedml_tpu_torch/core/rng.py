@@ -28,14 +28,23 @@ def root_key(seed: int, device="cpu") -> torch.Generator:
     return g
 
 
+def _child(key: torch.Generator, word: int) -> torch.Generator:
+    g = torch.Generator(device=key.device)
+    g.manual_seed(hostrng._splitmix64(key.initial_seed() ^ word) & _SEED_MASK)
+    return g
+
+
 def purpose_key(key: torch.Generator, purpose: str) -> torch.Generator:
     """Child generator for a string purpose tag ("init", "lora", ...)."""
     tag = int.from_bytes(hashlib.sha256(purpose.encode()).digest()[:4],
                          "little")
-    child = hostrng._splitmix64(key.initial_seed() ^ tag) & _SEED_MASK
-    g = torch.Generator(device=key.device)
-    g.manual_seed(child)
-    return g
+    return _child(key, tag)
+
+
+def round_key(key: torch.Generator, round_idx: int) -> torch.Generator:
+    """Child generator of one round (the round's device randomness, e.g.
+    dropout keep-masks), independent of every other round's."""
+    return _child(purpose_key(key, "round"), int(round_idx))
 
 
 def sample_clients(seed: int, round_idx: int, num_clients: int,

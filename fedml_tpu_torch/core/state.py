@@ -1,0 +1,93 @@
+"""Functional client optimizers (port of
+``fedml_tpu.core.state.make_client_optimizer``).
+
+The JAX package builds an optax chain; here the same arithmetic is written
+once as pure tensor functions on ``{name: tensor}`` dicts, so a step can run
+under ``torch.func.vmap`` and a padded step can keep the old state with a
+``torch.where``.  Chain order is optax's:
+
+- ``sgd``: global-norm clip (if ``clip_grad_norm``) → decayed weights
+  (``g + wd·p``) → momentum trace (``t = g + m·t``) → ``−lr·t``;
+- ``adam``: clip → Adam moments with bias correction (``b1`` 0.9, ``b2``
+  0.999, ``eps`` 1e-8) → decayed weights (``adamw``, when ``wd``) → ``−lr·u``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+TensorDict = Dict[str, torch.Tensor]
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+class ClientOptimizer:
+    """``init(params) -> state`` and ``update(grads, state, params) ->
+    (updates, new_state)``; the new params are ``params + updates``."""
+
+    def __init__(self, kind: str, lr: float, momentum: float = 0.0,
+                 weight_decay: float = 0.0, clip: float = 0.0):
+        if kind not in ("sgd", "adam"):
+            raise ValueError(f"client_optimizer must be 'sgd' or 'adam', "
+                             f"got {kind!r}")
+        self.kind, self.lr, self.momentum = kind, lr, momentum
+        self.wd, self.clip = weight_decay, clip
+
+    def init(self, params: TensorDict) -> TensorDict:
+        if self.kind == "adam":
+            state = {f"mu/{k}": torch.zeros_like(v) for k, v in params.items()}
+            state.update({f"nu/{k}": torch.zeros_like(v)
+                          for k, v in params.items()})
+            first = next(iter(params.values()))
+            state["count"] = torch.zeros((), dtype=torch.int32,
+                                         device=first.device)
+            return state
+        if self.momentum:
+            return {f"trace/{k}": torch.zeros_like(v)
+                    for k, v in params.items()}
+        return {}
+
+    def _clip(self, g: TensorDict) -> TensorDict:
+        norm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
+        trigger = norm < self.clip
+        return {k: torch.where(trigger, x, (x / norm) * self.clip)
+                for k, x in g.items()}
+
+    def update(self, grads: TensorDict, state: TensorDict,
+               params: TensorDict) -> Tuple[TensorDict, TensorDict]:
+        g = self._clip(grads) if self.clip > 0 else grads
+        new_state = {}
+        if self.kind == "sgd":
+            if self.wd:
+                g = {k: x + self.wd * params[k] for k, x in g.items()}
+            if self.momentum:
+                g = {k: x + self.momentum * state[f"trace/{k}"]
+                     for k, x in g.items()}
+                new_state = {f"trace/{k}": x for k, x in g.items()}
+            return {k: (-self.lr) * x for k, x in g.items()}, new_state
+        count = state["count"] + 1
+        bc1 = 1 - torch.pow(_B1, count.to(torch.float32))
+        bc2 = 1 - torch.pow(_B2, count.to(torch.float32))
+        u = {}
+        for k, x in g.items():
+            mu = (1 - _B1) * x + _B1 * state[f"mu/{k}"]
+            nu = (1 - _B2) * (x * x) + _B2 * state[f"nu/{k}"]
+            new_state[f"mu/{k}"], new_state[f"nu/{k}"] = mu, nu
+            u[k] = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+            if self.wd:
+                u[k] = u[k] + self.wd * params[k]
+        new_state["count"] = count
+        return {k: (-self.lr) * x for k, x in u.items()}, new_state
+
+
+def make_client_optimizer(args) -> ClientOptimizer:
+    """The client optimizer from flat args (``client_optimizer``,
+    ``learning_rate``, ``momentum``, ``weight_decay``, ``clip_grad_norm``)."""
+    return ClientOptimizer(
+        str(getattr(args, "client_optimizer", "sgd")).lower(),
+        lr=float(getattr(args, "learning_rate", 0.03)),
+        momentum=float(getattr(args, "momentum", 0.0) or 0.0),
+        weight_decay=float(getattr(args, "weight_decay", 0.0) or 0.0),
+        clip=float(getattr(args, "clip_grad_norm", 0.0) or 0.0))

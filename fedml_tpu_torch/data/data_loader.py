@@ -1,19 +1,47 @@
-"""``fedml_tpu_torch.data.load(args)`` — the language-model branch of
-``fedml_tpu.data.data_loader.load``.
+"""``fedml_tpu_torch.data.load(args)`` — the dataset dispatcher of
+``fedml_tpu.data.data_loader.load``, for the branches the port runs:
 
-Only the ``_LM_SPECS`` datasets are ported, from the deterministic
-Markov-chain generator (bitwise the JAX package's for the same seed and
-sizes).  The readers of real data in ``args.data_cache_dir`` (``.npz``,
-LEAF, the raw Shakespeare corpus) are not ported yet, so a cache directory
-is refused rather than ignored.
+- the image datasets (``_IMAGE_SPECS``: mnist, femnist, cifar, ...): a LEAF
+  layout, an ``.npz``, MNIST idx files or CIFAR archives under
+  ``args.data_cache_dir`` when present, else the synthetic generator at the
+  reference cardinality (``train_size``/``test_size`` override it);
+- ``digits``: the committed LEAF shard in the cache first, else sklearn's
+  digits as in the JAX package;
+- the generic ``synthetic*`` datasets;
+- the LM datasets (``_LM_SPECS``) from the synthetic Markov-chain generator.
+  Their cache readers (LEAF text, ``.npz``, the raw Shakespeare corpus) are
+  not ported, so a cache directory is refused there rather than ignored.
+
+Every array is bitwise the JAX package's for the same arguments.  The
+other dataset families raise, naming themselves.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import gzip
+import os
+import re
+import struct
+from typing import Optional, Tuple
+
+import numpy as np
 
 from .federated_dataset import FederatedDataset, build_federated
-from .synthetic import synthetic_lm_tokens
+from .leaf import find_leaf_root, load_leaf
+from .synthetic import synthetic_image_classification, synthetic_lm_tokens
+
+# (classes, img shape, train_n, test_n), the reference cardinalities
+_IMAGE_SPECS = {
+    "mnist": (10, (28, 28, 1), 60000, 10000),
+    "synthetic_mnist": (10, (28, 28, 1), 60000, 10000),
+    "femnist": (62, (28, 28, 1), 60000, 10000),
+    "fashionmnist": (10, (28, 28, 1), 60000, 10000),
+    "emnist": (62, (28, 28, 1), 60000, 10000),
+    "cifar10": (10, (32, 32, 3), 50000, 10000),
+    "cifar100": (100, (32, 32, 3), 50000, 10000),
+    "fed_cifar100": (100, (32, 32, 3), 50000, 10000),
+    "cinic10": (10, (32, 32, 3), 90000, 90000),
+}
 
 _LM_SPECS = {
     # vocab, seq_len, train_n, test_n
@@ -23,6 +51,153 @@ _LM_SPECS = {
     "reddit": (10004, 20, 50000, 5000),
 }
 
+#: dataset families of the JAX loader the port does not load yet
+_UNPORTED = {
+    "stackoverflow_lr": "tag prediction", "uci": "tabular",
+    "uci_adult": "tabular", "lending_club": "tabular",
+    "lending_club_loan": "tabular", "fednlp": "text classification",
+    "20news": "text classification", "agnews": "text classification",
+    "realtext": "text classification", "imagenet": "large image",
+    "imagenet_hdf5": "large image", "ilsvrc2012": "large image",
+    "landmarks": "large image", "gld23k": "large image",
+    "gld160k": "large image", "fets2021": "segmentation",
+    "fets": "segmentation", "autonomous_driving": "segmentation",
+    "cityscapes": "segmentation", "edge_case_examples": "edge case",
+    "edge_case": "edge case", "breast_cancer": "sklearn tabular",
+    "wine": "sklearn tabular", "uci_real": "sklearn tabular",
+}
+
+
+def _cache_provenance(root: str, default: str,
+                      name: Optional[str] = None) -> str:
+    """Lineage of cache-resident files: a ``PROVENANCE.<name>`` marker, or a
+    bare ``PROVENANCE`` marker whose tag names ``name`` as a token, wins;
+    otherwise ``default`` (a ``real:*`` tag)."""
+    candidates = [f"PROVENANCE.{name}"] if name else []
+    candidates.append("PROVENANCE")
+    for fname in candidates:
+        try:
+            with open(os.path.join(root, fname)) as f:
+                tag = f.read().strip()
+        except OSError:
+            continue
+        if not tag:
+            continue
+        if fname == "PROVENANCE" and name and \
+                name not in re.split(r"[^a-z0-9_]+", tag.lower()):
+            continue
+        return tag
+    return default
+
+
+def _try_load_npz(cache_dir: str, name: str):
+    path = os.path.join(cache_dir, f"{name}.npz")
+    if os.path.exists(path):
+        d = np.load(path)
+        return d["train_x"], d["train_y"], d["test_x"], d["test_y"]
+    return None
+
+
+def _try_load_mnist_idx(cache_dir: str):
+    """Classic idx-ubyte MNIST files, optionally gzipped."""
+    def read_idx(path):
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            magic, = struct.unpack(">H", f.read(4)[2:])
+            ndim = magic & 0xFF
+            dims = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+            return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+    base = os.path.join(cache_dir, "MNIST", "raw")
+    names = ["train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+             "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"]
+    found = []
+    for n in names:
+        for cand in (os.path.join(base, n), os.path.join(base, n + ".gz"),
+                     os.path.join(cache_dir, n),
+                     os.path.join(cache_dir, n + ".gz")):
+            if os.path.exists(cand):
+                found.append(cand)
+                break
+    if len(found) != 4:
+        return None
+    tx, ty, vx, vy = (read_idx(p) for p in found)
+    tx = (tx.astype(np.float32) / 255.0)[..., None]
+    vx = (vx.astype(np.float32) / 255.0)[..., None]
+    return tx, ty.astype(np.int64), vx, vy.astype(np.int64)
+
+
+def _try_load_cifar(cache_dir: str, name: str):
+    """CIFAR-10/100 archives: the python pickle batches
+    (``cifar-10-batches-py/``, ``cifar-100-python/``) or the binary rows
+    (``cifar-10-batches-bin/``, ``cifar-100-binary/``)."""
+    import pickle
+
+    is100 = "100" in name
+    py_dir = os.path.join(cache_dir, "cifar-100-python" if is100
+                          else "cifar-10-batches-py")
+    if os.path.isdir(py_dir):
+        label_key = b"fine_labels" if is100 else b"labels"
+
+        def read_batches(names):
+            xs, ys = [], []
+            for n in names:
+                p = os.path.join(py_dir, n)
+                if not os.path.exists(p):
+                    continue
+                with open(p, "rb") as f:
+                    d = pickle.load(f, encoding="bytes")
+                xs.append(np.asarray(d[b"data"], np.uint8))
+                ys.append(np.asarray(d[label_key], np.int64))
+            if not xs:
+                return None, None
+            return np.concatenate(xs), np.concatenate(ys)
+
+        train_names = ["train"] if is100 else [f"data_batch_{i}"
+                                              for i in range(1, 6)]
+        tx, ty = read_batches(train_names)
+        vx, vy = read_batches(["test"] if is100 else ["test_batch"])
+        if tx is None or vx is None:
+            return None
+
+        def to_img(flat):
+            return (flat.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+                    .astype(np.float32) / 255.0)
+
+        return to_img(tx), ty, to_img(vx), vy
+
+    bin_dir = os.path.join(cache_dir, "cifar-100-binary" if is100
+                           else "cifar-10-batches-bin")
+    if os.path.isdir(bin_dir):
+        label_bytes = 2 if is100 else 1
+        row = label_bytes + 3072
+
+        def read_bin(names):
+            xs, ys = [], []
+            for n in names:
+                p = os.path.join(bin_dir, n)
+                if not os.path.exists(p):
+                    continue
+                raw = np.fromfile(p, dtype=np.uint8)
+                raw = raw[: (len(raw) // row) * row].reshape(-1, row)
+                ys.append(raw[:, label_bytes - 1].astype(np.int64))
+                xs.append(raw[:, label_bytes:])
+            if not xs:
+                return None, None
+            x = np.concatenate(xs)
+            x = (x.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+                 .astype(np.float32) / 255.0)
+            return x, np.concatenate(ys)
+
+        train_names = ["train.bin"] if is100 else \
+            [f"data_batch_{i}.bin" for i in range(1, 6)]
+        tx, ty = read_bin(train_names)
+        vx, vy = read_bin(["test.bin"] if is100 else ["test_batch.bin"])
+        if tx is None or vx is None:
+            return None
+        return tx, ty, vx, vy
+    return None
+
 
 def _sizes(args, train_n: int, test_n: int) -> Tuple[int, int]:
     """Explicit ``args.train_size``/``test_size`` win over the defaults."""
@@ -30,22 +205,108 @@ def _sizes(args, train_n: int, test_n: int) -> Tuple[int, int]:
             int(getattr(args, "test_size", 0) or test_n))
 
 
+def _clamped_cut(args, n: int) -> int:
+    """Train/test split point of a fixed-size real pool: honour train_size
+    but never let the test split go empty."""
+    cut = int(getattr(args, "train_size", 0)) or int(n * 0.85)
+    return min(cut, n - max(1, n // 10))
+
+
 def load(args) -> Tuple[FederatedDataset, int]:
-    name = str(getattr(args, "dataset", "shakespeare")).lower()
-    if name not in _LM_SPECS:
-        raise ValueError(f"dataset {name!r} is not ported; the port loads "
-                         f"the LM datasets {sorted(_LM_SPECS)}")
-    if getattr(args, "data_cache_dir", None):
-        raise NotImplementedError(
-            "data_cache_dir is set, but the port reads no real data yet "
-            "(synthetic LM data only): unset it")
+    name = str(getattr(args, "dataset", "synthetic_mnist")).lower()
+    cache = str(getattr(args, "data_cache_dir", "") or "")
     seed = int(getattr(args, "random_seed", 0))
     client_num = int(getattr(args, "client_num_in_total", 10))
+    method = str(getattr(args, "partition_method", "hetero"))
     alpha = float(getattr(args, "partition_alpha", 0.5))
-    vocab, seq_len, train_n, test_n = _LM_SPECS[name]
-    seq_len = int(getattr(args, "seq_len", seq_len))
-    train_n, test_n = _sizes(args, train_n, test_n)
-    tx, ty, vx, vy = synthetic_lm_tokens(train_n, test_n, vocab, seq_len, seed)
-    ds = build_federated(tx, ty, vx, vy, vocab, client_num, method="homo",
-                         alpha=alpha, seed=seed, provenance="synthetic")
-    return ds, vocab
+
+    if name in _IMAGE_SPECS:
+        classes, shape, train_n, test_n = _IMAGE_SPECS[name]
+        if cache:
+            # a LEAF layout keeps the natural per-user partition; it wins
+            # over any partition_method re-split
+            leaf_root = find_leaf_root(cache, name)
+            if leaf_root is not None:
+                tx, ty, vx, vy, cidx, tidx = load_leaf(leaf_root,
+                                                       input_shape=shape)
+                ds = FederatedDataset(
+                    tx, ty, vx, vy, cidx, classes, test_client_idxs=tidx,
+                    provenance=_cache_provenance(leaf_root, "real:leaf",
+                                                 name))
+                return ds, classes
+        real = _try_load_npz(cache, name) if cache else None
+        if real is None and name in ("mnist", "synthetic_mnist") and cache:
+            real = _try_load_mnist_idx(cache)
+        if real is None and name.startswith(("cifar", "fed_cifar")) and cache:
+            real = _try_load_cifar(cache, name)
+        if real is not None:
+            tx, ty, vx, vy = real
+            prov = _cache_provenance(cache, "real:cache", name)
+        else:
+            noise = float(getattr(args, "synthetic_noise", 0.35))
+            train_n, test_n = _sizes(args, train_n, test_n)
+            tx, ty, vx, vy = synthetic_image_classification(
+                train_n, test_n, classes, shape, seed, noise)
+            prov = "synthetic"
+        ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
+                             alpha, seed, provenance=prov)
+        return ds, classes
+
+    if name in _LM_SPECS:
+        if cache:
+            raise NotImplementedError(
+                f"data_cache_dir is set, but the port's {name!r} loader "
+                "reads no cache (its LEAF text, .npz and raw-corpus readers "
+                "are not ported): unset it for the synthetic LM data")
+        vocab, seq_len, train_n, test_n = _LM_SPECS[name]
+        seq_len = int(getattr(args, "seq_len", seq_len))
+        train_n, test_n = _sizes(args, train_n, test_n)
+        tx, ty, vx, vy = synthetic_lm_tokens(train_n, test_n, vocab, seq_len,
+                                             seed)
+        ds = build_federated(tx, ty, vx, vy, vocab, client_num, method="homo",
+                             alpha=alpha, seed=seed, provenance="synthetic")
+        return ds, vocab
+
+    if name == "digits":
+        # real bytes without a download: the committed LEAF shard
+        # (data_shards/digits) with its per-user partition (a round-robin
+        # split; the corpus has no writer ids), else sklearn's digits set
+        # re-split; never synthetic
+        if cache:
+            leaf_root = find_leaf_root(cache, "digits")
+            if leaf_root is not None:
+                tx, ty, vx, vy, cidx, tidx = load_leaf(
+                    leaf_root, input_shape=(8, 8, 1))
+                ds = FederatedDataset(
+                    tx, ty, vx, vy, cidx, 10, test_client_idxs=tidx,
+                    provenance=_cache_provenance(leaf_root, "real:leaf",
+                                                 "digits"))
+                return ds, 10
+        from sklearn.datasets import load_digits
+        d = load_digits()
+        x = (d.data.astype(np.float32) / 16.0).reshape(-1, 8, 8, 1)
+        y = d.target.astype(np.int64)
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(len(x))
+        x, y = x[perm], y[perm]
+        cut = _clamped_cut(args, len(x))
+        tx, ty, vx, vy = x[:cut], y[:cut], x[cut:], y[cut:]
+        ds = build_federated(tx, ty, vx, vy, 10, client_num, method, alpha,
+                             seed, provenance="real:sklearn-digits")
+        return ds, 10
+
+    if name.startswith("synthetic"):
+        # synthetic_<classes>_<dim...> generic generator
+        classes = int(getattr(args, "num_classes", 10))
+        shape = tuple(getattr(args, "input_shape", (28, 28, 1)))
+        tx, ty, vx, vy = synthetic_image_classification(
+            int(getattr(args, "train_size", 10000)),
+            int(getattr(args, "test_size", 2000)), classes, shape, seed)
+        ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
+                             alpha, seed, provenance="synthetic")
+        return ds, classes
+
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"dataset {name!r} ({_UNPORTED[name]}) is not ported yet")
+    raise ValueError(f"unknown dataset {name!r}")

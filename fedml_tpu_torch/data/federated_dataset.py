@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..core import hostrng
-from ..core.data.noniid_partition import partition
+from ..core.data.noniid_partition import partition, record_data_stats
 
 
 @dataclasses.dataclass
@@ -32,6 +32,22 @@ class FederatedDataset:
     @property
     def num_clients(self) -> int:
         return len(self.client_idxs)
+
+    @property
+    def train_data_num(self) -> int:
+        return len(self.train_x)
+
+    @property
+    def test_data_num(self) -> int:
+        return len(self.test_x)
+
+    def client_sample_counts(self) -> np.ndarray:
+        return np.array([len(self.client_idxs[c])
+                         for c in range(self.num_clients)], dtype=np.int64)
+
+    def stats(self):
+        return record_data_stats(self.train_y, self.client_idxs,
+                                 self.num_classes)
 
     # -- batching ----------------------------------------------------------
     def client_batches(self, client: int, batch_size: int, seed: int,
@@ -66,6 +82,27 @@ class FederatedDataset:
         idx = np.concatenate(all_idx)
         total = len(idx) // batch_size
         return idx[: total * batch_size].reshape(total, batch_size)
+
+    def cohort_indices(self, clients, batch_size: int, seed: int,
+                       round_idx: int, epochs: int = 1,
+                       max_steps: Optional[int] = None):
+        """Padded cohort INDEX tensor ``(n_clients, steps, batch)`` int32,
+        step mask and weights: what the device-gather round ships instead
+        of the data (padding indices point at row 0, masked out)."""
+        per = [self.client_index_batches(c, batch_size, seed, round_idx,
+                                         epochs) for c in clients]
+        steps = max(p.shape[0] for p in per)
+        if max_steps is not None:
+            steps = min(steps, max_steps)
+        n = len(clients)
+        idx = np.zeros((n, steps, batch_size), dtype=np.int32)
+        mask = np.zeros((n, steps), dtype=np.float32)
+        for i, p in enumerate(per):
+            s = min(p.shape[0], steps)
+            idx[i, :s], mask[i, :s] = p[:s], 1.0
+        w = np.array([len(self.client_idxs[c]) for c in clients],
+                     dtype=np.float32)
+        return idx, mask, w
 
     def cohort_batches(self, clients, batch_size: int, seed: int, round_idx: int,
                        epochs: int = 1, max_steps: Optional[int] = None):

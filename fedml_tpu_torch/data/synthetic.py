@@ -1,6 +1,7 @@
-"""Deterministic synthetic LM data (numpy copy of
-``fedml_tpu.data.synthetic.synthetic_lm_tokens`` — the only generator the
-federated LoRA path needs)."""
+"""Deterministic synthetic data (numpy copies of
+``fedml_tpu.data.synthetic``): class-conditional Gaussian images for the
+FedAvg path and Markov-chain LM tokens for the federated LoRA path, bitwise
+the JAX package's for the same seed and sizes."""
 
 from __future__ import annotations
 
@@ -9,6 +10,32 @@ from typing import Tuple
 import numpy as np
 
 from ..core import hostrng
+
+
+def _class_gaussian_images(
+    n: int, num_classes: int, shape: Tuple[int, ...], seed: int,
+    noise: float = 0.35, latent_dim: int = 32,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Class anchors in a latent space pushed through a fixed random affine
+    map into pixel space, squashed to [0, 1]."""
+    rng = hostrng.gen(seed, 0x5E7)
+    dim = int(np.prod(shape))
+    anchors = rng.standard_normal((num_classes, latent_dim)) * 2.0
+    proj = rng.standard_normal((latent_dim, dim)) / np.sqrt(latent_dim)
+    y = rng.integers(0, num_classes, size=n)
+    z = anchors[y] + rng.standard_normal((n, latent_dim)) * noise
+    x = z @ proj + rng.standard_normal((n, dim)) * (noise * 0.5)
+    x = np.tanh(x * 0.5) * 0.5 + 0.5
+    return x.reshape((n,) + shape).astype(np.float32), y.astype(np.int64)
+
+
+def synthetic_image_classification(
+    train_n: int, test_n: int, num_classes: int, shape: Tuple[int, ...],
+    seed: int, noise: float = 0.35,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    x, y = _class_gaussian_images(train_n + test_n, num_classes, shape, seed,
+                                  noise)
+    return x[:train_n], y[:train_n], x[train_n:], y[train_n:]
 
 
 def synthetic_lm_tokens(

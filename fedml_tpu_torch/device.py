@@ -1,0 +1,38 @@
+"""Device choice and f32 math policy (port of ``fedml_tpu.device``).
+
+``get_device(args, device=None)`` returns ``cuda:0`` unless the caller
+asks for the CPU (``device="cpu"``, or ``args.device = "cpu"``).  There is
+no fallback: with no CUDA device the card path raises, so a run never
+lands on the CPU without being asked.
+
+It also sets the f32 math policy on the card: matmuls and convolutions run
+in full f32.  PyTorch runs convolutions in TF32 by default
+(``torch.backends.cudnn.allow_tf32`` is True), which would make the card's
+CNN rounds drift from the CPU's by far more than f32 rounding.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+log = logging.getLogger(__name__)
+
+
+def get_device(args, device=None) -> torch.device:
+    want = str(device or getattr(args, "device", None) or "cuda").lower()
+    if want == "cpu":
+        return torch.device("cpu")
+    if not want.startswith("cuda"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {want!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass device='cpu' to run on the CPU")
+    # process-wide: full f32 for cuBLAS and cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log.info("device %s (%s); f32 matmuls and convolutions in full f32", dev,
+             torch.cuda.get_device_name(0))
+    return dev

@@ -17,30 +17,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.tree import flatten, unflatten
 from .model import LlamaConfig, LlamaLM
-
-
-def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict → ``{"a/b/c": leaf}``."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(flatten(v, path + "/"))
-        else:
-            out[path] = v
-    return out
-
-
-def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
-    out: dict = {}
-    for path, v in flat.items():
-        node = out
-        *head, last = path.split("/")
-        for k in head:
-            node = node.setdefault(k, {})
-        node[last] = v
-    return out
 
 
 def from_flax(params_np: Mapping, lora_np: Optional[Mapping],

@@ -1,6 +1,7 @@
-"""Card-only tests of the port's CUDA kernels: K1/K2/K3 against their plain
-PyTorch versions on the same inputs.  They skip where no CUDA device is
-visible; on the card run them with
+"""Card-only tests of the port: the CUDA kernels K1/K2/K3 against their
+plain PyTorch versions on the same inputs, and the sp FedAvg rounds on the
+card against the CPU.  They skip where no CUDA device is visible; on the
+card run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -12,14 +13,21 @@ element ``|kernel − plain| <= atol + rtol·|plain|`` and per 64-row block
 ``‖kernel − plain‖ <= nrel·‖plain‖``, with (atol, rtol, nrel) =
 (2e-3, 1.6e-2, 1e-2) in bf16 (both versions round P and dS to bf16 before
 their products, at other points of the online softmax, and round their
-outputs to bf16) and (1e-5, 1e-4, 1e-4) in f32.
+outputs to bf16) and (1e-5, 1e-4, 1e-4) in f32.  sp rounds: f32 with TF32
+off, global params and round losses within 1e-5 (``lr``) and 1e-4 (the
+CNNs: cuDNN's convolution backward sums in another order, and not
+reproducibly).
 """
+
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
 from fedml_tpu_torch.ops import attention as tatt
+
+SHARDS = str(pathlib.Path(__file__).resolve().parents[1] / "data_shards")
 
 
 @pytest.fixture
@@ -148,3 +156,65 @@ def test_autograd_function_launches_kernels(cuda_device):
     torch.cuda.synchronize()
     assert [f.launches for f in tatt.KERNELS] == [1, 1, 1]
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+def _sp_api(device, mode="vmap", **over):
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    cfg = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+               train_size=512, test_size=128, client_num_in_total=8,
+               client_num_per_round=4, epochs=1, batch_size=16,
+               learning_rate=0.05, partition_method="hetero",
+               partition_alpha=0.3, momentum=0.9, random_seed=3,
+               frequency_of_the_test=10 ** 9, device=device)
+    cfg.update(over)
+    args = load_arguments().update(**cfg)
+    ds, n_out = data.load(args)
+    return FedAvgAPI(args, None, ds, model.create(args, n_out),
+                     client_mode=mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,tol", [("lr", 1e-5), ("cnn_web", 1e-4)])
+def test_sp_rounds_on_card_match_cpu(cuda_device, name, tol):
+    """Three f32 rounds (TF32 off, the device policy) on the card and the
+    CPU from the same seed: the same initial weights (drawn on the CPU),
+    cohorts and masks, so params, round losses and the evaluation agree."""
+    card, cpu = _sp_api("cuda", model=name), _sp_api("cpu", model=name)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for k, v in card.state.global_params.items():
+        assert v.is_cuda and torch.equal(v.cpu(), cpu.state.global_params[k])
+    for r in range(3):
+        lg = float(card.train_one_round(r)["train_loss"])
+        lc = float(cpu.train_one_round(r)["train_loss"])
+        assert abs(lg - lc) <= tol, (r, lg, lc)
+    for k, v in cpu.state.global_params.items():
+        assert (card.state.global_params[k].cpu() - v).abs().max() <= tol, k
+    (gl, ga), (cl, ca) = card.evaluate(), cpu.evaluate()
+    assert abs(gl - cl) <= tol and abs(ga - ca) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_cnn_dropout_rounds_on_card(cuda_device):
+    """``CNNDropOut`` on the real digits shard: its keep-masks are drawn
+    on the card from the round's generator; rounds are finite, move every
+    parameter, and ``scan`` ≡ ``vmap`` (same masks) to 1e-4."""
+    from fedml_tpu_torch.core import rng
+
+    over = dict(dataset="digits", model="cnn", input_shape=(8, 8, 1),
+                data_cache_dir=SHARDS, client_num_per_round=5,
+                momentum=0.0)
+    apis = [_sp_api("cuda", mode, **over) for mode in ("vmap", "scan")]
+    masks = apis[0].model.dropout_masks(
+        rng.round_key(apis[0]._root, 0), (2, 3, 4))
+    assert all(m.is_cuda and m.dtype == torch.bool for m in masks)
+    start = {k: v.clone() for k, v in apis[0].state.global_params.items()}
+    for r in range(2):
+        losses = [float(a.train_one_round(r)["train_loss"]) for a in apis]
+        assert all(np.isfinite(losses)) and abs(losses[0] - losses[1]) < 1e-4
+    for k, v in apis[0].state.global_params.items():
+        assert torch.isfinite(v).all() and not torch.equal(v, start[k]), k
+        assert (v - apis[1].state.global_params[k]).abs().max() < 1e-4, k

@@ -1,0 +1,278 @@
+"""The port's sp FedAvg rounds against the JAX package's on the CPU.
+
+Both engines start from the same weights (the JAX init carried across by
+``models/convert.py``) and see the same cohorts, batch schedules and step
+masks (bitwise-equal host streams), so their rounds differ only by f32
+rounding.  Tolerance: global params, per-round ``train_loss`` and
+``evaluate()`` loss/accuracy within 1e-5 (absolute) after every round.
+"""
+
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu import data as j_data
+from fedml_tpu import model as j_model
+from fedml_tpu.arguments import load_arguments as j_arguments
+from fedml_tpu.simulation.sp.fedavg_api import FedAvgAPI as JFedAvgAPI
+
+import fedml_tpu_torch
+from fedml_tpu_torch import data as t_data
+from fedml_tpu_torch import model as t_model
+from fedml_tpu_torch.arguments import load_arguments as t_arguments
+from fedml_tpu_torch.core import federated as t_federated
+from fedml_tpu_torch.device import get_device
+from fedml_tpu_torch.ml.trainer.local_trainer import LocalTrainer
+from fedml_tpu_torch.models.convert import from_flax
+from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI as TFedAvgAPI
+
+TOL = 1e-5
+_DIGITS = str(pathlib.Path(__file__).resolve().parents[1] / "data_shards")
+
+
+def tiny(**over):
+    """``tests/test_e2e_sp.py``'s ``tiny_args`` on the generic synthetic
+    dataset, with no data cache."""
+    cfg = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+               model="lr", client_num_in_total=8, client_num_per_round=4,
+               comm_round=4, epochs=1, batch_size=16, learning_rate=0.1,
+               train_size=512, test_size=256, frequency_of_the_test=2,
+               random_seed=42, data_cache_dir="")
+    cfg.update(over)
+    return cfg
+
+
+def _pair(cfg, mode="vmap"):
+    jargs = j_arguments().update(**cfg)
+    jds, jout = j_data.load(jargs)
+    japi = JFedAvgAPI(jargs, None, jds, j_model.create(jargs, jout),
+                      client_mode=mode)
+    targs = t_arguments().update(**cfg)
+    tds, tout = t_data.load(targs)
+    tmodel = t_model.create(targs, tout)
+    tapi = TFedAvgAPI(targs, "cpu", tds, tmodel, client_mode=mode)
+    start = jax.device_get(japi.state.global_params)
+    tapi.state = tapi.state.replace(
+        global_params=from_flax(start, tmodel, device="cpu"))
+    return japi, tapi
+
+
+def _params_close(japi, tapi):
+    ref = from_flax(jax.device_get(japi.state.global_params), tapi.model,
+                    device="cpu")
+    for k, v in tapi.state.global_params.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=0,
+                                   atol=TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("model,over", [
+    ("lr", {}),
+    ("lr", dict(partition_method="hetero", partition_alpha=0.3,
+                client_num_per_round=5, momentum=0.9)),
+    ("lr", dict(partition_method="hetero", partition_alpha=0.3,
+                client_optimizer="adam", learning_rate=0.01,
+                clip_grad_norm=1.0)),
+    ("cnn_web", dict(partition_method="hetero", partition_alpha=0.3,
+                     input_shape=(12, 12, 1), train_size=256, test_size=64,
+                     batch_size=8, learning_rate=0.05)),
+])
+def test_rounds_match_jax(model, over):
+    """Rounds from the same weights: params, round loss and evaluation
+    agree after each of three rounds.  The hetero splits are ragged, so
+    clients run different step counts padded to a power of two and masked
+    (``allocated_steps`` > ``total_steps``): with momentum, Adam and weight
+    decay those padded steps must leave params and optimizer state as they
+    were."""
+    japi, tapi = _pair(tiny(model=model, comm_round=3, **over))
+    ragged = False
+    for r in range(3):
+        jm = japi.train_one_round(r)
+        tm = tapi.train_one_round(r)
+        assert int(tm["allocated_steps"]) == int(jm["allocated_steps"])
+        assert float(tm["total_steps"]) == float(jm["total_steps"])
+        ragged |= float(tm["total_steps"]) < int(tm["allocated_steps"])
+        assert abs(float(tm["train_loss"]) - float(jm["train_loss"])) < TOL
+        _params_close(japi, tapi)
+    jl, ja = japi.evaluate()
+    tl, ta = tapi.evaluate()
+    assert abs(tl - jl) < TOL and abs(ta - ja) < TOL
+    if over.get("partition_method") == "hetero":
+        assert ragged
+
+
+def test_train_records_match_jax():
+    """``train()`` end to end: the same metrics-history records (round,
+    train_loss, test metrics on log rounds, provenance) as the JAX run."""
+    japi, tapi = _pair(tiny())
+    japi.train()
+    tapi.train()
+    assert len(tapi.metrics_history) == len(japi.metrics_history) == 4
+    for t, j in zip(tapi.metrics_history, japi.metrics_history):
+        assert set(t) == set(j)
+        assert t["round"] == j["round"]
+        assert t["dataset_provenance"] == j["dataset_provenance"]
+        for key in ("train_loss", "test_loss", "test_acc"):
+            if key in j:
+                assert abs(t[key] - j[key]) < TOL, (key, t, j)
+    _params_close(japi, tapi)
+
+
+def test_canonical_digits_lr_curve_matches_jax():
+    """The reference's canonical sp config scaled to the real sklearn
+    digits (``BASELINE.md``: LR, 100 clients, 10 a round, batch 10, lr
+    0.03, Dirichlet α 0.5, 200 rounds): from the same weights the port's
+    test curve is the JAX engine's (1e-5), 0.800 at round 200."""
+    pytest.importorskip("sklearn")
+    japi, tapi = _pair(dict(
+        dataset="digits", model="lr", input_shape=(8, 8, 1),
+        client_num_in_total=100, client_num_per_round=10, comm_round=200,
+        batch_size=10, learning_rate=0.03, partition_method="hetero",
+        partition_alpha=0.5, frequency_of_the_test=50, random_seed=0,
+        data_cache_dir=""))
+    japi.train()
+    tapi.train()
+    curve = [(t["round"], t["test_acc"], j["test_acc"])
+             for t, j in zip(tapi.metrics_history, japi.metrics_history)
+             if "test_acc" in j]
+    assert [c[0] for c in curve] == [0, 50, 100, 150, 199]
+    assert all(abs(t - j) < TOL for _, t, j in curve), curve
+    assert abs(curve[-1][1] - 0.8) < 1e-6, curve
+
+
+def test_host_staged_rounds_match_jax():
+    """``device_data=False`` ships the cohort's batches instead of index
+    tensors: same rounds."""
+    japi, tapi = _pair(tiny(device_data=False, comm_round=2,
+                            partition_method="hetero", partition_alpha=0.3))
+    for r in range(2):
+        jm = japi.train_one_round(r)
+        tm = tapi.train_one_round(r)
+        assert abs(float(tm["train_loss"]) - float(jm["train_loss"])) < TOL
+    _params_close(japi, tapi)
+
+
+def _port_api(mode, **over):
+    args = t_arguments().update(**tiny(**over))
+    ds, out = t_data.load(args)
+    return TFedAvgAPI(args, "cpu", ds, t_model.create(args, out),
+                      client_mode=mode)
+
+
+@pytest.mark.parametrize("model", ["lr", "cnn"])
+def test_scan_and_vmap_agree(model):
+    """Mirrors ``test_sp_scan_vmap_agree``: the two client modes give the
+    same global params (1e-5); the CNN's dropout masks are drawn once per
+    round outside ``vmap``, so they agree there too."""
+    over = dict(comm_round=2)
+    if model == "cnn":
+        over.update(dataset="digits", input_shape=(8, 8, 1), model="cnn",
+                    data_cache_dir=_DIGITS, batch_size=16,
+                    client_num_per_round=3, learning_rate=0.05)
+    outs = []
+    for mode in ("scan", "vmap"):
+        api = _port_api(mode, **over)
+        api.train()
+        outs.append(api.state.global_params)
+    for k in outs[0]:
+        torch.testing.assert_close(outs[0][k], outs[1][k], rtol=0, atol=TOL)
+
+
+def _evaluate(args, params):
+    ds, out = t_data.load(args)
+    trainer = LocalTrainer(t_model.create(args, out), args)
+    return trainer.evaluate(params, *ds.test_batches())
+
+
+def test_sp_fedavg_learns():
+    """Mirrors ``test_e2e_sp.py::test_sp_fedavg_learns`` through
+    ``run_simulation``: accuracy up by more than 0.1, loss down."""
+    args = t_arguments().update(**tiny())
+    start = _port_api("vmap").state.global_params   # the seed's init
+    loss0, acc0 = _evaluate(args, start)
+    params = fedml_tpu_torch.run_simulation(backend="sp", args=args,
+                                            device="cpu")
+    loss1, acc1 = _evaluate(args, params)
+    assert acc1 > acc0 + 0.1, (acc0, acc1)
+    assert loss1 < loss0
+
+
+def test_digits_cnn_learns_on_real_bytes():
+    """Mirrors ``test_datasets_ext.py``'s real-digits CNN run: the LEAF
+    shard's 15 users (a round-robin split), 5 a round, 8 rounds, through
+    ``run_simulation``; test accuracy above 0.6 (the JAX test's bar)."""
+    args = t_arguments().update(
+        dataset="digits", model="cnn", input_shape=(8, 8, 1),
+        data_cache_dir=_DIGITS, client_num_in_total=15,
+        client_num_per_round=5, comm_round=8, epochs=1, batch_size=16,
+        learning_rate=0.05, frequency_of_the_test=10 ** 9, random_seed=0)
+    params = fedml_tpu_torch.run_simulation(backend="sp", args=args,
+                                            device="cpu")
+    _, acc = _evaluate(args, params)
+    assert acc > 0.6, acc
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("trace", True), ("health", True), ("metrics_port", 0),
+    ("population", 4), ("population_axes", {"seed": [0, 1]}),
+    ("cohort_bucketing", True), ("round_block", 4), ("client_store", True),
+    ("data_paging", True), ("collective_precision", "bf16"),
+    ("checkpoint_dir", "ckpt"), ("registered_clients", 100)])
+def test_unported_options_raise_by_name(flag, value):
+    with pytest.raises(NotImplementedError,
+                       match=flag.split("_axes")[0]):
+        _port_api("vmap", **{flag: value})
+
+
+@pytest.mark.parametrize("over,what", [
+    (dict(backend="mesh"), "mesh"), (dict(backend="NCCL"), "NCCL"),
+    (dict(federated_optimizer="SCAFFOLD"), "scaffold"),
+    (dict(federated_optimizer="FedProx"), "fedprox"),
+    (dict(federated_optimizer="fedbuff"), "fedbuff"),
+    (dict(num_silos=2), "num_silos"), (dict(model="resnet18"), "resnet18"),
+    (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
+    (dict(dataset="20news"), "20news")])
+def test_run_simulation_refuses_what_is_not_ported(over, what):
+    """Unported backends, algorithms, models and datasets raise naming
+    themselves; an absent cache directory falls back to synthetic data as
+    in the JAX package (the cifar case runs)."""
+    args = t_arguments().update(**tiny(comm_round=1, **over))
+    backend = over.get("backend", "sp")
+    if what is None:
+        args.update(train_size=64, test_size=16)
+        fedml_tpu_torch.run_simulation(backend=backend, args=args,
+                                       device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match=what):
+        fedml_tpu_torch.run_simulation(backend=backend, args=args,
+                                       device="cpu")
+
+
+def test_only_the_fedavg_family_runs():
+    """The port's allow-list: the FedAvg family in any case, the JAX
+    package's other algorithms refused as unported, anything else as
+    unknown."""
+    assert t_federated.check_algorithm("FedAvg") == "fedavg"
+    assert t_federated.check_algorithm("FedAvg_seq") == "fedavg_seq"
+    with pytest.raises(NotImplementedError, match="qfedavg"):
+        t_federated.check_algorithm("qFedAvg")
+    with pytest.raises(ValueError, match="fedavgx"):
+        t_federated.check_algorithm("fedavgx")
+
+
+def test_get_device_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """No fallback: without CUDA the card path raises; ``"cpu"`` is only
+    taken when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = t_arguments()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_device(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fedml_tpu_torch.run_simulation(backend="sp",
+                                       args=args.update(**tiny()))
+    assert get_device(t_arguments().update(device="cpu")) == \
+        torch.device("cpu") == get_device(args, "cpu")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        get_device(t_arguments().update(device="tpu"))
