@@ -44,12 +44,29 @@ Phases, each printing its own lines:
    the CPU from the same weights, TF32 off as ``get_device`` sets it
    (checked), params within 1e-6, with the reading a TF32 run would give
    printed beside them.  The sp path launches none of the
-   flash-attention kernels (checked).
+   flash-attention kernels (checked);
+6. zoo — the algorithm zoo on the sp frame: (a) ``fedavg`` (the
+   baseline), ``fedprox``, ``fedopt`` (server Adam at server_lr 0.01),
+   ``scaffold``, ``feddyn``, ``fednova``, ``mime``, ``fedsgd`` and
+   ``qfedavg``, each through ``build_sp`` on phase 5(b)'s FEMNIST CNN
+   configuration, one warm round then 2 timed, with its round time beside
+   FedAvg's of the same phase; each algorithm's own state
+   (FedOpt's moments, SCAFFOLD's c_server, FedDyn's h, Mime's momentum)
+   non-zero, and for SCAFFOLD and FedDyn exactly the sampled clients' rows
+   of the per-client table written; (b) every algorithm (and FedOpt with
+   server SGD) on 5(d)'s small ``lr`` rounds, and SCAFFOLD, FedDyn and
+   FedNova on ``cnn_web``, card vs CPU from the same weights, TF32 off:
+   params, server state and table rows within 1e-6; (c) the hierarchical
+   (3 groups, 2 inner rounds), async and decentralized (symmetric and
+   asymmetric, 2 neighbours) engines through ``run_simulation`` on the
+   FEMNIST CNN configuration for 2 rounds: finite test loss, every
+   parameter moved off the seed's initial weights.  The zoo launches none
+   of the flash-attention kernels (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (with the
-forward+backward times, the slice's round numbers and phase 5's numbers
-under ``"sp"`` beside them) and the card's name and power limit; the last
-line is
+forward+backward times, the slice's round numbers, phase 5's numbers
+under ``"sp"`` and phase 6's under ``"zoo"`` beside them) and the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line; so does a host without CUDA, or a directory without the port.
 """
@@ -307,6 +324,170 @@ def sp_phase(torch, fedml_tpu_torch, smi):
             fail(f"(d) {name}: card and CPU disagree ({err:.2e} > {tol:g})")
         out["card_vs_cpu"][name] = err
         out["card_tf32_vs_cpu"][name] = err_tf32
+    return out
+
+
+#: phase 6 (a): the zoo on the FEMNIST CNN, with the args each algorithm
+#: adds to SP_FEMNIST_CNN (server Adam's step is server_lr per entry, so
+#: FedOpt takes 0.01 in place of the default 1.0); FedAvg first, as the
+#: baseline of the same phase
+ZOO_FEMNIST = (("fedavg", {}), ("fedprox", {}),
+               ("fedopt", dict(server_lr=0.01)), ("scaffold", {}),
+               ("feddyn", {}), ("fednova", {}), ("mime", {}), ("fedsgd", {}),
+               ("qfedavg", {}))
+#: phase 6 (b): (algorithm, model, extra args) held card ≡ CPU
+ZOO_CARD_VS_CPU = (
+    [(a, "lr", o) for a, o in (("fedprox", {}),
+                               ("fedopt", dict(server_lr=0.01)),
+                               ("fedopt", dict(server_optimizer="sgd")),
+                               ("scaffold", {}), ("feddyn", {}),
+                               ("fednova", {}), ("mime", {}), ("fedsgd", {}),
+                               ("qfedavg", {}))]
+    + [(a, "cnn_web", {}) for a in ("scaffold", "feddyn", "fednova")])
+#: phase 6 (c): the engines, with the args each adds
+ZOO_ENGINES = (("hierarchical", dict(federated_optimizer="HierarchicalFL",
+                                     group_num=3, group_comm_round=2)),
+               ("async", dict(federated_optimizer="async_fedavg")),
+               ("dsgd_symmetric", dict(federated_optimizer="dsgd",
+                                       topology="symmetric",
+                                       topology_neighbors=2)),
+               ("dsgd_asymmetric", dict(federated_optimizer="dsgd",
+                                        topology="asymmetric",
+                                        topology_neighbors=2)))
+#: card ≡ CPU limit of SCAFFOLD's control variates (c_server and the table)
+#: on cnn_web: c_i⁺ = c_i − c + (x − y_i)/(K·lr) divides the params' f32
+#: rounding by K·lr (~0.2 there), so they read 1.1e-6–1.4e-6 where the
+#: params read 1e-7; everything else is held to 1e-6
+SCAFFOLD_CNN_C_TOL = 4e-6
+#: the server-state fields each algorithm keeps beyond the params
+ZOO_STATE = {"fedopt": ("opt_state",), "scaffold": ("c_server",),
+             "feddyn": ("h",), "mime": ("momentum",)}
+
+
+def state_tensors(api):
+    """Every ServerState field and per-client table row of an sp engine,
+    as one flat ``{name: tensor}`` dict."""
+    out = {}
+    for f in ("global_params", "opt_state", "c_server", "h", "momentum"):
+        out.update({f"{f}/{k}": v
+                    for k, v in (getattr(api.state, f) or {}).items()})
+    out.update({f"table/{k}": v for k, v in (api.client_table or {}).items()})
+    return out
+
+
+def zoo_phase(torch, fedml_tpu_torch, smi):
+    """Phase 6."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.ml.trainer.local_trainer import LocalTrainer
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    out = {"femnist_cnn": {}, "card_vs_cpu": {}, "engines": {}}
+    # (a) every algorithm at FEMNIST CNN width
+    for alg, over in ZOO_FEMNIST:
+        t0 = time.time()
+        api = build_sp(sp_args(fedml_tpu_torch, federated_optimizer=alg,
+                               **dict(SP_FEMNIST_CNN, **over)))
+        if api.server_opt.algorithm != alg or \
+                api.state.global_params["Dense_1.bias"].shape[0] != 62:
+            fail(f"zoo (a) {alg}: built {api.server_opt.algorithm!r} at "
+                 f"{api.state.global_params['Dense_1.bias'].shape[0]} "
+                 "classes")
+        say("zoo", f"(a) {alg}: FEMNIST CNN, built in "
+                   f"{time.time() - t0:.1f} s")
+        rec = timed_rounds(torch, api, f"zoo a {alg}", 2, smi)
+        fedavg_s = out["femnist_cnn"].get("fedavg", rec)["s_per_round"]
+        rec["vs_fedavg"] = rec["s_per_round"] / fedavg_s
+        for f in ZOO_STATE.get(alg, ()):
+            leaves = getattr(api.state, f)
+            if not leaves or not all(
+                    v.abs().max().item() > 0 for k, v in leaves.items()
+                    if k != "count"):
+                fail(f"zoo (a) {alg}: state {f} not written")
+        if api.client_table is not None:
+            sampled = set().union(*(api._client_sampling(r).tolist()
+                                    for r in range(3)))
+            rows = sum(v.flatten(1).abs().amax(1)
+                       for v in api.client_table.values())
+            written = set(torch.nonzero(rows).flatten().tolist())
+            if written != sampled:
+                fail(f"zoo (a) {alg}: table rows written {sorted(written)}"
+                     f" != sampled {sorted(sampled)}")
+            rec["table_rows_written"] = len(written)
+            rec["table_gib"] = sum(v.numel() * v.element_size() for v in
+                                   api.client_table.values()) / 2 ** 30
+        written = [f"state {f}" for f in ZOO_STATE.get(alg, ())]
+        if "table_gib" in rec:
+            written.append(f"{rec['table_rows_written']} table rows of a "
+                           f"{rec['table_gib']:.3f} GiB table")
+        say("zoo", f"(a) {alg}: {rec['vs_fedavg']:.2f}x FedAvg's "
+                   f"{fedavg_s:.4f} s/round; written: "
+                   f"{', '.join(written) or 'no state beyond the params'}")
+        out["femnist_cnn"][alg] = rec
+        del api
+
+    # (b) card ≡ CPU on small f32 rounds from the same weights, TF32 off
+    for alg, name, over in ZOO_CARD_VS_CPU:
+        args = sp_args(fedml_tpu_torch, dataset="synthetic", num_classes=10,
+                       input_shape=(28, 28, 1), train_size=512,
+                       test_size=128, model=name, client_num_in_total=8,
+                       client_num_per_round=4, batch_size=16,
+                       learning_rate=0.05, partition_method="hetero",
+                       partition_alpha=0.3, momentum=0.9, random_seed=3,
+                       federated_optimizer=alg, **over)
+        ds, n_out = data.load(args)
+        card, cpu = [FedAvgAPI(args, d, ds, model.create(args, n_out))
+                     for d in ("cuda", "cpu")]
+        if torch.backends.cudnn.allow_tf32 or \
+                torch.backends.cuda.matmul.allow_tf32:
+            fail("zoo (b) get_device left TF32 on")
+        for r in range(2):
+            card.train_one_round(r)
+            cpu.train_one_round(r)
+        got, ref = state_tensors(card), state_tensors(cpu)
+        if set(got) != set(ref):
+            fail(f"zoo (b) {alg}: state fields differ")
+        tag = (alg + ("_sgd" if over.get("server_optimizer") == "sgd"
+                      else "") + "/" + name)
+        c_tol = (SCAFFOLD_CNN_C_TOL if tag == "scaffold/cnn_web" else 1e-6)
+        errs = {"params": 0.0, "state": 0.0}
+        for k, v in ref.items():
+            part = "params" if k.startswith("global_params/") else "state"
+            errs[part] = max(errs[part], max_err(got[k].cpu(), v))
+        say("zoo", f"(b) {tag}: 2 f32 rounds card vs CPU, params max abs "
+                   f"diff {errs['params']:.2e} (tol 1e-6), "
+                   f"{len(ref) - len(card.state.global_params)} state and "
+                   f"table tensors {errs['state']:.2e} (tol {c_tol:g})")
+        if not (errs["params"] <= 1e-6 and errs["state"] <= c_tol):
+            fail(f"zoo (b) {tag}: card and CPU disagree ({errs})")
+        out["card_vs_cpu"][tag] = errs
+
+    # (c) the engines through run_simulation
+    for tag, over in ZOO_ENGINES:
+        args = sp_args(fedml_tpu_torch, **dict(SP_FEMNIST_CNN, comm_round=2,
+                                               **over))
+        t0 = time.time()
+        params = fedml_tpu_torch.run_simulation(backend="sp", args=args)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        ds, n_out = data.load(args)
+        m = model.create(args, n_out)
+        start = m.init(rng.purpose_key(rng.root_key(args.random_seed),
+                                       "init"))
+        loss, acc = LocalTrainer(m, args, "fedavg").evaluate(
+            params, *ds.test_batches())
+        moved = all(not torch.equal(v.cpu(), start[k])
+                    for k, v in params.items())
+        finite = all(torch.isfinite(v).all() for v in params.values())
+        say("zoo", f"(c) {tag} via run_simulation: 2 rounds in {dt:.2f} s "
+                   f"({ds.num_clients} clients); test loss {loss:.4f}, "
+                   f"accuracy {acc:.4f}; params moved {moved} [{smi}]")
+        if not (moved and finite and loss == loss and
+                abs(loss) < float("inf")):
+            fail(f"zoo (c) {tag}: loss {loss}, params moved {moved}, "
+                 f"finite {finite}")
+        out["engines"][tag] = {"seconds": dt, "test_loss": loss,
+                               "test_acc": acc}
     return out
 
 
@@ -568,8 +749,16 @@ def main():
     if any(f.launches for f in att.KERNELS):
         fail("the sp path launched a flash-attention kernel")
 
+    # -- 6. zoo: the algorithm zoo and the sp engines ----------------------
+    t0 = time.time()
+    zoo = zoo_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("the zoo launched a flash-attention kernel")
+    say("zoo", f"phase 6 took {time.time() - t0:.1f} s; no flash-attention "
+               "kernel launched")
+
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
-                      "slice": slice_rec, "sp": sp}))
+                      "slice": slice_rec, "sp": sp, "zoo": zoo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

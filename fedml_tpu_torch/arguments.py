@@ -55,6 +55,9 @@ _DEFAULTS: Dict[str, Any] = dict(
     weight_decay=0.001,
     clip_grad_norm=0.0,
     server_lr=1.0,
+    # mixing weight of the async FedAvg engine (the JAX package's default;
+    # its class default is 0.6)
+    async_alpha=0.5,
     # validation_args
     frequency_of_the_test=5,
     # comm_args

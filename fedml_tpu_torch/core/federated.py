@@ -1,33 +1,34 @@
 """Federated round algebra (port of ``fedml_tpu.core.federated``): the
-``client_map`` primitive, the stacked reducer and the :class:`RoundProgram`
-that composes them.  A round reads ``client_map -> weighted average ->
-server update``.
+placement primitives, the stacked reducer, the :class:`AlgorithmSpec`
+registry of the algorithm zoo and the :class:`RoundProgram` that composes
+them.  A round reads ``broadcast -> client_map -> weighted reductions ->
+server update``; which reductions an algorithm needs beyond the weighted
+params average (SCAFFOLD's Δc, FedNova's τ, ...) is declared in its spec.
 
-Only the FedAvg family (``fedavg``, ``fedavg_seq``) runs: its round needs
-no aggregate beyond the weighted params average.  The JAX package's
-``AlgorithmSpec`` registry, which describes the other algorithms' extra
-aggregates (SCAFFOLD's Δc, FedNova's τ, ...), comes with those algorithms;
-until then they are refused by name.
+The JAX package's hyperparameter sweeps (``HParams``, populations) are not
+ported: every spec function reads the static values from the optimizer,
+which is the reference's ``hp=None`` path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from . import tree as tree_util
 
-#: algorithms of the JAX package's zoo that the port does not run yet
-UNPORTED_ALGORITHMS = ("fedprox", "fedopt", "fedopt_seq", "feddyn",
-                       "scaffold", "fednova", "mime", "fedsgd", "fedbuff",
-                       "qfedavg")
-
 
 # --------------------------------------------------------------------------
 # primitives
 # --------------------------------------------------------------------------
+
+def broadcast(tree):
+    """Server -> clients placement: the identity on one device, kept as the
+    composition point a round program reads from."""
+    return tree
+
 
 def client_map(fn: Callable, mode: str = "vmap") -> Callable:
     """Map a pure per-client fn over cohort-stacked inputs (leading client
@@ -61,9 +62,9 @@ def _index(a, i):
     if a is None:
         return None
     if isinstance(a, tuple):
-        return tuple(x[i] for x in a)
+        return tuple(_index(x, i) for x in a)
     if isinstance(a, dict):
-        return {k: v[i] for k, v in a.items()}
+        return {k: _index(v, i) for k, v in a.items()}
     return a[i]
 
 
@@ -72,8 +73,18 @@ def _stack(outs):
     if isinstance(first, tuple):
         return tuple(_stack([o[j] for o in outs]) for j in range(len(first)))
     if isinstance(first, dict):
-        return tree_util.tree_stack(outs)
+        return {k: _stack([o[k] for o in outs]) for k in first}
     return torch.stack(outs)
+
+
+def weighted_reduce(stacked, weights):
+    """Clients -> server placement: weighted average over the leading
+    client axis, in f32."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    den = torch.sum(w)
+    return tree_util.tree_map(
+        lambda l: torch.tensordot(w, l.to(torch.float32), dims=1) / den,
+        stacked)
 
 
 class StackedReducer:
@@ -82,61 +93,228 @@ class StackedReducer:
     def wavg(self, stacked, w):
         return tree_util.stacked_weighted_average(stacked, w)
 
+    def wavg_scalar(self, vec, w):
+        p = w / torch.sum(w)
+        return torch.sum(p * vec)
+
     def sum_scalar(self, vec):
         return torch.sum(vec)
 
 
 # --------------------------------------------------------------------------
-# algorithms
+# algorithm specs
 # --------------------------------------------------------------------------
 
-#: the FedAvg family, the only algorithms the port runs
-PORTED_ALGORITHMS = ("fedavg", "fedavg_seq")
+@dataclass(frozen=True)
+class AggSpec:
+    """One cross-client aggregate of a round.
+
+    ``source(opt, state, outs)`` returns the per-client stacked tree
+    (``kind="wavg"``) or ``(C,)`` vector (scalar kinds); ``weights(opt,
+    outs, w)`` the per-client weights.  ``kind``: ``wavg`` (weighted average
+    of a stacked tree), ``scalar`` (weighted average of a scalar per
+    client) or ``sum`` (sum of ``source * weights``)."""
+    name: str
+    source: Callable
+    weights: Callable = lambda opt, outs, w: w
+    kind: str = "wavg"
+
+
+def _real(opt, outs, w):
+    """Real-client mask: padded zero-weight cohort rows contribute
+    nothing."""
+    return (w > 0).to(torch.float32)
+
+
+def _nova_deltas(opt, state, outs):
+    """FedNova normalised directions d_i = (x - y_i)/max(tau_i, 1)."""
+    tau = outs.tau
+    return tree_util.tree_map(
+        lambda yi, gx: (gx[None] - yi) / torch.clamp(
+            tau.reshape((-1,) + (1,) * (yi.dim() - 1)), min=1.0),
+        outs.params, state.global_params)
+
+
+@dataclass(frozen=True)
+class AlgorithmSpec:
+    """Declarative round shape of one federated optimizer: the
+    cross-client reductions beyond the universal ``avg_params`` /
+    ``n_sampled`` pair, whether it keeps per-client state, and (optional)
+    a pure server transition ``update(gvals, agg, opt) -> (new_gvals,
+    new_fields)`` used in place of the ``ServerOptimizer`` built-ins."""
+    name: str
+    aggregates: Tuple[AggSpec, ...] = ()
+    avg_params: bool = True
+    client_state: bool = False
+    update: Optional[Callable] = None
+
+
+_SPECS: Dict[str, AlgorithmSpec] = {}
+
+
+def register_algorithm(spec: AlgorithmSpec) -> AlgorithmSpec:
+    """Add an algorithm to the registry (``federated_optimizer: <name>``
+    then runs it); re-registering a name replaces the spec."""
+    _SPECS[spec.name] = spec
+    return spec
+
+
+def get_spec(name: str) -> AlgorithmSpec:
+    try:
+        return _SPECS[name.lower()]
+    except KeyError:
+        raise KeyError(f"no AlgorithmSpec registered for {name!r} "
+                       f"(known: {sorted(_SPECS)})") from None
+
+
+def has_spec(name: str) -> bool:
+    return name.lower() in _SPECS
+
+
+# -- the built-in zoo as specs ----------------------------------------------
+
+for _name in ("fedavg", "fedavg_seq", "fedprox", "fedopt", "fedopt_seq",
+              "feddyn"):
+    register_algorithm(AlgorithmSpec(_name, client_state=_name == "feddyn"))
+
+register_algorithm(AlgorithmSpec(
+    "scaffold",
+    aggregates=(AggSpec("mean_delta_c",
+                        source=lambda opt, state, outs: outs.delta_c,
+                        weights=_real),),
+    client_state=True))
+
+register_algorithm(AlgorithmSpec(
+    "fednova",
+    aggregates=(AggSpec("nova_d", source=_nova_deltas),
+                AggSpec("tau_eff", source=lambda opt, state, outs: outs.tau,
+                        kind="scalar"))))
+
+for _name in ("mime", "fedsgd"):
+    register_algorithm(AlgorithmSpec(
+        _name, aggregates=(AggSpec(
+            "avg_grad", source=lambda opt, state, outs: outs.grad_sum),)))
+
+# buffered-async FedAvg: the round shape is FedAvg's, but it runs on the
+# buffered-async engine, which is not ported (check_algorithm refuses it)
+register_algorithm(AlgorithmSpec("fedbuff"))
+
+
+# -- q-FedAvg (arXiv:1905.10497): fair aggregation as a pure spec -----------
+
+def _qfed_deltas(opt, state, outs):
+    L = 1.0 / opt.qfed_lr
+    return tree_util.tree_map(lambda yi, gx: (gx[None] - yi) * L,
+                              outs.params, state.global_params)
+
+
+def _qfed_u(opt, state, outs):      # F_k^q
+    return torch.pow(torch.clamp(outs.loss, min=1e-10), opt.qfed_q)
+
+
+def _qfed_h(opt, state, outs):      # q F^{q-1} ||Δ||^2 + L F^q
+    L = 1.0 / opt.qfed_lr
+    q = opt.qfed_q
+    F = torch.clamp(outs.loss, min=1e-10)
+    dn = sum(torch.sum((((gx[None] - yi) * L).to(torch.float32)) ** 2,
+                       dim=tuple(range(1, yi.dim())))
+             for yi, gx in zip(outs.params.values(),
+                               state.global_params.values()))
+    return q * torch.pow(F, q - 1.0) * dn + L * torch.pow(F, q)
+
+
+def _qfed_update(gvals, agg, opt):
+    scale = agg["qfed_u"] / torch.clamp(agg["qfed_h"], min=1e-12)
+    new = tree_util.tree_map(lambda g, d: g - scale * d, gvals,
+                             agg["qfed_delta"])
+    return new, {}
+
+
+QFEDAVG = register_algorithm(AlgorithmSpec(
+    "qfedavg", avg_params=False, update=_qfed_update,
+    aggregates=(
+        AggSpec("qfed_delta", source=_qfed_deltas,
+                weights=lambda opt, outs, w:
+                _real(opt, outs, w) * _qfed_u(opt, None, outs)),
+        AggSpec("qfed_u", source=_qfed_u, weights=_real, kind="sum"),
+        AggSpec("qfed_h", source=_qfed_h, weights=_real, kind="sum"),
+    )))
+
+
+#: registered names the port refuses, each with the reason
+_REFUSED = {"fedbuff": "it runs on the buffered-async engine, which is not "
+                       "ported yet"}
 
 
 def check_algorithm(name: str) -> str:
-    """Lower-cased ``name`` if the port runs it; raises otherwise, naming
-    the algorithm."""
+    """Lower-cased ``name`` if the port runs it: every registered algorithm
+    but ``fedbuff``.  Raises otherwise, naming the algorithm."""
     name = name.lower()
-    if name in UNPORTED_ALGORITHMS:
+    runnable = sorted(set(_SPECS) - set(_REFUSED))
+    if name in _REFUSED:
         raise NotImplementedError(
-            f"federated_optimizer {name!r} is not ported yet (the port runs "
-            f"{list(PORTED_ALGORITHMS)})")
-    if name not in PORTED_ALGORITHMS:
+            f"federated_optimizer {name!r}: {_REFUSED[name]} (the port "
+            f"runs {runnable})")
+    if name not in _SPECS:
         raise ValueError(f"unknown federated_optimizer {name!r} "
-                         f"(the port runs {list(PORTED_ALGORITHMS)})")
+                         f"(the port runs {runnable})")
     return name
 
 
-def build_aggregates(red, outs, w) -> Dict[str, Any]:
-    """The FedAvg round's cross-client reductions with the engine's
-    reducer: the number of real (nonzero-weight) clients and the weighted
-    params average."""
-    return {"n_sampled": red.sum_scalar((w > 0).to(torch.float32)),
-            "avg_params": red.wavg(outs.params, w)}
+# --------------------------------------------------------------------------
+# spec-driven aggregates
+# --------------------------------------------------------------------------
+
+def build_aggregates(spec: AlgorithmSpec, red, opt, state, outs,
+                     w) -> Dict[str, Any]:
+    """The round's cross-client reductions, built from the algorithm's
+    spec with the engine's reducer."""
+    agg: Dict[str, Any] = {"n_sampled": red.sum_scalar(_real(opt, outs, w))}
+    if spec.avg_params:
+        agg["avg_params"] = red.wavg(outs.params, w)
+    for a in spec.aggregates:
+        src = a.source(opt, state, outs)
+        ww = a.weights(opt, outs, w)
+        if a.kind == "wavg":
+            agg[a.name] = red.wavg(src, ww)
+        elif a.kind == "scalar":
+            agg[a.name] = red.wavg_scalar(src, ww)
+        else:  # sum
+            agg[a.name] = red.sum_scalar(src * ww)
+    return agg
 
 
 @dataclass
 class RoundProgram:
     """One federated round composed from the primitives::
 
-        new_state, outs, agg = program(state, x, y, mask, weights, drop)
+        new_state, outs, agg = program(state, x, y, mask, weights, drop,
+                                       c_clients)
 
-    ``local_train(global_params, xb, yb, mask, drop)`` is the per-client
-    body (:meth:`LocalTrainer.make_local_train`); ``drop`` holds the
-    cohort's dropout keep-masks (leading client axis) or is ``None``."""
+    ``local_train(global_params, xb, yb, mask, drop, ctx, client_state)``
+    is the per-client body (:meth:`LocalTrainer.make_local_train`); ``drop``
+    holds the cohort's dropout keep-masks and ``c_clients`` the cohort's
+    per-client state rows (leading client axis each), or ``None``."""
+    spec: AlgorithmSpec
     local_train: Callable
     server_opt: Any
     mode: str = "vmap"
     reducer: Any = field(default_factory=StackedReducer)
 
-    def run_clients(self, state, x, y, mask, drop):
-        from ..ml.trainer.local_trainer import ClientOut
-        g = state.global_params
-        fn = lambda xb, yb, mb, db: self.local_train(g, xb, yb, mb, db)
-        return ClientOut(*client_map(fn, self.mode)(x, y, mask, drop))
+    def run_clients(self, state, x, y, mask, drop, c_clients):
+        from ..ml.trainer.local_trainer import ClientOut, ServerCtx
+        ctx = ServerCtx(global_params=state.global_params,
+                        c_server=state.c_server,
+                        server_momentum=state.momentum)
+        g = broadcast(state.global_params)
+        fn = lambda xb, yb, mb, db, cc: self.local_train(g, xb, yb, mb, db,
+                                                         ctx, cc)
+        return ClientOut(**client_map(fn, self.mode)(x, y, mask, drop,
+                                                     c_clients))
 
-    def __call__(self, state, x, y, mask, weights, drop=None):
-        outs = self.run_clients(state, x, y, mask, drop)
-        agg = build_aggregates(self.reducer, outs, weights)
+    def __call__(self, state, x, y, mask, weights, drop=None,
+                 c_clients=None):
+        outs = self.run_clients(state, x, y, mask, drop, c_clients)
+        agg = build_aggregates(self.spec, self.reducer, self.server_opt,
+                               state, outs, weights)
         return self.server_opt.update_from_aggregates(state, agg), outs, agg

@@ -47,6 +47,13 @@ def round_key(key: torch.Generator, round_idx: int) -> torch.Generator:
     return _child(purpose_key(key, "round"), int(round_idx))
 
 
+def client_key(key: torch.Generator, round_idx: int,
+               client_idx: int) -> torch.Generator:
+    """Child generator of one client in one round (the async engine's
+    per-client draws), independent of every other (round, client)."""
+    return _child(round_key(key, round_idx), int(client_idx))
+
+
 def sample_clients(seed: int, round_idx: int, num_clients: int,
                    clients_per_round: int) -> np.ndarray:
     """Per-round client sampling, host-side: every client if they all fit,

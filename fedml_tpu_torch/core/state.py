@@ -1,5 +1,6 @@
-"""Functional client optimizers (port of
-``fedml_tpu.core.state.make_client_optimizer``).
+"""Functional optimizers (port of
+``fedml_tpu.core.state.make_client_optimizer``, and of the optax chains the
+JAX package's server optimizers build).
 
 The JAX package builds an optax chain; here the same arithmetic is written
 once as pure tensor functions on ``{name: tensor}`` dicts, so a step can run
@@ -8,8 +9,9 @@ under ``torch.func.vmap`` and a padded step can keep the old state with a
 
 - ``sgd``: global-norm clip (if ``clip_grad_norm``) → decayed weights
   (``g + wd·p``) → momentum trace (``t = g + m·t``) → ``−lr·t``;
-- ``adam``: clip → Adam moments with bias correction (``b1`` 0.9, ``b2``
-  0.999, ``eps`` 1e-8) → decayed weights (``adamw``, when ``wd``) → ``−lr·u``.
+- ``adam``: clip → Adam moments with bias correction (``b1``, ``b2``,
+  ``eps``; optax's defaults 0.9, 0.999, 1e-8 for the client) → decayed
+  weights (``adamw``, when ``wd``) → ``−lr·u``.
 """
 
 from __future__ import annotations
@@ -20,20 +22,21 @@ import torch
 
 TensorDict = Dict[str, torch.Tensor]
 
-_B1, _B2, _EPS = 0.9, 0.999, 1e-8
-
 
 class ClientOptimizer:
     """``init(params) -> state`` and ``update(grads, state, params) ->
-    (updates, new_state)``; the new params are ``params + updates``."""
+    (updates, new_state)``; the new params are ``params + updates``.  The
+    server optimizers of FedOpt are instances too."""
 
     def __init__(self, kind: str, lr: float, momentum: float = 0.0,
-                 weight_decay: float = 0.0, clip: float = 0.0):
+                 weight_decay: float = 0.0, clip: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         if kind not in ("sgd", "adam"):
             raise ValueError(f"client_optimizer must be 'sgd' or 'adam', "
                              f"got {kind!r}")
         self.kind, self.lr, self.momentum = kind, lr, momentum
         self.wd, self.clip = weight_decay, clip
+        self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: TensorDict) -> TensorDict:
         if self.kind == "adam":
@@ -67,15 +70,16 @@ class ClientOptimizer:
                      for k, x in g.items()}
                 new_state = {f"trace/{k}": x for k, x in g.items()}
             return {k: (-self.lr) * x for k, x in g.items()}, new_state
+        b1, b2 = self.b1, self.b2
         count = state["count"] + 1
-        bc1 = 1 - torch.pow(_B1, count.to(torch.float32))
-        bc2 = 1 - torch.pow(_B2, count.to(torch.float32))
+        bc1 = 1 - torch.pow(b1, count.to(torch.float32))
+        bc2 = 1 - torch.pow(b2, count.to(torch.float32))
         u = {}
         for k, x in g.items():
-            mu = (1 - _B1) * x + _B1 * state[f"mu/{k}"]
-            nu = (1 - _B2) * (x * x) + _B2 * state[f"nu/{k}"]
+            mu = (1 - b1) * x + b1 * state[f"mu/{k}"]
+            nu = (1 - b2) * (x * x) + b2 * state[f"nu/{k}"]
             new_state[f"mu/{k}"], new_state[f"nu/{k}"] = mu, nu
-            u[k] = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+            u[k] = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.wd:
                 u[k] = u[k] + self.wd * params[k]
         new_state["count"] = count

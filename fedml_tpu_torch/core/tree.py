@@ -1,11 +1,13 @@
 """Helpers over flat ``{path: tensor}`` dicts — the port's stand-in for the
 JAX package's pytree utilities (``fedml_tpu.core.tree``), limited to what
-the ported rounds use."""
+the ported rounds use, and the dense per-client state table (SCAFFOLD
+c_i / FedDyn ∇̂_i) with its cohort gather and scatter."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Mapping
 
+import numpy as np
 import torch
 
 TensorDict = Dict[str, torch.Tensor]
@@ -17,6 +19,33 @@ def tree_map(fn: Callable, tree: TensorDict, *rest: TensorDict) -> TensorDict:
 
 def tree_zeros_like(tree: TensorDict) -> TensorDict:
     return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: TensorDict, b: TensorDict) -> TensorDict:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: TensorDict, b: TensorDict) -> TensorDict:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: TensorDict, s) -> TensorDict:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_axpy(a, x: TensorDict, y: TensorDict) -> TensorDict:
+    """``a*x + y`` per leaf."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def tree_dot(a: TensorDict, b: TensorDict) -> torch.Tensor:
+    """f32 sum over leaves of each leaf pair's dot product."""
+    return sum(torch.sum(x.to(torch.float32) * b[k].to(torch.float32))
+               for k, x in a.items())
+
+
+def tree_sq_norm(tree: TensorDict) -> torch.Tensor:
+    return tree_dot(tree, tree)
 
 
 def tree_stack(trees) -> TensorDict:
@@ -55,3 +84,49 @@ def unflatten(flat: Mapping) -> dict:
             node = node.setdefault(k, {})
         node[last] = v
     return out
+
+
+# -- dense per-client state table (SCAFFOLD c_i / FedDyn residuals) ----------
+# Every leaf gains a leading (num_clients,) row axis and lives on the device;
+# a round gathers its cohort's rows and scatters the updated rows back.
+# Cohort ids are host integers.  A torch index out of range raises (CPU) or
+# device-asserts (CUDA) instead of filling or dropping as XLA does, so the
+# in-range positions are picked on the host; ids are never clamped, since a
+# clamped sentinel would read and overwrite the last real client's row.
+
+def client_table_init(params: TensorDict, rows: int) -> TensorDict:
+    """Zero table of per-client state: one row per client, shaped like
+    ``params`` per row."""
+    return tree_map(lambda p: torch.zeros((rows,) + tuple(p.shape),
+                                          dtype=p.dtype, device=p.device),
+                    params)
+
+
+def _in_range(table: TensorDict, cohort):
+    """(positions in the cohort, their ids) of the ids that name a row,
+    as index tensors on the table's device."""
+    ids = np.asarray(cohort, dtype=np.int64).reshape(-1)
+    rows = next(iter(table.values())).shape[0]
+    pos = np.nonzero((ids >= 0) & (ids < rows))[0]
+    dev = next(iter(table.values())).device
+    return (torch.as_tensor(pos, device=dev),
+            torch.as_tensor(ids[pos], device=dev))
+
+
+def cohort_gather(table: TensorDict, cohort) -> TensorDict:
+    """Rows ``cohort`` of the table stacked on a leading cohort axis; an
+    out-of-range id (the padded-cohort sentinel) reads as a zero row."""
+    pos, ids = _in_range(table, cohort)
+    n = len(np.asarray(cohort).reshape(-1))
+    return tree_map(lambda t: torch.zeros((n,) + tuple(t.shape[1:]),
+                                          dtype=t.dtype, device=t.device)
+                    .index_copy_(0, pos, t.index_select(0, ids)), table)
+
+
+def cohort_scatter(table: TensorDict, cohort, new_rows: TensorDict
+                   ) -> TensorDict:
+    """The table with the cohort's rows replaced by ``new_rows``; an
+    out-of-range id is dropped."""
+    pos, ids = _in_range(table, cohort)
+    return tree_map(lambda t, n: t.index_copy(
+        0, ids, n.index_select(0, pos).to(t.dtype)), table, new_rows)

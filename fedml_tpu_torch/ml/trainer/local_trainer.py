@@ -1,5 +1,4 @@
-"""LocalTrainer (port of ``fedml_tpu.ml.trainer.local_trainer``) for the
-FedAvg family.
+"""LocalTrainer (port of ``fedml_tpu.ml.trainer.local_trainer``).
 
 A client's round is a pure function of the global params and its stacked
 batches: a loop over its (epochs × steps) batches, each step
@@ -8,31 +7,54 @@ functional optimizer update (:mod:`..core.state`), and the step mask.  It
 has no side effects, so :func:`~fedml_tpu_torch.core.federated.client_map`
 can ``torch.func.vmap`` it over a cohort.
 
+The algorithms of the zoo hook in as loss and gradient transforms selected
+by ``federated_optimizer``:
+
+- FedProx:  loss += (mu/2)·‖w − w_global‖²
+- SCAFFOLD: grad += c_server − c_client; c_i⁺ and Δc returned
+- FedDyn:   loss += (alpha/2)·‖w − w_global‖² − ⟨∇̂_i, w⟩; ∇̂_i⁺ returned
+- Mime:     the step takes (1 − β)·g + β·m with the server momentum m
+- FedNova, Mime, FedSGD: the mean gradient over real steps returned;
+  FedNova also its real step count τ.
+
 A padded step (mask 0) is a TRUE no-op: params and optimizer state are
 kept by ``torch.where``, not merely fed a zero gradient, so weight decay,
 momentum and Adam's count stay frozen.  The round loss is the mean over the
 client's real steps.
-
-The other algorithms of the JAX package (FedProx, SCAFFOLD, FedDyn, Mime,
-FedNova, ...) are not ported yet and raise by name.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ...core import federated
+from ...core import tree as tree_util
 from ...core.state import make_client_optimizer
 from ...models.base import TorchModel
 
 
+@dataclasses.dataclass
+class ServerCtx:
+    """Server-side tensors a local round may read, shared by every client
+    of the cohort.  Per-client state (SCAFFOLD c_i, FedDyn ∇̂_i) travels
+    separately, as an input the cohort map batches."""
+    global_params: Any = None
+    c_server: Any = None          # SCAFFOLD server control variate
+    server_momentum: Any = None   # Mime server momentum
+
+
 class ClientOut(NamedTuple):
-    params: Any           # stacked {name: (C, ...)} client params
+    params: Any                   # stacked {name: (C, ...)} client params
     num_steps: torch.Tensor
     loss: torch.Tensor
+    delta_c: Any = None           # SCAFFOLD Δc (server aggregate input)
+    new_client_state: Any = None  # SCAFFOLD c_i⁺ / FedDyn ∇̂_i⁺
+    tau: Any = None               # FedNova real steps
+    grad_sum: Any = None          # FedNova / Mime / FedSGD mean gradient
 
 
 def cross_entropy_loss(logits, labels):
@@ -48,56 +70,120 @@ def accuracy(logits, labels):
 
 
 class LocalTrainer:
-    """Builds the pure per-client functions; owns no mutable state."""
+    """Builds the pure per-client functions; owns no mutable state.
+    ``algorithm`` (default: ``args.federated_optimizer``) selects the
+    client-side hooks."""
 
-    def __init__(self, model: TorchModel, args):
+    def __init__(self, model: TorchModel, args, algorithm=None):
         self.model = model
         self.args = args
-        # raises for the unported algorithms
         self.algorithm = federated.check_algorithm(
-            str(getattr(args, "federated_optimizer", "FedAvg")))
+            algorithm or str(getattr(args, "federated_optimizer", "FedAvg")))
         if model.task != "classification":
             raise NotImplementedError(f"task {model.task!r} is not ported")
         self.tx = make_client_optimizer(args)
+        self.prox_mu = float(getattr(args, "fedprox_mu", 0.1))
+        self.feddyn_alpha = float(getattr(args, "feddyn_alpha", 0.01))
+        self.server_beta = float(getattr(args, "server_momentum", 0.9))
+        self.lr = float(getattr(args, "learning_rate", 0.03))
 
     # -- loss ----------------------------------------------------------------
-    def loss_fn(self, params, x, y, dropout_masks=None):
+    def loss_fn(self, params, x, y, dropout_masks=None, ctx=None,
+                client_state=None):
+        """``client_state`` is FedDyn's ∇̂_i in the linear term (SCAFFOLD's
+        c_i enters the gradient in :meth:`train_step` instead)."""
         logits = self.model.apply(params, x, train=True,
                                   dropout_masks=dropout_masks)
-        return cross_entropy_loss(logits, y)
+        loss = cross_entropy_loss(logits, y)
+        g = None if ctx is None else ctx.global_params
+        if self.algorithm == "fedprox" and g is not None:
+            diff = tree_util.tree_sub(params, g)
+            loss = loss + 0.5 * self.prox_mu * tree_util.tree_sq_norm(diff)
+        if self.algorithm == "feddyn" and g is not None:
+            diff = tree_util.tree_sub(params, g)
+            loss = loss + 0.5 * self.feddyn_alpha * tree_util.tree_sq_norm(
+                diff)
+            if client_state is not None:
+                loss = loss - tree_util.tree_dot(client_state, params)
+        return loss
 
     # -- one step (pure) -----------------------------------------------------
-    def train_step(self, carry, x, y, mask, dropout_masks=None):
-        params, opt_state, nsteps, loss_acc = carry
+    def train_step(self, carry, x, y, mask, dropout_masks=None, ctx=None):
+        params, opt_state, c_client, gsum, nsteps, loss_acc = carry
         grads, loss = torch.func.grad_and_value(self.loss_fn)(
-            params, x, y, dropout_masks)
-        # mask BEFORE the optimizer so a padded batch never leaks in
-        grads = {k: g * mask for k, g in grads.items()}
-        updates, new_opt = self.tx.update(grads, opt_state, params)
+            params, x, y, dropout_masks, ctx, c_client)
+        if self.algorithm == "scaffold" and ctx.c_server is not None:
+            grads = {k: g + ctx.c_server[k] - c_client[k]
+                     for k, g in grads.items()}
+        # mask BEFORE momentum/accumulation so a padded batch never leaks in
+        grads = tree_util.tree_scale(grads, mask)
+        step_grads = grads
+        if self.algorithm == "mime" and ctx.server_momentum is not None:
+            # MimeLite: (1−β)·g + β·m with the FIXED server momentum m
+            b = self.server_beta
+            step_grads = {k: (1 - b) * g + b * ctx.server_momentum[k]
+                          for k, g in grads.items()}
+        updates, new_opt = self.tx.update(step_grads, opt_state, params)
         new_params = {k: p + updates[k] for k, p in params.items()}
         keep = mask > 0
         new_params = {k: torch.where(keep, v, params[k])
                       for k, v in new_params.items()}
         new_opt = {k: torch.where(keep, v, opt_state[k])
                    for k, v in new_opt.items()}
-        return new_params, new_opt, nsteps + mask, loss_acc + loss * mask
+        if gsum is not None:
+            gsum = tree_util.tree_add(gsum, grads)
+        return (new_params, new_opt, c_client, gsum, nsteps + mask,
+                loss_acc + loss * mask)
 
     # -- a client's whole round ----------------------------------------------
     def make_local_train(self):
-        """Pure ``(global_params, xb, yb, mask, drop) -> (params, num_steps,
-        loss)``: ``xb``/``yb`` are ``(steps, batch, ...)``, ``mask`` is
+        """Pure ``(global_params, xb, yb, mask, drop, ctx, client_state) ->
+        {field: tensor}``, the :class:`ClientOut` fields the algorithm
+        fills: ``xb``/``yb`` are ``(steps, batch, ...)``, ``mask`` is
         ``(steps,)`` of 0/1, ``drop`` the per-step dropout keep-masks (a
-        tuple of ``(steps, batch, ...)``) or ``None``."""
+        tuple of ``(steps, batch, ...)``) or ``None``, ``ctx`` a
+        :class:`ServerCtx`, ``client_state`` the client's SCAFFOLD c_i /
+        FedDyn ∇̂_i or ``None`` (zeros)."""
+        alg = self.algorithm
+        needs_gsum = alg in ("fednova", "mime", "fedsgd")
 
-        def local_train(global_params, xb, yb, mask, drop=None):
+        def local_train(global_params, xb, yb, mask, drop=None, ctx=None,
+                        client_state=None):
             zero = torch.zeros((), dtype=torch.float32, device=mask.device)
-            carry = (global_params, self.tx.init(global_params), zero, zero)
+            if client_state is None and alg in ("scaffold", "feddyn"):
+                client_state = tree_util.tree_zeros_like(global_params)
+            gsum = (tree_util.tree_zeros_like(global_params) if needs_gsum
+                    else None)
+            carry = (global_params, self.tx.init(global_params), client_state,
+                     gsum, zero, zero)
             for s in range(xb.shape[0]):
                 masks_s = None if drop is None else tuple(d[s] for d in drop)
                 carry = self.train_step(carry, xb[s], yb[s], mask[s],
-                                        masks_s)
-            params, _, nsteps, loss_sum = carry
-            return params, nsteps, loss_sum / torch.clamp(nsteps, min=1.0)
+                                        masks_s, ctx)
+            params, _, client_state, gsum, nsteps, loss_sum = carry
+            out = {"params": params, "num_steps": nsteps,
+                   "loss": loss_sum / torch.clamp(nsteps, min=1.0)}
+            if alg == "scaffold":
+                # c_i⁺ = c_i − c + (x − y_i)/(K·lr)  (SCAFFOLD eq. 4, II)
+                K = torch.clamp(nsteps, min=1.0)
+                c_plus = {k: client_state[k] - ctx.c_server[k]
+                          + (global_params[k] - params[k]) / (K * self.lr)
+                          for k in params}
+                out["delta_c"] = tree_util.tree_sub(c_plus, client_state)
+                out["new_client_state"] = c_plus
+            elif alg == "feddyn":
+                # ∇̂_i⁺ = ∇̂_i − α·(θ_i − θ_global)
+                out["new_client_state"] = {
+                    k: client_state[k] - self.feddyn_alpha
+                    * (params[k] - global_params[k]) for k in params}
+            if alg == "fednova":
+                out["tau"] = nsteps
+            if gsum is not None:
+                # mean gradient over real steps (Mime's full-batch gradient
+                # stand-in; FedSGD's round gradient)
+                out["grad_sum"] = tree_util.tree_scale(
+                    gsum, 1.0 / torch.clamp(nsteps, min=1.0))
+            return out
 
         return local_train
 

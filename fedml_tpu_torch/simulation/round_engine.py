@@ -7,11 +7,12 @@
 - ``vmap`` mode: clients run batched through ``torch.func.vmap``.
 
 The round is ``RoundProgram`` of :mod:`..core.federated`: map the
-local-SGD body over the cohort from the server params, take the weighted
-average, step the server.  The round's device randomness (dropout
-keep-masks for every client, step and example) is drawn up front from the
-round's generator, outside any ``vmap``, so ``scan`` and ``vmap`` see the
-same masks.  Threefry bits are not reproduced (see ``core/rng.py``).
+local-SGD body over the cohort from the server params, build the
+algorithm's spec-declared aggregates, step the server.  The round's device
+randomness (dropout keep-masks for every client, step and example) is drawn
+up front from the round's generator, outside any ``vmap``, so ``scan`` and
+``vmap`` see the same masks.  Threefry bits are not reproduced (see
+``core/rng.py``).
 """
 
 from __future__ import annotations
@@ -27,24 +28,29 @@ from ..ml.trainer.local_trainer import LocalTrainer
 
 def make_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
                   mode: str = "scan") -> Callable:
-    """``round_fn(state, x, y, mask, weights, generator) -> (new_state,
-    metrics)``.  ``metrics`` holds device scalars
-    (``train_loss``: the weight-averaged client loss, ``total_steps``: the
-    real steps taken), read by the caller only when it logs."""
-    program = federated.RoundProgram(trainer.make_local_train(), server_opt,
+    """``round_fn(state, x, y, mask, weights, generator, c_clients=None) ->
+    (new_state, metrics, new_client_state)``.  ``c_clients`` holds the
+    cohort's per-client state rows (SCAFFOLD/FedDyn; ``None`` otherwise)
+    and ``new_client_state`` their updated rows; the stacked client params
+    are not returned.  ``metrics`` holds device scalars (``train_loss``:
+    the weight-averaged client loss, ``total_steps``: the real steps
+    taken), read by the caller only when it logs."""
+    program = federated.RoundProgram(server_opt.spec,
+                                     trainer.make_local_train(), server_opt,
                                      mode)
     model = trainer.model
 
     def round_fn(state: ServerState, x, y, mask, weights,
-                 generator: torch.Generator):
+                 generator: torch.Generator, c_clients=None):
         drop = (model.dropout_masks(generator, tuple(x.shape[:3]))
                 if model.has_dropout else None)
-        new_state, outs, _ = program(state, x, y, mask, weights, drop)
+        new_state, outs, _ = program(state, x, y, mask, weights, drop,
+                                     c_clients)
         metrics = {
             "train_loss": torch.sum(outs.loss * weights) / torch.sum(weights),
             "total_steps": torch.sum(outs.num_steps),
         }
-        return new_state, metrics
+        return new_state, metrics, outs.new_client_state
 
     return round_fn
 
@@ -56,10 +62,11 @@ def make_gather_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
     round takes only the ``(C, S, B)`` index tensor from the host."""
     inner = make_round_fn(trainer, server_opt, mode)
 
-    def round_fn(state: ServerState, idx, mask, weights, generator):
+    def round_fn(state: ServerState, idx, mask, weights, generator,
+                 c_clients=None):
         idx = idx.to(torch.long)
         return inner(state, train_x[idx], train_y[idx], mask, weights,
-                     generator)
+                     generator, c_clients)
 
     return round_fn
 

@@ -1,16 +1,19 @@
 """Simulator facades (port of ``fedml_tpu.simulation.simulator``): the
-``sp`` backend with the default ``FedAvgAPI`` dispatch.  The mesh backend
-(and its reference aliases "MPI"/"NCCL") and the other sp engines are not
+``sp`` backend, dispatching by ``federated_optimizer`` to the hierarchical,
+async and decentralized engines, and to ``FedAvgAPI`` for the synchronous
+algorithms of the zoo.  The mesh backend (and its reference aliases
+"MPI"/"NCCL"), the other sp engines and two-tier silo aggregation are not
 ported yet and raise by name."""
 
 from __future__ import annotations
 
+from .sp.async_fedavg import AsyncFedAvgAPI
+from .sp.decentralized import DecentralizedFedAPI
 from .sp.fedavg_api import FedAvgAPI
+from .sp.hierarchical_fl import HierarchicalFedAvgAPI
 
 #: sp engines of the JAX package's dispatch that the port does not run yet
-_OTHER_SP_ENGINES = ("hierarchicalfl", "hierarchical_fl", "fedbuff",
-                     "async_fedavg", "fedasync", "decentralized_fl", "dsgd",
-                     "push_sum", "fednas", "fedseg", "fedgkt", "fedgan")
+_UNPORTED_SP_ENGINES = ("fedbuff", "fednas", "fedseg", "fedgkt", "fedgan")
 
 
 class SimulatorSingleProcess:
@@ -20,16 +23,26 @@ class SimulatorSingleProcess:
             raise NotImplementedError(
                 "custom client trainers and server aggregators are not "
                 "ported yet")
+        mode = str(getattr(args, "sp_client_mode", "vmap"))
         alg = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
-        if alg in _OTHER_SP_ENGINES:
+        if alg in HierarchicalFedAvgAPI.NAMES:
+            self.fl_trainer = HierarchicalFedAvgAPI(args, device, dataset,
+                                                    model, client_mode=mode)
+        elif alg in AsyncFedAvgAPI.NAMES:
+            self.fl_trainer = AsyncFedAvgAPI(args, device, dataset, model,
+                                             client_mode=mode)
+        elif alg in DecentralizedFedAPI.NAMES:
+            self.fl_trainer = DecentralizedFedAPI(args, device, dataset,
+                                                  model)
+        elif alg in _UNPORTED_SP_ENGINES:
             raise NotImplementedError(
                 f"the {alg!r} sp engine is not ported yet")
-        if int(getattr(args, "num_silos", 0) or 0) > 1:
+        elif int(getattr(args, "num_silos", 0) or 0) > 1:
             raise NotImplementedError(
                 "num_silos > 1 (two-tier silo aggregation) is not ported yet")
-        self.fl_trainer = FedAvgAPI(
-            args, device, dataset, model,
-            client_mode=str(getattr(args, "sp_client_mode", "vmap")))
+        else:
+            self.fl_trainer = FedAvgAPI(args, device, dataset, model,
+                                        client_mode=mode)
 
     def run(self):
         return self.fl_trainer.train()

@@ -1,12 +1,15 @@
 """Single-process federated simulation (port of
-``fedml_tpu.simulation.sp.fedavg_api.FedAvgAPI``) for the FedAvg family.
+``fedml_tpu.simulation.sp.fedavg_api.FedAvgAPI``) for every synchronous
+algorithm of the zoo (``core/federated.py``'s registry).
 
 Per round: sample the cohort (host Philox stream, bitwise the JAX
 package's), stage its ``(C, S, B)`` index tensor, step mask and weights
-with the steps padded to a power of two, run the round function of
-:mod:`..round_engine` on the device-resident dataset, and keep the
-round's metrics on the device until a log round reads them.  Evaluation
-runs every ``frequency_of_the_test`` rounds and at the last.
+with the steps padded to a power of two, gather the cohort's rows of the
+per-client state table (SCAFFOLD/FedDyn), run the round function of
+:mod:`..round_engine` on the device-resident dataset, scatter the updated
+rows back, and keep the round's metrics on the device until a log round
+reads them.  Evaluation runs every ``frequency_of_the_test`` rounds and at
+the last.
 
 The JAX engine's tracing, health, population, bucketing, fused-block,
 client-store, data-paging, quantized-collective, checkpoint and
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ...core import rng as rng_util
+from ...core import tree as tree_util
 from ...data.federated_dataset import FederatedDataset
 from ...device import get_device
 from ...ml.aggregator.agg_operator import ServerOptimizer
@@ -54,16 +58,36 @@ def _unported_options(args):
     return [name for name, on in checks if on]
 
 
+def fedavg_inside(args, engine: str, names) -> str:
+    """The algorithm an engine that runs FedAvg rounds inside (the
+    hierarchical and async engines, decentralized SGD) runs: "fedavg",
+    when ``federated_optimizer`` names the engine itself or the FedAvg
+    family.  Any other algorithm raises, so none runs as FedAvg unseen."""
+    alg = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+    if alg not in tuple(names) + ("fedavg", "fedavg_seq"):
+        raise NotImplementedError(
+            f"the {engine} engine runs FedAvg rounds; federated_optimizer "
+            f"{alg!r} is not ported to it")
+    return "fedavg"
+
+
 class FedAvgAPI:
-    """Runs the FedAvg family on one device.
+    """Runs one algorithm of the zoo on one device.
 
     ``client_mode``: "scan" (clients one after another) or "vmap" (clients
     batched by ``torch.func.vmap``).  ``device`` goes through
     :func:`~fedml_tpu_torch.device.get_device` (None: the card unless
-    ``args.device`` is "cpu"), which also sets the card's f32 policy."""
+    ``args.device`` is "cpu"), which also sets the card's f32 policy.
+    ``algorithm`` (default: ``args.federated_optimizer``) names the
+    algorithm; the hierarchical and async engines pass "fedavg".
+
+    ``client_table`` is the per-client state of SCAFFOLD/FedDyn: one row
+    per dataset client on the device, zero until the client is sampled
+    (``None`` for the other algorithms)."""
 
     def __init__(self, args, device, dataset: FederatedDataset,
-                 model: TorchModel, client_mode: str = "vmap"):
+                 model: TorchModel, client_mode: str = "vmap",
+                 algorithm=None):
         unported = _unported_options(args)
         if unported:
             raise NotImplementedError(
@@ -80,8 +104,8 @@ class FedAvgAPI:
         self.clients_per_round = int(getattr(args, "client_num_per_round", 10))
         self.eval_freq = int(getattr(args, "frequency_of_the_test", 5))
 
-        self.trainer = LocalTrainer(model, args)
-        self.server_opt = ServerOptimizer(args)
+        self.trainer = LocalTrainer(model, args, algorithm)
+        self.server_opt = ServerOptimizer(args, algorithm)
         # the initial weights are drawn on the CPU, so a seed gives the same
         # model on every device; the rounds draw on the device
         params = model.init(rng_util.purpose_key(rng_util.root_key(self.seed),
@@ -91,6 +115,10 @@ class FedAvgAPI:
         self._root = rng_util.root_key(self.seed, self.device)
         self._test = None
         self.round_fn = self._build_round_fn(client_mode)
+        self.client_table = None
+        if self.server_opt.spec.client_state:
+            self.client_table = tree_util.client_table_init(
+                self.state.global_params, self.dataset.num_clients)
         self.metrics_history = []
 
     def _build_round_fn(self, client_mode: str):
@@ -128,13 +156,27 @@ class FedAvgAPI:
     def _to_device(self, *arrays):
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
+    def _gather_c(self, cohort):
+        """The cohort's rows of the per-client state table, stacked, or
+        ``None`` for an algorithm without per-client state."""
+        if self.client_table is None:
+            return None
+        return tree_util.cohort_gather(self.client_table, cohort)
+
+    def _scatter_c(self, cohort, new_rows):
+        if self.client_table is None or new_rows is None:
+            return
+        self.client_table = tree_util.cohort_scatter(self.client_table,
+                                                     cohort, new_rows)
+
     def train_one_round(self, round_idx: int):
         gen = rng_util.round_key(self._root, round_idx)
         if hasattr(self, "_dev_x"):
             clients, idx, mask, w, steps = self._stage_round_arrays(round_idx)
             idx, mask, w = self._to_device(idx, mask, w)
-            self.state, metrics = self.round_fn(self.state, idx, mask, w,
-                                                gen)
+            c_stacked = self._gather_c(clients)
+            self.state, metrics, new_c = self.round_fn(
+                self.state, idx, mask, w, gen, c_stacked)
         else:
             clients = self._client_sampling(round_idx)
             x, y, mask, w = self.dataset.cohort_batches(
@@ -146,8 +188,10 @@ class FedAvgAPI:
                 y = np.pad(y, pad + [(0, 0)] * (y.ndim - 2))
                 mask = np.pad(mask, pad)
             x, y, mask, w = self._to_device(x, y, mask, w)
-            self.state, metrics = self.round_fn(self.state, x, y, mask, w,
-                                                gen)
+            c_stacked = self._gather_c(clients)
+            self.state, metrics, new_c = self.round_fn(
+                self.state, x, y, mask, w, gen, c_stacked)
+        self._scatter_c(clients, new_c)
         metrics = dict(metrics)
         metrics["allocated_steps"] = len(clients) * steps
         return metrics

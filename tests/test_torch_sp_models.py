@@ -235,10 +235,10 @@ def test_padded_step_is_a_true_no_op(over):
     state = trainer.tx.init(params)
     x, y = (torch.tensor(a) for a in _inputs((12,), 4))
     zero = torch.zeros(())
-    p1, s1, _, _ = trainer.train_step((params, state, zero, zero), x, y,
-                                      torch.ones(()))
-    p2, s2, n2, l2 = trainer.train_step((p1, s1, zero, zero), x, y,
-                                        torch.zeros(()))
+    p1, s1, _, _, _, _ = trainer.train_step(
+        (params, state, None, None, zero, zero), x, y, torch.ones(()))
+    p2, s2, _, _, n2, l2 = trainer.train_step(
+        (p1, s1, None, None, zero, zero), x, y, torch.zeros(()))
     assert all(torch.equal(p2[k], p1[k]) for k in p1)
     assert all(torch.equal(s2[k], s1[k]) for k in s1)
     assert float(n2) == 0 and float(l2) == 0

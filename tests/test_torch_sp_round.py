@@ -228,8 +228,8 @@ def test_unported_options_raise_by_name(flag, value):
 
 @pytest.mark.parametrize("over,what", [
     (dict(backend="mesh"), "mesh"), (dict(backend="NCCL"), "NCCL"),
-    (dict(federated_optimizer="SCAFFOLD"), "scaffold"),
-    (dict(federated_optimizer="FedProx"), "fedprox"),
+    (dict(federated_optimizer="FedNAS"), "fednas"),
+    (dict(federated_optimizer="FedGKT"), "fedgkt"),
     (dict(federated_optimizer="fedbuff"), "fedbuff"),
     (dict(num_silos=2), "num_silos"), (dict(model="resnet18"), "resnet18"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
@@ -251,13 +251,17 @@ def test_run_simulation_refuses_what_is_not_ported(over, what):
 
 
 def test_only_the_fedavg_family_runs():
-    """The port's allow-list: the FedAvg family in any case, the JAX
-    package's other algorithms refused as unported, anything else as
-    unknown."""
-    assert t_federated.check_algorithm("FedAvg") == "fedavg"
-    assert t_federated.check_algorithm("FedAvg_seq") == "fedavg_seq"
-    with pytest.raises(NotImplementedError, match="qfedavg"):
-        t_federated.check_algorithm("qFedAvg")
+    """The port's allow-list: every registered algorithm of the zoo in any
+    case; ``fedbuff``, registered but driven by the unported buffered-async
+    engine, refused as unported; anything else as unknown."""
+    zoo = ("fedavg", "fedavg_seq", "fedprox", "fedopt", "fedopt_seq",
+           "scaffold", "feddyn", "fednova", "mime", "fedsgd", "qfedavg")
+    for name in zoo:
+        assert t_federated.check_algorithm(name.upper()) == name
+        assert t_federated.has_spec(name)
+    assert t_federated.check_algorithm("qFedAvg") == "qfedavg"
+    with pytest.raises(NotImplementedError, match="fedbuff"):
+        t_federated.check_algorithm("FedBuff")
     with pytest.raises(ValueError, match="fedavgx"):
         t_federated.check_algorithm("fedavgx")
 
