@@ -62,10 +62,28 @@ Phases, each printing its own lines:
    FEMNIST CNN configuration for 2 rounds: finite test loss, every
    parameter moved off the seed's initial weights.  The zoo launches none
    of the flash-attention kernels (checked).
+7. fusion — the sp round program's options, under the device policy (TF32
+   off, deterministic cuDNN, checked): (a) ``lr`` at ``bench.py --fused``'s
+   shape (256 clients a round) and (b) the FEMNIST CNN (FedAvg, and
+   SCAFFOLD with its table inside the graph), each unfused and in blocks
+   of 8 (``round_block``: one CUDA graph per step class, captured in a
+   warm block, replayed a round), timed after the warm block, fused ≡
+   unfused to 1e-6 (per-round losses, params, state, table rows), a graph
+   captured, host launch calls and device kernels a round counted under
+   ``torch.profiler``; (c) cohort bucketing on the FEMNIST CNN at α 0.5 and
+   0.3 beside the unbucketed rounds (the same real steps; fewer allocated
+   on the skewed split) and on ``tests/test_e2e_sp.py``'s own split (eval
+   within 2e-4); (d) a population of 4 client learning rates on the
+   FEMNIST CNN, unfused and in blocks of 4 (fused ≡ unfused to 1e-6),
+   seconds a member beside the single run, member 0 ≡ the single run on
+   ``cnn_web`` to 1e-6 (reported on FEMNIST); (e) the same FEMNIST rounds
+   twice with cuDNN free to pick its algorithms and under the policy
+   (bitwise equal, checked).  No flash-attention kernel launches (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (with the
 forward+backward times, the slice's round numbers, phase 5's numbers
-under ``"sp"`` and phase 6's under ``"zoo"`` beside them) and the card's
+under ``"sp"``, phase 6's under ``"zoo"`` and phase 7's under ``"fusion"``
+beside them) and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line; so does a host without CUDA, or a directory without the port.
@@ -491,6 +509,319 @@ def zoo_phase(torch, fedml_tpu_torch, smi):
     return out
 
 
+#: host-side CUDA runtime calls that put work on the card (kernel and
+#: graph launches, copies, fills), as torch.profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset")
+
+
+def launch_counts(torch, run, rounds):
+    """Host launch calls and device kernels (copies and fills included) a
+    round, over ``run()`` (``rounds`` rounds) under ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    host = dev = 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev += ev.count
+        elif ev.key.startswith(HOST_LAUNCH_CALLS):
+            host += ev.count
+    return {"host_launches": host / rounds, "device_kernels": dev / rounds}
+
+
+def sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.time() - t0, out
+
+
+def run_unfused(api, start, stop):
+    return [api.train_one_round(r) for r in range(start, stop)]
+
+
+def run_blocks(api, start, stop):
+    out, r = [], start
+    while r < stop:
+        k, ms = api.train_block(r)
+        out.append(ms)
+        r += k
+    return out
+
+
+def block_losses(torch, blocks):
+    return torch.cat([ms["train_loss"].reshape(-1, ms["train_loss"].shape[-1])
+                      for ms in blocks], dim=-1).cpu()
+
+
+def fused_vs_unfused(torch, fedml_tpu_torch, phase, cfg, k, rounds, timed,
+                     smi):
+    """The same ``rounds`` rounds unfused and in blocks of ``k`` from the
+    same seed.  Each engine warms up for the first block's ``k`` rounds
+    (where the fused one captures its graphs); the next ``timed`` rounds
+    (whole blocks) are timed, ended by a synchronise; the rest (a ragged
+    tail) runs untimed.  Per-round losses, params, server state and table
+    rows are held fused ≡ unfused to ``FUSED_TOL``; then each engine's
+    launches a round are counted on a profiled pass over the first
+    block's rounds (the state goes on: a counting run only)."""
+    rec = {"round_block": k, "rounds": rounds, "timed_rounds": timed}
+    apis = {}
+    for mode, rb in (("unfused", 1), ("fused", k)):
+        api = apis[mode] = build_sp(sp_args(
+            fedml_tpu_torch, **dict(cfg, comm_round=rounds, round_block=rb)))
+        run = run_unfused if rb == 1 else run_blocks
+        torch.cuda.reset_peak_memory_stats()
+        t_warm, first = sync_time(torch, lambda: run(api, 0, k))
+        dt, mid = sync_time(torch, lambda: run(api, k, k + timed))
+        last = run(api, k + timed, rounds)
+        if rb == 1:
+            losses = torch.stack([m["train_loss"] for m in first + mid
+                                  + last])
+            allocated = first[0]["allocated_steps"]
+        else:
+            losses = block_losses(torch, first + mid + last).reshape(-1)
+        torch.cuda.synchronize()
+        rec[mode] = {"s_per_round": dt / timed, "warm_s": t_warm,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "losses": losses.cpu().tolist()}
+    u, f = apis["unfused"], apis["fused"]
+    got, ref = state_tensors(f), state_tensors(u)
+    err = max(max_err(got[key], v) for key, v in ref.items())
+    loss_err = max(abs(a - b) for a, b in zip(rec["fused"]["losses"],
+                                              rec["unfused"]["losses"]))
+    say("fusion", f"{phase}: fused vs unfused after {rounds} rounds: params, "
+                  f"state and table max abs diff {err:.2e}, per-round losses "
+                  f"{loss_err:.2e} (tol {FUSED_TOL:g}) [{smi}]")
+    if not (err <= FUSED_TOL and loss_err <= FUSED_TOL):
+        fail(f"{phase}: fused and unfused rounds disagree ({err:.2e}, "
+             f"{loss_err:.2e} > {FUSED_TOL:g})")
+    n_prof = min(k, 2)
+    rec["unfused"].update(launch_counts(
+        torch, lambda: run_unfused(u, 0, n_prof), n_prof))
+    rec["fused"].update(launch_counts(torch, lambda: run_blocks(f, 0, k), k))
+    rec["fused"]["graphs_captured"] = f._block_fn.captures
+    if not f._block_fn.captures:
+        fail(f"{phase}: the fused rounds captured no CUDA graph")
+    rec.update(max_abs_err=err, loss_max_abs_err=loss_err,
+               allocated_steps=allocated,
+               fused_speedup=rec["unfused"]["s_per_round"]
+               / rec["fused"]["s_per_round"])
+    uu, ff = rec["unfused"], rec["fused"]
+    say("fusion", f"{phase}: K {k}, {timed} timed rounds after a warm block "
+                  f"of {k} ({rounds} in all): unfused "
+                  f"{uu['s_per_round']:.4f} s/round, fused "
+                  f"{ff['s_per_round']:.4f} s/round (speedup "
+                  f"{rec['fused_speedup']:.2f}x; warm block "
+                  f"{uu['warm_s']:.2f} / {ff['warm_s']:.2f} s, "
+                  f"{ff['graphs_captured']} graph(s) captured); host launch "
+                  f"calls a round {uu['host_launches']:.0f} unfused, "
+                  f"{ff['host_launches']:.0f} fused; device kernels a round "
+                  f"{uu['device_kernels']:.0f} / {ff['device_kernels']:.0f}; "
+                  f"peak {uu['peak_gib']:.3f} / {ff['peak_gib']:.3f} GiB "
+                  f"[{smi}]")
+    return rec
+
+
+#: fused ≡ unfused on the card (in practice bitwise: the device policy
+#: keeps cuDNN deterministic, and a graph replays the eager round's kernels)
+FUSED_TOL = 1e-6
+#: phase 7 (d): the population's client learning rates; member 0 runs the
+#: static rate, so it is phase 7 (b)'s FedAvg run
+POP_CLIENT_LR = [0.06, 0.03, 0.1, 0.02]
+#: phase 7 (d): member 0 ≡ the single run on cnn_web, whose rounds do not
+#: amplify rounding (see fusion_phase)
+POP_SMALL = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+                 train_size=512, test_size=128, model="cnn_web",
+                 client_num_in_total=8, client_num_per_round=4,
+                 batch_size=16, learning_rate=0.05, partition_method="hetero",
+                 partition_alpha=0.3, momentum=0.9, random_seed=3,
+                 comm_round=3)
+
+
+#: phase 7 (c): ``tests/test_e2e_sp.py::test_cohort_bucketing_matches_
+#: unbucketed``'s skewed split
+BUCKET_SMALL = dict(dataset="synthetic", num_classes=4, input_shape=(10,),
+                    train_size=1200, test_size=120, model="lr",
+                    client_num_in_total=24, client_num_per_round=12,
+                    comm_round=4, batch_size=8, learning_rate=0.2,
+                    partition_method="hetero", partition_alpha=0.15,
+                    random_seed=5)
+
+
+def check_policy(torch, phase):
+    b = torch.backends
+    if b.cudnn.allow_tf32 or b.cuda.matmul.allow_tf32 or \
+            not b.cudnn.deterministic or b.cudnn.benchmark:
+        fail(f"{phase}: TF32 on, or cuDNN not deterministic, or benchmark "
+             "mode on")
+
+
+def fusion_phase(torch, fedml_tpu_torch, smi):
+    """Phase 7."""
+    from fedml_tpu_torch.core import federated
+    out = {}
+    # the device policy (get_device): TF32 off, deterministic cuDNN
+    build_sp(sp_args(fedml_tpu_torch, **dict(SP_LR_BENCH, comm_round=1)))
+    check_policy(torch, "fusion")
+    # (a) lr at bench.py --fused's shape: 256 clients a round, K 1 and 8
+    out["lr_bench"] = fused_vs_unfused(
+        torch, fedml_tpu_torch, "(a) lr", SP_LR_BENCH, 8, 24, 16, smi)
+    # (b) the FEMNIST CNN, FedAvg and SCAFFOLD (its table in the graph):
+    # a warm block, 8 timed rounds, a ragged tail of 1 (9 after the warm)
+    for alg in ("fedavg", "scaffold"):
+        out[f"femnist_cnn_{alg}"] = fused_vs_unfused(
+            torch, fedml_tpu_torch, f"(b) FEMNIST CNN {alg}",
+            dict(SP_FEMNIST_CNN, federated_optimizer=alg), 8, 17, 8, smi)
+
+    # (c) cohort bucketing on the FEMNIST CNN, at the reference split (α
+    # 0.5) and a skewed one (α 0.3); the JAX test's own skewed lr split
+    rec = {}
+    for alpha in (0.5, 0.3):
+        for mode, on in (("unbucketed", False), ("bucketed", True)):
+            api = build_sp(sp_args(fedml_tpu_torch, **dict(
+                SP_FEMNIST_CNN, comm_round=3, partition_alpha=alpha,
+                cohort_bucketing=on)))
+            torch.cuda.reset_peak_memory_stats()
+            api.train_one_round(0)
+            dt, ms = sync_time(torch, lambda: run_unfused(api, 1, 3))
+            loss, acc = api.evaluate()
+            rec[f"femnist_a{alpha}_{mode}"] = {
+                "s_per_round": dt / 2, "allocated_steps": [
+                    int(m["allocated_steps"]) for m in ms],
+                "total_steps": [float(m["total_steps"]) for m in ms],
+                "test_loss": loss, "test_acc": acc,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        u, b = (rec[f"femnist_a{alpha}_{m}"]
+                for m in ("unbucketed", "bucketed"))
+        say("fusion", f"(c) bucketing, FEMNIST CNN FedAvg, α {alpha}: "
+                      f"unbucketed {u['s_per_round']:.4f} s/round, bucketed "
+                      f"{b['s_per_round']:.4f} s/round; allocated steps "
+                      f"{u['allocated_steps']} vs {b['allocated_steps']}, "
+                      f"real {u['total_steps']} vs {b['total_steps']}; test "
+                      f"loss {u['test_loss']:.6f} vs {b['test_loss']:.6f} "
+                      f"(reported); peak {u['peak_gib']:.3f} / "
+                      f"{b['peak_gib']:.3f} GiB [{smi}]")
+        # a bucket's cohort pads to a power of two, so at α 0.5 a round
+        # without a long straggler can allocate more; on the skewed split
+        # every timed round allocates fewer
+        if u["total_steps"] != b["total_steps"] or (alpha == 0.3 and not all(
+                x < y for x, y in zip(b["allocated_steps"],
+                                      u["allocated_steps"]))):
+            fail(f"(c) α {alpha}: bucketed rounds do not do the unbucketed "
+                 f"rounds' real work over fewer steps: {u}, {b}")
+    # the eval bar on the JAX test's own split (lr, 24 clients, α 0.15),
+    # whose rounds do not amplify rounding as the CNN's do
+    small = {}
+    for mode, on in (("unbucketed", False), ("bucketed", True)):
+        api = small[mode] = build_sp(sp_args(fedml_tpu_torch, **dict(
+            BUCKET_SMALL, cohort_bucketing=on)))
+        small[mode + "_m"] = run_unfused(api, 0, 4)
+    (l0, a0), (l1, a1) = (small[m].evaluate()
+                          for m in ("unbucketed", "bucketed"))
+    steps_eq = all(float(x["total_steps"]) == float(y["total_steps"]) and
+                   y["allocated_steps"] < x["allocated_steps"] for x, y in
+                   zip(small["unbucketed_m"], small["bucketed_m"]))
+    rec["lr_skewed"] = {"test_loss_diff": abs(l0 - l1),
+                        "test_acc_diff": abs(a0 - a1)}
+    say("fusion", f"(c) bucketing on the JAX test's split (lr, α 0.15, 4 "
+                  f"rounds): test loss {l0:.6f} vs {l1:.6f} (tol 2e-4), "
+                  f"accuracy {a0:.4f} vs {a1:.4f} (tol 2e-2); same real "
+                  f"steps over fewer allocated: {steps_eq} [{smi}]")
+    if not (steps_eq and abs(l0 - l1) < 2e-4 and abs(a0 - a1) < 2e-2):
+        fail("(c) bucketed lr rounds disagree with the unbucketed ones")
+    out["bucketing"] = rec
+
+    # (d) a client-lr population of 4 on the FEMNIST CNN, unfused and fused
+    # at K 4 over 9 rounds (4 + 4 + 1), beside (b)'s single FedAvg run
+    rec = {"client_lr": POP_CLIENT_LR}
+    pops = {}
+    for mode, rb in (("unfused", 1), ("fused", 4)):
+        api = pops[mode] = build_sp(sp_args(fedml_tpu_torch, **dict(
+            SP_FEMNIST_CNN, comm_round=9, round_block=rb,
+            population_axes={"client_lr": POP_CLIENT_LR})))
+        run = run_unfused if rb == 1 else run_blocks
+        torch.cuda.reset_peak_memory_stats()
+        t_warm, _ = sync_time(torch, lambda: run(api, 0, 4))
+        dt, _ = sync_time(torch, lambda: run(api, 4, 8))
+        run(api, 8, 9)
+        rec[mode] = {"s_per_round": dt / 4, "s_per_member_round":
+                     dt / 4 / len(POP_CLIENT_LR), "warm_s": t_warm,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    err_fu = max(max_err(pops["fused"].state.global_params[k], v)
+                 for k, v in pops["unfused"].state.global_params.items())
+    # member 0 runs (b)'s single FedAvg rounds, batched with three other
+    # members: the grouped convolutions sum in another order, and the
+    # FEMNIST CNN's ReLU/max-pool sites amplify that chaotically within a
+    # round, so there the difference is reported; the 1e-6 bar is held on
+    # cnn_web's small rounds
+    single = build_sp(sp_args(fedml_tpu_torch, **dict(SP_FEMNIST_CNN,
+                                                      comm_round=9)))
+    run_unfused(single, 0, 9)
+    m0 = federated.population_member(pops["unfused"].state.global_params, 0)
+    femnist_m0 = max(max_err(m0[k], v)
+                     for k, v in single.state.global_params.items())
+    small = {}
+    for tag, over in (("single", {}), ("population", dict(
+            population_axes={"client_lr": [0.05, 0.02, 0.1, 0.01]}))):
+        api = small[tag] = build_sp(sp_args(fedml_tpu_torch,
+                                            **dict(POP_SMALL, **over)))
+        run_unfused(api, 0, 3)
+    m0 = federated.population_member(small["population"].state.global_params,
+                                     0)
+    err_m0 = max(max_err(m0[k], v)
+                 for k, v in small["single"].state.global_params.items())
+    single_s = out["femnist_cnn_fedavg"]["unfused"]["s_per_round"]
+    rec.update(member0_max_abs_err=err_m0, fused_max_abs_err=err_fu,
+               femnist_member0_max_abs_err=femnist_m0,
+               single_s_per_round=single_s)
+    say("fusion", f"(d) population of {len(POP_CLIENT_LR)} (client_lr "
+                  f"{POP_CLIENT_LR}), FEMNIST CNN FedAvg, 4 timed rounds "
+                  f"after 4: unfused {rec['unfused']['s_per_round']:.4f} "
+                  f"s/round ({rec['unfused']['s_per_member_round']:.4f} a "
+                  f"member), fused K 4 {rec['fused']['s_per_round']:.4f} "
+                  f"s/round ({rec['fused']['s_per_member_round']:.4f} a "
+                  f"member); the single run (b) {single_s:.4f} s/round; peak "
+                  f"{rec['unfused']['peak_gib']:.3f} / "
+                  f"{rec['fused']['peak_gib']:.3f} GiB [{smi}]")
+    say("fusion", f"(d) fused vs unfused population after 9 rounds "
+                  f"{err_fu:.2e} (tol {FUSED_TOL:g}); member 0 vs the single "
+                  f"run: cnn_web 3 rounds {err_m0:.2e} (tol {FUSED_TOL:g}), "
+                  f"FEMNIST 9 rounds {femnist_m0:.2e} (reported) [{smi}]")
+    if not (err_m0 <= FUSED_TOL and err_fu <= FUSED_TOL):
+        fail(f"(d) population disagrees: member 0 {err_m0:.2e}, fused "
+             f"{err_fu:.2e}")
+    out["population"] = rec
+
+    # (e) why the policy keeps cuDNN deterministic: the same 9 FEMNIST
+    # rounds twice with cuDNN free to pick its algorithms, then the policy
+    runs = []
+    for det in (False, False, True):
+        torch.backends.cudnn.deterministic = det
+        api = build_sp(sp_args(fedml_tpu_torch, **dict(SP_FEMNIST_CNN,
+                                                       comm_round=9)))
+        torch.backends.cudnn.deterministic = det   # get_device set it
+        run_unfused(api, 0, 9)
+        runs.append(api.state.global_params)
+    check_policy(torch, "fusion (e)")
+    free = max(max_err(runs[0][k], v) for k, v in runs[1].items())
+    pinned = max(max_err(runs[2][k], v) for k, v in single.state
+                 .global_params.items())
+    say("fusion", f"(e) two runs of the same 9 FEMNIST rounds: "
+                  f"{free:.2e} apart with cuDNN free to pick its algorithms; "
+                  f"{pinned:.2e} apart under the policy (deterministic) "
+                  f"[{smi}]")
+    if pinned != 0.0:
+        fail(f"(e) deterministic cuDNN runs differ by {pinned:.2e}")
+    out["reproducibility"] = {"cudnn_free_max_abs_err": free,
+                              "cudnn_deterministic_max_abs_err": pinned}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -757,8 +1088,17 @@ def main():
     say("zoo", f"phase 6 took {time.time() - t0:.1f} s; no flash-attention "
                "kernel launched")
 
+    # -- 7. fusion: round blocks as CUDA graphs, bucketing, populations ----
+    t0 = time.time()
+    fusion = fusion_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("phase 7 launched a flash-attention kernel")
+    say("fusion", f"phase 7 took {time.time() - t0:.1f} s; no "
+                  "flash-attention kernel launched")
+
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
-                      "slice": slice_rec, "sp": sp, "zoo": zoo}))
+                      "slice": slice_rec, "sp": sp, "zoo": zoo,
+                      "fusion": fusion}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,18 +5,23 @@ them.  A round reads ``broadcast -> client_map -> weighted reductions ->
 server update``; which reductions an algorithm needs beyond the weighted
 params average (SCAFFOLD's Δc, FedNova's τ, ...) is declared in its spec.
 
-The JAX package's hyperparameter sweeps (``HParams``, populations) are not
-ported: every spec function reads the static values from the optimizer,
-which is the reference's ``hp=None`` path.
+Every spec function and server transition takes an optional
+:class:`HParams` (``hp``): a population of P experiments stacks its swept
+fields on a leading member axis and maps the round over it with
+``torch.func.vmap``; ``hp=None`` reads the static values, bitwise the
+single-experiment path.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from . import rng as rng_util
 from . import tree as tree_util
 
 
@@ -102,6 +107,85 @@ class StackedReducer:
 
 
 # --------------------------------------------------------------------------
+# swept hyperparameters
+# --------------------------------------------------------------------------
+
+#: HParams fields a population may sweep (``population_axes`` keys)
+HPARAM_FIELDS = ("server_lr", "client_lr", "prox_mu", "feddyn_alpha",
+                 "qfed_q", "seed")
+
+
+@dataclass(frozen=True)
+class HParams:
+    """Knobs of one federated experiment that a population sweeps.
+
+    Every field is optional: ``None`` means "use the static value from
+    args" and keeps the default path's numerics bitwise the same.  A
+    population stacks each swept field to a ``(P,)`` tensor and maps the
+    round over it with ``torch.func.vmap``; inside the map each field is
+    the member's 0-d value.
+
+    ``seed`` never enters the mapped round: the member's dropout masks are
+    drawn from :func:`fold_seed`'s generator before the map."""
+    server_lr: Any = None
+    client_lr: Any = None
+    prox_mu: Any = None
+    feddyn_alpha: Any = None
+    qfed_q: Any = None
+    seed: Any = None
+
+    def swept(self) -> Dict[str, Any]:
+        """The set fields, as a dict (what ``vmap`` maps over)."""
+        return {f: getattr(self, f) for f in HPARAM_FIELDS
+                if getattr(self, f) is not None}
+
+
+def resolve(hp: Optional[HParams], name: str, static):
+    """The swept value when ``hp`` carries one, else the static default.
+    With ``hp=None`` this returns the Python float unchanged, so the
+    single-experiment path is bitwise the historical one."""
+    if hp is None:
+        return static
+    v = getattr(hp, name, None)
+    return static if v is None else v
+
+
+def lr_ratio(hp: Optional[HParams], name: str, static_lr: float):
+    """Multiplier turning an update computed at the static learning rate
+    into one at the swept rate.  Every optimizer here ends in ``-lr·u``, so
+    updates are linear in lr and post-scaling by ``swept/static`` is exact
+    up to one rounding; ``None`` (not swept) means "multiply by nothing":
+    the caller skips the scale and the default path stays bitwise."""
+    if hp is None:
+        return None
+    v = getattr(hp, name, None)
+    if v is None:
+        return None
+    if static_lr == 0.0:
+        raise ValueError(
+            f"sweeping {name} requires a nonzero static {name} baseline "
+            "(the swept rate applies as a ratio to the static optimizer)")
+    return v / static_lr
+
+
+#: high word of the child-seed word :func:`fold_seed` derives a member's
+#: generator with, so member streams never coincide with per-client ones
+SEED_FOLD_TAG = 0x5EED
+
+
+def fold_seed(gen: torch.Generator, hp: Optional[HParams]
+              ) -> torch.Generator:
+    """The member's generator of a round: a child of the round's generator
+    keyed by the member's seed when the population sweeps one (never the
+    same stream for every member), else ``gen`` itself (members share the
+    round's draws, so the sweep isolates the hyperparameter)."""
+    if hp is None or getattr(hp, "seed", None) is None:
+        return gen
+    seed = int(hp.seed) & 0xFFFFFFFF
+    return rng_util.child_key(gen, (SEED_FOLD_TAG << 32) | seed)
+
+
+# --------------------------------------------------------------------------
 # algorithm specs
 # --------------------------------------------------------------------------
 
@@ -109,24 +193,24 @@ class StackedReducer:
 class AggSpec:
     """One cross-client aggregate of a round.
 
-    ``source(opt, state, outs)`` returns the per-client stacked tree
+    ``source(opt, state, outs, hp)`` returns the per-client stacked tree
     (``kind="wavg"``) or ``(C,)`` vector (scalar kinds); ``weights(opt,
-    outs, w)`` the per-client weights.  ``kind``: ``wavg`` (weighted average
-    of a stacked tree), ``scalar`` (weighted average of a scalar per
-    client) or ``sum`` (sum of ``source * weights``)."""
+    outs, w, hp)`` the per-client weights.  ``kind``: ``wavg`` (weighted
+    average of a stacked tree), ``scalar`` (weighted average of a scalar
+    per client) or ``sum`` (sum of ``source * weights``)."""
     name: str
     source: Callable
-    weights: Callable = lambda opt, outs, w: w
+    weights: Callable = lambda opt, outs, w, hp: w
     kind: str = "wavg"
 
 
-def _real(opt, outs, w):
+def _real(opt, outs, w, hp=None):
     """Real-client mask: padded zero-weight cohort rows contribute
     nothing."""
     return (w > 0).to(torch.float32)
 
 
-def _nova_deltas(opt, state, outs):
+def _nova_deltas(opt, state, outs, hp):
     """FedNova normalised directions d_i = (x - y_i)/max(tau_i, 1)."""
     tau = outs.tau
     return tree_util.tree_map(
@@ -140,7 +224,7 @@ class AlgorithmSpec:
     """Declarative round shape of one federated optimizer: the
     cross-client reductions beyond the universal ``avg_params`` /
     ``n_sampled`` pair, whether it keeps per-client state, and (optional)
-    a pure server transition ``update(gvals, agg, opt) -> (new_gvals,
+    a pure server transition ``update(gvals, agg, hp, opt) -> (new_gvals,
     new_fields)`` used in place of the ``ServerOptimizer`` built-ins."""
     name: str
     aggregates: Tuple[AggSpec, ...] = ()
@@ -180,20 +264,22 @@ for _name in ("fedavg", "fedavg_seq", "fedprox", "fedopt", "fedopt_seq",
 register_algorithm(AlgorithmSpec(
     "scaffold",
     aggregates=(AggSpec("mean_delta_c",
-                        source=lambda opt, state, outs: outs.delta_c,
+                        source=lambda opt, state, outs, hp: outs.delta_c,
                         weights=_real),),
     client_state=True))
 
 register_algorithm(AlgorithmSpec(
     "fednova",
     aggregates=(AggSpec("nova_d", source=_nova_deltas),
-                AggSpec("tau_eff", source=lambda opt, state, outs: outs.tau,
+                AggSpec("tau_eff",
+                        source=lambda opt, state, outs, hp: outs.tau,
                         kind="scalar"))))
 
 for _name in ("mime", "fedsgd"):
     register_algorithm(AlgorithmSpec(
         _name, aggregates=(AggSpec(
-            "avg_grad", source=lambda opt, state, outs: outs.grad_sum),)))
+            "avg_grad",
+            source=lambda opt, state, outs, hp: outs.grad_sum),)))
 
 # buffered-async FedAvg: the round shape is FedAvg's, but it runs on the
 # buffered-async engine, which is not ported (check_algorithm refuses it)
@@ -202,19 +288,23 @@ register_algorithm(AlgorithmSpec("fedbuff"))
 
 # -- q-FedAvg (arXiv:1905.10497): fair aggregation as a pure spec -----------
 
-def _qfed_deltas(opt, state, outs):
+def _qfed_q(opt, hp):
+    return resolve(hp, "qfed_q", opt.qfed_q)
+
+
+def _qfed_deltas(opt, state, outs, hp):
     L = 1.0 / opt.qfed_lr
     return tree_util.tree_map(lambda yi, gx: (gx[None] - yi) * L,
                               outs.params, state.global_params)
 
 
-def _qfed_u(opt, state, outs):      # F_k^q
-    return torch.pow(torch.clamp(outs.loss, min=1e-10), opt.qfed_q)
+def _qfed_u(opt, state, outs, hp):      # F_k^q
+    return torch.pow(torch.clamp(outs.loss, min=1e-10), _qfed_q(opt, hp))
 
 
-def _qfed_h(opt, state, outs):      # q F^{q-1} ||Δ||^2 + L F^q
+def _qfed_h(opt, state, outs, hp):      # q F^{q-1} ||Δ||^2 + L F^q
     L = 1.0 / opt.qfed_lr
-    q = opt.qfed_q
+    q = _qfed_q(opt, hp)
     F = torch.clamp(outs.loss, min=1e-10)
     dn = sum(torch.sum((((gx[None] - yi) * L).to(torch.float32)) ** 2,
                        dim=tuple(range(1, yi.dim())))
@@ -223,7 +313,7 @@ def _qfed_h(opt, state, outs):      # q F^{q-1} ||Δ||^2 + L F^q
     return q * torch.pow(F, q - 1.0) * dn + L * torch.pow(F, q)
 
 
-def _qfed_update(gvals, agg, opt):
+def _qfed_update(gvals, agg, hp, opt):
     scale = agg["qfed_u"] / torch.clamp(agg["qfed_h"], min=1e-12)
     new = tree_util.tree_map(lambda g, d: g - scale * d, gvals,
                              agg["qfed_delta"])
@@ -234,8 +324,8 @@ QFEDAVG = register_algorithm(AlgorithmSpec(
     "qfedavg", avg_params=False, update=_qfed_update,
     aggregates=(
         AggSpec("qfed_delta", source=_qfed_deltas,
-                weights=lambda opt, outs, w:
-                _real(opt, outs, w) * _qfed_u(opt, None, outs)),
+                weights=lambda opt, outs, w, hp:
+                _real(opt, outs, w) * _qfed_u(opt, None, outs, hp)),
         AggSpec("qfed_u", source=_qfed_u, weights=_real, kind="sum"),
         AggSpec("qfed_h", source=_qfed_h, weights=_real, kind="sum"),
     )))
@@ -266,15 +356,16 @@ def check_algorithm(name: str) -> str:
 # --------------------------------------------------------------------------
 
 def build_aggregates(spec: AlgorithmSpec, red, opt, state, outs,
-                     w) -> Dict[str, Any]:
+                     w, hp=None) -> Dict[str, Any]:
     """The round's cross-client reductions, built from the algorithm's
-    spec with the engine's reducer."""
+    spec with the engine's reducer (``hp``: the swept hyperparameters, or
+    ``None``)."""
     agg: Dict[str, Any] = {"n_sampled": red.sum_scalar(_real(opt, outs, w))}
     if spec.avg_params:
         agg["avg_params"] = red.wavg(outs.params, w)
     for a in spec.aggregates:
-        src = a.source(opt, state, outs)
-        ww = a.weights(opt, outs, w)
+        src = a.source(opt, state, outs, hp)
+        ww = a.weights(opt, outs, w, hp)
         if a.kind == "wavg":
             agg[a.name] = red.wavg(src, ww)
         elif a.kind == "scalar":
@@ -289,23 +380,24 @@ class RoundProgram:
     """One federated round composed from the primitives::
 
         new_state, outs, agg = program(state, x, y, mask, weights, drop,
-                                       c_clients)
+                                       c_clients, hp)
 
     ``local_train(global_params, xb, yb, mask, drop, ctx, client_state)``
     is the per-client body (:meth:`LocalTrainer.make_local_train`); ``drop``
     holds the cohort's dropout keep-masks and ``c_clients`` the cohort's
-    per-client state rows (leading client axis each), or ``None``."""
+    per-client state rows (leading client axis each), or ``None``; ``hp``
+    the swept :class:`HParams` or ``None``."""
     spec: AlgorithmSpec
     local_train: Callable
     server_opt: Any
     mode: str = "vmap"
     reducer: Any = field(default_factory=StackedReducer)
 
-    def run_clients(self, state, x, y, mask, drop, c_clients):
+    def run_clients(self, state, x, y, mask, drop, c_clients, hp=None):
         from ..ml.trainer.local_trainer import ClientOut, ServerCtx
         ctx = ServerCtx(global_params=state.global_params,
                         c_server=state.c_server,
-                        server_momentum=state.momentum)
+                        server_momentum=state.momentum, hparams=hp)
         g = broadcast(state.global_params)
         fn = lambda xb, yb, mb, db, cc: self.local_train(g, xb, yb, mb, db,
                                                          ctx, cc)
@@ -313,8 +405,92 @@ class RoundProgram:
                                                      c_clients))
 
     def __call__(self, state, x, y, mask, weights, drop=None,
-                 c_clients=None):
-        outs = self.run_clients(state, x, y, mask, drop, c_clients)
+                 c_clients=None, hp=None):
+        outs = self.run_clients(state, x, y, mask, drop, c_clients, hp)
         agg = build_aggregates(self.spec, self.reducer, self.server_opt,
-                               state, outs, weights)
-        return self.server_opt.update_from_aggregates(state, agg), outs, agg
+                               state, outs, weights, hp)
+        new_state = self.server_opt.update_from_aggregates(state, agg, hp)
+        return new_state, outs, agg
+
+
+# --------------------------------------------------------------------------
+# populations: P experiments in one round program
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Population:
+    """A stacked batch of P experiments sharing one round program."""
+    size: int
+    axes: Dict[str, tuple]
+    members: Tuple[Dict[str, Any], ...]   # per-member hparam dicts (host)
+    hparams: HParams                      # stacked (P,) tensors
+
+    def to(self, device) -> "Population":
+        return dataclasses.replace(self, hparams=HParams(**{
+            k: v.to(device) for k, v in self.hparams.swept().items()}))
+
+    def member_hparams(self, m: int) -> HParams:
+        """Member ``m``'s values, as host scalars."""
+        return HParams(**self.members[m])
+
+
+def parse_population(args) -> Optional[Population]:
+    """``args.population`` / ``args.population_axes`` -> :class:`Population`.
+
+    ``population_axes`` maps hparam names (:data:`HPARAM_FIELDS`) to value
+    lists; the population is their cartesian grid (first axis slowest).
+    ``population: P`` alone sweeps ``seed: [0..P-1]``: P repeats of the
+    same config under member-distinct randomness.  When both are given, P
+    must equal the grid size."""
+    axes_in = getattr(args, "population_axes", None) or {}
+    p_arg = int(getattr(args, "population", 0) or 0)
+    if not axes_in and p_arg <= 1:
+        return None
+    bad = [k for k in axes_in if k not in HPARAM_FIELDS]
+    if bad:
+        raise ValueError(
+            f"unknown population_axes {bad!r}; sweepable: {HPARAM_FIELDS}")
+    axes = {k: tuple(v if isinstance(v, (list, tuple)) else [v])
+            for k, v in axes_in.items()}
+    if not axes:
+        axes = {"seed": tuple(range(p_arg))}
+    names = list(axes)
+    grid = list(itertools.product(*[axes[n] for n in names]))
+    if p_arg and p_arg != len(grid):
+        raise ValueError(
+            f"population={p_arg} but population_axes grid has {len(grid)} "
+            "members")
+    members = tuple(dict(zip(names, g)) for g in grid)
+    stacked = {n: torch.tensor([m[n] for m in members],
+                               dtype=torch.int32 if n == "seed"
+                               else torch.float32) for n in names}
+    return Population(size=len(grid), axes=axes, members=members,
+                      hparams=HParams(**stacked))
+
+
+def _map_tensors(fn: Callable, obj):
+    """``fn`` on every tensor of a nest of dicts, tuples, lists and
+    dataclasses (``ServerState``); other leaves (``None``, the host round
+    counter) are kept."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_map_tensors(fn, v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _map_tensors(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def stack_member_states(state, p: int):
+    """P copies of one experiment's state on a new leading member axis."""
+    return _map_tensors(lambda x: torch.stack([x] * p), state)
+
+
+def population_member(tree, member: int):
+    """Member ``member`` of a population-stacked nest as a normal
+    single-experiment one."""
+    return _map_tensors(lambda x: x[member], tree)

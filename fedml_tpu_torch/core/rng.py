@@ -34,6 +34,12 @@ def _child(key: torch.Generator, word: int) -> torch.Generator:
     return g
 
 
+def child_key(key: torch.Generator, word: int) -> torch.Generator:
+    """Child generator of ``key`` for an integer word, independent of how
+    far ``key`` has been drawn (it derives from the initial seed)."""
+    return _child(key, int(word))
+
+
 def purpose_key(key: torch.Generator, purpose: str) -> torch.Generator:
     """Child generator for a string purpose tag ("init", "lora", ...)."""
     tag = int.from_bytes(hashlib.sha256(purpose.encode()).digest()[:4],

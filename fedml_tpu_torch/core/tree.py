@@ -102,31 +102,37 @@ def client_table_init(params: TensorDict, rows: int) -> TensorDict:
                     params)
 
 
-def _in_range(table: TensorDict, cohort):
+def _in_range(table: TensorDict, cohort, axis: int = 0):
     """(positions in the cohort, their ids) of the ids that name a row,
     as index tensors on the table's device."""
     ids = np.asarray(cohort, dtype=np.int64).reshape(-1)
-    rows = next(iter(table.values())).shape[0]
+    rows = next(iter(table.values())).shape[axis]
     pos = np.nonzero((ids >= 0) & (ids < rows))[0]
     dev = next(iter(table.values())).device
     return (torch.as_tensor(pos, device=dev),
             torch.as_tensor(ids[pos], device=dev))
 
 
-def cohort_gather(table: TensorDict, cohort) -> TensorDict:
-    """Rows ``cohort`` of the table stacked on a leading cohort axis; an
+def cohort_gather(table: TensorDict, cohort, axis: int = 0) -> TensorDict:
+    """Rows ``cohort`` of the table stacked on a cohort axis in place of
+    the row axis ``axis`` (1 for a population's member-stacked table); an
     out-of-range id (the padded-cohort sentinel) reads as a zero row."""
-    pos, ids = _in_range(table, cohort)
+    pos, ids = _in_range(table, cohort, axis)
     n = len(np.asarray(cohort).reshape(-1))
-    return tree_map(lambda t: torch.zeros((n,) + tuple(t.shape[1:]),
-                                          dtype=t.dtype, device=t.device)
-                    .index_copy_(0, pos, t.index_select(0, ids)), table)
+
+    def gather(t):
+        shape = list(t.shape)
+        shape[axis] = n
+        return torch.zeros(shape, dtype=t.dtype, device=t.device).index_copy_(
+            axis, pos, t.index_select(axis, ids))
+
+    return tree_map(gather, table)
 
 
-def cohort_scatter(table: TensorDict, cohort, new_rows: TensorDict
-                   ) -> TensorDict:
+def cohort_scatter(table: TensorDict, cohort, new_rows: TensorDict,
+                   axis: int = 0) -> TensorDict:
     """The table with the cohort's rows replaced by ``new_rows``; an
     out-of-range id is dropped."""
-    pos, ids = _in_range(table, cohort)
+    pos, ids = _in_range(table, cohort, axis)
     return tree_map(lambda t, n: t.index_copy(
-        0, ids, n.index_select(0, pos).to(t.dtype)), table, new_rows)
+        axis, ids, n.index_select(axis, pos).to(t.dtype)), table, new_rows)

@@ -8,7 +8,13 @@ lands on the CPU without being asked.
 It also sets the f32 math policy on the card: matmuls and convolutions run
 in full f32.  PyTorch runs convolutions in TF32 by default
 (``torch.backends.cudnn.allow_tf32`` is True), which would make the card's
-CNN rounds drift from the CPU's by far more than f32 rounding.
+CNN rounds drift from the CPU's by far more than f32 rounding.  And cuDNN
+picks only deterministic convolution algorithms: its default
+weight-gradient algorithms sum with atomics in a varying order, and a
+CNN's ReLU and max-pool amplify that rounding chaotically, so two runs of
+one seed drifted apart by ~3e-2 in 9 FEMNIST rounds on one H100
+(``chip_smoke.py`` phase 7 (e)).  With it a seed gives the same run, and a
+round replayed as a CUDA graph the eager round's numbers.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ def get_device(args, device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run on the CPU")
-    # process-wide: full f32 for cuBLAS and cuDNN
+    # process-wide: full f32 for cuBLAS and cuDNN, reproducible cuDNN sums
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
-    log.info("device %s (%s); f32 matmuls and convolutions in full f32", dev,
-             torch.cuda.get_device_name(0))
+    log.info("device %s (%s); f32 matmuls and convolutions in full f32, "
+             "deterministic cuDNN", dev, torch.cuda.get_device_name(0))
     return dev

@@ -2,9 +2,10 @@
 ``fedml_tpu.ml.aggregator.agg_operator``): the server-side state the zoo's
 algorithms keep (FedOpt's optimizer moments, SCAFFOLD's c_server, FedDyn's
 h, Mime's momentum) and each algorithm's transition from the round's
-aggregates.  Not ported: the mesh engine's scatter-mode layout
-(``init_sharded``, ``update_shard``), the partial/merge reducers of the
-hierarchical and bucketed engines, and the quantized-collective fields.
+aggregates, with the population's swept hyperparameters (``hp``) and the
+exact merge of cohort-bucket partials.  Not ported: the mesh engine's
+scatter-mode layout (``init_sharded``, ``update_shard``), the silo partial
+reducer and the quantized-collective fields.
 """
 
 from __future__ import annotations
@@ -95,15 +96,31 @@ class ServerOptimizer:
                                           federated.StackedReducer(), self,
                                           state, outs, weights)
 
-    def update_from_aggregates(self, state: ServerState,
-                               agg: dict) -> ServerState:
+    def merge_aggregates(self, aggs, total_ws) -> dict:
+        """Combine per-bucket aggregates (``round_engine.
+        make_bucket_agg_fn``) into one cohort aggregate.  Every entry is a
+        weighted average, so the merge is the weight-weighted average of
+        bucket averages: exact up to float reassociation.  Only the
+        stateless weighted-average family (``round_engine.BUCKETABLE_ALGS``)
+        reaches it, so there are no auxiliary keys to combine."""
+        tw = sum(total_ws)
+        avg = {k: sum(w * a["avg_params"][k] for w, a in zip(total_ws, aggs))
+               / tw for k in aggs[0]["avg_params"]}
+        return {"avg_params": avg,
+                "n_sampled": sum(a["n_sampled"] for a in aggs)}
+
+    def update_from_aggregates(self, state: ServerState, agg: dict,
+                               hp=None) -> ServerState:
+        """Stage 2.  ``hp`` (:class:`~fedml_tpu_torch.core.federated.
+        HParams`) overrides the static server hyperparameters with a
+        population member's; ``None`` keeps the constants."""
         alg = self.algorithm
         nxt = state.round_idx + 1
 
         if self.spec.update is not None:
             # registered spec (q-FedAvg): one pure elementwise transition
             new_params, fields = self.spec.update(state.global_params, agg,
-                                                  self)
+                                                  hp, self)
             return state.replace(round_idx=nxt, global_params=new_params,
                                  **fields)
         avg = agg["avg_params"]
@@ -114,14 +131,18 @@ class ServerOptimizer:
             pseudo_grad = tree_util.tree_sub(state.global_params, avg)
             updates, new_opt = self.server_tx.update(
                 pseudo_grad, state.opt_state, state.global_params)
+            ratio = federated.lr_ratio(hp, "server_lr", self.server_lr)
+            if ratio is not None:
+                updates = tree_util.tree_scale(updates, ratio)
             new_params = tree_util.tree_add(state.global_params, updates)
             return state.replace(round_idx=nxt, global_params=new_params,
                                  opt_state=new_opt)
 
         if alg == "scaffold":
             # x ← x + lr_g·(avg − x);  c ← c + (|S|/N)·mean(Δc)
+            lr = federated.resolve(hp, "server_lr", self.server_lr)
             new_params = tree_util.tree_axpy(
-                self.server_lr, tree_util.tree_sub(avg, state.global_params),
+                lr, tree_util.tree_sub(avg, state.global_params),
                 state.global_params)
             frac = agg["n_sampled"] / self.total_clients
             new_c = tree_util.tree_axpy(frac, agg["mean_delta_c"],
@@ -137,7 +158,7 @@ class ServerOptimizer:
 
         if alg == "feddyn":
             # h ← h − α·(avg − x)·|S|/N ; x ← avg − h/α
-            alpha = self.feddyn_alpha
+            alpha = federated.resolve(hp, "feddyn_alpha", self.feddyn_alpha)
             frac = agg["n_sampled"] / self.total_clients
             diff = tree_util.tree_sub(avg, state.global_params)
             new_h = tree_util.tree_axpy(-alpha * frac, diff, state.h)
@@ -154,7 +175,8 @@ class ServerOptimizer:
                                  momentum=new_mom)
 
         if alg == "fedsgd":
-            new_params = tree_util.tree_axpy(-self.server_lr, agg["avg_grad"],
+            lr = federated.resolve(hp, "server_lr", self.server_lr)
+            new_params = tree_util.tree_axpy(-lr, agg["avg_grad"],
                                              state.global_params)
             return state.replace(round_idx=nxt, global_params=new_params)
 

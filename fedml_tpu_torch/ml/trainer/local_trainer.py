@@ -17,6 +17,11 @@ by ``federated_optimizer``:
 - FedNova, Mime, FedSGD: the mean gradient over real steps returned;
   FedNova also its real step count τ.
 
+A population sweeps some of the hooks' constants (``prox_mu``,
+``feddyn_alpha``, the client lr) through ``ServerCtx.hparams``
+(:class:`~fedml_tpu_torch.core.federated.HParams`); with ``None`` every
+hook reads its static value, bitwise the single-experiment path.
+
 A padded step (mask 0) is a TRUE no-op: params and optimizer state are
 kept by ``torch.where``, not merely fed a zero gradient, so weight decay,
 momentum and Adam's count stay frozen.  The round loss is the mean over the
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from ...core import federated
 from ...core import tree as tree_util
+from ...core.federated import lr_ratio, resolve
 from ...core.state import make_client_optimizer
 from ...models.base import TorchModel
 
@@ -45,6 +51,7 @@ class ServerCtx:
     global_params: Any = None
     c_server: Any = None          # SCAFFOLD server control variate
     server_momentum: Any = None   # Mime server momentum
+    hparams: Any = None           # swept HParams of a population member
 
 
 class ClientOut(NamedTuple):
@@ -96,13 +103,15 @@ class LocalTrainer:
                                   dropout_masks=dropout_masks)
         loss = cross_entropy_loss(logits, y)
         g = None if ctx is None else ctx.global_params
+        hp = None if ctx is None else ctx.hparams
         if self.algorithm == "fedprox" and g is not None:
+            mu = resolve(hp, "prox_mu", self.prox_mu)
             diff = tree_util.tree_sub(params, g)
-            loss = loss + 0.5 * self.prox_mu * tree_util.tree_sq_norm(diff)
+            loss = loss + 0.5 * mu * tree_util.tree_sq_norm(diff)
         if self.algorithm == "feddyn" and g is not None:
+            alpha = resolve(hp, "feddyn_alpha", self.feddyn_alpha)
             diff = tree_util.tree_sub(params, g)
-            loss = loss + 0.5 * self.feddyn_alpha * tree_util.tree_sq_norm(
-                diff)
+            loss = loss + 0.5 * alpha * tree_util.tree_sq_norm(diff)
             if client_state is not None:
                 loss = loss - tree_util.tree_dot(client_state, params)
         return loss
@@ -124,6 +133,12 @@ class LocalTrainer:
             step_grads = {k: (1 - b) * g + b * ctx.server_momentum[k]
                           for k, g in grads.items()}
         updates, new_opt = self.tx.update(step_grads, opt_state, params)
+        # a swept client lr: every client optimizer ends in -lr·u, so
+        # post-scaling by swept/static is the swept-lr step
+        ratio = lr_ratio(None if ctx is None else ctx.hparams, "client_lr",
+                         self.lr)
+        if ratio is not None:
+            updates = tree_util.tree_scale(updates, ratio)
         new_params = {k: p + updates[k] for k, p in params.items()}
         keep = mask > 0
         new_params = {k: torch.where(keep, v, params[k])
@@ -161,20 +176,23 @@ class LocalTrainer:
                 carry = self.train_step(carry, xb[s], yb[s], mask[s],
                                         masks_s, ctx)
             params, _, client_state, gsum, nsteps, loss_sum = carry
+            hp = None if ctx is None else ctx.hparams
             out = {"params": params, "num_steps": nsteps,
                    "loss": loss_sum / torch.clamp(nsteps, min=1.0)}
             if alg == "scaffold":
                 # c_i⁺ = c_i − c + (x − y_i)/(K·lr)  (SCAFFOLD eq. 4, II)
                 K = torch.clamp(nsteps, min=1.0)
+                lr = resolve(hp, "client_lr", self.lr)
                 c_plus = {k: client_state[k] - ctx.c_server[k]
-                          + (global_params[k] - params[k]) / (K * self.lr)
+                          + (global_params[k] - params[k]) / (K * lr)
                           for k in params}
                 out["delta_c"] = tree_util.tree_sub(c_plus, client_state)
                 out["new_client_state"] = c_plus
             elif alg == "feddyn":
                 # ∇̂_i⁺ = ∇̂_i − α·(θ_i − θ_global)
+                alpha = resolve(hp, "feddyn_alpha", self.feddyn_alpha)
                 out["new_client_state"] = {
-                    k: client_state[k] - self.feddyn_alpha
+                    k: client_state[k] - alpha
                     * (params[k] - global_params[k]) for k in params}
             if alg == "fednova":
                 out["tau"] = nsteps

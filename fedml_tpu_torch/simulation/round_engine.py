@@ -13,11 +13,25 @@ randomness (dropout keep-masks for every client, step and example) is drawn
 up front from the round's generator, outside any ``vmap``, so ``scan`` and
 ``vmap`` see the same masks.  Threefry bits are not reproduced (see
 ``core/rng.py``).
+
+Three programs build on the round:
+
+- :func:`make_block_round_fn`: K rounds as one block.  On the CPU a plain
+  loop; on the card one round per (step class, cohort size) is captured as
+  a CUDA graph and replayed once per round, the JAX package's
+  ``jit(lax.scan(round))``.  The masks are drawn outside the graph.
+- :func:`make_population_round_fn`: P experiments (a population over
+  :class:`~fedml_tpu_torch.core.federated.HParams`) in one round,
+  ``torch.func.vmap`` over the member axis outside the client map.
+- :func:`make_bucket_agg_fn`: the partial round of one cohort bucket (the
+  clients of one pow2 step class), merged exactly across buckets.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import gc
+import types
+from typing import Callable, Optional
 
 import torch
 
@@ -25,34 +39,97 @@ from ..core import federated
 from ..ml.aggregator.agg_operator import ServerOptimizer, ServerState
 from ..ml.trainer.local_trainer import LocalTrainer
 
+#: ServerState fields that hold tensors (``round_idx`` is a host counter)
+STATE_FIELDS = ("global_params", "opt_state", "c_server", "h", "momentum")
 
-def make_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
-                  mode: str = "scan") -> Callable:
-    """``round_fn(state, x, y, mask, weights, generator, c_clients=None) ->
-    (new_state, metrics, new_client_state)``.  ``c_clients`` holds the
-    cohort's per-client state rows (SCAFFOLD/FedDyn; ``None`` otherwise)
-    and ``new_client_state`` their updated rows; the stacked client params
-    are not returned.  ``metrics`` holds device scalars (``train_loss``:
-    the weight-averaged client loss, ``total_steps``: the real steps
-    taken), read by the caller only when it logs."""
+
+def state_fields(state: ServerState) -> dict:
+    """The state's set tensor fields, ``{field: {name: tensor}}``."""
+    return {f: getattr(state, f) for f in STATE_FIELDS
+            if getattr(state, f) is not None}
+
+
+def draw_dropout(model, generator: torch.Generator, lead):
+    """The round's dropout keep-masks for every client, step and example
+    (``lead`` = ``(C, S, B)``), or ``None`` for a model without dropout."""
+    return model.dropout_masks(generator, tuple(lead)) \
+        if model.has_dropout else None
+
+
+def draw_member_dropout(model, generator: torch.Generator, lead,
+                        population):
+    """A population's masks, ``(P,) + lead + site``: member ``m`` draws
+    from :func:`~fedml_tpu_torch.core.federated.fold_seed`'s generator, so
+    members share the round's masks unless the population sweeps
+    ``seed``."""
+    if not model.has_dropout:
+        return None
+    gens = [federated.fold_seed(generator, population.member_hparams(m))
+            for m in range(population.size)]
+    if all(g is generator for g in gens):
+        shared = draw_dropout(model, generator, lead)
+        return tuple(torch.stack([d] * population.size) for d in shared)
+    draws = [draw_dropout(model, g, lead) for g in gens]
+    return tuple(torch.stack(site) for site in zip(*draws))
+
+
+def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                    mode: str = "scan") -> Callable:
+    """``core(state, x, y, mask, weights, drop, c_clients=None, hp=None) ->
+    (new_state, metrics, new_client_state)`` with the dropout masks
+    ``drop`` given: the round with no randomness of its own."""
     program = federated.RoundProgram(server_opt.spec,
                                      trainer.make_local_train(), server_opt,
                                      mode)
-    model = trainer.model
 
-    def round_fn(state: ServerState, x, y, mask, weights,
-                 generator: torch.Generator, c_clients=None):
-        drop = (model.dropout_masks(generator, tuple(x.shape[:3]))
-                if model.has_dropout else None)
+    def core(state: ServerState, x, y, mask, weights, drop, c_clients=None,
+             hp=None):
         new_state, outs, _ = program(state, x, y, mask, weights, drop,
-                                     c_clients)
+                                     c_clients, hp)
         metrics = {
             "train_loss": torch.sum(outs.loss * weights) / torch.sum(weights),
             "total_steps": torch.sum(outs.num_steps),
         }
         return new_state, metrics, outs.new_client_state
 
+    return core
+
+
+def make_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                  mode: str = "scan") -> Callable:
+    """``round_fn(state, x, y, mask, weights, generator, c_clients=None,
+    hp=None) -> (new_state, metrics, new_client_state)``.  ``c_clients``
+    holds the cohort's per-client state rows (SCAFFOLD/FedDyn; ``None``
+    otherwise) and ``new_client_state`` their updated rows; the stacked
+    client params are not returned.  ``metrics`` holds device scalars
+    (``train_loss``: the weight-averaged client loss, ``total_steps``: the
+    real steps taken), read by the caller only when it logs."""
+    core = make_round_core(trainer, server_opt, mode)
+    model = trainer.model
+
+    def round_fn(state: ServerState, x, y, mask, weights,
+                 generator: torch.Generator, c_clients=None, hp=None):
+        drop = draw_dropout(model, generator, x.shape[:3])
+        return core(state, x, y, mask, weights, drop, c_clients, hp)
+
     return round_fn
+
+
+def make_gather_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                     train_x: torch.Tensor, train_y: torch.Tensor,
+                     mode: str = "vmap") -> Callable:
+    """:func:`make_round_core` over the device-resident dataset: ``core(
+    state, idx, mask, weights, drop, c_clients=None, hp=None)`` with the
+    ``(C, S, B)`` index tensor in place of the data."""
+    inner = make_round_core(trainer, server_opt, mode)
+
+    def core(state: ServerState, idx, mask, weights, drop, c_clients=None,
+             hp=None):
+        idx = idx.to(torch.long)
+        return inner(state, train_x[idx], train_y[idx], mask, weights, drop,
+                     c_clients, hp)
+
+    return core
 
 
 def make_gather_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
@@ -60,15 +137,268 @@ def make_gather_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
                          mode: str = "vmap") -> Callable:
     """Device-gather variant: the dataset lives on the device once and the
     round takes only the ``(C, S, B)`` index tensor from the host."""
-    inner = make_round_fn(trainer, server_opt, mode)
+    core = make_gather_core(trainer, server_opt, train_x, train_y, mode)
+    model = trainer.model
 
     def round_fn(state: ServerState, idx, mask, weights, generator,
-                 c_clients=None):
-        idx = idx.to(torch.long)
-        return inner(state, train_x[idx], train_y[idx], mask, weights,
-                     generator, c_clients)
+                 c_clients=None, hp=None):
+        drop = draw_dropout(model, generator, idx.shape[:3])
+        return core(state, idx, mask, weights, drop, c_clients, hp)
 
     return round_fn
+
+
+# -- populations -------------------------------------------------------------
+# The round is a pure function of (state, cohort, hp), so torch.func.vmap
+# over the member axis of (state, client-table rows, hp) runs P experiments
+# in one program: members share the cohort tensors; their dropout masks
+# are drawn per member before the map.  Metrics come back (P,).
+
+def make_population_core(core: Callable, has_table: bool) -> Callable:
+    """``pop_core(states, idx, mask, w, drop, c_stacked, hps)``: ``core``
+    (a gather core) mapped over the member axis of the stacked state, the
+    masks ``drop`` ``(P, C, S, B, ...)``, the table rows ``c_stacked``
+    ``(P, C, ...)`` and the swept fields of ``hps``."""
+
+    def pop_core(states: ServerState, idx, mask, w, drop, c_stacked,
+                 hps: federated.HParams):
+        ri = states.round_idx
+
+        def one(fields, d, c, hp):
+            st = ServerState(round_idx=ri, **fields)
+            new, metrics, new_c = core(st, idx, mask, w, d, c,
+                                       federated.HParams(**hp))
+            out = (state_fields(new), metrics)
+            return out + (new_c,) if has_table else out
+
+        hp = {k: v for k, v in hps.swept().items() if k != "seed"}
+        res = torch.func.vmap(one, in_dims=(
+            0, None if drop is None else 0, 0 if has_table else None, 0))(
+            state_fields(states), drop, c_stacked, hp)
+        new_c = res[2] if has_table else None
+        return ServerState(round_idx=ri + 1, **res[0]), res[1], new_c
+
+    return pop_core
+
+
+def make_population_round_fn(trainer: LocalTrainer,
+                             server_opt: ServerOptimizer,
+                             train_x: torch.Tensor, train_y: torch.Tensor,
+                             population, mode: str = "vmap") -> Callable:
+    """``pop_fn(states, idx, mask, w, generator, c_stacked, hps)``: the
+    gather round mapped over the member axis of ``states`` /
+    ``c_stacked`` / ``hps``; the cohort inputs are shared."""
+    core = make_population_core(
+        make_gather_core(trainer, server_opt, train_x, train_y, mode),
+        server_opt.spec.client_state)
+    model = trainer.model
+
+    def pop_fn(states, idx, mask, w, generator, c_stacked, hps):
+        drop = draw_member_dropout(model, generator, idx.shape[:3],
+                                   population)
+        return core(states, idx, mask, w, drop, c_stacked, hps)
+
+    return pop_fn
+
+
+# -- fused round blocks ------------------------------------------------------
+
+class BlockRoundFn:
+    """K rounds as one block: ``block_fn(state, idx_blk, mask_blk, w_blk,
+    gens, cohort_blk, client_table=None, hp=None, round_steps=None) ->
+    (state, metrics, client_table)``.
+
+    Every cohort input gains a leading round axis of length K (``idx_blk``
+    ``(K, C, S, B)``, the steps padded to the block's pow2 class);
+    ``gens`` holds the K rounds' generators; ``cohort_blk`` ``(K, C)``
+    (int64, every id in range: the caller checks them on the host) indexes
+    the per-client state table.  ``round_steps[j]`` is round j's own pow2
+    step class: the round runs at that size (its arrays sliced, its
+    dropout masks drawn at it), as the unfused round does, so a block
+    equals its rounds run one by one and does no work on the block's
+    padding.  Metrics stack on a last ``(K,)`` axis.
+
+    On the CPU the block is a plain loop over the rounds.  On the card the
+    round is captured as a CUDA graph per (step class, cohort size), after
+    one warm run on a side stream, with one memory pool shared by every
+    graph of the block function, and replayed once per round.  The graph
+    reads static input buffers (state, indices, mask, weights, masks,
+    cohort ids), ends by copying the new state and table rows back into
+    them and its loss and steps into a static output, which the host
+    copies into slot j of the block's metrics; nothing syncs the host
+    inside a block.  A capture that fails raises: there is no eager
+    fallback."""
+
+    def __init__(self, core: Callable, model, has_table: bool,
+                 population=None):
+        self.core = core
+        self.model = model
+        self.has_table = has_table
+        self.population = population
+        self.row_axis = 1 if population is not None else 0
+        self._slots = {}
+        self._pool = None
+        self._static = None
+        #: graphs captured so far (one per step class and cohort size)
+        self.captures = 0
+
+    # -- shared pieces -------------------------------------------------------
+    def _draw(self, gen, lead):
+        if self.population is not None:
+            return draw_member_dropout(self.model, gen, lead,
+                                       self.population)
+        return draw_dropout(self.model, gen, lead)
+
+    def _round(self, state, idx, mask, w, drop, cohort, table, hp,
+               inplace: bool):
+        c = None
+        ax = self.row_axis
+        if self.has_table:
+            c = {k: t.index_select(ax, cohort) for k, t in table.items()}
+        state, metrics, new_c = self.core(state, idx, mask, w, drop, c, hp)
+        if self.has_table:
+            if inplace:
+                for k, t in table.items():
+                    t.index_copy_(ax, cohort, new_c[k].to(t.dtype))
+            else:
+                table = {k: t.index_copy(ax, cohort, new_c[k].to(t.dtype))
+                         for k, t in table.items()}
+        return state, metrics, table
+
+    def __call__(self, state: ServerState, idx_blk, mask_blk, w_blk, gens,
+                 cohort_blk, client_table=None, hp=None, round_steps=None):
+        k, c, s, b = idx_blk.shape
+        round_steps = list(round_steps or [s] * k)
+        if idx_blk.device.type == "cuda":
+            return self._replay(state, idx_blk, mask_blk, w_blk, gens,
+                                cohort_blk, client_table, hp, round_steps)
+        metrics = []
+        table = client_table
+        for j, sj in enumerate(round_steps):
+            state, m, table = self._round(
+                state, idx_blk[j, :, :sj], mask_blk[j, :, :sj], w_blk[j],
+                self._draw(gens[j], (c, sj, b)), cohort_blk[j], table, hp,
+                inplace=False)
+            metrics.append(m)
+        return state, {key: torch.stack([m[key] for m in metrics], dim=-1)
+                       for key in metrics[0]}, table
+
+    # -- the card: CUDA graphs -----------------------------------------------
+    def _bind(self, state, table):
+        """The static state and table buffers every graph reads and
+        writes, holding ``state`` and ``table`` (copied in unless they are
+        those buffers already)."""
+        fields = state_fields(state)
+        if self._static is None:
+            self._static = types.SimpleNamespace(
+                fields={f: {k: v.clone() for k, v in d.items()}
+                        for f, d in fields.items()},
+                table=None if table is None else
+                {k: v.clone() for k, v in table.items()})
+            return self._static
+        st = self._static
+        for f, d in fields.items():
+            for k, v in d.items():
+                if st.fields[f][k] is not v:
+                    st.fields[f][k].copy_(v)
+        if table is not None:
+            for k, v in table.items():
+                if st.table[k] is not v:
+                    st.table[k].copy_(v)
+        return st
+
+    def _capture(self, slots, round_idx, hp):
+        """Warm the round up once on a side stream, then capture it."""
+        st = self._static
+
+        def body(copy_back):
+            state = ServerState(round_idx=round_idx, **st.fields)
+            new, m, _ = self._round(state, slots.idx, slots.mask, slots.w,
+                                    slots.drop, slots.cohort, st.table, hp,
+                                    inplace=copy_back)
+            out = torch.stack([m["train_loss"].to(torch.float32),
+                               m["total_steps"].to(torch.float32)])
+            if copy_back:
+                for f, d in state_fields(new).items():
+                    for k, v in d.items():
+                        if st.fields[f][k] is not v:
+                            st.fields[f][k].copy_(v)
+                slots.out.copy_(out)
+            return out
+
+        dev = slots.idx.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = body(False)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        slots.out = torch.empty_like(out)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # other threads (the stager's worker) run on during the capture:
+        # only this thread's calls may break it ("thread_local"), and no
+        # garbage collection may free CUDA objects inside it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                body(True)
+        finally:
+            gc.enable()
+        self.captures += 1
+        return graph
+
+    def _replay(self, state, idx_blk, mask_blk, w_blk, gens, cohort_blk,
+                table, hp, round_steps):
+        k, c, _, b = idx_blk.shape
+        st = self._bind(state, table)
+        out = None
+        for j, sj in enumerate(round_steps):
+            drop = self._draw(gens[j], (c, sj, b))
+            key = (sj, c)
+            slots = self._slots.get(key)
+            if slots is None:
+                slots = self._slots[key] = types.SimpleNamespace(
+                    idx=torch.empty_like(idx_blk[j, :, :sj]),
+                    mask=torch.empty_like(mask_blk[j, :, :sj]),
+                    w=torch.empty_like(w_blk[j]),
+                    cohort=torch.empty_like(cohort_blk[j]),
+                    drop=None if drop is None else
+                    tuple(torch.empty_like(d) for d in drop), out=None,
+                    graph=None)
+            slots.idx.copy_(idx_blk[j, :, :sj])
+            slots.mask.copy_(mask_blk[j, :, :sj])
+            slots.w.copy_(w_blk[j])
+            slots.cohort.copy_(cohort_blk[j])
+            for buf, d in zip(slots.drop or (), drop or ()):
+                buf.copy_(d)
+            if slots.graph is None:
+                slots.graph = self._capture(slots, state.round_idx, hp)
+            slots.graph.replay()
+            if out is None:
+                out = torch.empty((k,) + tuple(slots.out.shape),
+                                  dtype=slots.out.dtype, device=idx_blk.device)
+            out[j].copy_(slots.out)
+        new_state = ServerState(round_idx=state.round_idx + k, **st.fields)
+        metrics = {"train_loss": out[:, 0].movedim(0, -1),
+                   "total_steps": out[:, 1].movedim(0, -1)}
+        return new_state, metrics, st.table
+
+
+def make_block_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                        train_x: torch.Tensor, train_y: torch.Tensor,
+                        mode: str = "vmap", population=None
+                        ) -> BlockRoundFn:
+    """The fused round block (:class:`BlockRoundFn`) over the
+    device-resident dataset; with a ``population`` the block of the
+    population round (metrics ``(P, K)``, the table ``(P, rows, ...)``)."""
+    core = make_gather_core(trainer, server_opt, train_x, train_y, mode)
+    has_table = server_opt.spec.client_state
+    if population is not None:
+        core = make_population_core(core, has_table)
+    return BlockRoundFn(core, trainer.model, has_table, population)
 
 
 def next_pow2(n: int) -> int:
@@ -76,3 +406,56 @@ def next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+# -- cohort bucketing --------------------------------------------------------
+
+#: server-optimizer families whose round aggregates are plain weighted
+#: averages and carry no per-client state, so bucket partials merge exactly
+#: (SCAFFOLD/FedDyn keep per-client trees, FedNova/Mime aux terms don't
+#: merge across padded buckets: those stay on the single-cohort path)
+BUCKETABLE_ALGS = ("fedavg", "fedavg_seq", "fedprox", "fedopt", "fedopt_seq")
+
+
+def make_bucket_agg_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                       mode: str = "vmap",
+                       train_x: Optional[torch.Tensor] = None,
+                       train_y: Optional[torch.Tensor] = None) -> Callable:
+    """Partial-round program for bucketed cohorts (ragged client sizes).
+
+    The single-cohort round pads every client to the cohort's max step
+    count, so under a skewed split most of the cohort runs masked steps.
+    Bucketing groups clients by pow2 step class and runs this program once
+    per bucket; the aggregates are weighted averages, so bucket partials
+    merge exactly (``ServerOptimizer.merge_aggregates``) before one
+    ``update_from_aggregates``: the same math, less padding.
+
+    Returns ``bucket_fn(state, x, y, mask, weights, drop) -> (agg, total_w,
+    loss_w, total_steps)``; with ``train_x``/``train_y`` (the
+    device-resident dataset) ``bucket_fn(state, idx, mask, weights, drop)``
+    takes the ``(C, S, B)`` index tensor in place of ``x, y``.  Padded
+    client rows must carry weight 0."""
+    if server_opt.algorithm not in BUCKETABLE_ALGS:
+        raise ValueError(
+            f"cohort bucketing supports {BUCKETABLE_ALGS}; "
+            f"{server_opt.algorithm!r} keeps aux state whose aggregates "
+            "don't merge across padded buckets")
+    program = federated.RoundProgram(server_opt.spec,
+                                     trainer.make_local_train(), server_opt,
+                                     mode)
+
+    def bucket_fn(state: ServerState, x, y, mask, weights, drop=None):
+        outs = program.run_clients(state, x, y, mask, drop, None)
+        agg = server_opt.compute_aggregates(state, outs.params, weights, {})
+        return (agg, torch.sum(weights), torch.sum(outs.loss * weights),
+                torch.sum(outs.num_steps))
+
+    if train_x is None:
+        return bucket_fn
+
+    def gather_bucket_fn(state: ServerState, idx, mask, weights, drop=None):
+        idx = idx.to(torch.long)
+        return bucket_fn(state, train_x[idx], train_y[idx], mask, weights,
+                         drop)
+
+    return gather_bucket_fn

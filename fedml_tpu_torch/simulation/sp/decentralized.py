@@ -23,7 +23,7 @@ from ...core.distributed.topology.topology_manager import (
 from ...device import get_device
 from ...ml.trainer.local_trainer import LocalTrainer, ServerCtx
 from ..round_engine import next_pow2
-from .fedavg_api import fedavg_inside
+from .fedavg_api import fedavg_inside, refuse_round_options
 
 
 class DecentralizedFedAPI:
@@ -36,6 +36,7 @@ class DecentralizedFedAPI:
 
     def __init__(self, args, device, dataset, model):
         algorithm = fedavg_inside(args, "decentralized", self.NAMES)
+        refuse_round_options(args, type(self).__name__)
         self.args = args
         self.device = get_device(args, device)
         self.dataset = dataset

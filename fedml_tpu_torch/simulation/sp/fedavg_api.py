@@ -11,9 +11,18 @@ rows back, and keep the round's metrics on the device until a log round
 reads them.  Evaluation runs every ``frequency_of_the_test`` rounds and at
 the last.
 
-The JAX engine's tracing, health, population, bucketing, fused-block,
-client-store, data-paging, quantized-collective, checkpoint and
-registered-population options are not ported: each raises
+Three options of the JAX engine's round program are ported:
+
+- ``round_block`` K > 1: K rounds a block (:meth:`FedAvgAPI.train_block`),
+  staged on a worker thread, copied to the card once, replayed as CUDA
+  graphs on the card (a plain loop on the CPU), one host sync a block;
+- ``cohort_bucketing``: clients grouped by pow2 step class, one partial
+  round a bucket, the aggregates merged exactly;
+- ``population`` / ``population_axes``: P experiments over
+  :class:`~fedml_tpu_torch.core.federated.HParams` in one round program.
+
+The tracing, health, client-store, data-paging, quantized-collective,
+checkpoint and registered-population options are not ported: each raises
 ``NotImplementedError`` naming itself when set.
 """
 
@@ -25,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from ...core import federated
 from ...core import rng as rng_util
 from ...core import tree as tree_util
 from ...data.federated_dataset import FederatedDataset
@@ -32,7 +42,11 @@ from ...device import get_device
 from ...ml.aggregator.agg_operator import ServerOptimizer
 from ...ml.trainer.local_trainer import LocalTrainer
 from ...models.base import TorchModel
-from ..round_engine import make_gather_round_fn, make_round_fn, next_pow2
+from ..round_engine import (BUCKETABLE_ALGS, draw_dropout,
+                            make_block_round_fn, make_bucket_agg_fn,
+                            make_gather_round_fn, make_population_round_fn,
+                            make_round_fn, next_pow2)
+from ..staging import AsyncCohortStager
 
 log = logging.getLogger(__name__)
 
@@ -44,10 +58,6 @@ def _unported_options(args):
         ("trace", bool(g("trace", False))),
         ("health", bool(g("health", False))),
         ("metrics_port", g("metrics_port") is not None),
-        ("population", bool(g("population", 0)) or bool(
-            g("population_axes"))),
-        ("cohort_bucketing", bool(g("cohort_bucketing", False))),
-        ("round_block > 1", int(g("round_block", 1) or 1) > 1),
         ("client_store", bool(g("client_store", False))),
         ("data_paging", bool(g("data_paging", False))),
         ("collective_precision != 'fp32'",
@@ -56,6 +66,20 @@ def _unported_options(args):
         ("registered_clients", bool(int(g("registered_clients", 0) or 0))),
     )
     return [name for name, on in checks if on]
+
+
+def refuse_round_options(args, engine: str):
+    """An engine with its own round loop refuses the round-program options
+    of :class:`FedAvgAPI` by name, so none is ignored unseen: population
+    (``NotImplementedError``), ``cohort_bucketing`` and ``round_block > 1``
+    (``ValueError``), as the JAX package's engines do."""
+    if federated.parse_population(args) is not None:
+        raise NotImplementedError(
+            f"{engine} does not support population vmap (sp engine only)")
+    if bool(getattr(args, "cohort_bucketing", False)):
+        raise ValueError(f"{engine} does not implement cohort_bucketing")
+    if int(getattr(args, "round_block", 1) or 1) > 1:
+        raise ValueError(f"{engine} does not implement round_block fusion")
 
 
 def fedavg_inside(args, engine: str, names) -> str:
@@ -71,6 +95,11 @@ def fedavg_inside(args, engine: str, names) -> str:
     return "fedavg"
 
 
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
 class FedAvgAPI:
     """Runs one algorithm of the zoo on one device.
 
@@ -83,7 +112,8 @@ class FedAvgAPI:
 
     ``client_table`` is the per-client state of SCAFFOLD/FedDyn: one row
     per dataset client on the device, zero until the client is sampled
-    (``None`` for the other algorithms)."""
+    (``None`` for the other algorithms).  With a population every tensor of
+    ``state`` and ``client_table`` gains a leading ``(P,)`` member axis."""
 
     def __init__(self, args, device, dataset: FederatedDataset,
                  model: TorchModel, client_mode: str = "vmap",
@@ -106,19 +136,69 @@ class FedAvgAPI:
 
         self.trainer = LocalTrainer(model, args, algorithm)
         self.server_opt = ServerOptimizer(args, algorithm)
+        # a subclass with its own round loop would silently mis-handle the
+        # round-program options: each is refused there by name
+        own_loop = type(self).train_one_round is not FedAvgAPI.train_one_round
+        self.population = federated.parse_population(args)
+        if self.population and own_loop:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support population vmap "
+                "(sp engine only)")
+        self._bucketing = bool(getattr(args, "cohort_bucketing", False))
+        if self._bucketing:
+            if self.server_opt.algorithm not in BUCKETABLE_ALGS:
+                raise ValueError(
+                    f"cohort_bucketing supports {BUCKETABLE_ALGS}, not "
+                    f"{self.server_opt.algorithm!r}")
+            if self.population:
+                raise ValueError(
+                    "population vmap needs the unbucketed cohort path "
+                    "(bucket shapes are data-dependent per member)")
+            if own_loop:
+                raise ValueError(f"{type(self).__name__} does not implement "
+                                 "cohort_bucketing")
+        self._bucket_fn = None
+        self._round_block = int(getattr(args, "round_block", 1) or 1)
+        if self._round_block > 1:
+            if self._bucketing:
+                raise ValueError(
+                    "round_block fusion needs the unbucketed cohort path "
+                    "(bucket partials are data-dependent per round)")
+            if own_loop and \
+                    type(self)._build_block_fn is FedAvgAPI._build_block_fn:
+                raise ValueError(f"{type(self).__name__} does not implement "
+                                 "round_block fusion")
+        self._client_mode = client_mode
+        self._block_fn = None
+        self._block_stager = None
+        self._pinned = {}
+        self._h2d_done = None
         # the initial weights are drawn on the CPU, so a seed gives the same
         # model on every device; the rounds draw on the device
         params = model.init(rng_util.purpose_key(rng_util.root_key(self.seed),
                                                  "init"))
         self.state = self.server_opt.init(
             {k: v.to(self.device) for k, v in params.items()})
+        self._hp = None
+        if self.population:
+            # every member starts from the same init; the states diverge
+            # as the members' hyperparameters differ
+            self.state = federated.stack_member_states(self.state,
+                                                       self.population.size)
+            self._hp = self.population.to(self.device).hparams
         self._root = rng_util.root_key(self.seed, self.device)
         self._test = None
         self.round_fn = self._build_round_fn(client_mode)
         self.client_table = None
         if self.server_opt.spec.client_state:
+            gp = self.state.global_params
+            if self.population:
+                gp = federated.population_member(gp, 0)
             self.client_table = tree_util.client_table_init(
-                self.state.global_params, self.dataset.num_clients)
+                gp, self.dataset.num_clients)
+            if self.population:
+                self.client_table = federated.stack_member_states(
+                    self.client_table, self.population.size)
         self.metrics_history = []
 
     def _build_round_fn(self, client_mode: str):
@@ -129,9 +209,19 @@ class FedAvgAPI:
                                           device=self.device)
             self._dev_y = torch.as_tensor(self.dataset.train_y,
                                           device=self.device)
+            if self.population:
+                # P experiments, one program: the gather round mapped over
+                # the member axis of (state, table rows, hparams)
+                return make_population_round_fn(
+                    self.trainer, self.server_opt, self._dev_x, self._dev_y,
+                    self.population, mode=client_mode)
             return make_gather_round_fn(self.trainer, self.server_opt,
                                         self._dev_x, self._dev_y,
                                         mode=client_mode)
+        if self.population:
+            raise ValueError(
+                "population vmap needs the device-gather cohort path "
+                "(device_data=True): members share one staged cohort")
         return make_round_fn(self.trainer, self.server_opt, mode=client_mode)
 
     # -- round pieces --------------------------------------------------------
@@ -156,27 +246,33 @@ class FedAvgAPI:
     def _to_device(self, *arrays):
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
+    def _table_axis(self) -> int:
+        return 1 if self.population else 0
+
     def _gather_c(self, cohort):
         """The cohort's rows of the per-client state table, stacked, or
         ``None`` for an algorithm without per-client state."""
         if self.client_table is None:
             return None
-        return tree_util.cohort_gather(self.client_table, cohort)
+        return tree_util.cohort_gather(self.client_table, cohort,
+                                       self._table_axis())
 
     def _scatter_c(self, cohort, new_rows):
         if self.client_table is None or new_rows is None:
             return
-        self.client_table = tree_util.cohort_scatter(self.client_table,
-                                                     cohort, new_rows)
+        self.client_table = tree_util.cohort_scatter(
+            self.client_table, cohort, new_rows, self._table_axis())
 
     def train_one_round(self, round_idx: int):
+        if self._bucketing:
+            return self._train_one_round_bucketed(round_idx)
         gen = rng_util.round_key(self._root, round_idx)
         if hasattr(self, "_dev_x"):
             clients, idx, mask, w, steps = self._stage_round_arrays(round_idx)
             idx, mask, w = self._to_device(idx, mask, w)
             c_stacked = self._gather_c(clients)
             self.state, metrics, new_c = self.round_fn(
-                self.state, idx, mask, w, gen, c_stacked)
+                self.state, idx, mask, w, gen, c_stacked, self._hp)
         else:
             clients = self._client_sampling(round_idx)
             x, y, mask, w = self.dataset.cohort_batches(
@@ -196,44 +292,258 @@ class FedAvgAPI:
         metrics["allocated_steps"] = len(clients) * steps
         return metrics
 
+    # -- cohort bucketing ----------------------------------------------------
+    def _train_one_round_bucketed(self, round_idx: int):
+        """Ragged-cohort round: clients grouped into pow2 step-count
+        buckets, one partial program per bucket, aggregates merged exactly
+        (``round_engine.make_bucket_agg_fn``), one server step.  Cuts the
+        masked steps a single max-steps cohort runs under skewed splits.
+        The whole cohort's dropout masks are drawn once, as the unbucketed
+        round draws them, and sliced per bucket."""
+        dev = hasattr(self, "_dev_x")
+        if self._bucket_fn is None:
+            self._bucket_fn = make_bucket_agg_fn(
+                self.trainer, self.server_opt, mode=self._client_mode,
+                train_x=self._dev_x if dev else None,
+                train_y=self._dev_y if dev else None)
+        clients = self._client_sampling(round_idx)
+        per = [self.dataset.client_index_batches(
+            int(c), self.batch_size, self.seed, round_idx, self.epochs)
+            for c in clients]
+        weights_all = self.dataset.client_sample_counts()[clients].astype(
+            np.float32)
+        drop_all = draw_dropout(
+            self.model, rng_util.round_key(self._root, round_idx),
+            (len(clients), next_pow2(max(p.shape[0] for p in per)),
+             self.batch_size))
+        buckets = {}
+        for pos, p in enumerate(per):
+            buckets.setdefault(next_pow2(p.shape[0]), []).append(pos)
+
+        partials, total_ws, loss_ws, step_sums = [], [], [], []
+        for steps, positions in sorted(buckets.items()):
+            cb = next_pow2(len(positions))
+            idx = np.zeros((cb, steps, self.batch_size), np.int32)
+            mask = np.zeros((cb, steps), np.float32)
+            w = np.zeros((cb,), np.float32)
+            for i, pos in enumerate(positions):
+                s = per[pos].shape[0]
+                idx[i, :s], mask[i, :s] = per[pos], 1.0
+                w[i] = weights_all[pos]
+            drop = None
+            if drop_all is not None:
+                rows = torch.as_tensor(positions, device=self.device)
+                drop = tuple(torch.cat([
+                    d[rows, :steps], torch.zeros(
+                        (cb - len(positions), steps) + tuple(d.shape[2:]),
+                        dtype=d.dtype, device=d.device)]) for d in drop_all)
+            if dev:
+                inputs = self._to_device(idx, mask, w)
+            else:
+                inputs = self._to_device(self.dataset.train_x[idx],
+                                         self.dataset.train_y[idx], mask, w)
+            agg, tw, lw, ts = self._bucket_fn(self.state, *inputs, drop)
+            partials.append(agg)
+            total_ws.append(tw)
+            loss_ws.append(lw)
+            step_sums.append(ts)
+
+        merged = self.server_opt.merge_aggregates(partials, total_ws)
+        self.state = self.server_opt.update_from_aggregates(self.state,
+                                                            merged)
+        allocated = sum(next_pow2(len(p)) * s for s, p in buckets.items())
+        return {"train_loss": sum(loss_ws) / sum(total_ws),
+                "total_steps": sum(step_sums),
+                # client-lane step slots this round allocated (the padding
+                # bucketing exists to shrink)
+                "allocated_steps": allocated}
+
+    # -- fused round blocks --------------------------------------------------
+    def _build_block_fn(self):
+        """``round_engine.make_block_round_fn`` over the device-resident
+        dataset (the population's block with a population)."""
+        if not hasattr(self, "_dev_x"):
+            raise ValueError(
+                "round_block fusion needs the device-gather cohort path "
+                "(device_data=True): staging a block is cheap only when "
+                "rounds ship index tensors, not data")
+        return make_block_round_fn(self.trainer, self.server_opt,
+                                   self._dev_x, self._dev_y,
+                                   mode=self._client_mode,
+                                   population=self.population)
+
+    def _stage_block(self, start_round: int):
+        """One block's stacked cohort arrays, host numpy only: every
+        per-round input gains a leading round axis of length ``k =
+        min(round_block, comm_rounds - start_round)`` (the ragged tail
+        block is shorter).  Steps pad to the block-max pow2 class; each
+        round's own class is kept, and the block runs each round at it.
+        The cohort ids are checked here: the block indexes the client
+        table with them on the device, where an out-of-range id cannot be
+        dropped.  A pure function of ``start_round``, safe for the
+        stager's worker thread."""
+        k = min(self._round_block, self.comm_rounds - start_round)
+        rows = self.dataset.num_clients
+        per = []
+        for r in range(start_round, start_round + k):
+            clients = self._client_sampling(r)
+            if np.min(clients) < 0 or np.max(clients) >= rows:
+                raise ValueError(f"block at round {start_round}: cohort ids "
+                                 f"outside the {rows} table rows")
+            idx, mask, w = self.dataset.cohort_indices(
+                clients, self.batch_size, self.seed, r, self.epochs)
+            per.append((clients, idx, mask, w))
+        round_steps = [next_pow2(p[1].shape[1]) for p in per]
+        steps = max(round_steps)
+        n = per[0][1].shape[0]
+        idx_blk = np.zeros((k, n, steps, self.batch_size), np.int32)
+        mask_blk = np.zeros((k, n, steps), np.float32)
+        w_blk = np.zeros((k, n), np.float32)
+        cohort_blk = np.zeros((k, n), np.int64)
+        for i, (clients, idx, mask, w) in enumerate(per):
+            s = idx.shape[1]
+            idx_blk[i, :, :s] = idx
+            mask_blk[i, :, :s] = mask
+            w_blk[i] = w
+            cohort_blk[i] = clients
+        return k, round_steps, idx_blk, mask_blk, w_blk, cohort_blk
+
+    def _block_to_device(self, *arrays):
+        """A staged block's arrays on the device: on the card through
+        pinned host buffers kept per shape, copied without blocking the
+        host (the previous block's copy has finished before a buffer is
+        refilled)."""
+        if self.device.type != "cuda":
+            return tuple(torch.from_numpy(a) for a in arrays)
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+        out = []
+        for i, a in enumerate(arrays):
+            key = (i, a.shape, a.dtype.str)
+            buf = self._pinned.get(key)
+            if buf is None:
+                buf = self._pinned[key] = torch.from_numpy(a).pin_memory()
+            else:
+                buf.numpy()[...] = a
+            out.append(buf.to(self.device, non_blocking=True))
+        self._h2d_done = torch.cuda.Event()
+        self._h2d_done.record()
+        return tuple(out)
+
+    def train_block(self, start_round: int):
+        """Run ``min(round_block, comm_rounds - start_round)`` rounds as one
+        block.  Returns ``(k, metrics)`` with each metrics leaf a stacked
+        ``(k,)`` device tensor (``(P, k)`` with a population): the caller
+        syncs the whole block at once."""
+        if self._block_fn is None:
+            self._block_fn = self._build_block_fn()
+        if self._block_stager is None:
+            self._block_stager = AsyncCohortStager(
+                self._stage_block,
+                enabled=bool(getattr(self.args, "async_staging", True)),
+                depth=int(getattr(self.args, "staging_depth", 1) or 1),
+                stride=self._round_block, limit=self.comm_rounds)
+        nxt = start_round + self._round_block
+        k, round_steps, *staged = self._block_stager.get(
+            start_round, prefetch=nxt if nxt < self.comm_rounds else None)
+        idx, mask, w, cohort = self._block_to_device(*staged)
+        gens = [rng_util.round_key(self._root, r)
+                for r in range(start_round, start_round + k)]
+        self.state, metrics, self.client_table = self._block_fn(
+            self.state, idx, mask, w, gens, cohort, self.client_table,
+            self._hp, round_steps)
+        metrics = dict(metrics)
+        metrics["allocated_steps"] = idx.shape[1] * np.asarray(round_steps,
+                                                               np.int64)
+        return k, metrics
+
+    # -- evaluation and records ----------------------------------------------
     def evaluate(self):
         if self._test is None:
             self._test = self._to_device(*self.dataset.test_batches())
+        if self.population:
+            # every member scored on the shared test set; the scalar return
+            # is the members' mean, the per-member arrays land on
+            # ``member_eval``
+            res = np.asarray([self.trainer.evaluate(
+                federated.population_member(self.state.global_params, m),
+                *self._test) for m in range(self.population.size)],
+                np.float32)
+            self.member_eval = {"loss": res[:, 0], "acc": res[:, 1]}
+            return float(res[:, 0].mean()), float(res[:, 1].mean())
         return self.trainer.evaluate(self.state.global_params, *self._test)
 
-    # -- main loop -----------------------------------------------------------
     def _is_log_round(self, round_idx: int) -> bool:
         return (round_idx % self.eval_freq == 0
                 or round_idx == self.comm_rounds - 1)
 
+    def _record(self, round_idx, losses, dt):
+        """One round's record: ``losses`` is the round's loss, or the
+        members' ``(P,)`` losses."""
+        losses = np.asarray(losses)
+        record = {"round": round_idx, "train_loss": float(losses.mean()),
+                  "round_time": dt,
+                  "dataset_provenance": getattr(self.dataset, "provenance",
+                                                "unknown")}
+        if self.population:
+            record.update(members=self.population.size,
+                          member_train_loss_best=float(losses.min()),
+                          member_train_loss_worst=float(losses.max()))
+        return record
+
+    def _attach_eval(self, record, note=""):
+        test_loss, test_acc = self.evaluate()
+        record.update(test_loss=test_loss, test_acc=test_acc)
+        log.info("round %d: train_loss=%.4f test_acc=%.4f (%s%.2fs)",
+                 record["round"], record["train_loss"], test_acc, note,
+                 record["round_time"])
+
     def _flush_round_records(self, pending):
-        """Turn deferred per-round metrics into host records.  The
-        ``float()`` here is the one device→host sync for every round since
-        the last flush."""
+        """Turn deferred per-round metrics into host records.  Reading the
+        losses here is the one device→host sync for every round since the
+        last flush."""
         while pending:
             round_idx, metrics, dt = pending.pop(0)
-            train_loss = float(metrics["train_loss"])
-            record = {"round": round_idx, "train_loss": train_loss,
-                      "round_time": dt,
-                      "dataset_provenance": getattr(self.dataset,
-                                                    "provenance", "unknown")}
+            record = self._record(round_idx, _host(metrics["train_loss"]),
+                                  dt)
             if self._is_log_round(round_idx):
-                test_loss, test_acc = self.evaluate()
-                record.update(test_loss=test_loss, test_acc=test_acc)
-                log.info("round %d: train_loss=%.4f test_acc=%.4f (%.2fs)",
-                         round_idx, train_loss, test_acc, dt)
+                self._attach_eval(record)
             self.metrics_history.append(record)
+
+    def _train_fused(self):
+        """The fused round loop: ``round_block`` rounds a block, one host sync a
+        block (the stacked losses), the next block staged on the worker
+        thread while this one runs; one record a round, the evaluation on
+        the last round of a block that holds a log round."""
+        r = 0
+        while r < self.comm_rounds:
+            t0 = time.time()
+            k, ms = self.train_block(r)
+            losses = ms["train_loss"].cpu().numpy()   # the block's one sync
+            block_dt = time.time() - t0
+            eval_due = any(self._is_log_round(ri) for ri in range(r, r + k))
+            for j in range(k):
+                record = self._record(r + j, losses[..., j], block_dt / k)
+                if j == k - 1 and eval_due:
+                    self._attach_eval(record, f"block of {k}, ")
+                self.metrics_history.append(record)
+            r += k
+        self._block_stager.close()
+        self._block_stager = None
 
     def train(self):
         t_start = time.time()
-        pending = []
-        for round_idx in range(self.comm_rounds):
-            t0 = time.time()
-            metrics = self.train_one_round(round_idx)
-            pending.append((round_idx, metrics, time.time() - t0))
-            if self._is_log_round(round_idx):
-                self._flush_round_records(pending)
-        self._flush_round_records(pending)
+        if self._round_block > 1:
+            self._train_fused()
+        else:
+            pending = []
+            for round_idx in range(self.comm_rounds):
+                t0 = time.time()
+                metrics = self.train_one_round(round_idx)
+                pending.append((round_idx, metrics, time.time() - t0))
+                if self._is_log_round(round_idx):
+                    self._flush_round_records(pending)
+            self._flush_round_records(pending)
         total = time.time() - t_start
         log.info("finished %d rounds in %.1fs (%.3fs/round)",
                  self.comm_rounds, total, total / max(self.comm_rounds, 1))

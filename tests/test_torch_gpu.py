@@ -309,3 +309,133 @@ def test_cnn_dropout_rounds_on_card(cuda_device):
     for k, v in apis[0].state.global_params.items():
         assert torch.isfinite(v).all() and not torch.equal(v, start[k]), k
         assert (v - apis[1].state.global_params[k]).abs().max() < 1e-4, k
+
+
+def _same_state(a, b):
+    """Max abs difference over every ServerState field and table row."""
+    got, ref = _state_tensors(a), _state_tensors(b)
+    assert set(got) == set(ref)
+    return max((got[k].float() - ref[k].float()).abs().max().item()
+               for k in ref)
+
+
+def _blocks(api, rounds):
+    losses, r = [], 0
+    while r < rounds:
+        k, ms = api.train_block(r)
+        losses.append(ms["train_loss"])
+        r += k
+    return torch.cat(losses, dim=-1).cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg,name", [("fedavg", "lr"), ("fedopt", "lr"),
+                                      ("scaffold", "lr"),
+                                      ("feddyn", "cnn_web"),
+                                      ("scaffold", "cnn_web")])
+def test_fused_blocks_replay_graphs_and_match_unfused(cuda_device, alg,
+                                                      name):
+    """``round_block`` 2 over 5 rounds (2+2+1) on the card: the rounds are
+    captured as CUDA graphs (one per step class and cohort size) and
+    replayed; per-round losses, params, server state and table rows equal
+    the unfused rounds' to 1e-6 (the same kernels in the same order; cuDNN's
+    weight-gradient sums may vary between calls)."""
+    kw = dict(model=name, federated_optimizer=alg, comm_round=5)
+    if alg == "fedopt":
+        kw.update(server_lr=0.01)
+    ref, fused = _sp_api("cuda", **kw), _sp_api("cuda", round_block=2, **kw)
+    ref_losses = torch.stack([ref.train_one_round(r)["train_loss"]
+                              for r in range(5)]).cpu()
+    fused_losses = _blocks(fused, 5)
+    assert fused._block_fn.captures >= 1
+    assert (fused_losses - ref_losses).abs().max() <= 1e-6
+    assert _same_state(fused, ref) <= 1e-6
+    assert fused.state.round_idx == ref.state.round_idx == 5
+
+
+@pytest.mark.gpu
+def test_fused_dropout_blocks_match_unfused_on_card(cuda_device):
+    """The dropout CNN on the real digits: each round's masks are drawn on
+    the card outside the graph, at the round's own step class, into the
+    graph's static buffers; fused ≡ unfused to 1e-6 over two rounds."""
+    over = dict(dataset="digits", model="cnn", input_shape=(8, 8, 1),
+                data_cache_dir=SHARDS, client_num_per_round=5,
+                momentum=0.0, comm_round=2)
+    ref = _sp_api("cuda", **over)
+    fused = _sp_api("cuda", round_block=2, **over)
+    ref_losses = torch.stack([ref.train_one_round(r)["train_loss"]
+                              for r in range(2)]).cpu()
+    assert (_blocks(fused, 2) - ref_losses).abs().max() <= 1e-6
+    assert _same_state(fused, ref) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_bucketed_rounds_match_unbucketed_on_card(cuda_device):
+    """Bucketed rounds on the card do the same real work over fewer
+    allocated step slots and end within the JAX test's bars (eval loss
+    2e-4, accuracy 2e-2) of the unbucketed rounds."""
+    kw = dict(dataset="synthetic", model="lr", num_classes=4,
+              input_shape=(10,),
+              train_size=1200, test_size=120, client_num_in_total=24,
+              client_num_per_round=12, batch_size=8, learning_rate=0.2,
+              partition_alpha=0.15, random_seed=5, momentum=0.0)
+    plain, buck = _sp_api("cuda", **kw), _sp_api("cuda", cohort_bucketing=True,
+                                                  **kw)
+    for r in range(4):
+        mp, mb = plain.train_one_round(r), buck.train_one_round(r)
+        assert float(mb["total_steps"]) == float(mp["total_steps"])
+        assert mb["allocated_steps"] < mp["allocated_steps"]
+    (l0, a0), (l1, a1) = plain.evaluate(), buck.evaluate()
+    assert abs(l0 - l1) < 2e-4 and abs(a0 - a1) < 2e-2
+
+
+@pytest.mark.gpu
+def test_population_member_matches_single_run_on_card(cuda_device):
+    """A client-lr population of 3 on the card: member 0 (the static rate)
+    is the single run (the member map batches the same arithmetic in
+    another order: 1e-6 after one round), and the fused population (K 2,
+    graph replays) is the unfused one to 1e-6."""
+    from fedml_tpu_torch.core import federated
+
+    kw = dict(model="cnn_web", comm_round=3)
+    axes = {"client_lr": [0.05, 0.02, 0.1]}
+    single = _sp_api("cuda", **kw)
+    pop = _sp_api("cuda", population_axes=axes, **kw)
+    single.train_one_round(0)
+    pop.train_one_round(0)
+    m0 = federated.population_member(pop.state.global_params, 0)
+    for k, v in single.state.global_params.items():
+        assert (m0[k] - v).abs().max() <= 1e-6, k
+    for r in (1, 2):
+        pop.train_one_round(r)
+    fused = _sp_api("cuda", population_axes=axes, round_block=2, **kw)
+    _blocks(fused, 3)
+    assert fused._block_fn.captures >= 1
+    for k, v in pop.state.global_params.items():
+        assert (fused.state.global_params[k] - v).abs().max() <= 1e-6, k
+
+
+@pytest.mark.gpu
+def test_capture_that_syncs_the_host_raises(cuda_device):
+    """A round that reads a value back to the host cannot be captured: the
+    block raises instead of falling back to eager rounds."""
+    from fedml_tpu_torch.simulation.round_engine import BlockRoundFn
+
+    def core(state, idx, mask, w, drop, c, hp):
+        if float(w.sum()) < 0:        # a device→host read
+            raise AssertionError
+        return state, {"train_loss": w.sum(), "total_steps": mask.sum()}, c
+
+    from fedml_tpu_torch.ml.aggregator.agg_operator import ServerState
+    block = BlockRoundFn(core, model=None, has_table=False)
+    block._draw = lambda gen, lead: None
+    st = ServerState(round_idx=0, global_params={
+        "w": torch.zeros(3, device=cuda_device)})
+    k, c, s, b = 2, 4, 2, 3
+    args = (torch.zeros((k, c, s, b), dtype=torch.int32, device=cuda_device),
+            torch.ones((k, c, s), device=cuda_device),
+            torch.ones((k, c), device=cuda_device), [None] * k,
+            torch.zeros((k, c), dtype=torch.long, device=cuda_device))
+    with pytest.raises(RuntimeError):
+        block(st, *args)
+    assert block.captures == 0
