@@ -79,11 +79,33 @@ Phases, each printing its own lines:
    ``cnn_web`` to 1e-6 (reported on FEMNIST); (e) the same FEMNIST rounds
    twice with cuDNN free to pick its algorithms and under the policy
    (bitwise equal, checked).  No flash-attention kernel launches (checked).
+8. text — the FedNLP text transformer at its full default width (dim 256,
+   4 layers, 8 heads, FFN 512, f32) on the committed real text shard
+   (``data_shards/realtext``, the ``realtext_docs`` row of
+   ``tools/run_baseline_rows.py``: 10 clients, 5 a round, batch 16, Adam at
+   3e-3, clip 1.0, α 0.5), ``vmap`` clients: (a) 24 unfused rounds with
+   K1, K2 and K3 each launched once per layer per step for the whole
+   cohort (K1 also per eval batch), counted; (b) the same 24 rounds in
+   blocks of 8 (CUDA graphs), test accuracy above 0.6 after both; (c)
+   fused ≡ unfused to 1e-6 with a graph captured; (d) a profiled pass of
+   each: host launch calls and device kernels a round, device busy share,
+   K1–K3's share of device time, peak GiB, real samples/s; (e) the small
+   config of ``tests/test_model_zoo_ext.py``, 2 SGD rounds card vs CPU
+   from the same weights, params within 1e-5.
+9. resnet — ``resnet18_gn`` at full width on the ``cifar100_resnet18`` row
+   (FedProx μ 0.1, 32 clients, 4 a round, batch 20, lr 0.05, α 0.5) on the
+   synthetic CIFAR-100 stand-in: one warm round and two timed, finite
+   losses, moved params, peak GiB; no flash-attention kernel launches
+   (checked).
 
-The second-to-last lines are a JSON object of per-kernel numbers (with the
+The second-to-last lines are a JSON object of per-kernel numbers (a row
+per kernel at the slice shape and at the text shape, with its launches on
+the path that runs it: phase 4's LoRA rounds, phase 8's unfused text
+rounds; the bf16 text-shape measurement under ``"bf16_at_text"``; the
 forward+backward times, the slice's round numbers, phase 5's numbers
-under ``"sp"``, phase 6's under ``"zoo"`` and phase 7's under ``"fusion"``
-beside them) and the card's
+under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
+phase 8's under ``"text"`` and phase 9's under ``"resnet"`` beside them)
+and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line; so does a host without CUDA, or a directory without the port.
@@ -177,6 +199,102 @@ def bound(kernel, b, h, hkv, s, d, causal, dtype):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+#: phase 3's shapes: (tag, B, H, H_kv, S, D, causal, dtype).  "slice" is
+#: the LoRA round's attention call, "text" the text transformer's (phase 8:
+#: 5 clients × batch 16 folded into B, f32, full), "text_bf16" the same in
+#: bf16 (a measurement only: the text model runs f32)
+KERNEL_SHAPES = [("slice", 2, 32, 32, 1024, 128, True, "bfloat16"),
+                 ("ragged_gqa", 1, 8, 2, 1000, 128, False, "bfloat16"),
+                 ("padded_head", 1, 8, 2, 300, 80, True, "bfloat16"),
+                 ("small_f32", 1, 4, 2, 200, 64, True, "float32"),
+                 ("text", 80, 8, 8, 128, 32, False, "float32"),
+                 ("text_bf16", 80, 8, 8, 128, 32, False, "bfloat16")]
+#: the shapes phase 3 times
+TIMED_SHAPES = ("slice", "text", "text_bf16")
+
+
+def time_kernels(torch, att, tag, inputs, shape, errs, smi):
+    """Phase 3's timings at one shape: each kernel (CUDA events over 20
+    warm launches) beside its plain version (5), its bound, and one
+    library call computing the same function: ``scaled_dot_product_
+    attention`` for K1; for K2 and K3 PyTorch's attention backward, which
+    gives dQ, dK and dV together (bf16: the flash-attention backward op;
+    f32: the backward of SDPA's own f32 forward, one ``autograd.grad``).
+    Also K1+K2+K3 forward+backward through autograd beside SDPA's.
+    Returns (rows keyed ``"<kernel>@<tag>"``, forward+backward times)."""
+    q, k, v, do, o, lse, delta = inputs
+    b, h, hkv, s, d, causal, dt = shape
+    calls = {
+        "flash_fwd": (lambda: att.flash_attention_fwd(q, k, v, causal),
+                      lambda: att.flash_attention_fwd_plain(q, k, v,
+                                                            causal)),
+        "flash_bwd_dq": (
+            lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
+            lambda: att.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                     causal)),
+        "flash_bwd_dkv": (
+            lambda: att.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                causal),
+            lambda: att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta,
+                                                      do, causal)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    if dt == "bfloat16":
+        lo, llse, cq, ck, mq, mk, seed, offset, _ = \
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, causal)
+        lib_bwd = time_ms(
+            torch, lambda: torch.ops.aten
+            ._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, lo, llse, cq, ck, mq, mk, 0.0, causal, seed,
+                offset), 20)
+    else:
+        lib_out = sdpa(ql, kl, vl, is_causal=causal)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), 20)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
+        ms = time_ms(torch, kern, 20)
+        rows[f"{name}@{tag}"] = r = {
+            "name": name, "route": "cuda",
+            "source": f"fedml_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": time_ms(torch, plain, 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library[name], "shape": tag, "dtype": dt,
+            "tflops": work(name, b, h, hkv, s, d, causal, dt)[0] / ms / 1e9,
+            "bound_share": b_ms / ms}
+        say("kernels", f"{name} @{tag}: {ms:.4f} ms kernel "
+                       f"({r['tflops']:.1f} TFLOP/s, "
+                       f"{100 * r['bound_share']:.1f}% of bound), "
+                       f"{r['plain_ms']:.3f} ms plain, bound "
+                       f"{b_ms:.4f} ms ({b_by}), library "
+                       f"{r['library_ms']:.4f} ms [{smi}]")
+
+    def lib_fb():
+        torch.autograd.grad(sdpa(ql, kl, vl, is_causal=causal),
+                            (ql, kl, vl), do)
+
+    def ours_fb():
+        torch.autograd.grad(att.flash_attention(ql, kl, vl, causal),
+                            (ql, kl, vl), do)
+
+    fwd_bwd = {"ms": time_ms(torch, ours_fb, 10),
+               "library_ms": time_ms(torch, lib_fb, 10),
+               "library_fwd_ms": lib_fwd}
+    say("kernels", f"fwd+bwd @{tag}: ours {fwd_bwd['ms']:.3f} ms, "
+                   f"scaled_dot_product_attention "
+                   f"{fwd_bwd['library_ms']:.3f} ms (forward alone "
+                   f"{lib_fwd:.4f} ms) [{smi}]")
+    return rows, fwd_bwd
 
 
 #: phase 5's configurations (a) and (b) (also profiled by
@@ -515,24 +633,6 @@ HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cudaMemcpy", "cudaMemset")
 
 
-def launch_counts(torch, run, rounds):
-    """Host launch calls and device kernels (copies and fills included) a
-    round, over ``run()`` (``rounds`` rounds) under ``torch.profiler``."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
-    host = dev = 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev += ev.count
-        elif ev.key.startswith(HOST_LAUNCH_CALLS):
-            host += ev.count
-    return {"host_launches": host / rounds, "device_kernels": dev / rounds}
-
-
 def sync_time(torch, fn):
     torch.cuda.synchronize()
     t0 = time.time()
@@ -601,9 +701,10 @@ def fused_vs_unfused(torch, fedml_tpu_torch, phase, cfg, k, rounds, timed,
         fail(f"{phase}: fused and unfused rounds disagree ({err:.2e}, "
              f"{loss_err:.2e} > {FUSED_TOL:g})")
     n_prof = min(k, 2)
-    rec["unfused"].update(launch_counts(
+    rec["unfused"].update(profile_rounds(
         torch, lambda: run_unfused(u, 0, n_prof), n_prof))
-    rec["fused"].update(launch_counts(torch, lambda: run_blocks(f, 0, k), k))
+    rec["fused"].update(profile_rounds(torch, lambda: run_blocks(f, 0, k),
+                                       k))
     rec["fused"]["graphs_captured"] = f._block_fn.captures
     if not f._block_fn.captures:
         fail(f"{phase}: the fused rounds captured no CUDA graph")
@@ -822,11 +923,243 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
     return out
 
 
+#: phase 8: the realtext_docs row of tools/run_baseline_rows.py, the text
+#: transformer at its full default width (dim 256, 4 layers, 8 heads, FFN
+#: 512) on the committed real text shard; 24 rounds, then 2 more unfused
+#: and a whole block of 8 fused under the profiler (a 2-round tail block
+#: under the profiler read 383 of the 384 K1–K3 a round on one H100)
+TEXT_REALTEXT = dict(
+    dataset="realtext", model="text_transformer", seq_len=128,
+    vocab_size=8192, data_cache_dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data_shards",
+        "realtext"),
+    client_num_in_total=10, client_num_per_round=5, batch_size=16,
+    learning_rate=3e-3, client_optimizer="adam", clip_grad_norm=1.0,
+    partition_method="hetero", partition_alpha=0.5, sp_client_mode="vmap",
+    comm_round=32)
+TEXT_ROUNDS, TEXT_BLOCK, TEXT_ACC_BAR = 24, 8, 0.6
+#: phase 8 (e): tests/test_model_zoo_ext.py's text config (seq 32, vocab
+#: 512, dim 64, 2 layers, 4 heads), 2 SGD rounds card vs CPU
+TEXT_SMALL = dict(dataset="20news", model="distilbert", seq_len=32,
+                  vocab_size=512, model_dim=64, model_layers=2,
+                  model_heads=4, model_ffn_dim=128, text_class_signal=0.5,
+                  text_keyword_width=1.0, train_size=600, test_size=120,
+                  client_num_in_total=6, client_num_per_round=3,
+                  batch_size=20, learning_rate=0.1, partition_method="homo",
+                  comm_round=2)
+TEXT_CARD_CPU_TOL = 1e-5
+#: phase 9: the cifar100_resnet18 row of tools/run_baseline_rows.py
+#: (FedProx μ 0.1) at full width on the port's synthetic CIFAR-100
+#: stand-in (50,000 / 10,000)
+RESNET_CIFAR100 = dict(dataset="cifar100", model="resnet18_gn",
+                       federated_optimizer="FedProx", fedprox_mu=0.1,
+                       client_num_in_total=32, client_num_per_round=4,
+                       batch_size=20, learning_rate=0.05,
+                       partition_method="hetero", partition_alpha=0.5,
+                       comm_round=3)
+
+
+def profile_rounds(torch, run, rounds):
+    """``run()`` (``rounds`` rounds) under ``torch.profiler``: host launch
+    calls and device kernels a round, the device's busy seconds a round
+    (the union of its kernels' intervals), and the flash-attention
+    kernels' count and device seconds a round."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    host = dev = flash = 0
+    flash_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev += ev.count
+            if "flash_" in ev.key:
+                flash += ev.count
+                flash_us += getattr(ev, "self_device_time_total", 0) or 0
+        elif ev.key.startswith(HOST_LAUNCH_CALLS):
+            host += ev.count
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e6 / rounds
+    return {"host_launches": host / rounds, "device_kernels": dev / rounds,
+            "profiled_s_per_round": wall / rounds, "busy_s": busy,
+            "flash_kernels": flash / rounds,
+            "flash_device_s": flash_us / 1e6 / rounds,
+            "flash_share_of_busy": flash_us / 1e6 / rounds / busy
+            if busy else None}
+
+
+def text_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 8."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    out = {}
+    rounds, k = TEXT_ROUNDS, TEXT_BLOCK
+    apis = {}
+    for mode, rb in (("unfused", 1), ("fused", k)):
+        t0 = time.time()
+        api = apis[mode] = build_sp(sp_args(
+            fedml_tpu_torch, **dict(TEXT_REALTEXT, round_block=rb)))
+        mod = api.model.module
+        if (mod.tok_embed.weight.shape, mod.n_layers,
+                mod.layer_0.n_heads, mod.layer_0.ff_up.weight.shape[0]) != \
+                ((8192, 256), 4, 8, 512):
+            fail("(a) not the text model at its full width")
+        n_params = sum(v.numel() for v in api.state.global_params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"round_block": rb, "build_s": time.time() - t0}
+        if rb == 1:
+            # the main path, the kernels' counts zeroed just before it and
+            # read just after: once per layer per step for the whole cohort
+            att.reset_launch_counts()
+            seconds, losses, steps, samples = [], [], 0, []
+            for r in range(rounds):
+                dt, m = sync_time(torch, lambda: api.train_one_round(r))
+                seconds.append(dt)
+                losses.append(float(m["train_loss"]))
+                steps += int(m["allocated_steps"]) // api.clients_per_round
+                samples.append(float(m["total_steps"]) * api.batch_size)
+            rec["test_loss"], rec["test_acc"] = api.evaluate()
+            torch.cuda.synchronize()
+            launches = {f.__name__.replace("flash_attention", "flash"):
+                        f.launches for f in att.KERNELS}
+            layers, n_eval = mod.n_layers, api._test[0].shape[0]
+            expect = {"flash_fwd": layers * (steps + n_eval),
+                      "flash_bwd_dq": layers * steps,
+                      "flash_bwd_dkv": layers * steps}
+            say("text", f"(a) {n_params:,} parameters; unfused {rounds} "
+                        f"rounds: {steps} padded steps of 5 clients × 16 "
+                        f"sequences, {n_eval} eval batches; launches "
+                        f"{launches}, expected {expect} (once per layer per "
+                        f"step for the whole cohort, K1 also per eval "
+                        f"batch)")
+            if launches != expect:
+                fail(f"(a) launch counts {launches} != expected {expect}")
+            out["launches"] = launches
+            rec.update(s_per_round=sum(seconds[1:]) / (rounds - 1),
+                       samples_per_s=sum(samples[1:]) / sum(seconds[1:]),
+                       first_round_s=seconds[0], round_losses=losses)
+        else:
+            blocks, seconds = [], []
+            for r in range(0, rounds, k):
+                dt, ms = sync_time(torch, lambda: api.train_block(r))
+                seconds.append(dt)
+                blocks.append(ms[1])
+            rec["test_loss"], rec["test_acc"] = api.evaluate()
+            real = sum(float(b["total_steps"].sum()) for b in blocks[1:])
+            rec.update(s_per_round=sum(seconds[1:]) / (rounds - k),
+                       samples_per_s=real * api.batch_size
+                       / sum(seconds[1:]),
+                       warm_block_s=seconds[0],
+                       round_losses=block_losses(torch, blocks)
+                       .reshape(-1).tolist(),
+                       graphs_captured=api._block_fn.captures)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        say("text", f"(b) {mode}: {rec['s_per_round']:.4f} s/round after "
+                    f"the first {'round' if rb == 1 else 'block'} "
+                    f"({rec['samples_per_s']:.0f} real samples/s), test "
+                    f"loss {rec['test_loss']:.4f}, accuracy "
+                    f"{rec['test_acc']:.4f} after {rounds} rounds (bar "
+                    f"{TEXT_ACC_BAR}), peak {rec['peak_gib']:.3f} GiB "
+                    f"[{smi}]")
+        if not rec["test_acc"] > TEXT_ACC_BAR:
+            fail(f"(b) {mode}: realtext accuracy {rec['test_acc']:.4f} "
+                 f"after {rounds} rounds")
+        out[mode] = rec
+    u, f = apis["unfused"], apis["fused"]
+    if not f._block_fn.captures:
+        fail("(c) the fused text rounds captured no CUDA graph")
+    got, ref = state_tensors(f), state_tensors(u)
+    err = max(max_err(got[key], v) for key, v in ref.items())
+    loss_err = max(abs(a - b) for a, b in zip(
+        out["fused"]["round_losses"], out["unfused"]["round_losses"]))
+    say("text", f"(c) fused (K {k}, {f._block_fn.captures} graph(s)) vs "
+                f"unfused after {rounds} rounds: params and server state "
+                f"max abs diff {err:.2e}, per-round losses "
+                f"{loss_err:.2e} (tol {FUSED_TOL:g})")
+    if not (err <= FUSED_TOL and loss_err <= FUSED_TOL):
+        fail(f"(c) fused and unfused text rounds disagree ({err:.2e}, "
+             f"{loss_err:.2e})")
+    out.update(fused_max_abs_err=err, fused_loss_max_abs_err=loss_err)
+    # (d) a profiled pass of each engine (the state goes on: counting only)
+    out["unfused"].update(profile_rounds(
+        torch, lambda: run_unfused(u, rounds, rounds + 2), 2))
+    out["fused"].update(profile_rounds(
+        torch, lambda: run_blocks(f, rounds, rounds + k), k))
+    for mode in ("unfused", "fused"):
+        rec = out[mode]
+        say("text", f"(d) {mode}: {rec['host_launches']:.0f} host launch "
+                    f"calls and {rec['device_kernels']:.0f} device kernels "
+                    f"a round ({rec['flash_kernels']:.0f} of them K1–K3); "
+                    f"device busy {rec['busy_s']:.4f} s of "
+                    f"{rec['profiled_s_per_round']:.4f} s a profiled round "
+                    f"({100 * rec['busy_s'] / rec['profiled_s_per_round']:.1f}"
+                    f"%), K1–K3 {rec['flash_device_s']:.4f} s "
+                    f"({100 * (rec['flash_share_of_busy'] or 0):.1f}% of "
+                    f"busy) [{smi}]")
+    if out["fused"]["flash_kernels"] < 3 * mod.n_layers:
+        fail("(d) the fused text rounds ran no flash-attention kernel "
+             "inside their graphs")
+    del apis, u, f
+
+    # (e) card ≡ CPU on the small config from the same weights (both draw
+    # them on the CPU from the seed), TF32 off
+    args = sp_args(fedml_tpu_torch, **TEXT_SMALL)
+    ds, n_out = data.load(args)
+    card, cpu = [FedAvgAPI(args, d, ds, model.create(args, n_out))
+                 for d in ("cuda", "cpu")]
+    for r in range(TEXT_SMALL["comm_round"]):
+        card.train_one_round(r)
+        cpu.train_one_round(r)
+    err = max(max_err(card.state.global_params[key].cpu(), v)
+              for key, v in cpu.state.global_params.items())
+    say("text", f"(e) small config, 2 SGD rounds card vs CPU from the same "
+                f"weights: params max abs diff {err:.2e} (tol "
+                f"{TEXT_CARD_CPU_TOL:g})")
+    if not err <= TEXT_CARD_CPU_TOL:
+        fail(f"(e) card and CPU disagree on the small text rounds "
+             f"({err:.2e})")
+    out["card_vs_cpu"] = err
+    return out
+
+
+def resnet_phase(torch, fedml_tpu_torch, smi):
+    """Phase 9."""
+    t0 = time.time()
+    api = build_sp(sp_args(fedml_tpu_torch, **RESNET_CIFAR100))
+    p = api.state.global_params
+    if (tuple(p["Conv_0.weight"].shape), tuple(p["Dense_0.weight"].shape)) \
+            != ((64, 3, 3, 3), (100, 512)):
+        fail("(a) not resnet18_gn at full width on 100 classes")
+    n_params = sum(v.numel() for v in p.values())
+    say("resnet", f"resnet18_gn, {n_params:,} parameters, FedProx μ 0.1, "
+                  f"{api.dataset.provenance} CIFAR-100 "
+                  f"{api.dataset.train_data_num:,} / "
+                  f"{api.dataset.test_data_num:,}, 32 clients (α 0.5), 4 a "
+                  f"round, batch 20; built in {time.time() - t0:.1f} s")
+    rec = timed_rounds(torch, api, "resnet", 2, smi)
+    rec["n_params"] = n_params
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="transformer depth (widths are never cut)")
     opts = ap.parse_args()
+    t_start = time.time()
 
     import torch
     if not torch.cuda.is_available():
@@ -880,12 +1213,8 @@ def main():
     # -- 3. kernels vs plain ----------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    shapes = [("slice", 2, 32, 32, 1024, 128, True, "bfloat16"),
-              ("ragged_gqa", 1, 8, 2, 1000, 128, False, "bfloat16"),
-              ("padded_head", 1, 8, 2, 300, 80, True, "bfloat16"),
-              ("small_f32", 1, 4, 2, 200, 64, True, "float32")]
-    rows = {}
-    for tag, b, h, hkv, s, d, causal, dt in shapes:
+    rows, fwd_bwd = {}, {}
+    for tag, b, h, hkv, s, d, causal, dt in KERNEL_SHAPES:
         dtype = getattr(torch, dt)
         mk = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                         dtype=torch.float32).to(dtype)
@@ -919,77 +1248,18 @@ def main():
                        "autograd Function bitwise equal to the kernels")
         for line in (l_o, l_l, l_dq, l_de, l_dk, l_dv):
             say("kernels", f"  {line}")
-        if tag != "slice":
+        if tag not in TIMED_SHAPES:
             continue
-        calls = {
-            "flash_fwd": (lambda: att.flash_attention_fwd(q, k, v, causal),
-                          lambda: att.flash_attention_fwd_plain(q, k, v,
-                                                                causal)),
-            "flash_bwd_dq": (
-                lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do,
-                                                   causal),
-                lambda: att.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
-                                                         causal)),
-            "flash_bwd_dkv": (
-                lambda: att.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
-                                                    causal),
-                lambda: att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta,
-                                                          do, causal)),
-        }
         errs = {"flash_fwd": e_o, "flash_bwd_dq": e_dq,
                 "flash_bwd_dkv": max(e_dk, e_dv)}
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
-        # the backward's yardstick: one call of PyTorch's flash-attention
-        # backward gives dQ, dK and dV together from its own O and lse
-        lo, llse, cq, ck, mq, mk, seed, offset, _ = \
-            torch.ops.aten._scaled_dot_product_flash_attention(
-                q, k, v, 0.0, causal)
-        lib_bwd = time_ms(
-            torch, lambda: torch.ops.aten
-            ._scaled_dot_product_flash_attention_backward(
-                do, q, k, v, lo, llse, cq, ck, mq, mk, 0.0, causal, seed,
-                offset), 20)
-        library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-                   "flash_bwd_dkv": lib_bwd}
-        for name, (kern, plain) in calls.items():
-            b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
-            ms = time_ms(torch, kern, 20)
-            rows[name] = {
-                "name": name, "route": "cuda",
-                "source": f"fedml_tpu_torch/csrc/{name}.cu",
-                "replaces": REPLACES[name], "launches": 0,
-                "max_abs_err": errs[name], "ms": ms,
-                "plain_ms": time_ms(torch, plain, 5),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library[name],
-                "tflops": work(name, b, h, hkv, s, d, causal, dt)[0]
-                / ms / 1e9,
-                "bound_share": b_ms / ms}
-            r = rows[name]
-            say("kernels", f"{name} @slice: {ms:.4f} ms kernel "
-                           f"({r['tflops']:.1f} TFLOP/s, "
-                           f"{100 * r['bound_share']:.1f}% of bound), "
-                           f"{r['plain_ms']:.3f} ms plain, bound "
-                           f"{b_ms:.4f} ms ({b_by}), library "
-                           f"{r['library_ms']:.4f} ms [{smi}]")
-        # forward+backward through autograd: K1+K2+K3 vs SDPA
-        ql, kl, vl = (t.detach().clone().requires_grad_(True)
-                      for t in (q, k, v))
-
-        def lib_fb():
-            torch.autograd.grad(sdpa(ql, kl, vl, is_causal=causal),
-                                (ql, kl, vl), do)
-
-        def ours_fb():
-            torch.autograd.grad(att.flash_attention(ql, kl, vl, causal),
-                                (ql, kl, vl), do)
-
-        fwd_bwd = {"ms": time_ms(torch, ours_fb, 10),
-                   "library_ms": time_ms(torch, lib_fb, 10)}
-        say("kernels", f"fwd+bwd @slice: ours {fwd_bwd['ms']:.3f} ms, "
-                       f"scaled_dot_product_attention "
-                       f"{fwd_bwd['library_ms']:.3f} ms [{smi}]")
+        inputs = (q, k, v, do, o, lse, delta)
+        new_rows, fwd_bwd[tag] = time_kernels(
+            torch, att, tag, inputs, (b, h, hkv, s, d, causal, dt), errs,
+            smi)
+        if tag == "text_bf16":
+            bf16_at_text = new_rows     # measured only: no path runs it
+        else:
+            rows.update(new_rows)
 
     # -- 4. the slice: federated LoRA rounds at Llama-2-7B width ----------
     t0 = time.time()
@@ -1047,7 +1317,7 @@ def main():
         fail(f"only {len(moved)} of {n_b} B adapters moved off zero")
     say("slice", f"base bitwise unchanged; {n_b}/{n_b} B adapters non-zero")
     for name, n in launches.items():
-        rows[name]["launches"] = n
+        rows[f"{name}@slice"]["launches"] = n
     del api
     torch.cuda.empty_cache()
 
@@ -1096,9 +1366,27 @@ def main():
     say("fusion", f"phase 7 took {time.time() - t0:.1f} s; no "
                   "flash-attention kernel launched")
 
+    # -- 8. text: the FedNLP text transformer on the real text shard -------
+    t0 = time.time()
+    text = text_phase(torch, fedml_tpu_torch, att, smi)
+    for name, n in text["launches"].items():
+        rows[f"{name}@text"]["launches"] = n
+    say("text", f"phase 8 took {time.time() - t0:.1f} s")
+
+    # -- 9. resnet: resnet18_gn on the CIFAR-100 stand-in ------------------
+    t0 = time.time()
+    att.reset_launch_counts()
+    resnet = resnet_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("phase 9 launched a flash-attention kernel")
+    say("resnet", f"phase 9 took {time.time() - t0:.1f} s; no "
+                  "flash-attention kernel launched")
+    say("done", f"all phases in {time.time() - t_start:.1f} s")
+
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
+                      "bf16_at_text": list(bf16_at_text.values()),
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
-                      "fusion": fusion}))
+                      "fusion": fusion, "text": text, "resnet": resnet}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

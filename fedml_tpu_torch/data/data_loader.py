@@ -8,6 +8,11 @@
 - ``digits``: the committed LEAF shard in the cache first, else sklearn's
   digits as in the JAX package;
 - the generic ``synthetic*`` datasets;
+- the text-classification datasets (``_TEXTCLS_SPECS``: fednlp, 20news,
+  agnews, realtext): an ``<name>.npz`` under ``args.data_cache_dir`` (the
+  committed ``data_shards/realtext`` shard), else the seeded unigram
+  generator; ``vocab_size``, ``seq_len``, ``train_size``, ``test_size``,
+  ``text_class_signal`` and ``text_keyword_width`` override the spec;
 - the LM datasets (``_LM_SPECS``) from the synthetic Markov-chain generator.
   Their cache readers (LEAF text, ``.npz``, the raw Shakespeare corpus) are
   not ported, so a cache directory is refused there rather than ignored.
@@ -28,7 +33,8 @@ import numpy as np
 
 from .federated_dataset import FederatedDataset, build_federated
 from .leaf import find_leaf_root, load_leaf
-from .synthetic import synthetic_image_classification, synthetic_lm_tokens
+from .synthetic import (synthetic_image_classification, synthetic_lm_tokens,
+                        synthetic_text_classification)
 
 # (classes, img shape, train_n, test_n), the reference cardinalities
 _IMAGE_SPECS = {
@@ -51,13 +57,21 @@ _LM_SPECS = {
     "reddit": (10004, 20, 50000, 5000),
 }
 
+_TEXTCLS_SPECS = {
+    # classes, vocab, seq_len, train_n, test_n, class_signal, keyword_width
+    "fednlp": (20, 30000, 128, 11000, 2000, 0.25, 2.5),
+    "20news": (20, 30000, 128, 11000, 2000, 0.25, 2.5),
+    "agnews": (4, 30000, 64, 12000, 2000, 0.35, 2.0),
+    # real bytes in the repo: installed-package documentation prose
+    # (data_shards/realtext/realtext.npz); the knobs serve the fallback only
+    "realtext": (10, 8192, 128, 2967, 530, 0.25, 2.5),
+}
+
 #: dataset families of the JAX loader the port does not load yet
 _UNPORTED = {
     "stackoverflow_lr": "tag prediction", "uci": "tabular",
     "uci_adult": "tabular", "lending_club": "tabular",
-    "lending_club_loan": "tabular", "fednlp": "text classification",
-    "20news": "text classification", "agnews": "text classification",
-    "realtext": "text classification", "imagenet": "large image",
+    "lending_club_loan": "tabular", "imagenet": "large image",
     "imagenet_hdf5": "large image", "ilsvrc2012": "large image",
     "landmarks": "large image", "gld23k": "large image",
     "gld160k": "large image", "fets2021": "segmentation",
@@ -266,6 +280,29 @@ def load(args) -> Tuple[FederatedDataset, int]:
         ds = build_federated(tx, ty, vx, vy, vocab, client_num, method="homo",
                              alpha=alpha, seed=seed, provenance="synthetic")
         return ds, vocab
+
+    if name in _TEXTCLS_SPECS:
+        (classes, vocab, seq_len, train_n, test_n, cls_signal,
+         kw_width) = _TEXTCLS_SPECS[name]
+        seq_len = int(getattr(args, "seq_len", seq_len))
+        # model and data share one token space
+        vocab = int(getattr(args, "vocab_size", 0) or vocab)
+        train_n, test_n = _sizes(args, train_n, test_n)
+        real = _try_load_npz(cache, name) if cache else None
+        if real is not None:
+            tx, ty, vx, vy = real
+            prov = _cache_provenance(cache, "real:npz", name)
+        else:
+            tx, ty, vx, vy = synthetic_text_classification(
+                train_n, test_n, classes, vocab, seq_len, seed,
+                class_signal=float(getattr(args, "text_class_signal",
+                                           cls_signal)),
+                keyword_width=float(getattr(args, "text_keyword_width",
+                                            kw_width)))
+            prov = "synthetic"
+        ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
+                             alpha, seed, provenance=prov)
+        return ds, classes
 
     if name == "digits":
         # real bytes without a download: the committed LEAF shard

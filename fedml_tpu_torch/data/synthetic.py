@@ -1,7 +1,8 @@
 """Deterministic synthetic data (numpy copies of
 ``fedml_tpu.data.synthetic``): class-conditional Gaussian images for the
-FedAvg path and Markov-chain LM tokens for the federated LoRA path, bitwise
-the JAX package's for the same seed and sizes."""
+FedAvg path, class-dependent unigram token sequences for the FedNLP text
+path and Markov-chain LM tokens for the federated LoRA path, bitwise the
+JAX package's for the same seed and sizes."""
 
 from __future__ import annotations
 
@@ -59,3 +60,31 @@ def synthetic_lm_tokens(
         seqs[:, t + 1] = np.where(use_noise, noise_tok, nxt)
     x, y = seqs[:, :-1], seqs[:, 1:]
     return x[:train_n], y[:train_n], x[train_n:], y[train_n:]
+
+
+def synthetic_text_classification(train_n: int, test_n: int, classes: int,
+                                  vocab: int, seq_len: int, seed: int = 0,
+                                  class_signal: float = 0.25,
+                                  keyword_width: float = 2.5):
+    """Class-dependent unigram token sequences (the 20news/agnews stand-in):
+    a ``class_signal`` share of each document's tokens comes from its
+    class's keyword window, ``keyword_width`` times the disjoint slice
+    ``vocab // classes`` wide (so neighbouring classes share keywords and a
+    Bayes-optimal unigram classifier cannot reach 1.0), the rest uniformly
+    from the vocabulary.  Tokens int32, labels int64."""
+    rng = np.random.default_rng(seed)
+    stride = max(1, vocab // classes)
+    width = max(1, int(round(keyword_width * stride)))
+
+    def gen(n):
+        y = rng.integers(0, classes, size=n)
+        lo = (y * stride)[:, None]
+        base = rng.integers(0, width, size=(n, seq_len))
+        uniform = rng.integers(0, vocab, size=(n, seq_len))
+        use_class = rng.random((n, seq_len)) < class_signal
+        x = np.where(use_class, (lo + base) % vocab, uniform)
+        return x.astype(np.int32), y.astype(np.int64)
+
+    tx, ty = gen(train_n)
+    vx, vy = gen(test_n)
+    return tx, ty, vx, vy

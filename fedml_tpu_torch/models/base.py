@@ -49,6 +49,41 @@ def apply_dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+#: flax's leaf name of each (module type, parameter) the port's models use
+_FLAX_LEAF = {
+    (nn.Linear, "weight"): ("dense", "kernel"),
+    (nn.Conv2d, "weight"): ("conv", "kernel"),
+    (nn.Embedding, "weight"): ("embedding", "embedding"),
+    (nn.LayerNorm, "weight"): ("scale", "scale"),
+    (nn.GroupNorm, "weight"): ("scale", "scale"),
+}
+
+
+def param_kinds(module: nn.Module) -> Dict[str, Tuple[str, str, nn.Module]]:
+    """``{port name: (kind, flax path, owning module)}`` for every
+    parameter, in parameter order.  ``kind`` is "dense", "conv",
+    "embedding", "scale", "bias" or "param" (a bare ``nn.Parameter``, kept
+    by its own name); the flax path joins the module path with flax's leaf
+    name (``layer_0.wq.weight`` → ``layer_0/wq/kernel``,
+    ``tok_embed.weight`` → ``tok_embed/embedding``, ``pos_embed`` →
+    ``pos_embed``)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        path, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(path)
+        kind, flax_leaf = "param", leaf
+        if leaf == "bias":
+            kind = "bias"
+        else:
+            for (mtype, pname), (k, fl) in _FLAX_LEAF.items():
+                if isinstance(owner, mtype) and leaf == pname:
+                    kind, flax_leaf = k, fl
+                    break
+        out[name] = (kind, "/".join(path.split(".") + [flax_leaf])
+                     if path else flax_leaf, owner)
+    return out
+
+
 @dataclasses.dataclass
 class TorchModel:
     module: nn.Module
@@ -58,18 +93,34 @@ class TorchModel:
     task: str = "classification"
     #: whether a train-mode apply takes dropout keep-masks
     has_dropout: bool = False
+    #: dtype of the inputs (int32 token ids for the text model)
+    input_dtype: torch.dtype = torch.float32
 
     def init(self, generator: torch.Generator) -> TensorDict:
-        """flax's default initialisers: ``lecun_normal`` kernels and zero
-        biases, drawn in parameter order from ``generator`` on its
-        device."""
+        """flax's default initialisers, per parameter (:func:`param_kinds`):
+        ``lecun_normal`` Dense and Conv kernels, zero biases, unit norm
+        scales, ``nn.Embed``'s plain normal of std 1/√features, and a bare
+        parameter's normal of the std its module declares
+        (``normal_init_std``), drawn in parameter order from ``generator``
+        on its device."""
         params = {}
-        for name, p in self.module.named_parameters():
-            if name.endswith("bias"):
-                params[name] = torch.zeros(p.shape, device=generator.device)
-            else:
-                fan_in = math.prod(p.shape[1:])   # (out, in[, kh, kw])
-                params[name] = lecun_normal(p.shape, fan_in, generator)
+        dev = generator.device
+        for name, (kind, _, owner) in param_kinds(self.module).items():
+            shape = self.module.get_parameter(name).shape
+            if kind == "bias":
+                params[name] = torch.zeros(shape, device=dev)
+            elif kind == "scale":
+                params[name] = torch.ones(shape, device=dev)
+            elif kind == "embedding":
+                params[name] = torch.randn(shape, generator=generator,
+                                           device=dev) / math.sqrt(shape[-1])
+            elif kind == "param":
+                std = owner.normal_init_std[name.rsplit(".", 1)[-1]]
+                params[name] = std * torch.randn(shape, generator=generator,
+                                                 device=dev)
+            else:   # dense/conv kernel: (out, in[, kh, kw])
+                params[name] = lecun_normal(shape, math.prod(shape[1:]),
+                                            generator)
         return params
 
     def dropout_sites(self) -> Sequence[Tuple[Tuple[int, ...], float]]:

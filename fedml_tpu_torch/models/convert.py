@@ -2,10 +2,13 @@
 port's parameter dicts for the :mod:`model_hub` models.
 
 Threefry draws cannot be reproduced in PyTorch, so parity runs start both
-packages from the same weights.  The flax names are kept
-(``Conv_0/kernel`` ↔ ``Conv_0.weight``); a ``Dense`` kernel ``(in, out)``
-is a ``Linear`` weight ``(out, in)``, and a ``Conv`` kernel HWIO is a
-``Conv2d`` weight OIHW.
+packages from the same weights.  The flax names are kept, nested modules
+included (``Conv_0/kernel`` ↔ ``Conv_0.weight``, ``layer_0/wq/kernel`` ↔
+``layer_0.wq.weight``); :func:`~fedml_tpu_torch.models.base.param_kinds`
+maps each parameter to its flax path.  A ``Dense`` kernel ``(in, out)``
+is a ``Linear`` weight ``(out, in)``, a ``Conv`` kernel HWIO is a
+``Conv2d`` weight OIHW; an ``Embed`` table, a norm ``scale`` and a bare
+param (``pos_embed``) keep their layout.
 """
 
 from __future__ import annotations
@@ -16,21 +19,21 @@ import numpy as np
 import torch
 
 from ..core.tree import flatten, unflatten
-from .base import TorchModel
+from .base import TorchModel, param_kinds
 
 
-def _to_port(arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 2:
+def _to_port(arr: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "dense":
         return arr.T
-    if arr.ndim == 4:
+    if kind == "conv":
         return arr.transpose(3, 2, 0, 1)
     return arr
 
 
-def _to_flax(arr: np.ndarray) -> np.ndarray:
-    if arr.ndim == 2:
+def _to_flax(arr: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "dense":
         return arr.T
-    if arr.ndim == 4:
+    if kind == "conv":
         return arr.transpose(2, 3, 1, 0)
     return arr
 
@@ -41,13 +44,14 @@ def from_flax(params_np: Mapping, model: TorchModel,
     Every parameter of ``model`` must be present with its shape."""
     flat = flatten(params_np)
     out = {}
-    for name, p in model.module.named_parameters():
-        layer, kind = name.split(".")
-        key = f"{layer}/{'bias' if kind == 'bias' else 'kernel'}"
-        arr = _to_port(np.asarray(flat.pop(key), np.float32))
-        if tuple(arr.shape) != tuple(p.shape):
+    for name, (kind, key, _) in param_kinds(model.module).items():
+        if key not in flat:
+            raise ValueError(f"{key}: missing from the flax params")
+        arr = _to_port(np.asarray(flat.pop(key), np.float32), kind)
+        want = tuple(model.module.get_parameter(name).shape)
+        if tuple(arr.shape) != want:
             raise ValueError(f"{key}: flax shape {arr.shape} is not the "
-                             f"port's {tuple(p.shape)} transposed")
+                             f"port's {want} in flax's layout")
         out[name] = torch.tensor(np.ascontiguousarray(arr), device=device)
     if flat:
         raise ValueError(f"flax params not in the port's model: "
@@ -55,12 +59,12 @@ def from_flax(params_np: Mapping, model: TorchModel,
     return out
 
 
-def to_flax(params: Mapping[str, torch.Tensor]) -> dict:
+def to_flax(params: Mapping[str, torch.Tensor], model: TorchModel) -> dict:
     """Inverse of :func:`from_flax`: a nested dict of f32 numpy arrays."""
+    kinds = param_kinds(model.module)
     flat = {}
     for name, t in params.items():
-        layer, kind = name.split(".")
-        key = f"{layer}/{'bias' if kind == 'bias' else 'kernel'}"
+        kind, key, _ = kinds[name]
         flat[key] = np.ascontiguousarray(
-            _to_flax(t.detach().float().cpu().numpy()))
+            _to_flax(t.detach().float().cpu().numpy(), kind))
     return unflatten(flat)

@@ -1,7 +1,12 @@
 """Model factory (port of ``fedml_tpu.models.model_hub.create``) for the
-models of the sp FedAvg path: ``lr``, ``mlp``, ``cnn``, ``cnn_web`` and
-``cnn_cifar``.  Returns a :class:`TorchModel` whose module lives on the
-``meta`` device (shapes only; parameters are passed at apply time)."""
+models of the sp FedAvg path: ``lr``, ``mlp``, the CNNs (``cnn``,
+``cnn_web``, ``cnn_cifar``), the GroupNorm ResNets (``resnet18_gn`` and
+its alias ``resnet18``, the width variants ``resnet18_gn_w<k>``,
+``resnet20``/``resnet20_mnn``, ``resnet56``) and the FedNLP text
+transformer (``text_transformer``, ``transformer_cls``, ``distilbert``,
+``bert``).  Returns a :class:`TorchModel` whose module lives on the
+``meta`` device (shapes only; parameters are passed at apply time).  Every
+other name of the JAX hub raises ``NotImplementedError`` naming itself."""
 
 from __future__ import annotations
 
@@ -13,10 +18,15 @@ import torch
 from .base import TorchModel
 from .cnn import CNNCifar, CNNDropOut, CNNWeb
 from .linear import MLP, LogisticRegression
+from .resnet import resnet18_gn, resnet20, resnet56
+from .text_transformer import TextTransformerClassifier
 
 _IMG28 = (28, 28, 1)
 _IMG32 = (32, 32, 3)
-PORTED = ("lr", "logistic_regression", "mlp", "cnn", "cnn_web", "cnn_cifar")
+TEXT_NAMES = ("distilbert", "bert", "transformer_cls", "text_transformer")
+PORTED = ("lr", "logistic_regression", "mlp", "cnn", "cnn_web", "cnn_cifar",
+          "resnet18", "resnet18_gn", "resnet18_gn_w<k>", "resnet56",
+          "resnet20", "resnet20_mnn") + TEXT_NAMES
 
 
 def _img_shape(args) -> Tuple[int, ...]:
@@ -32,7 +42,7 @@ def _img_shape(args) -> Tuple[int, ...]:
 def create(args, output_dim: int = 10) -> TorchModel:
     name = str(getattr(args, "model", "lr")).lower()
     ds = str(getattr(args, "dataset", "")).lower()
-    if name not in PORTED:
+    if name not in PORTED and not name.startswith("resnet18_gn_w"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet (the port creates "
             f"{', '.join(PORTED)})")
@@ -42,6 +52,29 @@ def create(args, output_dim: int = 10) -> TorchModel:
         raise NotImplementedError(
             "lr for tag prediction (BCE over multi-hot tags) is not ported "
             "yet")
+    if name in TEXT_NAMES:
+        seq_len = int(getattr(args, "seq_len", 128))
+        with torch.device("meta"):
+            m = TextTransformerClassifier(
+                vocab_size=int(getattr(args, "vocab_size", 30000)),
+                num_classes=output_dim,
+                dim=int(getattr(args, "model_dim", 256)),
+                n_layers=int(getattr(args, "model_layers", 4)),
+                n_heads=int(getattr(args, "model_heads", 8)),
+                ffn_dim=int(getattr(args, "model_ffn_dim", 512)),
+                max_len=max(seq_len, 16))
+        return TorchModel(m, (seq_len,), input_dtype=torch.int32)
+    if name.startswith("resnet"):
+        with torch.device("meta"):
+            if name.startswith("resnet18"):
+                # resnet18_gn_w<k>: the 2-2-2-2 architecture at width k
+                m = resnet18_gn(output_dim, int(name.split("_w", 1)[1])
+                                if "_gn_w" in name else 64)
+            elif name == "resnet56":
+                m = resnet56(output_dim)
+            else:
+                m = resnet20(output_dim)
+        return TorchModel(m, _IMG32)
     shape = _IMG32 if name == "cnn_cifar" else _img_shape(args)
     with torch.device("meta"):
         if name in ("lr", "logistic_regression"):

@@ -1,21 +1,25 @@
-"""Fused attention for the FedLLM path (port of ``fedml_tpu.ops.attention``).
+"""Fused attention for the FedLLM path and the text transformer (port of
+``fedml_tpu.ops.attention``).
 
 - :func:`blockwise_attention` — streaming-softmax attention as a Python
   loop over KV blocks, differentiable by autograd.  The semantic reference
   and the plain version of the forward kernel.
-- :func:`flash_attention` — an ``autograd.Function`` over three hand-written
+- :func:`flash_attention` — ``autograd.Function``s over three hand-written
   Hopper kernels (``csrc/``): K1 forward (O and logsumexp), K2 dQ (with the
   Δ = rowsum(dO∘O) preprocess folded in), K3 dK/dV (group-summed over the
   q heads of each KV head inside the kernel).  In bf16 all three keep their
   sums in registers and run their products as warpgroup ``wgmma`` from
   128-byte-swizzled shared-memory tiles (``csrc/flash_sm90.cuh``); their
-  f32 builds, for the small parity shapes, use FMA loops.
+  f32 builds (the text transformer's) use FMA loops.
 
 Each kernel has a wrapper (:func:`flash_attention_fwd`,
 :func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`) that
 launches it for CUDA tensors — or raises — and takes the kernel's plain
 PyTorch version (the ``*_plain`` functions below) only for CPU tensors.
-Each wrapper counts its launches in its ``launches`` attribute.
+Each wrapper counts its launches in its ``launches`` attribute (inside a
+CUDA graph it counts the capture, not the replays).  :func:`flash_attention`
+composes with ``torch.func.grad``/``grad_and_value`` and ``vmap``: under a
+cohort map each kernel launches once for the whole cohort.
 
 Layouts follow the JAX package: q ``(B, H, S, D)``, k/v ``(B, H_kv, S, D)``
 with ``H_kv | H`` (grouped-query heads are index-mapped, never repeated),
@@ -301,30 +305,131 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward K1 saves (q, k, v, O, lse); backward is K2 then K3."""
+# -- autograd and torch.func ----------------------------------------------
+# Each kernel is an autograd.Function in the functorch style (``forward``
+# without ctx, ``setup_context``, a ``vmap`` rule), so ``flash_attention``
+# runs under plain autograd, ``torch.func.grad_and_value`` and
+# ``torch.func.vmap``, nested too.  A vmap rule folds every mapped dim into
+# the batch dim B and calls the same Function once on the folded tensors:
+# a cohort of C clients, each (B, H, S, D), is one launch on (C·B, H, S, D),
+# and a map of P members around it folds once more.  The forward's backward
+# calls the K2 and K3 Functions, so under ``vmap`` the backward is batched
+# by their own rules.  Nothing here syncs the host, so the whole path can be
+# captured in a CUDA graph.
+
+def _fold(t: torch.Tensor, d: Optional[int], n: int) -> torch.Tensor:
+    """``t`` with its mapped dim ``d`` of size ``n`` moved to the front and
+    folded into the batch dim (an unmapped ``t``, ``d`` None, is expanded
+    to ``n``); copies only what cannot be viewed."""
+    t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+def _contiguous(*tensors):
+    return tuple(t.contiguous() for t in tensors)
+
+
+def _fold_all(info, in_dims, tensors):
+    return tuple(_fold(t, d, info.batch_size)
+                 for t, d in zip(tensors, in_dims))
+
+
+class _FlashFwd(torch.autograd.Function):
+    """K1: (O, lse), lse not differentiable; backward is K2 then K3."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+    def forward(q, k, v, causal, sm_scale):
+        return flash_attention_fwd(*_contiguous(q, k, v), causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
-        return o
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, ctx.causal,
-                                           ctx.sm_scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, ctx.causal,
-                                         ctx.sm_scale)
+        dq, delta = _FlashBwdDQ.apply(q, k, v, o, lse, do, ctx.causal,
+                                      ctx.sm_scale)
+        dk, dv = _FlashBwdDKV.apply(q, k, v, lse, delta, do, ctx.causal,
+                                    ctx.sm_scale)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, sm_scale):
+        o, lse = _FlashFwd.apply(*_fold_all(info, in_dims, (q, k, v)),
+                                 causal, sm_scale)
+        n = info.batch_size
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+def _no_double_backward(name):
+    raise RuntimeError(f"{name}: double backward through flash attention "
+                       "is not supported")
+
+
+class _FlashBwdDQ(torch.autograd.Function):
+    """K2: (dQ, Δ)."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, sm_scale):
+        return flash_attention_bwd_dq(*_contiguous(q, k, v, o, lse, do),
+                                      causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _no_double_backward("flash_bwd_dq")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, sm_scale):
+        dq, delta = _FlashBwdDQ.apply(
+            *_fold_all(info, in_dims, (q, k, v, o, lse, do)), causal,
+            sm_scale)
+        n = info.batch_size
+        return (_unfold(dq, n), _unfold(delta, n)), (0, 0)
+
+
+class _FlashBwdDKV(torch.autograd.Function):
+    """K3: (dK, dV)."""
+
+    @staticmethod
+    def forward(q, k, v, lse, delta, do, causal, sm_scale):
+        return flash_attention_bwd_dkv(*_contiguous(q, k, v, lse, delta, do),
+                                       causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _no_double_backward("flash_bwd_dkv")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, lse, delta, do, causal, sm_scale):
+        dk, dv = _FlashBwdDKV.apply(
+            *_fold_all(info, in_dims, (q, k, v, lse, delta, do)), causal,
+            sm_scale)
+        n = info.batch_size
+        return (_unfold(dk, n), _unfold(dv, n)), (0, 0)
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention: K1 forward, K2+K3 backward (no S×S tensor on the
-    card in either pass); the plain versions on the CPU."""
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, sm_scale)
+    card in either pass); the plain versions on the CPU.  Composes with
+    ``torch.func.grad``/``grad_and_value`` and ``vmap``: a mapped cohort
+    is one launch of each kernel."""
+    return _FlashFwd.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal, sm_scale)[0]

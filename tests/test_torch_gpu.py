@@ -439,3 +439,100 @@ def test_capture_that_syncs_the_host_raises(cuda_device):
     with pytest.raises(RuntimeError):
         block(st, *args)
     assert block.captures == 0
+
+
+# -- the kernel Functions under torch.func, and the text model -------------
+
+def _attention_loss(q, k, v, w):
+    """A client's loss through ``flash_attention``, non-causal: its
+    cotangent dO is ``w``."""
+    return (tatt.flash_attention(q, k, v, False) * w).sum()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 16])
+def test_vmapped_kernel_functions_match_per_client_launches(cuda_device, d):
+    """``vmap(grad_and_value)`` over a cohort of 5 folds the clients into
+    the batch dim: one launch of each kernel for the cohort, and O, dQ,
+    dK and dV bitwise those of five per-client launches (each block of a
+    kernel computes one (b, h, tile) whatever B is)."""
+    c, b, h, s = 5, 4, 4, 128
+    per = [_inputs(b, h, h, s, d, torch.float32, cuda_device, seed=i)
+           for i in range(c)]
+    q, k, v, w = (torch.stack(t) for t in zip(*per))
+    tatt.reset_launch_counts()
+    o = torch.func.vmap(lambda *a: tatt.flash_attention(*a, False))(q, k, v)
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(
+        _attention_loss, argnums=(0, 1, 2)))(q, k, v, w)
+    torch.cuda.synchronize()
+    assert [f.launches for f in tatt.KERNELS] == [2, 1, 1]
+    tatt.reset_launch_counts()
+    for i in range(c):
+        leaves = [t[i].clone().requires_grad_(True) for t in (q, k, v)]
+        oi = tatt.flash_attention(*leaves, False)
+        gi = torch.autograd.grad(oi, leaves, w[i])
+        assert torch.equal(oi, o[i])
+        assert all(torch.equal(a, g[i]) for a, g in zip(gi, grads))
+    assert [f.launches for f in tatt.KERNELS] == [c, c, c]
+
+
+def _text_api(device, **over):
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    cfg = dict(TEXT_SMALL, device=device)
+    cfg.update(over)
+    args = load_arguments().update(**cfg)
+    ds, n_out = data.load(args)
+    return FedAvgAPI(args, None, ds, model.create(args, n_out))
+
+
+#: tests/test_model_zoo_ext.py's text config (seq 32, vocab 512, dim 64, 2
+#: layers, 4 heads: head dim 16), SGD
+TEXT_SMALL = dict(dataset="20news", model="distilbert", seq_len=32,
+                  vocab_size=512, model_dim=64, model_layers=2,
+                  model_heads=4, model_ffn_dim=128, text_class_signal=0.5,
+                  text_keyword_width=1.0, train_size=600, test_size=120,
+                  client_num_in_total=6, client_num_per_round=3, epochs=1,
+                  batch_size=20, learning_rate=0.1, partition_method="homo",
+                  frequency_of_the_test=10 ** 9, random_seed=0)
+
+
+@pytest.mark.gpu
+def test_text_rounds_on_card_match_cpu_and_launch_once_a_layer(cuda_device):
+    """Two SGD rounds of the small text model on the card and the CPU from
+    the same weights: params within 1e-5 (f32 kernels against their plain
+    versions, summed in another order), and each kernel launched once per
+    layer per step for the whole vmapped cohort."""
+    card, cpu = _text_api("cuda"), _text_api("cpu")
+    tatt.reset_launch_counts()
+    steps = 0
+    for r in range(2):
+        m = card.train_one_round(r)
+        cpu.train_one_round(r)
+        steps += m["allocated_steps"] // card.clients_per_round
+    torch.cuda.synchronize()
+    layers = TEXT_SMALL["model_layers"]
+    assert [f.launches for f in tatt.KERNELS] == [layers * steps] * 3
+    for k, v in cpu.state.global_params.items():
+        assert (card.state.global_params[k].cpu() - v).abs().max() <= 1e-5, k
+
+
+@pytest.mark.gpu
+def test_vmapped_text_step_replays_as_a_cuda_graph(cuda_device):
+    """A vmapped text round captured as a CUDA graph (``round_block`` 2
+    over 4 rounds) launches the kernels inside the graph and equals the
+    eager rounds bitwise; the Python counters count the capture only."""
+    ref, fused = _text_api("cuda", comm_round=4), _text_api(
+        "cuda", comm_round=4, round_block=2)
+    ref_losses = torch.stack([ref.train_one_round(r)["train_loss"]
+                              for r in range(4)]).cpu()
+    tatt.reset_launch_counts()
+    fused_losses = _blocks(fused, 4)
+    assert fused._block_fn.captures == 1
+    # the warm run before the capture and the capture: two a kernel a layer
+    # a step; the replays add none on the host
+    assert len({f.launches for f in tatt.KERNELS}) == 1
+    assert torch.equal(fused_losses, ref_losses)
+    assert _same_state(fused, ref) == 0

@@ -30,3 +30,31 @@ def test_port_imports_no_jax_and_no_jax_package():
            for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_text_and_resnet_modules_import_with_jax_unimportable():
+    """The text transformer, the ResNets, the text loader and the kernel
+    Functions import and build their models in a process where ``jax``
+    and ``fedml_tpu`` cannot be imported at all."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from fedml_tpu_torch.models import resnet, text_transformer\n"
+        "from fedml_tpu_torch.models import model_hub\n"
+        "from fedml_tpu_torch.data import data_loader, synthetic\n"
+        "from fedml_tpu_torch.ops import attention\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "for name in ('text_transformer', 'resnet18_gn', 'resnet20'):\n"
+        "    model_hub.create(load_arguments().update(model=name), 10)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/models/text_transformer.py",
+            "fedml_tpu_torch/models/resnet.py"} <= walked

@@ -131,7 +131,7 @@ def test_forward_and_gradients_match_flax(name, ds, shape, classes):
 def test_convert_round_trip_and_init(name, ds, shape, classes):
     jm, tm = _models(name, ds, shape, classes)
     jp = jax.device_get(jm.init(jax.random.PRNGKey(0)))
-    back = to_flax(from_flax(jp, tm, device="cpu"))
+    back = to_flax(from_flax(jp, tm, device="cpu"), tm)
     flat_j = jax.tree_util.tree_leaves_with_path(jp)
     assert len(flat_j) == len(jax.tree_util.tree_leaves(back))
     for path, leaf in flat_j:
@@ -182,7 +182,7 @@ def test_dropout_masks_follow_the_generator():
 
 
 def test_unported_models_raise_by_name():
-    for name in ("resnet18", "rnn", "vgg11", "tiny_llama"):
+    for name in ("mobilenet", "rnn", "vgg11", "tiny_llama"):
         with pytest.raises(NotImplementedError, match=name):
             t_hub.create(t_arguments().update(model=name), 10)
     with pytest.raises(NotImplementedError, match="tag prediction"):

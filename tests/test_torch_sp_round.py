@@ -229,9 +229,9 @@ def test_unported_options_raise_by_name(flag, value):
     (dict(federated_optimizer="FedNAS"), "fednas"),
     (dict(federated_optimizer="FedGKT"), "fedgkt"),
     (dict(federated_optimizer="fedbuff"), "fedbuff"),
-    (dict(num_silos=2), "num_silos"), (dict(model="resnet18"), "resnet18"),
+    (dict(num_silos=2), "num_silos"), (dict(model="rnn"), "rnn"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
-    (dict(dataset="20news"), "20news")])
+    (dict(dataset="stackoverflow_lr"), "stackoverflow_lr")])
 def test_run_simulation_refuses_what_is_not_ported(over, what):
     """Unported backends, algorithms, models and datasets raise naming
     themselves; an absent cache directory falls back to synthetic data as

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Where a round of the PyTorch port's sp simulation spends its time on
 the card: ``chip_smoke.py`` phase 5's configurations (a) ``lr`` at
-``bench.py``'s shape and (b) the FEMNIST CNN, for each algorithm of
-``--federated-optimizer``, each after one warm round (with
+``bench.py``'s shape and (b) the FEMNIST CNN, phase 8's text transformer
+on the real text shard (``text_realtext``) and phase 9's ``resnet18_gn``
+on the CIFAR-100 stand-in (``resnet18_cifar100``), for each algorithm of
+``--federated-optimizer`` (default: each configuration's own, FedAvg
+where it names none), each after one warm round (with
 ``--round_block K``: one warm block, where the CUDA graphs are captured),
 then its host staging (cohort sampling and the index tensors, host clock;
 a whole block's with ``--round_block``) and rounds under
@@ -14,7 +17,8 @@ scatter (CUDA events; unfused rounds only), and the top kernels; writes
 the same as JSON to ``chiprun_out/sp_profile.json``.
 
     python3 tools/torch_sp_profile.py [--rounds N]
-        [--configs lr_bench,femnist_cnn] [--federated-optimizer FedAvg,...]
+        [--configs lr_bench,femnist_cnn,text_realtext,resnet18_cifar100]
+        [--federated-optimizer FedAvg,...]
         [--round_block K] [--cohort_bucketing] [--population P]
 
 ``--round_block K`` profiles fused blocks (whole blocks: the rounds are
@@ -29,7 +33,8 @@ import subprocess
 import sys
 import time
 
-GROUPS = (("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
+GROUPS = (("flash attention (K1-K3)", ("flash_",)),
+          ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
           ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "wgrad",
                                    "dgrad", "fprop")),
           ("pooling", ("pool",)),
@@ -150,10 +155,12 @@ def main():
     ap.add_argument("--rounds", type=int, default=3,
                     help="profiled rounds per configuration")
     ap.add_argument("--configs", default="lr_bench,femnist_cnn",
-                    help="comma-separated: lr_bench, femnist_cnn")
-    ap.add_argument("--federated-optimizer", default="FedAvg",
+                    help="comma-separated: lr_bench, femnist_cnn, "
+                         "text_realtext, resnet18_cifar100")
+    ap.add_argument("--federated-optimizer", default="",
                     help="comma-separated algorithms, each profiled on "
-                         "each configuration")
+                         "each configuration (default: the "
+                         "configuration's own)")
     ap.add_argument("--round_block", type=int, default=1,
                     help="rounds a fused block (CUDA graphs on the card)")
     ap.add_argument("--cohort_bucketing", action="store_true",
@@ -169,24 +176,29 @@ def main():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
     import fedml_tpu_torch
-    from chip_smoke import SP_FEMNIST_CNN, SP_LR_BENCH, build_sp, sp_args
+    from chip_smoke import (RESNET_CIFAR100, SP_FEMNIST_CNN, SP_LR_BENCH,
+                            TEXT_REALTEXT, build_sp, sp_args)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    configs = {"lr_bench": SP_LR_BENCH, "femnist_cnn": SP_FEMNIST_CNN}
+    configs = {"lr_bench": SP_LR_BENCH, "femnist_cnn": SP_FEMNIST_CNN,
+               "text_realtext": TEXT_REALTEXT,
+               "resnet18_cifar100": RESNET_CIFAR100}
     mode = dict(round_block=rb, cohort_bucketing=opts.cohort_bucketing,
                 population=opts.population)
     out = {"card": smi, "mode": mode}
     tag = "".join([f"/K{rb}" if rb > 1 else "",
                    "/bucketed" if opts.cohort_bucketing else "",
                    f"/P{opts.population}" if opts.population else ""])
-    for alg in opts.federated_optimizer.split(","):
+    algs = [a for a in opts.federated_optimizer.split(",") if a] or [None]
+    for alg in algs:
         for cname in opts.configs.split(","):
-            name = f"{cname}/{alg}{tag}"
-            api = build_sp(sp_args(fedml_tpu_torch, federated_optimizer=alg,
-                                   **dict(configs[cname], **mode,
-                                          comm_round=rb + rounds)))
+            cfg = dict(configs[cname], **mode, comm_round=rb + rounds)
+            cfg["federated_optimizer"] = alg or cfg.get(
+                "federated_optimizer", "FedAvg")
+            name = f"{cname}/{cfg['federated_optimizer']}{tag}"
+            api = build_sp(sp_args(fedml_tpu_torch, **cfg))
             rec = out[name] = profile(torch, api, rounds, rb)
             del api
             report(name, rec, rounds, smi)
