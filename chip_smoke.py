@@ -12,7 +12,8 @@ Phases, each printing its own lines:
    bytes and shared memory per block from ``-Xptxas -v`` (kept beside each
    library, so a cached build reports it too; a bf16 K1, K2 or K3 that
    spills, or has no report at one of the head dims 16, 32, ..., 128,
-   fails);
+   fails, and so does an f32 K2 or K3, whose products are 3xTF32
+   ``mma.sync``, that spills or has no report);
 3. kernels — K1 (forward), K2 (dQ) and K3 (dK/dV), each against its plain
    PyTorch version on the same inputs, and the autograd Function bitwise
    equal to them, at the slice's shape, a ragged GQA shape, a head dim the
@@ -118,9 +119,15 @@ import subprocess
 import sys
 import time
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+#: H100 SXM, dense.  f32: the kernels' f32-accurate products run on the
+#: tensor cores as 3xTF32 (three TF32 passes a product), so the least time
+#: for them is 495 TF32 TFLOP/s / 3, not the 67 of f32 FMA outside the
+#: tensor cores (which K1's f32 build still uses: its share of this bound
+#: is the share of what the card could do for the same work)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 BF16_HEAD_DIMS = range(16, 129, 16)   # csrc/flash_sm90.cuh FA_BF16_HEAD_DIMS
+TF32_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")   # csrc/flash_tf32.cuh
 REPLACES = {
     "flash_fwd": "fedml_tpu/ops/attention.py:114",
     "flash_bwd_dq": "fedml_tpu/ops/attention.py:332",
@@ -1202,12 +1209,17 @@ def main():
         if missing:
             fail(f"{name}: no -Xptxas -v report of its bf16 kernel at head "
                  f"dims {missing}")
+        # the f32 builds of K2 and K3 run their products as 3xTF32 mma.sync
+        tf32 = f"{name}_f32_kernel" if name in TF32_KERNELS else None
+        if tf32 and not any(k.startswith(tf32) for k in report):
+            fail(f"{name}: no -Xptxas -v report of its f32 kernel")
         for kern, r in report.items():
             say("build", f"  {kern}: {r['registers']} registers/thread, "
                          f"spill bytes {r['spill_stores']} stored / "
                          f"{r['spill_loads']} loaded, static shared memory "
                          f"{r['smem']} bytes")
-            if "bf16" in kern and r["spill_stores"] + r["spill_loads"]:
+            if (("bf16" in kern or (tf32 and kern.startswith(tf32)))
+                    and r["spill_stores"] + r["spill_loads"]):
                 fail(f"{kern} spills registers to local memory")
 
     # -- 3. kernels vs plain ----------------------------------------------

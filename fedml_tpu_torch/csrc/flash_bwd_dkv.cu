@@ -36,9 +36,28 @@
 // The tiles, 64 × 64, won a measured sweep of 64/128 k rows × 32/64 q rows
 // at the training shape (PERF.md).
 //
-// f32 (the small parity shapes only) keeps the first design: tiles and
-// f32 accumulators in shared memory, FMA products (flash_common.cuh).
+// f32 design (the text transformer's build; built per head dim, D any
+// multiple of 16 up to 128): one block of four warps per (b·h_kv, 32-row k
+// tile), K and V resident in shared memory.  The block loops over the
+// H/H_kv q heads of its KV head and their 32-row q tiles (the group sum in
+// f32 in the block, no atomics); Q, dO, lse and Δ of step it + 1 are in
+// flight (cp.async, two stages) during step it.  Per step each warp forms
+// its 16 x 16 tile of S = Q·Kᵀ and dP = dO·Vᵀ in registers, P and dS there
+// too, and writes P and dS to shared memory; then dV += Pᵀ·dO and dK +=
+// dSᵀ·Q into register accumulators that live over all steps (dK and dV
+// are written once).  Pᵀ and dSᵀ are read from P and dS as stored, by
+// index.  Two block barriers a step.  The products run on the tensor cores
+// as warp-level mma.sync m16n8k8 in 3xTF32 (f32-accurate; flash_tf32.cuh);
+// every fragment load is free of bank conflicts at the row strides chosen
+// (all an odd multiple of 4 floats; P's and dS's float2 stores conflict
+// 2-way, once a step).  Bound at the text shape (B 80, H 8, S 128, D 32,
+// full): 2.7 GFLOP at 165 TFLOP/s (495 TF32 over three passes) is 16 µs,
+// under the 64 MB it must move (19 µs), so bytes set the least time.  What
+// holds it back is instruction issue, as in K2: the split into hi and lo,
+// fragment loads and addresses at 32-row tiles, and latency with ~4 blocks
+// an SM (125 registers a thread at D 32).
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace fa {
 
@@ -228,19 +247,37 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* lse,
   return (int)cudaGetLastError();
 }
 
-// ---- f32: the first design ------------------------------------------------
-size_t dkv_f32_smem(int D) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  constexpr int P = Tiles<float>::PAD;
-  return 2 * region(BK * (D + P) * sizeof(float)) +
-         2 * region(BQ * (D + P) * sizeof(float)) +
-         2 * region(BQ * (BK + FPAD) * sizeof(float)) +
-         2 * region(BQ * (BK + P) * sizeof(float)) +
-         2 * region(BK * (D + FPAD) * sizeof(float)) +
-         2 * region(BQ * sizeof(float));
+// ---- f32: 3xTF32 products on 32-row tiles --------------------------------
+constexpr int F32_BQ = Tiles<float>::BQ, F32_BK = Tiles<float>::BK;
+
+// K, V (rows D + PAD4), two stages of (Q, dO (D + PAD4), lse, Δ), then P
+// and dS (BK + PAD4)
+template <int D>
+__host__ __device__ constexpr size_t dkv_f32_stage() {
+  return 2 * region(F32_BQ * (D + PAD4) * sizeof(float)) +
+         2 * region(F32_BQ * sizeof(float));
+}
+template <int D>
+__host__ __device__ constexpr size_t dkv_f32_smem() {
+  return 2 * region(F32_BK * (D + PAD4) * sizeof(float)) +
+         2 * dkv_f32_stage<D>() +
+         2 * region(F32_BQ * (F32_BK + PAD4) * sizeof(float));
 }
 
-template <int BQ, int BK>
+// Starts dst[i] = src[row0 + i] for i < rows as 4-byte cp.async copies,
+// zero-filled where row0 + i >= nrows, and commits them.
+__device__ __forceinline__ void load_floats(float* dst,
+                                            const float* __restrict__ src,
+                                            int row0, int nrows, int rows) {
+  for (int i = threadIdx.x; i < rows; i += NTHREADS) {
+    const bool in = row0 + i < nrows;
+    __pipeline_memcpy_async(dst + i, in ? src + row0 + i : src, 4,
+                            in ? 0 : 4);
+  }
+  __pipeline_commit();
+}
+
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -249,97 +286,147 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          const float* __restrict__ dout,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Hkv, int Sq, int Sk, int D, float scale,
+                         int H, int Hkv, int Sq, int Sk, float scale,
                          int causal) {
-  constexpr int lds = BK + FPAD, ldp = BK + Tiles<float>::PAD;
-  const int ldt = D + Tiles<float>::PAD, ldf = D + FPAD;
+  constexpr int BQ = F32_BQ, BK = F32_BK;
+  constexpr int ldt = D + PAD4, ldp = BK + PAD4;
+  constexpr int TN = D / 16, NT = (BK / 16) * TN;   // dK's, dV's 16 x 16
+  constexpr int WT = (NT + NWARPS - 1) / NWARPS;     // tiles; a warp's
+  static_assert((BQ / 16) * (BK / 16) == NWARPS,
+                "one 16 x 16 tile of S and dP a warp");
+  constexpr size_t KB = region(BK * ldt * 4), QB = region(BQ * ldt * 4);
+  constexpr size_t STAGE = dkv_f32_stage<D>();
   extern __shared__ __align__(1024) unsigned char smem[];
-  Carver cv{smem};
-  float* sK = cv.take<float>(BK * ldt);
-  float* sV = cv.take<float>(BK * ldt);
-  float* sQ = cv.take<float>(BQ * ldt);
-  float* sdO = cv.take<float>(BQ * ldt);
-  float* sS = cv.take<float>(BQ * lds);
-  float* sdP = cv.take<float>(BQ * lds);
-  float* sP = cv.take<float>(BQ * ldp);
-  float* sdS = cv.take<float>(BQ * ldp);
-  float* sdK = cv.take<float>(BK * ldf);
-  float* sdV = cv.take<float>(BK * ldf);
-  float* sLse = cv.take<float>(BQ);
-  float* sDelta = cv.take<float>(BQ);
+  float* const sK = reinterpret_cast<float*>(smem);
+  float* const sV = reinterpret_cast<float*>(smem + KB);
+  // stage st: Q, dO, lse, Δ
+  auto sQ = [&](int st) {
+    return reinterpret_cast<float*>(smem + 2 * KB + st * STAGE);
+  };
+  auto sdO = [&](int st) {
+    return reinterpret_cast<float*>(smem + 2 * KB + st * STAGE + QB);
+  };
+  auto sLse = [&](int st) {
+    return reinterpret_cast<float*>(smem + 2 * KB + st * STAGE + 2 * QB);
+  };
+  float* const sP = reinterpret_cast<float*>(smem + 2 * KB + 2 * STAGE);
+  float* const sdS = sP + region(BQ * ldp * 4) / 4;
 
   const int kvr = blockIdx.y, k0 = blockIdx.x * BK;
   const int b = kvr / Hkv, hk = kvr % Hkv, rep = H / Hkv;
   const size_t koff = (size_t)kvr * Sk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's tile of S and dP: rows (q) sm0.., columns (k) sn0..
+  const int sm0 = warp / (BK / 16) * 16, sn0 = warp % (BK / 16) * 16;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int qi0 = causal ? min(k0 / BQ, nq) : 0;   // first q tile seeing k0
+  const int per_head = nq - qi0, nsteps = rep * per_head;
 
+  // step it: q head b·H + hk·rep + it / per_head, q tile qi0 + it % per_head
+  auto load_step = [&](int it) {
+    const int bh = b * H + hk * rep + it / per_head;
+    const int q0 = (qi0 + it % per_head) * BQ, st = it & 1;
+    const size_t qoff = (size_t)bh * Sq * D;
+    load_rows(sQ(st), ldt, q + qoff, q0, Sq, BQ, D);
+    load_rows(sdO(st), ldt, dout + qoff, q0, Sq, BQ, D);
+    load_floats(sLse(st), lse + (size_t)bh * Sq, q0, Sq, BQ);
+    load_floats(sLse(st) + BQ, delta + (size_t)bh * Sq, q0, Sq, BQ);
+  };
   load_rows(sK, ldt, k + koff, k0, Sk, BK, D);
   load_rows(sV, ldt, v + koff, k0, Sk, BK, D);
-  for (int i = threadIdx.x; i < BK * ldf; i += NTHREADS) {
-    sdK[i] = 0.f;
-    sdV[i] = 0.f;
-  }
+  if (nsteps > 0) load_step(0);
 
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int g = 0; g < rep; ++g) {
-    const int bh = b * H + hk * rep + g;
-    const size_t qoff = (size_t)bh * Sq * D;
-    for (int qi = 0; qi < nq; ++qi) {
-      const int q0 = qi * BQ;
-      if (causal && q0 + BQ - 1 < k0) continue;  // tile sees none of this K
-      __syncthreads();  // previous tile's products are done with sQ/sdO/sP
-      load_rows(sQ, ldt, q + qoff, q0, Sq, BQ, D);
-      load_rows(sdO, ldt, dout + qoff, q0, Sq, BQ, D);
-      for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-        const bool in = q0 + r < Sq;
-        sLse[r] = in ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
-        sDelta[r] = in ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
+  float dka[WT][2][4], dva[WT][2][4];   // this warp's dK, dV tiles
+#pragma unroll
+  for (int i = 0; i < WT; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dka[i][e / 4][e % 4] = dva[i][e / 4][e % 4] = 0.f;
+
+  for (int it = 0; it < nsteps; ++it) {
+    const int st = it & 1, q0 = (qi0 + it % per_head) * BQ;
+    cp_wait();
+    // every warp is done with the last step: its stage, P and dS are free
+    __syncthreads();
+    if (it + 1 < nsteps) load_step(it + 1);   // in flight during this step
+    // S = Q·Kᵀ and dP = dO·Vᵀ on this warp's tile (rows q, columns k), in
+    // registers; P and dS there too, then to shared memory, where dV and
+    // dK read them transposed
+    float s[2][4] = {}, dp[2][4] = {};
+    mma_tile<false, true, D>(sQ(st), ldt, sK, ldt, sm0, sn0, s);
+    mma_tile<false, true, D>(sdO(st), ldt, sV, ldt, sm0, sn0, dp);
+    const float* sL = sLse(st);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = sm0 + g + 8 * h, qpos = q0 + r;
+      const float l = sL[r], dl = sL[BQ + r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + sn0 + 8 * j + 2 * t + e;
+          const bool ok =
+              kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
+          p[e] = ok ? expf(s[j][2 * h + e] * scale - l) : 0.f;
+          ds[e] = p[e] * (dp[j][2 * h + e] - dl) * scale;
+        }
+        const int off = r * ldp + sn0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(sP + off) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(sdS + off) = make_float2(ds[0], ds[1]);
       }
-      cp_wait();
-      __syncthreads();
-      mm<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);  // Q·Kᵀ
-      mm<false, true>(sdO, ldt, sV, ldt, sdP, lds, BQ, BK, D, false);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
-        const int r = idx / BK, j = idx - r * BK;
-        const int qpos = q0 + r, kpos = k0 + j;
-        const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
-        const float p = ok ? expf(sS[r * lds + j] * scale - sLse[r]) : 0.f;
-        sP[r * ldp + j] = p;
-        sdS[r * ldp + j] = p * (sdP[r * lds + j] - sDelta[r]) * scale;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {   // dV += Pᵀ·dO, dK += dSᵀ·Q
+      const int w = warp + NWARPS * i;
+      if (w < NT) {
+        const int m0 = w / TN * 16, n0 = w % TN * 16;
+        mma_tile<true, false, BQ>(sP, ldp, sdO(st), ldt, m0, n0, dva[i]);
+        mma_tile<true, false, BQ>(sdS, ldp, sQ(st), ldt, m0, n0, dka[i]);
       }
-      __syncthreads();
-      mm<true, false>(sP, ldp, sdO, ldt, sdV, ldf, BK, D, BQ, true);  // Pᵀ·dO
-      mm<true, false>(sdS, ldp, sQ, ldt, sdK, ldf, BK, D, BQ, true);  // dSᵀ·Q
     }
   }
-  cp_wait();   // no q tile may have been live: the K/V loads end here
-  __syncthreads();
+  cp_wait();   // with no step at all, the K/V copies may still be pending
 
-  for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx - r * D;
-    if (k0 + r < Sk) {
-      dk[koff + (size_t)k0 * D + idx] = sdK[r * ldf + c];
-      dv[koff + (size_t)k0 * D + idx] = sdV[r * ldf + c];
+#pragma unroll
+  for (int i = 0; i < WT; ++i) {
+    const int w = warp + NWARPS * i;
+    if (w >= NT) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w / TN * 16 + g + 8 * h;
+      if (k0 + r >= Sk) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const size_t off =
+            koff + (size_t)(k0 + r) * D + w % TN * 16 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(dk + off) =
+            make_float2(dka[i][j][2 * h], dka[i][j][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv + off) =
+            make_float2(dva[i][j][2 * h], dva[i][j][2 * h + 1]);
+      }
     }
   }
 }
 
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* lse,
                const void* delta, const void* dout, void* dk, void* dv, int B,
-               int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+               int H, int Hkv, int Sq, int Sk, float scale, int causal,
                cudaStream_t stream) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  const size_t smem = dkv_f32_smem(D);
-  auto kern = flash_bwd_dkv_f32_kernel<BQ, BK>;
+  constexpr size_t smem = dkv_f32_smem<D>();
+  auto kern = flash_bwd_dkv_f32_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sk + BK - 1) / BK, B * Hkv);
+  dim3 grid((Sk + F32_BK - 1) / F32_BK, B * Hkv);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(dout),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Sk, D,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Sk,
       scale, causal);
   return (int)cudaGetLastError();
 }
@@ -355,9 +442,17 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              float scale, int causal, int dtype,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fa::launch_f32(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv, Sq,
-                          Sk, D, scale, causal, s);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d)                                                          \
+  case d:                                                                   \
+    return fa::launch_f32<d>(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv,  \
+                             Sq, Sk, scale, causal, s);
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
@@ -371,7 +466,16 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of the kernel takes at head_dim D.
 extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
-  if (dtype == 0) return (int)fa::dkv_f32_smem(D);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d) \
+  case d:          \
+    return (int)fa::dkv_f32_smem<d>();
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return 0;
+  }
   return fa::padded_dim(D) == 64 ? (int)fa::dkv_bf16_smem<64>()
                                  : (int)fa::dkv_bf16_smem<128>();
 }

@@ -38,9 +38,27 @@
 // with S, dP, dS and the dQ accumulator in shared memory, one block an SM,
 // no overlap of loads and products): PERF.md has both times.
 //
-// f32 (the small parity shapes only) keeps the first design: tiles and the
-// f32 accumulator in shared memory, FMA products (flash_common.cuh).
+// f32 design (the text transformer's build; built per head dim, D any
+// multiple of 16 up to 128): one block of four warps per (b·h, 32-row q
+// tile).  Q and dO stay in shared memory; 32-row K/V tiles go through two
+// stages filled by cp.async, tile j+1 in flight during tile j's work.  Per
+// KV tile each warp forms its 16 x 16 tile of S = Q·Kᵀ and dP = dO·Vᵀ in
+// registers, P and dS there too (Δ summed in f32 up front, as in bf16),
+// and writes dS to shared memory; then dQ += dS·K into register
+// accumulators that live over the whole key loop (dQ is written once).
+// Two block barriers a tile.  The products run on the tensor cores as
+// warp-level mma.sync m16n8k8 in 3xTF32 (f32-accurate; flash_tf32.cuh)
+// from row strides that leave every fragment load free of bank conflicts
+// (dS's rows an odd multiple of 8 floats, Q's, dO's, K's and V's of 4).
+// Bound at the text shape (B 80, H 8, S 128, D 32, full): 2.0 GFLOP at 165
+// TFLOP/s (495 TF32 over three passes) is 12 µs, under the 64 MB it must
+// move (19 µs), so bytes set the least time.  What holds it back is
+// instruction issue, not the tensor cores: per mma the split into hi and
+// lo, the fragment loads and their addresses, at 32-row tiles (4 warps, a
+// 16 x 16 tile each) that reuse each fragment little, and latency with
+// ~4 blocks an SM (125 registers a thread at D 32).
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace fa {
 
@@ -229,18 +247,20 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- f32: the first design ------------------------------------------------
-size_t dq_f32_smem(int D) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  constexpr int P = Tiles<float>::PAD;
-  return 2 * region(BQ * (D + P) * sizeof(float)) +
-         2 * region(BK * (D + P) * sizeof(float)) +
-         3 * region(BQ * (BK + FPAD) * sizeof(float)) +
-         region(BQ * (D + FPAD) * sizeof(float)) +
-         2 * region(BQ * sizeof(float));
+// ---- f32: 3xTF32 products on 32-row tiles --------------------------------
+constexpr int F32_BQ = Tiles<float>::BQ, F32_BK = Tiles<float>::BK;
+
+// Q, dO (rows D + PAD4), two stages of (K, V) (D + PAD4), dS (BK + PAD8),
+// lse and Δ
+template <int D>
+__host__ __device__ constexpr size_t dq_f32_smem() {
+  return 2 * region(F32_BQ * (D + PAD4) * sizeof(float)) +
+         4 * region(F32_BK * (D + PAD4) * sizeof(float)) +
+         region(F32_BQ * (F32_BK + PAD8) * sizeof(float)) +
+         2 * region(F32_BQ * sizeof(float));
 }
 
-template <int BQ, int BK>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -249,22 +269,28 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ dout,
                         float* __restrict__ dq, float* __restrict__ delta,
-                        int H, int Hkv, int Sq, int Sk, int D, float scale,
+                        int H, int Hkv, int Sq, int Sk, float scale,
                         int causal) {
-  constexpr int lds = BK + FPAD;
-  const int ldt = D + Tiles<float>::PAD, ldf = D + FPAD;
+  constexpr int BQ = F32_BQ, BK = F32_BK, RPW = BQ / NWARPS;
+  constexpr int ldt = D + PAD4, lds = BK + PAD8;
+  constexpr int TN = D / 16, NT = (BQ / 16) * TN;   // dQ's 16 x 16 tiles
+  constexpr int WT = (NT + NWARPS - 1) / NWARPS;     // ... a warp's
+  static_assert((BQ / 16) * (BK / 16) == NWARPS,
+                "one 16 x 16 tile of S and dP a warp");
+  constexpr size_t QB = region(BQ * ldt * 4), KB = region(BK * ldt * 4);
   extern __shared__ __align__(1024) unsigned char smem[];
-  Carver cv{smem};
-  float* sQ = cv.take<float>(BQ * ldt);
-  float* sdO = cv.take<float>(BQ * ldt);
-  float* sK = cv.take<float>(BK * ldt);
-  float* sV = cv.take<float>(BK * ldt);
-  float* sS = cv.take<float>(BQ * lds);
-  float* sdP = cv.take<float>(BQ * lds);
-  float* sdS = cv.take<float>(BQ * lds);
-  float* sAcc = cv.take<float>(BQ * ldf);
-  float* sLse = cv.take<float>(BQ);
-  float* sDelta = cv.take<float>(BQ);
+  float* const sQ = reinterpret_cast<float*>(smem);
+  float* const sdO = reinterpret_cast<float*>(smem + QB);
+  auto sK = [&](int st) {
+    return reinterpret_cast<float*>(smem + 2 * QB + st * 2 * KB);
+  };
+  auto sV = [&](int st) {
+    return reinterpret_cast<float*>(smem + 2 * QB + st * 2 * KB + KB);
+  };
+  float* const sdS = reinterpret_cast<float*>(smem + 2 * QB + 4 * KB);
+  float* const sLse = reinterpret_cast<float*>(
+      smem + 2 * QB + 4 * KB + region(BQ * lds * 4));
+  float* const sDelta = sLse + BQ;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int kvr = (bh / H) * Hkv + (bh % H) / (H / Hkv);
@@ -272,75 +298,126 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const float* kb = k + (size_t)kvr * Sk * D;
   const float* vb = v + (size_t)kvr * Sk * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's tile of S and dP: rows sm0.., columns sn0..
+  const int sm0 = warp / (BK / 16) * 16, sn0 = warp % (BK / 16) * 16;
+  const int nk_all = (Sk + BK - 1) / BK;
+  const int nk = causal ? min(nk_all, (q0 + BQ - 1) / BK + 1) : nk_all;
 
   load_rows(sQ, ldt, q + qoff, q0, Sq, BQ, D);
   load_rows(sdO, ldt, dout + qoff, q0, Sq, BQ, D);
-  for (int i = threadIdx.x; i < BQ * ldf; i += NTHREADS) sAcc[i] = 0.f;
-  // Δ = rowsum(dO∘O) in f32, one warp per row
-  for (int r = warp; r < BQ; r += NWARPS) {
-    const int qpos = q0 + r;
-    float d = 0.f;
+  load_rows(sK(0), ldt, kb, 0, Sk, BK, D);
+  load_rows(sV(0), ldt, vb, 0, Sk, BK, D);
+  // Δ = rowsum(dO∘O) in f32, one warp per row: rows warp + 4i, every
+  // row's loads in flight before the first reduction
+  float dsum[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int qpos = q0 + warp + NWARPS * i;
+    dsum[i] = 0.f;
     if (qpos < Sq) {
       const float* orow = o + qoff + (size_t)qpos * D;
       const float* drow = dout + qoff + (size_t)qpos * D;
-      for (int c = lane; c < D; c += 32) d += drow[c] * orow[c];
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += 32)
+        if (c0 + lane < D) dsum[i] += drow[c0 + lane] * orow[c0 + lane];
     }
-    d = warp_sum(d);
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + NWARPS * i, qpos = q0 + r;
+    const float d = warp_sum(dsum[i]);
     if (lane == 0) {
       sDelta[r] = d;
       sLse[r] = qpos < Sq ? lse[(size_t)bh * Sq + qpos] : 0.f;
       if (qpos < Sq) delta[(size_t)bh * Sq + qpos] = d;
     }
   }
-  cp_wait();
-  __syncthreads();
 
-  const int nk = (Sk + BK - 1) / BK;
+  float acc[WT][2][4];   // this warp's dQ tiles, over the whole key loop
+#pragma unroll
+  for (int i = 0; i < WT; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e / 4][e % 4] = 0.f;
+
   for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * BK;
-    if (causal && k0 > q0 + BQ - 1) break;
-    load_rows(sK, ldt, kb, k0, Sk, BK, D);
-    load_rows(sV, ldt, vb, k0, Sk, BK, D);
+    const int k0 = kj * BK, st = kj & 1;
     cp_wait();
+    // every warp is done with the last tile: its stage takes the next
+    // tile's copies, in flight during this tile's work
     __syncthreads();
-    mm<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);    // Q·Kᵀ
-    mm<false, true>(sdO, ldt, sV, ldt, sdP, lds, BQ, BK, D, false);  // dO·Vᵀ
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
-      const int r = idx / BK, j = idx - r * BK;
-      const int qpos = q0 + r, kpos = k0 + j;
-      const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
-      const float p = ok ? expf(sS[r * lds + j] * scale - sLse[r]) : 0.f;
-      sdS[r * lds + j] = p * (sdP[r * lds + j] - sDelta[r]) * scale;
+    if (kj + 1 < nk) {
+      load_rows(sK(st ^ 1), ldt, kb, k0 + BK, Sk, BK, D);
+      load_rows(sV(st ^ 1), ldt, vb, k0 + BK, Sk, BK, D);
+    }
+    // S = Q·Kᵀ and dP = dO·Vᵀ on this warp's tile, in registers; P and dS
+    // there too; dS to shared memory for dS·K
+    float s[2][4] = {}, dp[2][4] = {};
+    mma_tile<false, true, D>(sQ, ldt, sK(st), ldt, sm0, sn0, s);
+    mma_tile<false, true, D>(sdO, ldt, sV(st), ldt, sm0, sn0, dp);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = sm0 + g + 8 * h, qpos = q0 + r;
+      const float l = sLse[r], dl = sDelta[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + sn0 + 8 * j + 2 * t + e;
+          const bool ok =
+              kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
+          const float p = ok ? expf(s[j][2 * h + e] * scale - l) : 0.f;
+          ds[e] = p * (dp[j][2 * h + e] - dl) * scale;
+        }
+        *reinterpret_cast<float2*>(sdS + r * lds + sn0 + 8 * j + 2 * t) =
+            make_float2(ds[0], ds[1]);
+      }
     }
     __syncthreads();
-    mm<false, false>(sdS, lds, sK, ldt, sAcc, ldf, BQ, D, BK, true);  // dS·K
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < WT; ++i) {   // dQ += dS·K
+      const int w = warp + NWARPS * i;
+      if (w < NT)
+        mma_tile<false, false, BK>(sdS, lds, sK(st), ldt, w / TN * 16,
+                                   w % TN * 16, acc[i]);
+    }
   }
 
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx - r * D;
-    if (q0 + r < Sq) dq[qoff + (size_t)q0 * D + idx] = sAcc[r * ldf + c];
+#pragma unroll
+  for (int i = 0; i < WT; ++i) {
+    const int w = warp + NWARPS * i;
+    if (w >= NT) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w / TN * 16 + g + 8 * h;
+      if (q0 + r >= Sq) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<float2*>(dq + qoff + (size_t)(q0 + r) * D +
+                                   w % TN * 16 + 8 * j + 2 * t) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
   }
 }
 
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, void* dq, void* delta,
-               int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+               int B, int H, int Hkv, int Sq, int Sk, float scale,
                int causal, cudaStream_t stream) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  const size_t smem = dq_f32_smem(D);
-  auto kern = flash_bwd_dq_f32_kernel<BQ, BK>;
+  constexpr size_t smem = dq_f32_smem<D>();
+  auto kern = flash_bwd_dq_f32_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  dim3 grid((Sq + F32_BQ - 1) / F32_BQ, B * H);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(dout),
       static_cast<float*>(dq), static_cast<float*>(delta), H, Hkv, Sq, Sk,
-      D, scale, causal);
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -354,9 +431,17 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int Sq, int Sk, int D, float scale, int causal,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fa::launch_f32(q, k, v, o, lse, dout, dq, delta, B, H, Hkv, Sq,
-                          Sk, D, scale, causal, s);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d)                                                          \
+  case d:                                                                   \
+    return fa::launch_f32<d>(q, k, v, o, lse, dout, dq, delta, B, H, Hkv,   \
+                             Sq, Sk, scale, causal, s);
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
@@ -370,7 +455,90 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of the kernel takes at head_dim D.
 extern "C" int flash_bwd_dq_smem_bytes(int D, int dtype) {
-  if (dtype == 0) return (int)fa::dq_f32_smem(D);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d) \
+  case d:          \
+    return (int)fa::dq_f32_smem<d>();
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return 0;
+  }
   return fa::padded_dim(D) == 64 ? (int)fa::dq_bf16_smem<64>()
                                  : (int)fa::dq_bf16_smem<128>();
+}
+
+// ---- a check of mm_tf32x3's fragment layouts ------------------------------
+namespace fa {
+
+// One block: A, B and C (dense, row-major as stored) copied into shared
+// memory at the row strides the kernels use for each layout, C (+)= A·B by
+// mm_tf32x3, C copied back.
+template <bool A_T, bool B_T>
+__global__ void __launch_bounds__(NTHREADS)
+tile_mm_f32_test_kernel(const float* __restrict__ A,
+                        const float* __restrict__ B, float* __restrict__ C,
+                        int M, int N, int K, int acc) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int ar = A_T ? K : M, ac = A_T ? M : K;
+  const int br = B_T ? N : K, bc = B_T ? K : N;
+  const int lda = ac + (A_T == B_T ? PAD8 : PAD4), ldb = bc + PAD4;
+  const int ldc = N + PAD8;
+  Carver cv{smem};
+  float* sA = cv.take<float>(ar * lda);
+  float* sB = cv.take<float>(br * ldb);
+  float* sC = cv.take<float>(M * ldc);
+  for (int i = threadIdx.x; i < ar * ac; i += NTHREADS)
+    sA[i / ac * lda + i % ac] = A[i];
+  for (int i = threadIdx.x; i < br * bc; i += NTHREADS)
+    sB[i / bc * ldb + i % bc] = B[i];
+  for (int i = threadIdx.x; i < M * N; i += NTHREADS)
+    sC[i / N * ldc + i % N] = acc ? C[i] : __int_as_float(0x7fc00000);
+  __syncthreads();
+  mm_tf32x3<A_T, B_T>(sA, lda, sB, ldb, sC, ldc, M, N, K, acc != 0);
+  __syncthreads();
+  for (int i = threadIdx.x; i < M * N; i += NTHREADS)
+    C[i] = sC[i / N * ldc + i % N];
+}
+
+template <bool A_T, bool B_T>
+int launch_tile_mm_test(const void* A, const void* B, void* C, int M, int N,
+                        int K, int acc, cudaStream_t stream) {
+  const int ar = A_T ? K : M, ac = A_T ? M : K;
+  const int br = B_T ? N : K, bc = B_T ? K : N;
+  const size_t smem =
+      region(ar * (ac + (A_T == B_T ? PAD8 : PAD4)) * sizeof(float)) +
+      region(br * (bc + PAD4) * sizeof(float)) +
+      region(M * (N + PAD8) * sizeof(float));
+  auto kern = tile_mm_f32_test_kernel<A_T, B_T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, NTHREADS, smem, stream>>>(static_cast<const float*>(A),
+                                      static_cast<const float*>(B),
+                                      static_cast<float*>(C), M, N, K, acc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fa
+
+// C[M x N] (+)= A·B through mm_tf32x3 in one block (a test of its fragment
+// layouts): A is [M][K] row-major, or [K][M] if a_t; B is [K][N], or [N][K]
+// if b_t; C is [M][N], read first if acc.  M and N multiples of 16, K of 8,
+// all three tiles within one block's shared memory.  Returns a cudaError_t
+// code.
+extern "C" int fa_tile_mm_f32_test(const void* A, const void* B, void* C,
+                                   int M, int N, int K, int a_t, int b_t,
+                                   int acc, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M % 16 || N % 16 || K % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_t)
+    return b_t ? fa::launch_tile_mm_test<true, true>(A, B, C, M, N, K, acc, s)
+               : fa::launch_tile_mm_test<true, false>(A, B, C, M, N, K, acc,
+                                                      s);
+  return b_t ? fa::launch_tile_mm_test<false, true>(A, B, C, M, N, K, acc, s)
+             : fa::launch_tile_mm_test<false, false>(A, B, C, M, N, K, acc,
+                                                     s);
 }

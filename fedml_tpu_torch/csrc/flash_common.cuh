@@ -1,10 +1,13 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu) used by their f32 builds (the small
-// parity shapes): tile sizes, shared-memory carving, row loads with
-// ragged-edge zeroing, warp reductions and the block-level tile product
-// C (+)= A·B as plain FMA loops with f32 sums; also the three kernels'
-// bf16 type, mask value and CUDA error string.  The bf16 kernels keep their
-// sums in registers and run their products on the tensor cores
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) used by their f32 builds (the text
+// transformer's): tile sizes, shared-memory carving, row loads with
+// ragged-edge zeroing, warp reductions and mm, the block-level tile
+// product C (+)= A·B as plain FMA loops with f32 sums; also the three
+// kernels' bf16 type, mask value and CUDA error string.  mm is bound by
+// shared-memory bandwidth (two loads a multiply-add, ~4 TFLOP/s on an
+// H100) and only K1's f32 build still runs it: K2's and K3's f32 products
+// run on the tensor cores in 3xTF32 (flash_tf32.cuh).  The bf16 kernels
+// keep their sums in registers and run their products as wgmma
 // (flash_sm90.cuh).
 #pragma once
 

@@ -31,9 +31,11 @@
 // 64 × 64, won a measured sweep of 64/128 × 64/128 at the training shape
 // (PERF.md).
 //
-// f32 (the small parity shapes only) keeps the first design: Q, the K/V
-// tile, S and the accumulator in shared memory, FMA products
-// (flash_common.cuh).
+// f32 (the text transformer's build) keeps the first design: Q, the K/V
+// tile, S and the accumulator in shared memory, products as FMA loops
+// (flash_common.cuh::mm), bound by shared-memory bandwidth at ~4 TFLOP/s.
+// K2 and K3 have moved their f32 products to the tensor cores
+// (flash_tf32.cuh::mm_tf32x3); this kernel's two mm calls are next.
 #include "flash_sm90.cuh"
 
 namespace fa {

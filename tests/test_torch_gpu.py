@@ -8,6 +8,10 @@ card run them with
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 does not have; this file imports neither JAX nor the JAX package.)
 
+The f32 tile product of K2 and K3 (3xTF32 ``mma.sync``,
+``csrc/flash_tf32.cuh``) is also checked alone, in each operand layout at
+the kernels' tile shapes, against a float64 product.
+
 Tolerance: ``attention.KERNEL_TOL`` through ``compare_with_plain`` — per
 element ``|kernel − plain| <= atol + rtol·|plain|`` and per 64-row block
 ``‖kernel − plain‖ <= nrel·‖plain‖``, with (atol, rtol, nrel) =
@@ -130,6 +134,46 @@ def test_dq_kernel_is_deterministic(cuda_device, dtype):
     first = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
     second = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
     assert all(map(torch.equal, first, second))
+
+
+def _tile_mm_f32(a, b, c, m, n, k, a_t, b_t, acc):
+    """``fa_tile_mm_f32_test``: c (+)= a·b through ``mm_tf32x3`` in one
+    block, a and b as stored (transposed if a_t / b_t)."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import cuda_build
+    lib = cuda_build.library("flash_bwd_dq")
+    fn = lib.fa_tile_mm_f32_test
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, int(a_t),
+            int(b_t), int(acc), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, "fa_tile_mm_f32_test", rc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc", [False, True])
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (False, True),
+                                     (True, False), (True, True)])
+@pytest.mark.parametrize("d", range(16, 129, 16))
+def test_tf32x3_tile_product_matches_float64(cuda_device, d, a_t, b_t, acc):
+    """K2's and K3's f32 tile product (3xTF32 ``mma.sync``) in each operand
+    layout, at the kernels' shapes 32×32×D (Q·Kᵀ, dO·Vᵀ) and 32×D×32 (dS·K,
+    Pᵀ·dO, dSᵀ·Q), against a float64 product on the CPU, held to
+    ``KERNEL_TOL[float32]``: a wrong fragment layout reads O(1) errors."""
+    rng = np.random.default_rng(d)
+    for m, n, k in ((32, 32, d), (32, d, 32)):
+        a, b, c = (torch.tensor(rng.standard_normal(shape).astype(np.float32))
+                   for shape in ((m, k), (k, n), (m, n)))
+        out = c.to(cuda_device)
+        _tile_mm_f32((a.t() if a_t else a).contiguous().to(cuda_device),
+                     (b.t() if b_t else b).contiguous().to(cuda_device), out,
+                     m, n, k, a_t, b_t, acc)
+        ref = a.double() @ b.double() + (c.double() if acc else 0)
+        st = tatt.compare_with_plain(out.cpu()[None, None],
+                                     ref.float()[None, None])
+        assert st["elem"] <= 1 and st["block"] <= 1, ((m, n, k), st)
 
 
 @pytest.mark.gpu
