@@ -10,19 +10,20 @@ Phases, each printing its own lines:
 2. build — the three flash-attention kernels compiled from ``csrc/`` (one
    ``nvcc`` per source, in parallel), with each kernel's registers, spill
    bytes and shared memory per block from ``-Xptxas -v`` (kept beside each
-   library, so a cached build reports it too; a bf16 K1, K2 or K3 that
-   spills, or has no report at one of the head dims 16, 32, ..., 128,
-   fails, and so does an f32 K2 or K3, whose products are 3xTF32
-   ``mma.sync``, that spills or has no report);
+   library, so a cached build reports it too; a K1, K2 or K3 build, bf16
+   (``wgmma``) or f32 (3xTF32 ``mma.sync``), that spills or has no report
+   at one of the head dims 16, 32, ..., 128 fails);
 3. kernels — K1 (forward), K2 (dQ) and K3 (dK/dV), each against its plain
    PyTorch version on the same inputs, and the autograd Function bitwise
    equal to them, at the slice's shape, a ragged GQA shape, a head dim the
    bf16 kernels pad (80) and a small f32 shape, each output held per element and per 64-row block to
-   ``attention.KERNEL_TOL``; times (CUDA events, warm) beside the plain
-   version, one library call as a yardstick (``scaled_dot_product_attention``
-   for K1, PyTorch's flash-attention backward for K2 and K3 together), and
-   the least time the card could take, with the achieved TFLOP/s and the
-   share of that bound;
+   ``attention.KERNEL_TOL``; each kernel's device time (20 calls replayed
+   as one CUDA graph) beside its eager time (20 calls from Python), the
+   plain version, one library call as a yardstick by both readings
+   (``scaled_dot_product_attention`` for K1, PyTorch's attention backward
+   for K2 and K3 together; graph replay, or the profiler where the call
+   cannot be captured), and the least time the card could take, with the
+   achieved TFLOP/s and the share of that bound at the device time;
 4. slice — ``build_fedllm`` → ``FedLLMAPI.train()`` + ``evaluate()`` at
    Llama-2-7B width (dim 4096, 32 heads, ffn 11008, bf16, LoRA rank 8 on
    wq/wk/wv/wo) on the synthetic Shakespeare LM data at seq 1024, 4 clients
@@ -122,12 +123,12 @@ import time
 #: H100 SXM, dense.  f32: the kernels' f32-accurate products run on the
 #: tensor cores as 3xTF32 (three TF32 passes a product), so the least time
 #: for them is 495 TF32 TFLOP/s / 3, not the 67 of f32 FMA outside the
-#: tensor cores (which K1's f32 build still uses: its share of this bound
-#: is the share of what the card could do for the same work)
+#: tensor cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
-BF16_HEAD_DIMS = range(16, 129, 16)   # csrc/flash_sm90.cuh FA_BF16_HEAD_DIMS
-TF32_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")   # csrc/flash_tf32.cuh
+#: csrc/flash_sm90.cuh FA_BF16_HEAD_DIMS: the head dims every kernel is
+#: built for, in bf16 and in f32
+BF16_HEAD_DIMS = range(16, 129, 16)
 REPLACES = {
     "flash_fwd": "fedml_tpu/ops/attention.py:114",
     "flash_bwd_dq": "fedml_tpu/ops/attention.py:332",
@@ -168,6 +169,9 @@ def check_close(att, what, got, ref):
 
 
 def time_ms(torch, fn, reps, warm=2):
+    """Eager time of one call of ``fn``: CUDA events around ``reps`` calls
+    from Python after ``warm`` calls; a call faster than its host work
+    reads as the host work (what an unfused round pays)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -179,6 +183,78 @@ def time_ms(torch, fn, reps, warm=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps=20, warm=2, replays=3, stream=None):
+    """Device time of one call of ``fn``: ``warm`` calls on a side stream
+    (``stream`` if given), then ``reps`` calls captured in one CUDA graph on
+    it, the graph replayed once untimed and ``replays`` times under CUDA
+    events; ms a call.  The calls run back to back on the card with no host
+    work between them, so this reads the kernels (and the gaps between a
+    graph's nodes), not the Python wrapper."""
+    import gc
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc.disable()   # nothing may free CUDA objects inside the capture
+    try:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+    finally:
+        gc.enable()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def profiler_ms(torch, fn, reps=20, warm=2):
+    """Device time of one call of ``fn`` from ``torch.profiler``: the
+    summed device time of the kernels that ``reps`` eager calls launched
+    (the gaps between them not counted), over ``reps``."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        fail("torch.profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def library_ms(torch, fn, stream=None):
+    """A library call's (device ms, method, eager ms): its device time by
+    graph replay (:func:`graph_ms`), or from the profiler
+    (:func:`profiler_ms`) where the call cannot be captured; beside it the
+    eager time (:func:`time_ms`)."""
+    try:
+        ms, method = graph_ms(torch, fn, stream=stream), "graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        say("kernels", f"  library call not captured ({str(e)[:120]}): "
+                       "its device time is read from the profiler")
+        ms, method = profiler_ms(torch, fn), "profiler"
+    return ms, method, time_ms(torch, fn, 20)
 
 
 def work(kernel, b, h, hkv, s, d, causal, dtype):
@@ -223,14 +299,19 @@ TIMED_SHAPES = ("slice", "text", "text_bf16")
 
 
 def time_kernels(torch, att, tag, inputs, shape, errs, smi):
-    """Phase 3's timings at one shape: each kernel (CUDA events over 20
-    warm launches) beside its plain version (5), its bound, and one
-    library call computing the same function: ``scaled_dot_product_
-    attention`` for K1; for K2 and K3 PyTorch's attention backward, which
-    gives dQ, dK and dV together (bf16: the flash-attention backward op;
-    f32: the backward of SDPA's own f32 forward, one ``autograd.grad``).
-    Also K1+K2+K3 forward+backward through autograd beside SDPA's.
-    Returns (rows keyed ``"<kernel>@<tag>"``, forward+backward times)."""
+    """Phase 3's timings at one shape: each kernel's device time (``ms``:
+    20 calls replayed as one CUDA graph, :func:`graph_ms`) beside its eager
+    time (``eager_ms``: 20 calls from Python, what an unfused round pays),
+    its plain version (eager, 5 calls), its bound, and one library call
+    computing the same function, by both readings (``library_ms`` and
+    ``library_method``: graph or profiler; ``library_eager_ms``):
+    ``scaled_dot_product_attention`` for K1; for K2 and K3 PyTorch's
+    attention backward, which gives dQ, dK and dV together (bf16: the
+    flash-attention backward op; f32: the backward of SDPA's own f32
+    forward, one ``autograd.grad``).  Also K1+K2+K3 forward+backward
+    through autograd beside SDPA's, by both readings.  ``tflops`` and
+    ``bound_share`` are taken from the device time.  Returns (rows keyed
+    ``"<kernel>@<tag>"``, forward+backward times)."""
     q, k, v, do, o, lse, delta = inputs
     b, h, hkv, s, d, causal, dt = shape
     calls = {
@@ -248,43 +329,52 @@ def time_kernels(torch, att, tag, inputs, shape, errs, smi):
                                                       do, causal)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
+    lib_fwd = library_ms(torch, lambda: sdpa(q, k, v, is_causal=causal))
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     if dt == "bfloat16":
         lo, llse, cq, ck, mq, mk, seed, offset, _ = \
             torch.ops.aten._scaled_dot_product_flash_attention(
                 q, k, v, 0.0, causal)
-        lib_bwd = time_ms(
+        lib_bwd = library_ms(
             torch, lambda: torch.ops.aten
             ._scaled_dot_product_flash_attention_backward(
                 do, q, k, v, lo, llse, cq, ck, mq, mk, 0.0, causal, seed,
-                offset), 20)
+                offset))
     else:
-        lib_out = sdpa(ql, kl, vl, is_causal=causal)
-        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do, retain_graph=True), 20)
+        # autograd runs each backward op on its forward's stream: the
+        # forward is taken on the stream the graph captures
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            lib_out = sdpa(ql, kl, vl, is_causal=causal)
+        torch.cuda.current_stream().wait_stream(side)
+        lib_bwd = library_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), stream=side)
     library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
                "flash_bwd_dkv": lib_bwd}
     rows = {}
     for name, (kern, plain) in calls.items():
         b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
-        ms = time_ms(torch, kern, 20)
+        ms = graph_ms(torch, kern)
+        lib_ms, lib_method, lib_eager = library[name]
         rows[f"{name}@{tag}"] = r = {
             "name": name, "route": "cuda",
             "source": f"fedml_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms,
+            "max_abs_err": errs[name], "ms": ms, "method": "graph",
+            "eager_ms": time_ms(torch, kern, 20),
             "plain_ms": time_ms(torch, plain, 5),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library[name], "shape": tag, "dtype": dt,
+            "library_ms": lib_ms, "library_method": lib_method,
+            "library_eager_ms": lib_eager, "shape": tag, "dtype": dt,
             "tflops": work(name, b, h, hkv, s, d, causal, dt)[0] / ms / 1e9,
             "bound_share": b_ms / ms}
-        say("kernels", f"{name} @{tag}: {ms:.4f} ms kernel "
-                       f"({r['tflops']:.1f} TFLOP/s, "
+        say("kernels", f"{name} @{tag}: {ms:.4f} ms device (graph; eager "
+                       f"{r['eager_ms']:.4f}) ({r['tflops']:.1f} TFLOP/s, "
                        f"{100 * r['bound_share']:.1f}% of bound), "
                        f"{r['plain_ms']:.3f} ms plain, bound "
-                       f"{b_ms:.4f} ms ({b_by}), library "
-                       f"{r['library_ms']:.4f} ms [{smi}]")
+                       f"{b_ms:.4f} ms ({b_by}), library {lib_ms:.4f} ms "
+                       f"({lib_method}; eager {lib_eager:.4f}) [{smi}]")
 
     def lib_fb():
         torch.autograd.grad(sdpa(ql, kl, vl, is_causal=causal),
@@ -294,13 +384,18 @@ def time_kernels(torch, att, tag, inputs, shape, errs, smi):
         torch.autograd.grad(att.flash_attention(ql, kl, vl, causal),
                             (ql, kl, vl), do)
 
-    fwd_bwd = {"ms": time_ms(torch, ours_fb, 10),
-               "library_ms": time_ms(torch, lib_fb, 10),
-               "library_fwd_ms": lib_fwd}
-    say("kernels", f"fwd+bwd @{tag}: ours {fwd_bwd['ms']:.3f} ms, "
-                   f"scaled_dot_product_attention "
-                   f"{fwd_bwd['library_ms']:.3f} ms (forward alone "
-                   f"{lib_fwd:.4f} ms) [{smi}]")
+    lib = library_ms(torch, lib_fb)
+    fwd_bwd = {"ms": graph_ms(torch, ours_fb), "method": "graph",
+               "eager_ms": time_ms(torch, ours_fb, 10),
+               "library_ms": lib[0], "library_method": lib[1],
+               "library_eager_ms": lib[2], "library_fwd_ms": lib_fwd[0],
+               "library_fwd_method": lib_fwd[1]}
+    say("kernels", f"fwd+bwd @{tag}: ours {fwd_bwd['ms']:.4f} ms device "
+                   f"(graph; eager {fwd_bwd['eager_ms']:.3f}), "
+                   f"scaled_dot_product_attention {lib[0]:.4f} ms ({lib[1]}"
+                   f"; eager {lib[2]:.3f}); its forward alone "
+                   f"{lib_fwd[0]:.4f} ms ({lib_fwd[1]}; eager "
+                   f"{lib_fwd[2]:.4f}) [{smi}]")
     return rows, fwd_bwd
 
 
@@ -1204,22 +1299,18 @@ def main():
                      f"{rec['seconds']:.1f} s; dynamic shared memory/block "
                      f"at head_dim 128 {smem} bytes")
         report = cuda_build.ptxas_report(rec["ptxas"])
-        missing = [d for d in BF16_HEAD_DIMS
-                   if f"{name}_bf16_kernel<{d}>" not in report]
+        # bf16 on wgmma, f32 on 3xTF32 mma.sync: each built per head dim
+        builds = [f"{name}_{kind}_kernel<{d}>" for kind in ("bf16", "f32")
+                  for d in BF16_HEAD_DIMS]
+        missing = [kern for kern in builds if kern not in report]
         if missing:
-            fail(f"{name}: no -Xptxas -v report of its bf16 kernel at head "
-                 f"dims {missing}")
-        # the f32 builds of K2 and K3 run their products as 3xTF32 mma.sync
-        tf32 = f"{name}_f32_kernel" if name in TF32_KERNELS else None
-        if tf32 and not any(k.startswith(tf32) for k in report):
-            fail(f"{name}: no -Xptxas -v report of its f32 kernel")
+            fail(f"{name}: no -Xptxas -v report of {missing}")
         for kern, r in report.items():
             say("build", f"  {kern}: {r['registers']} registers/thread, "
                          f"spill bytes {r['spill_stores']} stored / "
                          f"{r['spill_loads']} loaded, static shared memory "
                          f"{r['smem']} bytes")
-            if (("bf16" in kern or (tf32 and kern.startswith(tf32)))
-                    and r["spill_stores"] + r["spill_loads"]):
+            if kern in builds and r["spill_stores"] + r["spill_loads"]:
                 fail(f"{kern} spills registers to local memory")
 
     # -- 3. kernels vs plain ----------------------------------------------

@@ -1,14 +1,9 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu) used by their f32 builds (the text
-// transformer's): tile sizes, shared-memory carving, row loads with
-// ragged-edge zeroing, warp reductions and mm, the block-level tile
-// product C (+)= A·B as plain FMA loops with f32 sums; also the three
-// kernels' bf16 type, mask value and CUDA error string.  mm is bound by
-// shared-memory bandwidth (two loads a multiply-add, ~4 TFLOP/s on an
-// H100) and only K1's f32 build still runs it: K2's and K3's f32 products
-// run on the tensor cores in 3xTF32 (flash_tf32.cuh).  The bf16 kernels
-// keep their sums in registers and run their products as wgmma
-// (flash_sm90.cuh).
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the f32 builds' block size and K2's
+// and K3's f32 tile rows, shared-memory regions, row loads with ragged-edge
+// zeroing and warp reductions; also the three kernels' bf16 type, mask
+// value and CUDA error string.  The f32 products run on the tensor cores in
+// 3xTF32 (flash_tf32.cuh), the bf16 ones as wgmma (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,15 +19,12 @@ constexpr float NEG_INF = -1e30f;   // mask value of the reference, not -inf
 constexpr int NTHREADS = 128;       // four warps per block
 constexpr int NWARPS = NTHREADS / 32;
 
-// (BQ, BK) query/key tile rows of the f32 kernels, small enough that the
-// f32 dK/dV block fits in shared memory at head_dim 128.  Every
-// shared-memory row is padded by 16 bytes (PAD elements): rows of a power
-// of two bytes would put the rows a warp reads on the same banks.
+// (BQ, BK) query/key tile rows of the f32 K2 and K3, small enough that the
+// f32 dK/dV block fits in shared memory at head_dim 128.
 template <typename T> struct Tiles;
 template <> struct Tiles<float> {
-  static constexpr int BQ = 32, BK = 32, PAD = 4;
+  static constexpr int BQ = 32, BK = 32;
 };
-constexpr int FPAD = 4;   // padding of f32 rows
 
 __host__ __device__ constexpr size_t region(size_t bytes) {
   return (bytes + 127) & ~size_t(127);
@@ -46,12 +38,6 @@ struct Carver {
     return r;
   }
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -81,25 +67,6 @@ __device__ void load_rows(T* dst, int ld, const T* __restrict__ src, int row0,
 }
 
 __device__ __forceinline__ void cp_wait() { __pipeline_wait_prior(0); }
-
-// C[M x N] (f32, row-major, ldc) = (acc ? C : 0) + A[M x K] · B[K x N].
-// A_T: A is stored transposed, as [K][M] with leading dimension lda;
-// B_T: B is stored transposed, as [N][K] with leading dimension ldb.
-// Every thread of the block must call it; the caller synchronises.
-template <bool A_T, bool B_T>
-__device__ void mm(const float* A, int lda, const float* B, int ldb,
-                   float* C, int ldc, int M, int N, int K, bool acc) {
-  for (int idx = threadIdx.x; idx < M * N; idx += NTHREADS) {
-    const int m = idx / N, n = idx - m * N;
-    float s = acc ? C[m * ldc + n] : 0.f;
-    for (int kk = 0; kk < K; ++kk) {
-      const float a = A_T ? A[kk * lda + m] : A[m * lda + kk];
-      const float b = B_T ? B[n * ldb + kk] : B[kk * ldb + n];
-      s = fmaf(a, b, s);
-    }
-    C[m * ldc + n] = s;
-  }
-}
 
 }  // namespace fa
 

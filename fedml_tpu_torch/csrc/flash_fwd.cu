@@ -31,12 +31,29 @@
 // 64 × 64, won a measured sweep of 64/128 × 64/128 at the training shape
 // (PERF.md).
 //
-// f32 (the text transformer's build) keeps the first design: Q, the K/V
-// tile, S and the accumulator in shared memory, products as FMA loops
-// (flash_common.cuh::mm), bound by shared-memory bandwidth at ~4 TFLOP/s.
-// K2 and K3 have moved their f32 products to the tensor cores
-// (flash_tf32.cuh::mm_tf32x3); this kernel's two mm calls are next.
+// f32 design (the text transformer's build; built per head dim, D any
+// multiple of 16 up to 128), the bf16 design's shape on warp-level tensor
+// cores: one block of four warps per (b·h, 64-row q tile), each warp owning
+// 16 q rows across the whole K/V tile and all of D, so the running max and
+// sum are quad shuffles, with no shared memory and no barrier.  S (16 × BK)
+// and the O accumulator (16 × D) stay in registers over the key loop, and O
+// is written once.  Both products are mma.sync m16n8k8 in 3xTF32
+// (f32-accurate, each k-step summed in a fresh accumulator; flash_tf32.cuh):
+// S = Q·Kᵀ reads K as stored ([key][d], a B stored [N][K]); O += P·V reads
+// V as stored ([key][d], a B stored [K][N], paired k order), and P never
+// leaves registers: S's C fragment is P·V's A fragment (c_frag_as_a).  Q's
+// split fragments stay in registers across the key loop for D ≤ 64 (D
+// registers a thread) and are read from shared memory each tile above.
+// Rows of Q, K and V are padded by PAD4, so every fragment load is free of
+// bank conflicts.  K/V tiles (64 rows for D ≤ 64, 32 above, to keep two
+// blocks an SM at D 128) go through two cp.async stages, tile j+1 in flight
+// during tile j, one block barrier a tile.  Masking and the tiles visited
+// are as in bf16; exponentials are ex2 of s·scale·log2 e, lse is written as
+// m·ln 2 + log l.  Bound at the text shape (B 80, H 8, S 128, D 32, full):
+// 1.3 GFLOP at 165 TFLOP/s (495 TF32 over three passes) is 8 µs, under the
+// 42 MB it must move (13 µs), so bytes set the least time.
 #include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace fa {
 
@@ -45,6 +62,68 @@ constexpr int FWD_BQ = 64, FWD_BK = 64;
 template <int DP>
 __host__ __device__ constexpr size_t fwd_bf16_smem() {
   return size_t(FWD_BQ) * DP * 2 + 2 * 2 * size_t(FWD_BK) * DP * 2;
+}
+
+// Online softmax of one S tile (this warp's rows q_row and q_row + 8, BK
+// columns from key k0, in the C layout) in log2 units, shared by K1's bf16
+// and f32 builds: S·scale·log2 e, masked to NEG_INF where a key is past Sk
+// or (causal) after the row's query (evaluated only where edge says the
+// tile needs it); the row max m and sum l move on, S becomes P, and alpha
+// is the factor by which O must be scaled.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale_log2, bool edge,
+                                               int k0, int q_row, int Sk,
+                                               int causal) {
+  const int t = threadIdx.x % 4;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[nt][e] * scale_log2;
+      if (edge) {
+        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
+        const int qpos = q_row + 8 * (e >> 1);
+        if (kpos >= Sk || (causal && kpos > qpos)) x = NEG_INF;
+      }
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = sm90::quad_max(mx[i]);
+    alpha[i] = sm90::ex2(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = sm90::ex2(s[nt][e] - m[e >> 1]);
+      s[nt][e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+}
+
+// O's rows g (c0, c1) and g+8 (c2, c3) times alpha
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&acc)[N][4],
+                                           const float (&alpha)[2]) {
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) {
+    acc[nt][0] *= alpha[0];
+    acc[nt][1] *= alpha[0];
+    acc[nt][2] *= alpha[1];
+    acc[nt][3] *= alpha[1];
+  }
 }
 
 template <int D>
@@ -104,49 +183,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait<0>();
     fence_regs(s);
 
-    // online softmax in log2 units; the mask only where the tile needs it
     const int k0 = j * BK;
-    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (edge) {
-          const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-          const int qpos = q0 + r0 + g + 8 * (e >> 1);
-          if (kpos >= Sk || (causal && kpos > qpos)) x = NEG_INF;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = ex2(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ex2(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
+    float alpha[2];
+    online_softmax<BK>(s, m, l, alpha, scale_log2,
+                       k0 + BK > Sk || (causal && k0 + BK - 1 > q0), k0,
+                       q0 + r0 + g, Sk, causal);
+    scale_rows(acc, alpha);
 
     uint32_t pa[BK / 16][4];   // P in V's type, as the A operand of P·V
     c_to_a<BK / 16>(pa, s);
@@ -210,120 +252,137 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- f32: the first design ------------------------------------------------
-size_t fwd_f32_smem(int D) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  constexpr int P = Tiles<float>::PAD;
-  return region(BQ * (D + P) * sizeof(float)) +
-         2 * region(BK * (D + P) * sizeof(float)) +
-         region(BQ * (BK + FPAD) * sizeof(float)) +
-         region(BQ * (BK + P) * sizeof(float)) +
-         region(BQ * (D + FPAD) * sizeof(float)) +
-         2 * region(BQ * sizeof(float));
+// ---- f32: 3xTF32 products, S, P and O in registers -----------------------
+constexpr int F32_FWD_BQ = 64;
+template <int D>
+__host__ __device__ constexpr int fwd_f32_bk() { return D <= 64 ? 64 : 32; }
+
+// Q (rows D + PAD4) and two stages of (K, V)
+template <int D>
+__host__ __device__ constexpr size_t fwd_f32_smem() {
+  return region(F32_FWD_BQ * (D + PAD4) * sizeof(float)) +
+         4 * region(fwd_f32_bk<D>() * (D + PAD4) * sizeof(float));
 }
 
-template <int BQ, int BK>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     int D, float scale, int causal) {
-  constexpr int lds = BK + FPAD, ldp = BK + Tiles<float>::PAD;
-  const int ldt = D + Tiles<float>::PAD, ldf = D + FPAD;
+                     float scale_log2, int causal) {
+  constexpr int BQ = F32_FWD_BQ, BK = fwd_f32_bk<D>(), ld = D + PAD4;
+  constexpr bool QREG = D <= 64;   // Q's split fragments held in registers
+  static_assert(BQ == 16 * NWARPS, "a warp owns 16 q rows");
+  constexpr size_t QB = region(BQ * ld * 4), KB = region(BK * ld * 4);
   extern __shared__ __align__(1024) unsigned char smem[];
-  Carver cv{smem};
-  float* sQ = cv.take<float>(BQ * ldt);
-  float* sK = cv.take<float>(BK * ldt);
-  float* sV = cv.take<float>(BK * ldt);
-  float* sS = cv.take<float>(BQ * lds);
-  float* sP = cv.take<float>(BQ * ldp);
-  float* sAcc = cv.take<float>(BQ * ldf);
-  float* sM = cv.take<float>(BQ);
-  float* sL = cv.take<float>(BQ);
+  float* const sQ = reinterpret_cast<float*>(smem);
+  auto sK = [&](int st) {
+    return reinterpret_cast<float*>(smem + QB + st * 2 * KB);
+  };
+  auto sV = [&](int st) {
+    return reinterpret_cast<float*>(smem + QB + st * 2 * KB + KB);
+  };
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
   const int kvr = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const float* qb = q + (size_t)bh * Sq * D;
   const float* kb = k + (size_t)kvr * Sk * D;
   const float* vb = v + (size_t)kvr * Sk * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int nk_all = (Sk + BK - 1) / BK;
+  const int nk = causal ? min(nk_all, (q0 + BQ - 1) / BK + 1) : nk_all;
 
-  load_rows(sQ, ldt, qb, q0, Sq, BQ, D);
-  for (int i = threadIdx.x; i < BQ * ldf; i += NTHREADS) sAcc[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
+  load_rows(sQ, ld, q + (size_t)bh * Sq * D, q0, Sq, BQ, D);
+  load_rows(sK(0), ld, kb, 0, Sk, BK, D);
+  load_rows(sV(0), ld, vb, 0, Sk, BK, D);
   cp_wait();
   __syncthreads();
-
-  const int nk = (Sk + BK - 1) / BK;
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * BK;
-    if (causal && k0 > q0 + BQ - 1) break;  // this and later tiles are masked
-    load_rows(sK, ldt, kb, k0, Sk, BK, D);
-    load_rows(sV, ldt, vb, k0, Sk, BK, D);
-    cp_wait();
-    __syncthreads();
-    mm<false, true>(sQ, ldt, sK, ldt, sS, lds, BQ, BK, D, false);  // Q·Kᵀ
-    __syncthreads();
-    // online softmax, one warp per row
-    for (int r = warp; r < BQ; r += NWARPS) {
-      const int qpos = q0 + r;
-      float mx = NEG_INF;
-      for (int j = lane; j < BK; j += 32) {
-        const int kpos = k0 + j;
-        const bool ok = kpos < Sk && (!causal || kpos <= qpos);
-        const float s = ok ? sS[r * lds + j] * scale : NEG_INF;
-        sS[r * lds + j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = expf(sS[r * lds + j] - m_new);
-        sum += p;
-        sP[r * ldp + j] = p;
-      }
-      sum = warp_sum(sum);
-      for (int c = lane; c < D; c += 32) sAcc[r * ldf + c] *= alpha;
-      if (lane == 0) {
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-    mm<false, false>(sP, ldp, sV, ldt, sAcc, ldf, BQ, D, BK, true);  // += P·V
-    __syncthreads();
+  uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      a_frag_bt(sQ, ld, r0, 8 * kk, qh[kk], ql[kk]);
   }
 
-  for (int r = warp; r < BQ; r += NWARPS) {
-    const int qpos = q0 + r;
+  float acc[D / 8][4];   // O, unnormalised
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows g, g+8
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK, st = j & 1;
+    if (j) {
+      cp_wait();
+      // every warp is done with tile j-1: its stage takes tile j+1
+      __syncthreads();
+    }
+    if (j + 1 < nk) {   // in flight during this tile's work
+      load_rows(sK(st ^ 1), ld, kb, k0 + BK, Sk, BK, D);
+      load_rows(sV(st ^ 1), ld, vb, k0 + BK, Sk, BK, D);
+    }
+
+    float s[BK / 8][4];   // S = Q·Kᵀ on this warp's 16 rows
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      if constexpr (QREG) {
+        mma_strip<true, BK / 8>(qh[kk], ql[kk], sK(st), ld, 8 * kk, s);
+      } else {
+        uint32_t ah[4], al[4];
+        a_frag_bt(sQ, ld, r0, 8 * kk, ah, al);
+        mma_strip<true, BK / 8>(ah, al, sK(st), ld, 8 * kk, s);
+      }
+    }
+
+    float alpha[2];
+    online_softmax<BK>(s, m, l, alpha, scale_log2,
+                       k0 + BK > Sk || (causal && k0 + BK - 1 > q0), k0,
+                       q0 + r0 + g, Sk, causal);
+    scale_rows(acc, alpha);
+
+    // O += P·V, P from S's registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      c_frag_as_a(s[kk], ah, al);
+      mma_strip<false, D / 8>(ah, al, sV(st), ld, 8 * kk, acc);
+    }
+  }
+
+  // O = acc / l, each quad writing 8 consecutive floats of a row
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = fmaxf(sm90::quad_sum(l[i]), 1e-30f);
+    const int qpos = q0 + r0 + g + 8 * i;
     if (qpos >= Sq) continue;
-    const float l_safe = fmaxf(sL[r], 1e-30f);
     float* orow = o + ((size_t)bh * Sq + qpos) * D;
-    for (int c = lane; c < D; c += 32) orow[c] = sAcc[r * ldf + c] / l_safe;
-    if (lane == 0) lse[(size_t)bh * Sq + qpos] = sM[r] + logf(l_safe);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(orow + 8 * nt + 2 * t) =
+          make_float2(acc[nt][2 * i] / l[i], acc[nt][2 * i + 1] / l[i]);
+    if (t == 0)
+      lse[(size_t)bh * Sq + qpos] = m[i] * sm90::LN2 + logf(l[i]);
   }
 }
 
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, cudaStream_t stream) {
-  constexpr int BQ = Tiles<float>::BQ, BK = Tiles<float>::BK;
-  const size_t smem = fwd_f32_smem(D);
-  auto kern = flash_fwd_f32_kernel<BQ, BK>;
+               void* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
+               int causal, cudaStream_t stream) {
+  constexpr size_t smem = fwd_f32_smem<D>();
+  auto kern = flash_fwd_f32_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  dim3 grid(B * H, (Sq + F32_FWD_BQ - 1) / F32_FWD_BQ);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Sk, D, scale, causal);
+      static_cast<float*>(lse), H, Hkv, Sq, Sk, scale * sm90::LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -336,9 +395,17 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int D, float scale, int causal, int dtype,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fa::launch_f32(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, scale,
-                          causal, s);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d)                                                          \
+  case d:                                                                   \
+    return fa::launch_f32<d>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale,     \
+                             causal, s);
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
@@ -352,7 +419,90 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
 
 // Dynamic shared memory one block of the kernel takes at head_dim D.
 extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
-  if (dtype == 0) return (int)fa::fwd_f32_smem(D);
+  if (dtype == 0) {
+    switch (D) {
+#define FA_CASE(d) \
+  case d:          \
+    return (int)fa::fwd_f32_smem<d>();
+      FA_BF16_HEAD_DIMS(FA_CASE)   // the f32 builds: the same head dims
+#undef FA_CASE
+    }
+    return 0;
+  }
   return fa::padded_dim(D) == 64 ? (int)fa::fwd_bf16_smem<64>()
                                  : (int)fa::fwd_bf16_smem<128>();
+}
+
+// ---- a check of K1's register-A product -----------------------------------
+namespace fa {
+
+// One block: O[64 x D] = P[64 x BK]·V[BK x D] (dense, row-major) as K1's
+// f32 build forms it, each warp holding its 16 rows of P as the C
+// fragments of S, V in shared memory at K1's row stride.
+template <int D, int BK>
+__global__ void __launch_bounds__(NTHREADS)
+pv_f32_test_kernel(const float* __restrict__ P, const float* __restrict__ V,
+                   float* __restrict__ O) {
+  constexpr int ld = D + PAD4;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* sV = reinterpret_cast<float*>(smem);
+  for (int i = threadIdx.x; i < BK * D; i += NTHREADS)
+    sV[i / D * ld + i % D] = V[i];
+  __syncthreads();
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = threadIdx.x / 32 * 16;
+  float p[BK / 8][4], acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[nt][e] = P[(r0 + g + 8 * (e >> 1)) * BK + 8 * nt + 2 * t + (e & 1)];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    c_frag_as_a(p[kk], ah, al);
+    mma_strip<false, D / 8>(ah, al, sV, ld, 8 * kk, acc);
+  }
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      O[(r0 + g + 8 * (e >> 1)) * D + 8 * nt + 2 * t + (e & 1)] = acc[nt][e];
+}
+
+template <int D>
+int launch_pv_test(const void* P, const void* V, void* O, int bk,
+                   cudaStream_t stream) {
+  const size_t smem = region(size_t(bk) * (D + PAD4) * sizeof(float));
+  auto kern = bk == 64 ? pv_f32_test_kernel<D, 64> : pv_f32_test_kernel<D, 32>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, NTHREADS, smem, stream>>>(static_cast<const float*>(P),
+                                      static_cast<const float*>(V),
+                                      static_cast<float*>(O));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fa
+
+// O[64 x D] = P[64 x bk]·V[bk x D], all row-major, through K1's f32
+// register-A product (c_frag_as_a, mma_strip) in one block: a test of its
+// fragment mapping.  bk 32 or 64 (K1's K/V tile rows), D a multiple of 16
+// up to 128.  Returns a cudaError_t code.
+extern "C" int fa_pv_f32_test(const void* P, const void* V, void* O, int D,
+                              int bk, void* stream) {
+  if (bk != 32 && bk != 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define FA_CASE(d) \
+  case d:          \
+    return fa::launch_pv_test<d>(P, V, O, bk, s);
+    FA_BF16_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

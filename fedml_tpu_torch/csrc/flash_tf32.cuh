@@ -1,5 +1,5 @@
-// The f32 tile products of K2 and K3 (flash_bwd_dq.cu, flash_bwd_dkv.cu)
-// on Hopper's tensor cores: warp-level mma.sync m16n8k8 in TF32 with the
+// The f32 tile products of K1, K2 and K3 (flash_fwd.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu) on Hopper's tensor cores: warp-level mma.sync m16n8k8 in TF32 with the
 // 3xTF32 split, which keeps f32 accuracy.  Each f32 value x is split as
 // x ≈ hi + lo, hi = tf32(x), lo = tf32(x − hi) (the rounding of
 // cvt.rna.tf32.f32: to nearest, ties away from zero), and a·b is taken as
@@ -12,9 +12,12 @@
 // f32-accurate, and the card holds them to KERNEL_TOL[f32].
 //
 // mma_tile is a warp's 16 x 16 output tile, kept in registers by its
-// caller: the kernels hold S, dP and their dQ, dK, dV accumulators there.
-// mm_tf32x3 is the block-level product with flash_common.cuh::mm's
-// contract, built on it (fa_tile_mm_f32_test checks every layout of it).
+// caller: K2 and K3 hold S, dP and their dQ, dK, dV accumulators there.
+// mm_tf32x3 is a block-level product C (+)= A·B from shared memory, built
+// on it (fa_tile_mm_f32_test checks every layout of it).  mma_strip is a
+// warp's whole 16-row strip of one k-step with A already in registers:
+// K1 keeps Q's fragments there, and its P is S's C fragment (c_frag_as_a;
+// fa_pv_f32_test checks that product alone).
 //
 // Fragments (PTX ISA, m16n8k8 .tf32; CUTLASS SM80_16x8x8_F32TF32TF32F32_TN),
 // g = lane / 4, t = lane % 4: A a0 (g, t), a1 (g+8, t), a2 (g, t+4),
@@ -41,8 +44,8 @@
 
 namespace fa {
 
-// Row padding, in floats, of the f32 tiles of K2 and K3 (K1's
-// f32 build keeps Tiles<float>): D and the tile sizes are multiples of 16,
+// Row padding, in floats, of the f32 tiles of K1, K2 and K3: D and the
+// tile sizes are multiples of 16,
 // so a row of n + PAD4 floats is an odd multiple of 4 and one of n + PAD8
 // an odd multiple of 8.
 constexpr int PAD4 = 4, PAD8 = 8;
@@ -139,7 +142,7 @@ __device__ __forceinline__ void mma_tile(const float* A, int lda,
   }
 }
 
-// mm's contract on the tensor cores: C[M x N] (f32, row-major, ldc) =
+// C[M x N] (f32, row-major, ldc) =
 // (acc ? C : 0) + A[M x K] · B[K x N], with A_T: A stored as [K][M]
 // (lda) and B_T: B stored as [N][K] (ldb).  M and N multiples of 16, K of
 // 8; every thread of the block calls it, the caller synchronises.  The
@@ -177,6 +180,61 @@ __device__ void mm_tf32x3(const float* A, int lda, const float* B, int ldb,
         *reinterpret_cast<float2*>(C + (m0 + g + 8 * h) * ldc + n0 + 8 * j +
                                    2 * t) =
             make_float2(c[j][2 * h], c[j][2 * h + 1]);
+  }
+}
+
+// ---- A in registers: a warp's 16-row strip --------------------------------
+// The A fragment of k-step k0 of A stored [M][K] (lda) at rows m0 + g and
+// m0 + g + 8, in the k order of a B stored [N][K] (slot s = k0 + s), split
+// into hi and lo.
+__device__ __forceinline__ void a_frag_bt(const float* A, int lda, int m0,
+                                          int k0, uint32_t (&ah)[4],
+                                          uint32_t (&al)[4]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* row = A + (m0 + g + 8 * h) * lda + k0;
+    split_tf32(row[t], ah[h], al[h]);
+    split_tf32(row[t + 4], ah[h + 2], al[h + 2]);
+  }
+}
+
+// The A fragment, split, of the k-step over columns 8i .. 8i+7 of a 16-row
+// strip held as the C fragment c of those columns (c0/c1 at row g, columns
+// 2t/2t+1; c2/c3 at row g+8), in the paired k order of a B stored [K][N]
+// (slot t = 2t, slot t+4 = 2t+1): a0 = c0, a1 = c2, a2 = c1, a3 = c3.  So
+// one product's output is the next one's A operand without leaving
+// registers, with no shuffle.
+__device__ __forceinline__ void c_frag_as_a(const float (&c)[4],
+                                            uint32_t (&ah)[4],
+                                            uint32_t (&al)[4]) {
+  split_tf32(c[0], ah[0], al[0]);
+  split_tf32(c[2], ah[1], al[1]);
+  split_tf32(c[1], ah[2], al[2]);
+  split_tf32(c[3], ah[3], al[3]);
+}
+
+// c[j] += A·B over one k-step at k0 for the NT column tiles j (columns
+// 8j .. 8j+7, from 0) of a warp's 16-row strip, A given split (ah, al) in
+// B's k order.  B_T: B stored [N][K] (ldb); else B stored [K][N] (ldb),
+// paired.  Row strides an odd multiple of 4 floats keep B's loads free of
+// bank conflicts in both layouts.
+template <bool B_T, int NT>
+__device__ __forceinline__ void mma_strip(const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const float* B, int ldb, int k0,
+                                          float (&c)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int k_lo = B_T ? t : 2 * t, k_hi = B_T ? t + 4 : 2 * t + 1;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = 8 * j + g;
+    const float b0 = B_T ? B[n * ldb + k0 + k_lo] : B[(k0 + k_lo) * ldb + n];
+    const float b1 = B_T ? B[n * ldb + k0 + k_hi] : B[(k0 + k_hi) * ldb + n];
+    uint32_t bh[2], bl[2];
+    split_tf32(b0, bh[0], bl[0]);
+    split_tf32(b1, bh[1], bl[1]);
+    mma_tf32x3(c[j], ah, al, bh, bl);
   }
 }
 

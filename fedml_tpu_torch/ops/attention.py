@@ -10,9 +10,9 @@
   q heads of each KV head inside the kernel).  In bf16 all three keep their
   sums in registers and run their products as warpgroup ``wgmma`` from
   128-byte-swizzled shared-memory tiles (``csrc/flash_sm90.cuh``).  In f32
-  (the text transformer's builds) K2 and K3 run their products on the
+  (the text transformer's builds) all three run their products on the
   tensor cores as 3xTF32 ``mma.sync`` (``csrc/flash_tf32.cuh``: three TF32
-  passes a product keep f32's accuracy), K1 still as FMA loops.
+  passes a product keep f32's accuracy), K1 with S, P and O in registers.
 
 Each kernel has a wrapper (:func:`flash_attention_fwd`,
 :func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`) that

@@ -10,7 +10,8 @@ does not have; this file imports neither JAX nor the JAX package.)
 
 The f32 tile product of K2 and K3 (3xTF32 ``mma.sync``,
 ``csrc/flash_tf32.cuh``) is also checked alone, in each operand layout at
-the kernels' tile shapes, against a float64 product.
+the kernels' tile shapes, against a float64 product, and so is K1's f32
+P·V product, whose A operand is S's C fragment in registers.
 
 Tolerance: ``attention.KERNEL_TOL`` through ``compare_with_plain`` — per
 element ``|kernel − plain| <= atol + rtol·|plain|`` and per 64-row block
@@ -174,6 +175,42 @@ def test_tf32x3_tile_product_matches_float64(cuda_device, d, a_t, b_t, acc):
         st = tatt.compare_with_plain(out.cpu()[None, None],
                                      ref.float()[None, None])
         assert st["elem"] <= 1 and st["block"] <= 1, ((m, n, k), st)
+
+
+def _pv_f32(p, v, o, d, bk):
+    """``fa_pv_f32_test``: o = p·v through K1's f32 register-A product in
+    one block (p 64 × bk, v bk × d, o 64 × d, row-major)."""
+    import ctypes
+
+    from fedml_tpu_torch.ops import cuda_build
+    lib = cuda_build.library("flash_fwd")
+    fn = lib.fa_pv_f32_test
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(p.data_ptr(), v.data_ptr(), o.data_ptr(), d, bk,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, "fa_pv_f32_test", rc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("d", range(16, 129, 16))
+def test_register_a_pv_product_matches_float64(cuda_device, d, bk):
+    """K1's f32 O += P·V (3xTF32 ``mma.sync``), each warp's P taken from
+    registers in S's C-fragment layout (``c_frag_as_a``) and V read as
+    stored, at K1's K/V tile rows (32, 64) and every head dim, against a
+    float64 product on the CPU, held to ``KERNEL_TOL[float32]``: a wrong
+    fragment mapping reads O(1) errors."""
+    rng = np.random.default_rng(d + bk)
+    p = torch.tensor(rng.random((64, bk)).astype(np.float32))
+    v = torch.tensor(rng.standard_normal((bk, d)).astype(np.float32))
+    out = torch.full((64, d), float("nan"), device=cuda_device)
+    _pv_f32(p.to(cuda_device), v.to(cuda_device), out, d, bk)
+    ref = p.double() @ v.double()
+    st = tatt.compare_with_plain(out.cpu()[None, None],
+                                 ref.float()[None, None])
+    assert st["elem"] <= 1 and st["block"] <= 1, st
 
 
 @pytest.mark.gpu

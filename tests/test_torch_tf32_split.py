@@ -1,18 +1,21 @@
-"""Why the f32 builds of K2 and K3 run each product as three TF32 passes
-(``fedml_tpu_torch/csrc/flash_tf32.cuh``), pinned on the CPU.
+"""Why the f32 builds of K1, K2 and K3 run each product as three TF32
+passes (``fedml_tpu_torch/csrc/flash_tf32.cuh``), pinned on the CPU.
 
 The card's TF32 products round each operand to TF32 (``cvt.rna.tf32.f32``:
 10 mantissa bits, round to nearest, ties away from zero).  Emulated here
-with integer bit arithmetic on torch f32 tensors, the attention backward's
-five products (S = Q·Kᵀ, dP = dO·Vᵀ, dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO) at
-the text transformer's head layout (H 8, S 128, D 32, full; B cut to 2)
-are held to the plain f32 path of ``ops/attention.py`` by
-``compare_with_plain``'s f32 rule (``KERNEL_TOL[float32]``): the 3xTF32
-split ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b`` (``hi = tf32(x)``,
-``lo = tf32(x − hi)``) stays within a tenth of both limits; one TF32 pass
-(``hi_a·hi_b``) breaks them.  The emulation sums in f32 on the CPU and does
-not model the tensor cores' own accumulation: the card tests
-(``tests/test_torch_gpu.py``) hold the kernels themselves.
+with integer bit arithmetic on torch f32 tensors, the attention forward's
+two products (S = Q·Kᵀ, and O += P·V inside the online softmax over K1's
+64-key tiles) and the backward's five (S = Q·Kᵀ, dP = dO·Vᵀ, dQ = dS·K,
+dK = dSᵀ·Q, dV = Pᵀ·dO) at the text transformer's head layout (H 8, S 128,
+D 32, full; B cut to 2) are held to the plain f32 path of
+``ops/attention.py`` by ``compare_with_plain``'s f32 rule
+(``KERNEL_TOL[float32]``): the 3xTF32 split ``a·b ≈ lo_a·hi_b + hi_a·lo_b
++ hi_a·hi_b`` (``hi = tf32(x)``, ``lo = tf32(x − hi)``) stays within a
+tenth of both limits; one TF32 pass (``hi_a·hi_b``) breaks them (the
+forward's lse, an average over the keys, only loses that margin).  The
+emulation sums in f32 on the CPU and does not model the tensor cores' own
+accumulation: the card tests (``tests/test_torch_gpu.py``) hold the
+kernels themselves.
 """
 
 import numpy as np
@@ -130,3 +133,56 @@ def test_1xtf32_breaks_the_f32_limits(text_backward, i, name):
     st = tatt.compare_with_plain(text_backward[1][i],
                                  text_backward["plain"][i])
     assert st["elem"] > 1 and st["block"] > 1, (name, st)
+
+
+def _emulated_forward(mm, q, k, v, scale, block_k=64):
+    """(O, lse) of full attention by K1's online softmax over tiles of
+    ``block_k`` keys, both products through ``mm``."""
+    m = torch.full(q.shape[:-1], tatt.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, k.shape[-2], block_k):
+        s = mm(q, k[..., k0:k0 + block_k, :].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(p, v[..., k0:k0 + block_k, :])
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.fixture(scope="module")
+def text_forward():
+    """The plain f32 (O, lse) at the text head layout, and the same
+    through 1xTF32 and 3xTF32 products, from numpy-seeded inputs."""
+    b, h, s, d = 2, 8, 128, 32
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.tensor(rng.standard_normal((b, h, s, d))
+                            .astype(np.float32)) for _ in range(3))
+    scale = d ** -0.5
+    return {"plain": tatt.flash_attention_fwd_plain(q, k, v, False),
+            1: _emulated_forward(mm_1xtf32, q, k, v, scale),
+            3: _emulated_forward(mm_3xtf32, q, k, v, scale)}
+
+
+@pytest.mark.parametrize("i,name", [(0, "O"), (1, "lse")])
+def test_forward_3xtf32_holds_the_f32_limits_with_10x_margin(text_forward,
+                                                             i, name):
+    st = tatt.compare_with_plain(text_forward[3][i],
+                                 text_forward["plain"][i])
+    assert st["elem"] <= 0.1 and st["block"] <= 0.1, (name, st)
+
+
+def test_forward_1xtf32_breaks_the_f32_limits_on_o(text_forward):
+    st = tatt.compare_with_plain(text_forward[1][0], text_forward["plain"][0])
+    assert st["elem"] > 1 and st["block"] > 1, st
+
+
+def test_forward_1xtf32_loses_the_10x_margin_on_lse(text_forward):
+    """lse averages S's rounding over the keys, so one TF32 pass stays
+    inside its limit (~0.6–0.8 of it per element) but not inside the tenth
+    that 3xTF32 keeps: it is O that one pass breaks."""
+    st = tatt.compare_with_plain(text_forward[1][1], text_forward["plain"][1])
+    assert st["elem"] > 0.1, st

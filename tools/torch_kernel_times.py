@@ -10,14 +10,26 @@ Each root is a checkout of this repository (default: this one); each
 round times every root in turn, each in its own process that builds that
 checkout's kernels from its own ``csrc/`` (so ``--roots parent,.
 --rounds 2`` runs parent, change, parent, change on one card).  A timing is
-``chip_smoke.py::time_kernels`` of this checkout (CUDA events over 20 warm
-launches; the plain version; one library call; the bound at this
-checkout's peaks) on inputs drawn from seed 0, after each kernel is held
-to its plain version (``compare_with_plain``; ``--unchecked`` skips that,
-for builds altered on purpose to see what a part of a kernel costs).
-Prints one line per kernel
-and the card's name and power limit; writes every row to
-``chiprun_out/kernel_times.json``.
+``chip_smoke.py::time_kernels`` of this checkout on inputs drawn from seed
+0, after each kernel is held to its plain version (``compare_with_plain``;
+``--unchecked`` skips that, for builds altered on purpose to see what a
+part of a kernel costs).  Two readings per kernel and per library call:
+
+- device time: after two warm calls on a side stream, 20 calls are
+  captured in one CUDA graph, which is replayed once untimed and three
+  times under CUDA events (``graph_ms``); the calls run back to back with
+  no host work between them.  A library call that cannot be captured is
+  read instead from ``torch.profiler``'s ``key_averages()``: the summed
+  device time of the kernels of 20 eager calls (``profiler_ms``); each row
+  names the method (``library_method``);
+- eager time: CUDA events around 20 calls from Python (``time_ms``), which
+  is what an unfused round pays; a kernel faster than its wrapper's host
+  work reads as the host work here.
+
+Beside them: the plain version (eager), and the bound at this checkout's
+peaks, with TFLOP/s and the share of the bound from the device time.
+Prints one line per kernel and the card's name and power limit; writes
+every row to ``chiprun_out/kernel_times.json``.
 """
 
 import argparse
@@ -83,13 +95,9 @@ def child(root, shapes, checked):
                                  (q, k, v, do, o, lse, delta),
                                  (b, h, hkv, s, d, causal, dt), errs, smi)
         for r in got.values():
-            # this build's kernel at this shape: f32 kernels are built per
-            # head dim (<D>) or once (<BQ,BK>), bf16 ones per head dim
+            # this build's kernel at this shape (built per head dim)
             kind = "bf16" if dt == "bfloat16" else "f32"
-            rep = {key: x for key, x in reports[r["name"]].items()
-                   if key.startswith(f"{r['name']}_{kind}_kernel<")}
-            x = rep.get(f"{r['name']}_{kind}_kernel<{d}>",
-                        next(iter(rep.values()), None))
+            x = reports[r["name"]].get(f"{r['name']}_{kind}_kernel<{d}>")
             r["registers"] = x and x["registers"]
             r["spill_bytes"] = x and x["spill_stores"] + x["spill_loads"]
             rows.append(r)
@@ -140,10 +148,12 @@ def main():
             runs.append(rec)
             for r in rec["rows"]:
                 print(f"round {rnd} {root}: {r['name']} @{r['shape']} "
-                      f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                      f"{r['ms']:.4f} ms device (eager {r['eager_ms']:.4f};"
+                      f" {r['tflops']:.1f} TFLOP/s, "
                       f"{100 * r['bound_share']:.1f}% of bound "
                       f"{r['bound_ms']:.4f}), library "
-                      f"{r['library_ms']:.4f} ms, registers "
+                      f"{r['library_ms']:.4f} ms {r['library_method']} "
+                      f"(eager {r['library_eager_ms']:.4f}), registers "
                       f"{r['registers']}, spill bytes {r['spill_bytes']} "
                       f"[{rec['smi']}]", flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
