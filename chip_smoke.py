@@ -99,6 +99,22 @@ Phases, each printing its own lines:
    synthetic CIFAR-100 stand-in: one warm round and two timed, finite
    losses, moved params, peak GiB; no flash-attention kernel launches
    (checked).
+10. models — the rest of the sp zoo through ``build_sp``: (a) the FedAvg
+   paper's Shakespeare char-LSTM (``rnn`` at full width, seq 80; 100
+   clients, 10 a round, batch 10, lr 1.47) on the synthetic Markov-chain
+   stand-in at 16,000 / 2,000 windows and (b) Stack Overflow next-word
+   prediction (``rnn_stackoverflow``, vocab 10,004, seq 20; batch 16) on
+   50,000 / 5,000, each 8 rounds unfused and 16 in blocks of 8 (CUDA
+   graphs), fused ≡ unfused to 1e-6 after the first block with a graph
+   captured, s/round, host launch calls and device kernels a round, busy
+   share, peak GiB, test loss (below round 0's) and accuracy; (c) tag
+   prediction (``lr`` on ``stackoverflow_lr``, 500 tags × 10,000
+   features) and (d) ``uci`` LR, a warm round and three timed, BCE and
+   exact match; (e) a round of each of ``vgg11``, ``mobilenet`` and
+   ``efficientnet`` after a warm one, on the CIFAR-10 stand-in cut to
+   2,000 / 500 images; (f) card ≡ CPU to 1e-6 on small ``rnn``,
+   ``rnn_stackoverflow``, tag-prediction and ``mobilenet`` rounds.  No
+   flash-attention kernel launches (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -106,7 +122,8 @@ the path that runs it: phase 4's LoRA rounds, phase 8's unfused text
 rounds; the bf16 text-shape measurement under ``"bf16_at_text"``; the
 forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
-phase 8's under ``"text"`` and phase 9's under ``"resnet"`` beside them)
+phase 8's under ``"text"``, phase 9's under ``"resnet"`` and phase 10's
+under ``"models"`` beside them)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -1065,9 +1082,11 @@ def profile_rounds(torch, run, rounds):
     """``run()`` (``rounds`` rounds) under ``torch.profiler``: host launch
     calls and device kernels a round, the device's busy seconds a round
     (the union of its kernels' intervals), and the flash-attention
-    kernels' count and device seconds a round."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    kernels' count and device seconds a round.  CUDA activity only: it
+    records the runtime's launch calls as well as the kernels, and leaves
+    out the aten operators, which took a 10^5-launch LSTM round ~100 s to
+    read back (the counts are the same either way)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     t0 = time.time()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1254,6 +1273,254 @@ def resnet_phase(torch, fedml_tpu_torch, smi):
     rec = timed_rounds(torch, api, "resnet", 2, smi)
     rec["n_params"] = n_params
     return rec
+
+
+#: phase 10 (a): the FedAvg paper's Shakespeare settings (100 clients, 10
+#: a round, batch 10, lr 1.47, one epoch) with the char-LSTM at its full
+#: width on the synthetic Markov-chain stand-in at the reference
+#: cardinality (16,000 / 2,000 windows of 80; the LM loader splits homo)
+ZOO_SHAKESPEARE_RNN = dict(dataset="shakespeare", model="rnn",
+                           client_num_in_total=100,
+                           client_num_per_round=10, batch_size=10,
+                           learning_rate=1.47, partition_method="homo",
+                           sp_client_mode="vmap")
+#: phase 10 (b): Stack Overflow next-word prediction at full width (vocab
+#: 10,004, seq 20) on the synthetic stand-in (50,000 / 5,000)
+ZOO_STACKOVERFLOW_NWP = dict(dataset="stackoverflow_nwp",
+                             model="rnn_stackoverflow",
+                             client_num_in_total=100,
+                             client_num_per_round=10, batch_size=16,
+                             learning_rate=1.0, partition_method="homo",
+                             sp_client_mode="vmap")
+#: phase 10 (c): tag prediction at the reference's widths (500 tags, 10,000
+#: features: a 5.0 M-parameter LR) at the loader's cap of 5,000 / 500
+ZOO_TAGPRED = dict(dataset="stackoverflow_lr", model="lr", tag_count=500,
+                   feature_dim=10000, client_num_in_total=100,
+                   client_num_per_round=10, batch_size=16,
+                   learning_rate=0.5, partition_method="homo")
+#: phase 10 (d): synthetic tabular LR on uci (14 features, 2 classes,
+#: 30,000 / 5,000)
+ZOO_UCI = dict(dataset="uci", model="lr", input_shape=(14,),
+               client_num_in_total=100, client_num_per_round=10,
+               batch_size=10, learning_rate=0.1, partition_method="hetero",
+               partition_alpha=0.5)
+#: phase 10 (e): the vision models on the synthetic CIFAR-10 stand-in at
+#: 32 px, train_size cut to 2,000 of 50,000 (test 500 of 10,000)
+ZOO_VISION = dict(dataset="cifar10", train_size=2000, test_size=500,
+                  client_num_in_total=20, client_num_per_round=4,
+                  batch_size=20, learning_rate=0.05,
+                  partition_method="homo")
+#: phase 10 (f): card ≡ CPU at small sizes, 2 f32 rounds from the same
+#: weights (the CPU tests' configurations)
+ZOO_CARD_CPU = {
+    "rnn": dict(model="rnn", dataset="shakespeare", seq_len=10,
+                train_size=120, test_size=24, batch_size=5,
+                learning_rate=0.5),
+    "rnn_stackoverflow": dict(model="rnn_stackoverflow",
+                              dataset="stackoverflow_nwp", seq_len=6,
+                              train_size=64, test_size=16, batch_size=5,
+                              learning_rate=0.5),
+    "lr_tag_prediction": dict(model="lr", dataset="stackoverflow_lr",
+                              train_size=200, test_size=40, tag_count=20,
+                              feature_dim=50, batch_size=8,
+                              learning_rate=0.5),
+    "mobilenet": dict(model="mobilenet", dataset="cifar10", train_size=32,
+                      test_size=8, batch_size=4, learning_rate=0.05,
+                      partition_method="homo"),
+}
+ZOO_CARD_CPU_TOL = 1e-6
+
+
+def finite(*xs):
+    return all(x == x and abs(x) < float("inf") for x in xs)
+
+
+def lm_rounds(torch, fedml_tpu_torch, tag, cfg, k, smi):
+    """Phase 10 (a)/(b): ``k`` unfused rounds (round 0 warm), then blocks
+    of ``k`` as CUDA graphs (the first warm, where the graphs are
+    captured; the second timed); fused ≡ unfused after the first block;
+    one more round of each under the profiler (the fused one a tail block
+    of one round, which replays the same graph: a block of ``k`` rounds of
+    ~10^5 kernels each takes minutes to read back)."""
+    rec = {"round_block": k}
+    t0 = time.time()
+    steps = rec["step_s"] = {}   # where the phase's seconds go
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.time() - t0
+        t0 = time.time()
+
+    u = build_sp(sp_args(fedml_tpu_torch, **dict(cfg, comm_round=k + 1)))
+    check_policy(torch, "models")   # get_device set it
+    n_params = sum(v.numel() for v in u.state.global_params.values())
+    say("models", f"{tag}: {u.model.module.__class__.__name__}, "
+                  f"{n_params:,} parameters, {u.dataset.provenance} "
+                  f"{u.dataset.train_data_num:,} / "
+                  f"{u.dataset.test_data_num:,} of seq "
+                  f"{u.dataset.train_x.shape[1]}, "
+                  f"{u.dataset.num_clients} clients, "
+                  f"{u.clients_per_round} a round, batch {u.batch_size}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for r in range(k):
+        dt, m = sync_time(torch, lambda: u.train_one_round(r))
+        seconds.append(dt)
+        losses.append(float(m["train_loss"]))
+    step("unfused_build_and_rounds")
+    test_loss, test_acc = u.evaluate()
+    step("unfused_eval")
+    rec["unfused"] = {"s_per_round": sum(seconds[1:]) / (k - 1),
+                      "first_round_s": seconds[0], "round_losses": losses,
+                      "allocated_steps": int(m["allocated_steps"]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "test_loss": test_loss, "test_acc": test_acc}
+    f = build_sp(sp_args(fedml_tpu_torch, **dict(cfg, comm_round=2 * k + 1,
+                                                  round_block=k)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_warm, first = sync_time(torch, lambda: f.train_block(0))
+    snap = {key: v.clone() for key, v in state_tensors(f).items()}
+    dt, second = sync_time(torch, lambda: f.train_block(k))
+    f_losses = block_losses(torch, [first[1], second[1]]).reshape(-1)
+    step("fused_build_and_blocks")
+    test_f = f.evaluate()
+    step("fused_eval")
+    rec["fused"] = {"s_per_round": dt / k, "warm_block_s": t_warm,
+                    "round_losses": f_losses.tolist(),
+                    "graphs_captured": f._block_fn.captures,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "test_loss": test_f[0], "test_acc": test_f[1]}
+    err = max(max_err(snap[key], v) for key, v in state_tensors(u).items())
+    loss_err = max(abs(a - b) for a, b in zip(losses, f_losses.tolist()))
+    rec.update(n_params=n_params, fused_max_abs_err=err,
+               fused_loss_max_abs_err=loss_err)
+    step("compare")
+    rec["unfused"].update(profile_rounds(
+        torch, lambda: run_unfused(u, k, k + 1), 1))
+    step("unfused_profile")
+    rec["fused"].update(profile_rounds(
+        torch, lambda: run_blocks(f, 2 * k, 2 * k + 1), 1))
+    step("fused_profile")
+    captures = f._block_fn.captures
+    uu, ff = rec["unfused"], rec["fused"]
+    for mode, rr in (("unfused", uu), ("fused", ff)):
+        say("models", f"{tag} {mode}: {rr['s_per_round']:.4f} s/round "
+                      f"(after a warm {'round' if mode == 'unfused' else 'block'}"
+                      f"); {rr['host_launches']:.0f} host launch calls and "
+                      f"{rr['device_kernels']:.0f} device kernels a round, "
+                      f"device busy {rr['busy_s']:.4f} s of "
+                      f"{rr['profiled_s_per_round']:.4f} s a profiled round "
+                      f"({100 * rr['busy_s'] / rr['profiled_s_per_round']:.1f}"
+                      f"%); peak {rr['peak_gib']:.3f} GiB; test loss "
+                      f"{rr['test_loss']:.4f}, accuracy {rr['test_acc']:.4f} "
+                      f"after {k if mode == 'unfused' else 2 * k} rounds "
+                      f"(round 0's train loss {losses[0]:.4f}) [{smi}]")
+    say("models", f"{tag}: seconds by step "
+                  f"{ {n: round(v, 1) for n, v in steps.items()} }")
+    say("models", f"{tag}: fused (K {k}, {ff['graphs_captured']} graph(s)) "
+                  f"vs unfused after {k} rounds: params max abs diff "
+                  f"{err:.2e}, per-round losses {loss_err:.2e} (tol "
+                  f"{FUSED_TOL:g}); fused speedup "
+                  f"{uu['s_per_round'] / ff['s_per_round']:.2f}x")
+    if not finite(*losses, *f_losses.tolist(), test_loss, test_f[0]):
+        fail(f"{tag}: a non-finite loss")
+    if not (test_loss < losses[0] and test_f[0] < losses[0]):
+        fail(f"{tag}: the test loss ({test_loss:.4f} unfused, "
+             f"{test_f[0]:.4f} fused) did not fall below round 0's "
+             f"{losses[0]:.4f}")
+    if not (err <= FUSED_TOL and loss_err <= FUSED_TOL):
+        fail(f"{tag}: fused and unfused rounds disagree ({err:.2e}, "
+             f"{loss_err:.2e} > {FUSED_TOL:g})")
+    if not ff["graphs_captured"] or captures != ff["graphs_captured"]:
+        fail(f"{tag}: the fused rounds captured {captures} CUDA graph(s) "
+             f"({ff['graphs_captured']} in the timed blocks)")
+    return rec
+
+
+def models_phase(torch, fedml_tpu_torch, smi):
+    """Phase 10."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    out = {}
+    t0 = time.time()
+    out["shakespeare_rnn"] = lm_rounds(torch, fedml_tpu_torch, "(a) rnn",
+                                       ZOO_SHAKESPEARE_RNN, 8, smi)
+    say("models", f"(a) took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    out["stackoverflow_nwp"] = lm_rounds(
+        torch, fedml_tpu_torch, "(b) rnn_stackoverflow",
+        ZOO_STACKOVERFLOW_NWP, 8, smi)
+    say("models", f"(b) took {time.time() - t0:.1f} s")
+
+    # (c) tag prediction and (d) tabular LR: one warm round, then timed
+    for key, tag, cfg, timed in (("tag_prediction", "(c) lr tag prediction",
+                                  ZOO_TAGPRED, 3),
+                                 ("uci", "(d) lr uci", ZOO_UCI, 3)):
+        t0 = time.time()
+        api = build_sp(sp_args(fedml_tpu_torch, **dict(cfg,
+                                                       comm_round=timed + 1)))
+        n_params = sum(v.numel() for v in api.state.global_params.values())
+        say("models", f"{tag}: {api.model.task}, {n_params:,} parameters, "
+                      f"{api.dataset.provenance} {api.dataset.train_x.shape}"
+                      f" / {api.dataset.test_data_num:,}; built in "
+                      f"{time.time() - t0:.1f} s")
+        rec = out[key] = timed_rounds(torch, api, f"models {tag[:3]}", timed,
+                                      smi)
+        rec["n_params"] = n_params
+        metric = "exact match" if api.model.task == "tag_prediction" \
+            else "accuracy"
+        say("models", f"{tag}: test {'BCE' if metric == 'exact match' else 'loss'}"
+                      f" {rec['test_loss']:.4f}, {metric} "
+                      f"{rec['test_acc']:.4f} (round 0's train loss "
+                      f"{rec['round_losses'][0]:.4f})")
+        if not rec["test_loss"] < rec["round_losses"][0]:
+            fail(f"{tag}: the test loss did not fall below round 0's")
+        del api
+
+    # (e) one round of each vision model after a warm one
+    out["vision"] = {}
+    for name in ("vgg11", "mobilenet", "efficientnet"):
+        t0 = time.time()
+        api = build_sp(sp_args(fedml_tpu_torch, **dict(ZOO_VISION, model=name,
+                                                       comm_round=2)))
+        n_params = sum(v.numel() for v in api.state.global_params.values())
+        say("models", f"(e) {name}: {n_params:,} parameters, CIFAR-10 "
+                      f"stand-in cut to {api.dataset.train_data_num:,} / "
+                      f"{api.dataset.test_data_num:,} of 50,000 / 10,000 "
+                      f"at 32 px; built in {time.time() - t0:.1f} s")
+        rec = out["vision"][name] = timed_rounds(torch, api,
+                                                 f"models e {name}", 1, smi)
+        rec["n_params"] = n_params
+        del api
+
+    # (f) card ≡ CPU at small sizes from the same weights, TF32 off
+    out["card_vs_cpu"] = {}
+    for tag, cfg in ZOO_CARD_CPU.items():
+        args = sp_args(fedml_tpu_torch, **dict(
+            dict(client_num_in_total=4, client_num_per_round=2,
+                 comm_round=2, random_seed=0), **cfg))
+        ds, n_out = data.load(args)
+        card, cpu = [FedAvgAPI(args, d, ds, model.create(args, n_out))
+                     for d in ("cuda", "cpu")]
+        cpu.state = cpu.state.replace(global_params={
+            k: v.cpu() for k, v in card.state.global_params.items()})
+        for r in range(2):
+            card.train_one_round(r)
+            cpu.train_one_round(r)
+        err = max(max_err(card.state.global_params[k].cpu(), v)
+                  for k, v in cpu.state.global_params.items())
+        (lc, ac), (lp, ap) = card.evaluate(), cpu.evaluate()
+        say("models", f"(f) {tag}: 2 f32 rounds card vs CPU from the same "
+                      f"weights, params max abs diff {err:.2e} (tol "
+                      f"{ZOO_CARD_CPU_TOL:g}); test loss {lc:.6f} vs "
+                      f"{lp:.6f}, accuracy {ac:.4f} vs {ap:.4f}")
+        if not err <= ZOO_CARD_CPU_TOL:
+            fail(f"(f) {tag}: card and CPU disagree ({err:.2e})")
+        out["card_vs_cpu"][tag] = err
+    return out
 
 
 def main():
@@ -1484,12 +1751,22 @@ def main():
         fail("phase 9 launched a flash-attention kernel")
     say("resnet", f"phase 9 took {time.time() - t0:.1f} s; no "
                   "flash-attention kernel launched")
+
+    # -- 10. models: the LSTMs, tag prediction, tabular, the vision zoo ----
+    t0 = time.time()
+    att.reset_launch_counts()
+    models = models_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("phase 10 launched a flash-attention kernel")
+    say("models", f"phase 10 took {time.time() - t0:.1f} s; no "
+                  "flash-attention kernel launched")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
                       "bf16_at_text": list(bf16_at_text.values()),
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
-                      "fusion": fusion, "text": text, "resnet": resnet}))
+                      "fusion": fusion, "text": text, "resnet": resnet,
+                      "models": models}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

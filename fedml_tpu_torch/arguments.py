@@ -35,13 +35,13 @@ _DEFAULTS: Dict[str, Any] = dict(
     # data_args.  data_cache_dir is empty: the JAX package's default points
     # under the user's home, and the port reads nothing outside the paths
     # it is given (an absent cache means the synthetic fallback either way)
-    dataset="shakespeare",
+    dataset="synthetic_mnist",
     data_cache_dir="",
     partition_method="hetero",
     partition_alpha=0.5,
     synthetic_noise=0.35,
     # model_args
-    model="tiny_llama",
+    model="lr",
     # train_args
     federated_optimizer="FedAvg",
     client_num_in_total=1000,

@@ -5,6 +5,20 @@
   layout, an ``.npz``, MNIST idx files or CIFAR archives under
   ``args.data_cache_dir`` when present, else the synthetic generator at the
   reference cardinality (``train_size``/``test_size`` override it);
+- the LM datasets (``_LM_SPECS``: shakespeare, stackoverflow_nwp, ...): a
+  LEAF layout (its natural per-user partition), then ``<name>.npz``, then
+  for Shakespeare the raw corpus ``shakespeare.txt`` (in the cache, under
+  ``<name>/`` or ``shakespeare/``), else the Markov-chain generator;
+- tag prediction (``_TAGPRED_SPECS``: stackoverflow_lr): a multi-hot
+  ``.npz``, else the synthetic generator (capped at 5,000 / 500 rows, 100
+  tags, 1,000 features unless ``train_size``/``test_size``/``tag_count``/
+  ``feature_dim`` say otherwise), partitioned by each row's first tag; it
+  sets ``args.input_shape`` and ``args.task_type = "tag_prediction"``;
+- the tabular sets (``_TABULAR_SPECS``: uci, lending_club, ...): an
+  ``.npz``, else class-conditional Gaussian rows;
+- ``breast_cancer``, ``wine`` and ``uci_real``: sklearn's bundled tables,
+  standardised with the train split's statistics (sklearn is imported only
+  here);
 - ``digits``: the committed LEAF shard in the cache first, else sklearn's
   digits as in the JAX package;
 - the generic ``synthetic*`` datasets;
@@ -12,13 +26,11 @@
   agnews, realtext): an ``<name>.npz`` under ``args.data_cache_dir`` (the
   committed ``data_shards/realtext`` shard), else the seeded unigram
   generator; ``vocab_size``, ``seq_len``, ``train_size``, ``test_size``,
-  ``text_class_signal`` and ``text_keyword_width`` override the spec;
-- the LM datasets (``_LM_SPECS``) from the synthetic Markov-chain generator.
-  Their cache readers (LEAF text, ``.npz``, the raw Shakespeare corpus) are
-  not ported, so a cache directory is refused there rather than ignored.
+  ``text_class_signal`` and ``text_keyword_width`` override the spec.
 
 Every array is bitwise the JAX package's for the same arguments.  The
-other dataset families raise, naming themselves.
+other dataset families (large images, segmentation, edge cases) raise,
+naming themselves.
 """
 
 from __future__ import annotations
@@ -31,9 +43,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..core.data.noniid_partition import partition
 from .federated_dataset import FederatedDataset, build_federated
-from .leaf import find_leaf_root, load_leaf
+from .leaf import find_leaf_root, load_leaf, load_shakespeare_raw
 from .synthetic import (synthetic_image_classification, synthetic_lm_tokens,
+                        synthetic_tabular, synthetic_tag_prediction,
                         synthetic_text_classification)
 
 # (classes, img shape, train_n, test_n), the reference cardinalities
@@ -57,6 +71,19 @@ _LM_SPECS = {
     "reddit": (10004, 20, 50000, 5000),
 }
 
+# multi-label tag prediction: (n_tags, n_features, ref_train_n, ref_test_n)
+_TAGPRED_SPECS = {
+    "stackoverflow_lr": (500, 10000, 50000, 5000),
+}
+
+# tabular sets: (classes, n_features, train_n, test_n)
+_TABULAR_SPECS = {
+    "uci": (2, 14, 30000, 5000),
+    "uci_adult": (2, 14, 30000, 5000),
+    "lending_club": (2, 20, 40000, 8000),
+    "lending_club_loan": (2, 20, 40000, 8000),
+}
+
 _TEXTCLS_SPECS = {
     # classes, vocab, seq_len, train_n, test_n, class_signal, keyword_width
     "fednlp": (20, 30000, 128, 11000, 2000, 0.25, 2.5),
@@ -69,16 +96,12 @@ _TEXTCLS_SPECS = {
 
 #: dataset families of the JAX loader the port does not load yet
 _UNPORTED = {
-    "stackoverflow_lr": "tag prediction", "uci": "tabular",
-    "uci_adult": "tabular", "lending_club": "tabular",
-    "lending_club_loan": "tabular", "imagenet": "large image",
-    "imagenet_hdf5": "large image", "ilsvrc2012": "large image",
-    "landmarks": "large image", "gld23k": "large image",
-    "gld160k": "large image", "fets2021": "segmentation",
-    "fets": "segmentation", "autonomous_driving": "segmentation",
-    "cityscapes": "segmentation", "edge_case_examples": "edge case",
-    "edge_case": "edge case", "breast_cancer": "sklearn tabular",
-    "wine": "sklearn tabular", "uci_real": "sklearn tabular",
+    "imagenet": "large image", "imagenet_hdf5": "large image",
+    "ilsvrc2012": "large image", "landmarks": "large image",
+    "gld23k": "large image", "gld160k": "large image",
+    "fets2021": "segmentation", "fets": "segmentation",
+    "autonomous_driving": "segmentation", "cityscapes": "segmentation",
+    "edge_case_examples": "edge case", "edge_case": "edge case",
 }
 
 
@@ -213,8 +236,12 @@ def _try_load_cifar(cache_dir: str, name: str):
     return None
 
 
-def _sizes(args, train_n: int, test_n: int) -> Tuple[int, int]:
-    """Explicit ``args.train_size``/``test_size`` win over the defaults."""
+def _sizes(args, train_n: int, test_n: int,
+           cap: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+    """Explicit ``args.train_size``/``test_size`` win over the defaults
+    (capped by ``cap`` for reference-scale cardinalities)."""
+    if cap is not None:
+        train_n, test_n = min(train_n, cap[0]), min(test_n, cap[1])
     return (int(getattr(args, "train_size", 0) or train_n),
             int(getattr(args, "test_size", 0) or test_n))
 
@@ -224,6 +251,20 @@ def _clamped_cut(args, n: int) -> int:
     but never let the test split go empty."""
     cut = int(getattr(args, "train_size", 0)) or int(n * 0.85)
     return min(cut, n - max(1, n // 10))
+
+
+def _sklearn_tabular(name: str, seed: int):
+    """sklearn's wine or breast-cancer table, rows permuted by the seed:
+    (x, y, classes, source name); the class count is the whole table's."""
+    from sklearn.datasets import load_breast_cancer, load_wine
+    d = load_wine() if name == "wine" else load_breast_cancer()
+    x = d.data.astype(np.float32)
+    y = d.target.astype(np.int64)
+    classes = int(y.max()) + 1
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(x))
+    return x[perm], y[perm], classes, (
+        "wine" if name == "wine" else "breast-cancer")
 
 
 def load(args) -> Tuple[FederatedDataset, int]:
@@ -267,19 +308,95 @@ def load(args) -> Tuple[FederatedDataset, int]:
         return ds, classes
 
     if name in _LM_SPECS:
-        if cache:
-            raise NotImplementedError(
-                f"data_cache_dir is set, but the port's {name!r} loader "
-                "reads no cache (its LEAF text, .npz and raw-corpus readers "
-                "are not ported): unset it for the synthetic LM data")
         vocab, seq_len, train_n, test_n = _LM_SPECS[name]
         seq_len = int(getattr(args, "seq_len", seq_len))
-        train_n, test_n = _sizes(args, train_n, test_n)
-        tx, ty, vx, vy = synthetic_lm_tokens(train_n, test_n, vocab, seq_len,
-                                             seed)
+        if cache:
+            leaf_root = find_leaf_root(cache, name)
+            if leaf_root is not None:
+                tx, ty, vx, vy, cidx, tidx = load_leaf(leaf_root,
+                                                       seq_len=seq_len)
+                ds = FederatedDataset(
+                    tx, ty, vx, vy, cidx, vocab, test_client_idxs=tidx,
+                    provenance=_cache_provenance(leaf_root, "real:leaf",
+                                                 name))
+                return ds, vocab
+        real = _try_load_npz(cache, name) if cache else None
+        if real is None and cache and "shakespeare" in name:
+            # the raw corpus, where the LEAF layout would be too
+            for cand in (os.path.join(cache, "shakespeare.txt"),
+                         os.path.join(cache, name, "shakespeare.txt"),
+                         os.path.join(cache, "shakespeare",
+                                      "shakespeare.txt")):
+                if os.path.exists(cand):
+                    real = load_shakespeare_raw(cand, seq_len)
+                    break
+        if real is not None:
+            tx, ty, vx, vy = real
+            prov = _cache_provenance(cache, "real:cache", name)
+        else:
+            train_n, test_n = _sizes(args, train_n, test_n)
+            tx, ty, vx, vy = synthetic_lm_tokens(train_n, test_n, vocab,
+                                                 seq_len, seed)
+            prov = "synthetic"
         ds = build_federated(tx, ty, vx, vy, vocab, client_num, method="homo",
-                             alpha=alpha, seed=seed, provenance="synthetic")
+                             alpha=alpha, seed=seed, provenance=prov)
         return ds, vocab
+
+    if name in _TAGPRED_SPECS:
+        ref_tags, ref_feats, ref_train_n, ref_test_n = _TAGPRED_SPECS[name]
+        real = _try_load_npz(cache, name) if cache else None
+        if real is not None:
+            tx, ty, vx, vy = real
+            for part, lab in (("train", ty), ("test", vy)):
+                if lab.ndim != 2 or not np.isin(np.unique(lab), (0, 1)).all():
+                    raise ValueError(
+                        f"{name}.npz {part} labels must be multi-hot "
+                        f"(N, n_tags) 0/1 matrices (tag-prediction task), "
+                        f"got shape {lab.shape} dtype {lab.dtype} — old "
+                        f"LM-format caches are invalid")
+            if ty.shape[1] != vy.shape[1]:
+                raise ValueError(
+                    f"{name}.npz train/test tag counts differ: "
+                    f"{ty.shape[1]} vs {vy.shape[1]}")
+            ty, vy = ty.astype(np.float32), vy.astype(np.float32)
+            n_tags, n_feats = ty.shape[1], tx.shape[1]
+        else:
+            # the reference-scale dense matrix would be 50k × 10k floats:
+            # capped unless the overrides ask for more
+            n_tags = int(getattr(args, "tag_count", 0) or min(ref_tags, 100))
+            n_feats = int(getattr(args, "feature_dim", 0) or
+                          min(ref_feats, 1000))
+            train_n, test_n = _sizes(args, ref_train_n, ref_test_n,
+                                     cap=(5000, 500))
+            tx, ty, vx, vy = synthetic_tag_prediction(
+                train_n, test_n, n_tags, n_feats, seed)
+        # the partition's class: each row's first (lowest-index) tag
+        primary = np.argmax(ty, axis=1).astype(np.int64)
+        client_idxs = partition(primary, client_num, method, alpha, seed)
+        ds = FederatedDataset(
+            tx, ty, vx, vy, client_idxs, n_tags,
+            provenance=_cache_provenance(cache, "real:npz", name)
+            if real is not None else "synthetic")
+        if not getattr(args, "input_shape", None):
+            args.input_shape = (n_feats,)
+        # the loader knows the task; the model hub reads it
+        args.task_type = "tag_prediction"
+        return ds, n_tags
+
+    if name in _TABULAR_SPECS:
+        classes, n_features, train_n, test_n = _TABULAR_SPECS[name]
+        real = _try_load_npz(cache, name) if cache else None
+        if real is not None:
+            tx, ty, vx, vy = real
+            prov = _cache_provenance(cache, "real:npz", name)
+        else:
+            train_n, test_n = _sizes(args, train_n, test_n)
+            tx, ty, vx, vy = synthetic_tabular(train_n, test_n, classes,
+                                               n_features, seed)
+            prov = "synthetic"
+        ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
+                             alpha, seed, provenance=prov)
+        return ds, classes
 
     if name in _TEXTCLS_SPECS:
         (classes, vocab, seq_len, train_n, test_n, cls_signal,
@@ -302,6 +419,19 @@ def load(args) -> Tuple[FederatedDataset, int]:
             prov = "synthetic"
         ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
                              alpha, seed, provenance=prov)
+        return ds, classes
+
+    if name in ("breast_cancer", "wine", "uci_real"):
+        # real tabular bytes without a download: sklearn's breast-cancer
+        # (569 × 30, 2 classes) and wine (178 × 13, 3 classes) tables
+        x, y, classes, src = _sklearn_tabular(name, seed)
+        cut = _clamped_cut(args, len(x))
+        # standardised with the train split's statistics only
+        mu, sd = x[:cut].mean(0), x[:cut].std(0)
+        x = (x - mu) / (sd + 1e-8)
+        tx, ty, vx, vy = x[:cut], y[:cut], x[cut:], y[cut:]
+        ds = build_federated(tx, ty, vx, vy, classes, client_num, method,
+                             alpha, seed, provenance=f"real:sklearn-{src}")
         return ds, classes
 
     if name == "digits":

@@ -5,8 +5,9 @@ A LEAF split directory holds json shards with keys ``users``,
 ``num_samples`` and ``user_data`` = {user: {"x": [...], "y": [...]}};
 :func:`load_leaf` merges both splits into dense arrays plus per-client index
 maps, keeping the NATURAL per-user partition.  Character rows are encoded
-with the LEAF letter table.  Bitwise the JAX package's arrays for the same
-files.
+with the LEAF letter table.  :func:`load_shakespeare_raw` cuts the raw
+Shakespeare corpus into next-character windows.  Bitwise the JAX package's
+arrays for the same files.
 """
 
 from __future__ import annotations
@@ -119,3 +120,31 @@ def find_leaf_root(cache_dir: str, name: str) -> Optional[str]:
             if any(f.endswith(".json") for f in os.listdir(train)):
                 return root
     return None
+
+
+def load_shakespeare_raw(path: str, seq_len: int, max_windows: int = 60000,
+                         test_frac: float = 0.1, stride: int = None):
+    """The raw Shakespeare corpus → char-LM windows: encode the whole text
+    with the LEAF alphabet, cut it into ``seq_len + 1`` windows every
+    ``stride`` (default ``seq_len``) characters, and split train/test by
+    position.  Returns ``(train_x, train_y, test_x, test_y)``, x = chars
+    [:-1] and y = chars[1:] of each window."""
+    with open(path, encoding="utf-8", errors="replace") as f:
+        text = f.read()
+    ids = np.asarray(encode_chars(text), np.int64)
+    stride = int(stride or seq_len)
+    if len(ids) < 2 * (seq_len + 1):
+        raise ValueError(
+            f"{path}: corpus too short for a train AND a test "
+            f"{seq_len + 1}-char window ({len(ids)} chars)")
+    n_win = min(max(2, (len(ids) - seq_len - 1) // stride), max_windows)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        ids, seq_len + 1)[::stride][:n_win]
+    n_win = len(windows)
+    x, y = windows[:, :-1], windows[:, 1:]
+    n_test = min(max(1, int(n_win * test_frac)), n_win - 1)
+    # owned, contiguous arrays (a sliding view is read-only)
+    return (np.ascontiguousarray(x[:-n_test]),
+            np.ascontiguousarray(y[:-n_test]),
+            np.ascontiguousarray(x[-n_test:]),
+            np.ascontiguousarray(y[-n_test:]))

@@ -1,8 +1,10 @@
 """Deterministic synthetic data (numpy copies of
 ``fedml_tpu.data.synthetic``): class-conditional Gaussian images for the
 FedAvg path, class-dependent unigram token sequences for the FedNLP text
-path and Markov-chain LM tokens for the federated LoRA path, bitwise the
-JAX package's for the same seed and sizes."""
+path, Markov-chain LM tokens for the LSTM and federated LoRA paths,
+class-conditional Gaussian rows for the tabular sets and multi-hot tags
+for Stack Overflow tag prediction, bitwise the JAX package's for the same
+seed and sizes."""
 
 from __future__ import annotations
 
@@ -84,6 +86,50 @@ def synthetic_text_classification(train_n: int, test_n: int, classes: int,
         use_class = rng.random((n, seq_len)) < class_signal
         x = np.where(use_class, (lo + base) % vocab, uniform)
         return x.astype(np.int32), y.astype(np.int64)
+
+    tx, ty = gen(train_n)
+    vx, vy = gen(test_n)
+    return tx, ty, vx, vy
+
+
+def synthetic_tabular(train_n: int, test_n: int, classes: int,
+                      n_features: int, seed: int = 0, noise: float = 0.6):
+    """Class-conditional Gaussian rows (the UCI / lending-club stand-in)."""
+    rng = np.random.default_rng(seed)
+    means = rng.standard_normal((classes, n_features))
+
+    def gen(n):
+        y = rng.integers(0, classes, size=n)
+        x = means[y] + noise * rng.standard_normal((n, n_features))
+        return x.astype(np.float32), y.astype(np.int64)
+
+    tx, ty = gen(train_n)
+    vx, vy = gen(test_n)
+    return tx, ty, vx, vy
+
+
+def synthetic_tag_prediction(train_n: int, test_n: int, n_tags: int,
+                             n_features: int, seed: int = 0,
+                             avg_tags: int = 3):
+    """Multi-label tag prediction (the stackoverflow_lr stand-in): sparse
+    bag-of-words rows, and as tags each tag whose score under a fixed random
+    linear map passes its own threshold, calibrated so a tag fires on
+    ~``avg_tags``/``n_tags`` of the rows (every tag linearly separable)."""
+    rng = np.random.default_rng(seed)
+    avg_tags = max(1, min(int(avg_tags), n_tags - 1)) if n_tags > 1 else 1
+    w = rng.standard_normal((n_features, n_tags)) / np.sqrt(n_features)
+
+    def features(n):
+        return ((rng.random((n, n_features)) < 0.05)
+                * rng.exponential(1.0, (n, n_features))).astype(np.float32)
+
+    calib = features(2048) @ w
+    thresh = np.quantile(calib, 1.0 - avg_tags / n_tags, axis=0)
+
+    def gen(n):
+        x = features(n)
+        y = ((x @ w) >= thresh[None, :]).astype(np.float32)
+        return x, y
 
     tx, ty = gen(train_n)
     vx, vy = gen(test_n)

@@ -65,15 +65,51 @@ class ClientOut(NamedTuple):
 
 
 def cross_entropy_loss(logits, labels):
-    """Mean softmax cross-entropy, computed in f32."""
+    """Mean softmax cross-entropy, computed in f32: over the batch for
+    (B, C) classification, over every position too for a (B, T, V) LM."""
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     return -torch.mean(ll)
 
 
+def bce_elements(logits, targets):
+    """Stable element-wise binary cross-entropy over multi-hot targets.
+    At a logit of exactly 0 (a row without features at a zero bias) the
+    gradient is the JAX package's: ``jnp.maximum`` splits a tie in half
+    (``torch.maximum`` does too; ``clamp`` would not) and ``jnp.abs``
+    takes slope 1 at 0 (the ``where`` below; ``abs`` takes 0), so there
+    the gradient is −t rather than σ(0) − t."""
+    l = logits.to(torch.float32)
+    t = targets.to(torch.float32)
+    abs_l = torch.where(l >= 0, l, -l)
+    return (torch.maximum(l, torch.zeros_like(l)) - l * t
+            + torch.log1p(torch.exp(-abs_l)))
+
+
+def bce_with_logits(logits, targets):
+    """Mean BCE: the tag-prediction loss."""
+    return torch.mean(bce_elements(logits, targets))
+
+
+def exact_match_hits(logits, targets):
+    """Per example 0/1: the predicted tag set (logit > 0) equals the
+    target set."""
+    pred = (logits > 0).to(torch.float32)
+    return torch.all(pred == targets.to(torch.float32),
+                     dim=-1).to(torch.float32)
+
+
+def exact_match(logits, targets):
+    return torch.mean(exact_match_hits(logits, targets))
+
+
 def accuracy(logits, labels):
     return torch.mean((torch.argmax(logits, dim=-1) == labels)
                       .to(torch.float32))
+
+
+#: the tasks the trainer runs: each picks its loss and evaluation
+TASKS = ("classification", "lm", "tag_prediction")
 
 
 class LocalTrainer:
@@ -86,8 +122,9 @@ class LocalTrainer:
         self.args = args
         self.algorithm = federated.check_algorithm(
             algorithm or str(getattr(args, "federated_optimizer", "FedAvg")))
-        if model.task != "classification":
+        if model.task not in TASKS:
             raise NotImplementedError(f"task {model.task!r} is not ported")
+        self.tagpred = model.task == "tag_prediction"
         self.tx = make_client_optimizer(args)
         self.prox_mu = float(getattr(args, "fedprox_mu", 0.1))
         self.feddyn_alpha = float(getattr(args, "feddyn_alpha", 0.01))
@@ -101,7 +138,8 @@ class LocalTrainer:
         c_i enters the gradient in :meth:`train_step` instead)."""
         logits = self.model.apply(params, x, train=True,
                                   dropout_masks=dropout_masks)
-        loss = cross_entropy_loss(logits, y)
+        loss = (bce_with_logits if self.tagpred else cross_entropy_loss)(
+            logits, y)
         g = None if ctx is None else ctx.global_params
         hp = None if ctx is None else ctx.hparams
         if self.algorithm == "fedprox" and g is not None:
@@ -209,11 +247,21 @@ class LocalTrainer:
     def make_eval_step(self):
         def eval_step(params, x, y, m):
             """Summed (loss, hits, count) over the valid examples of one
-            batch; ``m`` masks the zero-padded ragged tail."""
+            batch; ``m`` (B,) masks the zero-padded ragged tail.  An
+            example's loss and hit are its means over the tags (tag
+            prediction: mean BCE, exact match) or over the positions (LM)
+            first."""
             logits = self.model.apply(params, x, train=False)
+            if self.tagpred:
+                per = torch.mean(bce_elements(logits, y), dim=-1)
+                hit = exact_match_hits(logits, y)
+                return torch.sum(per * m), torch.sum(hit * m), torch.sum(m)
             logp = F.log_softmax(logits.to(torch.float32), dim=-1)
             ll = torch.gather(logp, -1, y[..., None])[..., 0]
             hit = (torch.argmax(logits, -1) == y).to(torch.float32)
+            extra = tuple(range(m.ndim, ll.ndim))   # LM: the positions
+            if extra:
+                ll, hit = ll.mean(dim=extra), hit.mean(dim=extra)
             return -torch.sum(ll * m), torch.sum(hit * m), torch.sum(m)
 
         return eval_step

@@ -79,9 +79,29 @@ def param_kinds(module: nn.Module) -> Dict[str, Tuple[str, str, nn.Module]]:
                 if isinstance(owner, mtype) and leaf == pname:
                     kind, flax_leaf = k, fl
                     break
-        out[name] = (kind, "/".join(path.split(".") + [flax_leaf])
+        out[name] = (kind, "/".join(_flax_path(module, path) + [flax_leaf])
                      if path else flax_leaf, owner)
     return out
+
+
+def _flax_path(module: nn.Module, path: str):
+    """flax's module names along ``path``: a module whose children cannot
+    carry flax's name as a Python attribute (the LSTM cell's ``if``) maps
+    them in ``flax_names``."""
+    names = []
+    for part in path.split("."):
+        names.append(getattr(module, "flax_names", {}).get(part, part))
+        module = module.get_submodule(part)
+    return names
+
+
+def orthogonal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``initializers.orthogonal()`` for a square kernel: Q of the QR
+    of a normal draw, its columns' signs fixed by R's diagonal (a draw from
+    the Haar measure)."""
+    q, r = torch.linalg.qr(torch.randn(shape, generator=generator,
+                                       device=generator.device))
+    return q * torch.sign(torch.diagonal(r))
 
 
 @dataclasses.dataclass
@@ -89,16 +109,19 @@ class TorchModel:
     module: nn.Module
     #: shape of ONE example (no batch dim), in the dataset's HWC layout
     input_shape: Tuple[int, ...]
-    #: drives the loss and metric: "classification"
+    #: drives the loss and metric: "classification", "lm" (cross-entropy
+    #: over every position) or "tag_prediction" (BCE over multi-hot tags)
     task: str = "classification"
     #: whether a train-mode apply takes dropout keep-masks
     has_dropout: bool = False
-    #: dtype of the inputs (int32 token ids for the text model)
+    #: dtype of the inputs (int32 token ids for the text and LSTM models)
     input_dtype: torch.dtype = torch.float32
 
     def init(self, generator: torch.Generator) -> TensorDict:
         """flax's default initialisers, per parameter (:func:`param_kinds`):
-        ``lecun_normal`` Dense and Conv kernels, zero biases, unit norm
+        ``lecun_normal`` Dense and Conv kernels (``orthogonal`` where the
+        owning layer sets ``kernel_init``: the LSTM's hidden kernels), zero
+        biases, unit norm
         scales, ``nn.Embed``'s plain normal of std 1/√features, and a bare
         parameter's normal of the std its module declares
         (``normal_init_std``), drawn in parameter order from ``generator``
@@ -118,6 +141,8 @@ class TorchModel:
                 std = owner.normal_init_std[name.rsplit(".", 1)[-1]]
                 params[name] = std * torch.randn(shape, generator=generator,
                                                  device=dev)
+            elif getattr(owner, "kernel_init", None) == "orthogonal":
+                params[name] = orthogonal(shape, generator)
             else:   # dense/conv kernel: (out, in[, kh, kw])
                 params[name] = lecun_normal(shape, math.prod(shape[1:]),
                                             generator)

@@ -33,10 +33,14 @@ def same_pads(size: int, k: int, stride: int):
 
 
 class ConvSame(nn.Conv2d):
-    """``nn.Conv`` with ``padding="SAME"`` and no bias."""
+    """``nn.Conv`` with ``padding="SAME"``; no bias unless asked
+    (``use_bias``), ``groups`` as flax's ``feature_group_count`` (a
+    depthwise convolution has ``groups == cin == cout``)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
-        super().__init__(cin, cout, k, stride=stride, bias=False)
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 bias: bool = False, groups: int = 1):
+        super().__init__(cin, cout, k, stride=stride, bias=bias,
+                         groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
@@ -44,7 +48,7 @@ class ConvSame(nn.Conv2d):
                               same_pads(x.shape[-1], k, s))
         if ht or hb or wl or wr:
             x = F.pad(x, (wl, wr, ht, hb))
-        return self._conv_forward(x, self.weight, None)
+        return self._conv_forward(x, self.weight, self.bias)
 
 
 def group_norm(channels: int, groups: int = 8) -> nn.GroupNorm:

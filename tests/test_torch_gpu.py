@@ -617,3 +617,97 @@ def test_vmapped_text_step_replays_as_a_cuda_graph(cuda_device):
     assert len({f.launches for f in tatt.KERNELS}) == 1
     assert torch.equal(fused_losses, ref_losses)
     assert _same_state(fused, ref) == 0
+
+
+def _lm_api(device, **over):
+    """tests/test_torch_rnn.py's small Shakespeare rounds (the char-LSTM
+    at its full width, seq 10)."""
+    return _sp_api(device, **dict(dict(
+        model="rnn", dataset="shakespeare", seq_len=10, train_size=120,
+        test_size=24, client_num_in_total=4, client_num_per_round=2,
+        batch_size=5, learning_rate=0.5, momentum=0.0, random_seed=0,
+        partition_method="homo", comm_round=4), **over))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,vocab,seq", [("rnn", 90, 12),
+                                            ("rnn_stackoverflow", 200, 6)])
+def test_vmapped_lstm_matches_per_client_calls(cuda_device, name, vocab,
+                                               seq):
+    """The hand-written LSTM under ``torch.func.vmap`` over 3 clients'
+    params and tokens on the card: logits and gradients equal each
+    client's own call to 1e-6 (the batched products sum in another
+    order)."""
+    import types
+
+    from fedml_tpu_torch.core import rng as t_rng
+    from fedml_tpu_torch.ml.trainer.local_trainer import cross_entropy_loss
+    from fedml_tpu_torch.models import model_hub
+
+    m = model_hub.create(types.SimpleNamespace(model=name, dataset="x",
+                                               seq_len=seq), vocab)
+    per = [m.init(t_rng.root_key(c, cuda_device)) for c in range(3)]
+    params = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randint(0, vocab, (3, 4, seq), generator=gen,
+                      device=cuda_device)
+    y = torch.randint(0, vocab, (3, 4, seq), generator=gen,
+                      device=cuda_device)
+
+    def loss(p, xc, yc):
+        logits = m.apply(p, xc)
+        return cross_entropy_loss(logits, yc), logits
+
+    grads, (_, logits) = torch.func.vmap(torch.func.grad_and_value(
+        loss, has_aux=True))(params, x, y)
+    for c in range(3):
+        g, (_, lc) = torch.func.grad_and_value(loss, has_aux=True)(
+            per[c], x[c], y[c])
+        assert (logits[c] - lc).abs().max() <= 1e-6
+        for k in g:
+            assert (grads[k][c] - g[k]).abs().max() <= 1e-6, k
+
+
+@pytest.mark.gpu
+def test_fused_lstm_rounds_match_unfused(cuda_device):
+    """The char-LSTM's rounds in blocks of 2 (CUDA graphs of the vmapped
+    80-op-a-step cell loop, at seq 10) equal the unfused rounds to 1e-6,
+    with a graph captured."""
+    ref, fused = _lm_api("cuda"), _lm_api("cuda", round_block=2)
+    ref_losses = torch.stack([ref.train_one_round(r)["train_loss"]
+                              for r in range(4)]).cpu()
+    fused_losses = _blocks(fused, 4)
+    assert fused._block_fn.captures >= 1
+    assert (fused_losses - ref_losses).abs().max() <= 1e-6
+    assert _same_state(fused, ref) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rnn", "rnn_stackoverflow"])
+def test_lm_eval_step_on_card_matches_cpu(cuda_device, name):
+    """The LM eval step (per-position means per example, a masked ragged
+    tail) on the card against the CPU at the same weights: loss sum, hit
+    sum and count within 1e-5 relative (f32 log-softmax over the
+    vocabulary, summed in another order)."""
+    over = {} if name == "rnn" else dict(
+        model="rnn_stackoverflow", dataset="stackoverflow_nwp", seq_len=6,
+        train_size=64, test_size=16)
+    card, cpu = _lm_api("cuda", **over), _lm_api("cpu", **over)
+    cpu.state = cpu.state.replace(global_params={
+        k: v.cpu() for k, v in card.state.global_params.items()})
+    xb, yb, mb = cpu.dataset.test_batches(8)
+    mb[-1, 3:] = 0.0
+    step_c = card.trainer.make_eval_step()
+    step_p = cpu.trainer.make_eval_step()
+    with torch.no_grad():
+        for x, y, m in zip(xb, yb, mb):
+            got = step_c(card.state.global_params,
+                         *(torch.as_tensor(a, device=cuda_device)
+                           for a in (x, y, m)))
+            want = step_p(cpu.state.global_params,
+                          *(torch.as_tensor(a) for a in (x, y, m)))
+            for g, w in zip(got, want):
+                assert abs(float(g) - float(w)) <= 1e-5 * max(
+                    1.0, abs(float(w)))
+    (lc, ac), (lp, ap) = card.evaluate(), cpu.evaluate()
+    assert abs(lc - lp) <= 1e-5 * max(1.0, abs(lp)) and abs(ac - ap) <= 1e-6

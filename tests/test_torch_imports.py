@@ -58,3 +58,35 @@ def test_text_and_resnet_modules_import_with_jax_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/models/text_transformer.py",
             "fedml_tpu_torch/models/resnet.py"} <= walked
+
+
+def test_zoo_modules_import_with_jax_unimportable():
+    """The LSTM, VGG, MobileNet, EfficientNet and GCN models, and the LM,
+    tag-prediction and tabular loader branches, run in a process where
+    ``jax`` and ``fedml_tpu`` cannot be imported at all."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from fedml_tpu_torch.models import (efficientnet, gcn, mobilenet,\n"
+        "                                    model_hub, rnn, vgg)\n"
+        "from fedml_tpu_torch.data import data_loader\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "for name in ('rnn', 'rnn_stackoverflow', 'vgg11', 'mobilenet',\n"
+        "             'efficientnet', 'gcn'):\n"
+        "    model_hub.create(load_arguments().update(model=name), 10)\n"
+        "for ds in ('shakespeare', 'stackoverflow_lr', 'uci'):\n"
+        "    data_loader.load(load_arguments().update(\n"
+        "        dataset=ds, train_size=40, test_size=8, seq_len=8))\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {f"fedml_tpu_torch/models/{m}.py" for m in
+            ("rnn", "vgg", "mobilenet", "efficientnet", "gcn")} <= walked

@@ -213,6 +213,14 @@ def test_load_cache_readers_bitwise(tmp_path):
 
 
 def test_lm_loader_refuses_a_cache_it_cannot_read(tmp_path):
-    with pytest.raises(NotImplementedError, match="shakespeare"):
-        t_loader.load(t_arguments().update(dataset="shakespeare",
+    """A raw corpus too short for a train and a test window is refused as
+    the JAX loader refuses it (the LM cache readers are ported)."""
+    (tmp_path / "shakespeare.txt").write_text("To be, or not")
+    msgs = []
+    for loader, arguments in ((j_loader, j_arguments),
+                              (t_loader, t_arguments)):
+        with pytest.raises(ValueError, match="corpus too short") as err:
+            loader.load(arguments().update(dataset="shakespeare",
                                            data_cache_dir=str(tmp_path)))
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]

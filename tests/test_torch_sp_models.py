@@ -27,6 +27,7 @@ from fedml_tpu.core.state import make_client_optimizer as j_optimizer
 from fedml_tpu.ml.trainer.local_trainer import accuracy as j_accuracy
 from fedml_tpu.ml.trainer.local_trainer import cross_entropy_loss as j_xent
 from fedml_tpu.models import model_hub as j_hub
+from fedml_tpu_torch import data as t_data
 from fedml_tpu_torch.arguments import load_arguments as t_arguments
 from fedml_tpu_torch.core import rng as t_rng
 from fedml_tpu_torch.core import tree as t_tree
@@ -182,12 +183,11 @@ def test_dropout_masks_follow_the_generator():
 
 
 def test_unported_models_raise_by_name():
-    for name in ("mobilenet", "rnn", "vgg11", "tiny_llama"):
+    for name in ("darts", "unet", "gan", "tiny_llama"):
         with pytest.raises(NotImplementedError, match=name):
             t_hub.create(t_arguments().update(model=name), 10)
-    with pytest.raises(NotImplementedError, match="tag prediction"):
-        t_hub.create(t_arguments().update(model="lr",
-                                          dataset="stackoverflow_lr"), 10)
+    with pytest.raises(NotImplementedError, match="segmentation"):
+        t_data.load(t_arguments().update(model="lr", dataset="fets2021"))
 
 
 @pytest.mark.parametrize("over", [

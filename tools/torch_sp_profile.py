@@ -2,8 +2,10 @@
 """Where a round of the PyTorch port's sp simulation spends its time on
 the card: ``chip_smoke.py`` phase 5's configurations (a) ``lr`` at
 ``bench.py``'s shape and (b) the FEMNIST CNN, phase 8's text transformer
-on the real text shard (``text_realtext``) and phase 9's ``resnet18_gn``
-on the CIFAR-100 stand-in (``resnet18_cifar100``), for each algorithm of
+on the real text shard (``text_realtext``), phase 9's ``resnet18_gn``
+on the CIFAR-100 stand-in (``resnet18_cifar100``) and phase 10's LSTMs
+(``shakespeare_rnn``: the char-LSTM on Shakespeare; ``stackoverflow_nwp``:
+Stack Overflow next-word prediction), for each algorithm of
 ``--federated-optimizer`` (default: each configuration's own, FedAvg
 where it names none), each after one warm round (with
 ``--round_block K``: one warm block, where the CUDA graphs are captured),
@@ -17,7 +19,8 @@ scatter (CUDA events; unfused rounds only), and the top kernels; writes
 the same as JSON to ``chiprun_out/sp_profile.json``.
 
     python3 tools/torch_sp_profile.py [--rounds N]
-        [--configs lr_bench,femnist_cnn,text_realtext,resnet18_cifar100]
+        [--configs lr_bench,femnist_cnn,text_realtext,resnet18_cifar100,
+                   shakespeare_rnn,stackoverflow_nwp]
         [--federated-optimizer FedAvg,...]
         [--round_block K] [--cohort_bucketing] [--population P]
 
@@ -156,7 +159,8 @@ def main():
                     help="profiled rounds per configuration")
     ap.add_argument("--configs", default="lr_bench,femnist_cnn",
                     help="comma-separated: lr_bench, femnist_cnn, "
-                         "text_realtext, resnet18_cifar100")
+                         "text_realtext, resnet18_cifar100, "
+                         "shakespeare_rnn, stackoverflow_nwp")
     ap.add_argument("--federated-optimizer", default="",
                     help="comma-separated algorithms, each profiled on "
                          "each configuration (default: the "
@@ -177,14 +181,17 @@ def main():
     sys.path.insert(0, root)
     import fedml_tpu_torch
     from chip_smoke import (RESNET_CIFAR100, SP_FEMNIST_CNN, SP_LR_BENCH,
-                            TEXT_REALTEXT, build_sp, sp_args)
+                            TEXT_REALTEXT, ZOO_SHAKESPEARE_RNN,
+                            ZOO_STACKOVERFLOW_NWP, build_sp, sp_args)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     configs = {"lr_bench": SP_LR_BENCH, "femnist_cnn": SP_FEMNIST_CNN,
                "text_realtext": TEXT_REALTEXT,
-               "resnet18_cifar100": RESNET_CIFAR100}
+               "resnet18_cifar100": RESNET_CIFAR100,
+               "shakespeare_rnn": ZOO_SHAKESPEARE_RNN,
+               "stackoverflow_nwp": ZOO_STACKOVERFLOW_NWP}
     mode = dict(round_block=rb, cohort_bucketing=opts.cohort_bucketing,
                 population=opts.population)
     out = {"card": smi, "mode": mode}
