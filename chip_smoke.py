@@ -115,6 +115,26 @@ Phases, each printing its own lines:
    2,000 / 500 images; (f) card ≡ CPU to 1e-6 on small ``rnn``,
    ``rnn_stackoverflow``, tag-prediction and ``mobilenet`` rounds.  No
    flash-attention kernel launches (checked).
+11. engines — the other sp engines at the JAX package's default widths,
+   built through ``FedMLRunner`` (or as classes), each one warm round, its
+   timed rounds and one profiled round (seconds a round, host launch calls
+   and device kernels a round, busy share, peak GiB): (a) FedNAS on the
+   DARTS supernet (channels 16, steps 3) on the CIFAR-10 stand-in cut to
+   2,000 / 500 at 32 px, 10 clients, 4 a round, batch 16: finite losses,
+   alphas moved, a genotype without ``none``; (b) FedSeg on the UNet (base
+   16) on ``fets2021`` at its reference spec (64×64×4, 4 classes, 2,000 /
+   400), 10 clients, 4 a round, batch 8: mIoU above round 0's; (c) FedGKT
+   with its default nets on the CIFAR-10 stand-in cut to 2,000 / 500, 4
+   clients, batch 32: the server loss falls; (d) FedGAN with its default G
+   and D on the MNIST stand-in cut to 2,000 images, 4 clients, 2 a round,
+   batch 32: finite losses, samples in [−1, 1]; (e) split learning (the
+   JAX test's Dense 32 / Dense 10 halves) on the MNIST stand-in, vertical
+   FL at NUS-WIDE's widths 634/1000 (synthetic), TurboAggregate's exact
+   sum over the flat updates of (b)'s last cohort, and the centralized
+   trainer on ``lr``; (f) card ≡ CPU for every engine at the CPU tests'
+   sizes from the same weights (and FedGAN's same z), TF32 off, to 1e-6
+   (1e-4 for the Adam-trained nets of FedGKT and FedGAN).  No
+   flash-attention kernel launches (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -122,8 +142,8 @@ the path that runs it: phase 4's LoRA rounds, phase 8's unfused text
 rounds; the bf16 text-shape measurement under ``"bf16_at_text"``; the
 forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
-phase 8's under ``"text"``, phase 9's under ``"resnet"`` and phase 10's
-under ``"models"`` beside them)
+phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
+under ``"models"`` and phase 11's under ``"engines"`` beside them)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -1523,6 +1543,418 @@ def models_phase(torch, fedml_tpu_torch, smi):
     return out
 
 
+#: phase 11 (a)–(d): the four engines ``run_simulation`` dispatches, each at
+#: the JAX package's default widths; data and rounds cut (PERF.md §4)
+ENGINE_FEDNAS = dict(dataset="cifar10", model="darts",
+                     federated_optimizer="FedNAS", train_size=2000,
+                     test_size=500, client_num_in_total=10,
+                     client_num_per_round=4, batch_size=16,
+                     learning_rate=0.05)
+ENGINE_FEDSEG = dict(dataset="fets2021", model="unet",
+                     input_shape=(64, 64, 4), federated_optimizer="FedSeg",
+                     client_num_in_total=10, client_num_per_round=4,
+                     batch_size=8, learning_rate=0.1)
+ENGINE_FEDGKT = dict(dataset="cifar10", model="lr",
+                     federated_optimizer="FedGKT", train_size=2000,
+                     test_size=500, client_num_in_total=4, batch_size=32,
+                     learning_rate=0.03)
+ENGINE_FEDGAN = dict(dataset="mnist", model="lr",
+                     federated_optimizer="FedGAN", train_size=2000,
+                     test_size=500, client_num_in_total=4,
+                     client_num_per_round=2, batch_size=32,
+                     learning_rate=2e-4)
+#: phase 11 (e): split learning and the centralized baseline on the MNIST
+#: stand-in cut to 2,000 / 500
+ENGINE_MNIST = dict(dataset="mnist", model="lr", train_size=2000,
+                    test_size=500, client_num_in_total=1,
+                    partition_method="homo", batch_size=32,
+                    learning_rate=0.1)
+#: phase 11 (f): card ≡ CPU at the CPU tests' sizes, 2 f32 rounds from the
+#: same weights (and FedGAN's same z)
+ENGINE_CARD_CPU = {
+    "fednas": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="darts", federated_optimizer="FedNAS",
+                   client_num_in_total=4, client_num_per_round=2,
+                   batch_size=4, train_size=64, test_size=16,
+                   learning_rate=0.05, partition_method="homo"),
+    "fedseg": dict(dataset="fets2021", input_shape=(16, 16, 1), model="unet",
+                   federated_optimizer="FedSeg", client_num_in_total=4,
+                   client_num_per_round=2, batch_size=4, train_size=48,
+                   test_size=40, learning_rate=0.1, partition_method="homo"),
+    "fedgkt": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="lr", federated_optimizer="FedGKT",
+                   client_num_in_total=3, batch_size=8, train_size=96,
+                   test_size=32, learning_rate=0.05, partition_method="homo"),
+    "fedgan": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="lr", federated_optimizer="FedGAN",
+                   client_num_in_total=4, client_num_per_round=2,
+                   batch_size=8, train_size=96, test_size=32,
+                   learning_rate=2e-4, partition_method="homo"),
+}
+#: card ≡ CPU limits: 1e-6, wider only where Adam normalises f32 rounding
+#: noise into steps of up to lr (FedGKT's server head at 1e-3, FedGAN's
+#: nets at 2e-4); the measured values are in PERF.md §6
+ENGINE_CARD_CPU_TOL = {"fedgkt": 1e-4, "fedgan": 1e-4}
+#: the engines' weights, by attribute (FedGKT's clients' nets come after
+#: the first round)
+ENGINE_WEIGHTS = ("params", "g_params", "d_params", "_init_e", "_init_h",
+                  "s_params", "client_params", "server_params")
+
+
+def engine_weights(api):
+    """Every weight tensor an engine holds, by dotted name."""
+    out = {}
+    for attr in ENGINE_WEIGHTS + ("c_params",):
+        v = getattr(api, attr, None)
+        if attr == "c_params" and v:
+            for c, nets in v.items():
+                for i, net in enumerate(nets):
+                    out.update({f"c{c}.{i}.{k}": t for k, t in net.items()})
+        elif isinstance(v, dict):
+            out.update({f"{attr}.{k}": t for k, t in v.items()})
+    for i, p in enumerate(getattr(api, "parties", ())):
+        out[f"party{i}.w"] = p.w
+    return out
+
+
+def split_modules(torch, d):
+    """``tests/test_algorithms.py::test_split_nn``'s bottom (Dense 32 +
+    ReLU over the flattened image) and top (Dense 10)."""
+    nn = torch.nn
+
+    class Bottom(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = nn.Linear(d, 32)
+
+        def forward(self, x):
+            return torch.relu(self.Dense_0(x.reshape(x.shape[0], -1)))
+
+    class Top(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = nn.Linear(32, 10)
+
+        def forward(self, h):
+            return self.Dense_0(h)
+
+    return Bottom(), Top()
+
+
+def engine_rounds(torch, tag, api, attr, timed, smi):
+    """One warm round (``train()`` with ``attr`` set to 1), then ``timed``
+    rounds in one timed ``train()``, then one more under the profiler:
+    seconds a round, the profile and every ``train()``'s output."""
+    outs = []
+    setattr(api, attr, 1)
+    t_warm, out = sync_time(torch, api.train)
+    outs.append(out)
+    setattr(api, attr, timed)
+    torch.cuda.reset_peak_memory_stats()
+    dt, out = sync_time(torch, api.train)
+    outs.append(out)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    setattr(api, attr, 1)
+    prof = profile_rounds(torch, lambda: outs.append(api.train()), 1)
+    rec = {"s_per_round": dt / timed, "warm_round_s": t_warm,
+           "timed_rounds": timed, "peak_gib": peak}
+    rec.update(prof)
+    say("engines", f"{tag}: {rec['s_per_round']:.4f} s/round over {timed} "
+                   f"after a warm round ({t_warm:.2f} s); device busy "
+                   f"{prof['busy_s']:.4f} s of {prof['profiled_s_per_round']:.4f}"
+                   f" s a profiled round "
+                   f"({100 * prof['busy_s'] / prof['profiled_s_per_round']:.1f}"
+                   f"%), {prof['host_launches']:.0f} host launch calls and "
+                   f"{prof['device_kernels']:.0f} device kernels a round; "
+                   f"peak {peak:.3f} GiB [{smi}]")
+    return rec, outs
+
+
+def engines_phase(torch, fedml_tpu_torch, smi):
+    """Phase 11."""
+    import numpy as np
+    from fedml_tpu_torch import data, device, model
+    from fedml_tpu_torch.core.mpc.secagg import dequantize
+    from fedml_tpu_torch.data.data_loader import load_vertical
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.simulation.centralized_trainer import \
+        CentralizedTrainer
+    from fedml_tpu_torch.simulation.sp.split_nn import SplitNNAPI
+    from fedml_tpu_torch.simulation.sp.turboaggregate import \
+        TurboAggregateAPI
+    from fedml_tpu_torch.simulation.sp.vertical_fl import VerticalFLAPI
+
+    def build(cfg, dev=None):
+        args = sp_args(fedml_tpu_torch, **cfg)
+        dataset, out_dim = data.load(args)
+        return FedMLRunner(args, dev or device.get_device(args), dataset,
+                           model.create(args, out_dim)).runner.fl_trainer
+
+    out = {}
+    # (a) FedNAS on the DARTS supernet
+    t0 = time.time()
+    api = build(ENGINE_FEDNAS)
+    check_policy(torch, "engines")
+    start = {k: v.clone() for k, v in api.params.items()}
+    n = sum(v.numel() for v in api.params.values())
+    say("engines", f"(a) fednas: DARTSNetwork (channels 16, steps 3), "
+                   f"{n:,} parameters, CIFAR-10 stand-in "
+                   f"{api.dataset.train_data_num:,} / "
+                   f"{api.dataset.test_data_num:,} at 32 px, 10 clients, 4 a "
+                   f"round, batch 16; built in {time.time() - t0:.1f} s")
+    rec, outs = engine_rounds(torch, "(a) fednas", api, "rounds", 2, smi)
+    hist = [h for o in outs for h in o["history"]]
+    geno = outs[-1]["genotype"]
+    rec.update(history=hist, genotype=geno, n_params=n)
+    moved = float((api.params["alphas_normal"] - start["alphas_normal"])
+                  .abs().max())
+    say("engines", f"(a) fednas: losses {[round(h['train_loss'], 4) for h in hist]}"
+                   f" (weights) {[round(h['val_loss'], 4) for h in hist]} "
+                   f"(alphas); alphas moved {moved:.2e}; genotype {geno}")
+    if not finite(*[h[k] for h in hist for k in ("train_loss", "val_loss")]):
+        fail("(a) fednas: a non-finite loss")
+    if not moved > 0 or "none" in geno["alphas_normal"] + geno["alphas_reduce"]:
+        fail("(a) fednas: the alphas did not move, or the genotype has none")
+    out["fednas"] = rec
+    del api
+
+    # (b) FedSeg on the UNet; the last cohort's updates go to (e)'s
+    # TurboAggregate
+    t0 = time.time()
+    api = build(ENGINE_FEDSEG)
+    n = sum(v.numel() for v in api.params.values())
+    say("engines", f"(b) fedseg: UNetSmall (base 16), {n:,} parameters, "
+                   f"fets2021 {api.dataset.provenance} "
+                   f"{api.dataset.train_x.shape} / "
+                   f"{api.dataset.test_data_num:,}, 4 classes, 10 clients, "
+                   f"4 a round, batch 8; built in {time.time() - t0:.1f} s")
+    cohort = []
+    local_train = api.local_train
+
+    def recording(params, xb, yb):
+        if not cohort or cohort[0][0] is not params:
+            cohort.clear()
+        p, ls = local_train(params, xb, yb)
+        cohort.append((params, p))
+        return p, ls
+
+    api.local_train = recording
+    rec, outs = engine_rounds(torch, "(b) fedseg", api, "rounds", 2, smi)
+    hist = [h for o in outs for h in o["history"]]
+    rec.update(history=hist, n_params=n)
+    say("engines", f"(b) fedseg: losses "
+                   f"{[round(h['train_loss'], 4) for h in hist]}, mIoU "
+                   f"{[round(h['miou'], 4) for h in hist]}")
+    if not finite(*[h["train_loss"] for h in hist]) or \
+            not hist[-1]["miou"] > hist[0]["miou"]:
+        fail("(b) fedseg: a non-finite loss, or mIoU not above round 0's")
+    out["fedseg"] = rec
+    # the last cohort's flat updates, each pre-scaled by its sample weight
+    last_r = len(outs[-1]["history"]) - 1
+    members = np.random.default_rng(api.seed + last_r).choice(
+        api.dataset.num_clients, size=min(api.clients_per_round,
+                                          api.dataset.num_clients),
+        replace=False)
+    w = np.array([len(api.dataset.client_idxs[int(c)]) for c in members],
+                 np.float64)
+    w /= w.sum()
+    glob = torch.cat([v.reshape(-1) for v in cohort[0][0].values()])
+    flat = [wi * (torch.cat([v.reshape(-1) for v in p.values()]) - glob)
+            .double().cpu().numpy() for wi, (_, p) in zip(w, cohort)]
+    seg_delta = (torch.cat([v.reshape(-1) for v in api.params.values()])
+                 - glob).double().cpu().numpy()
+    del api
+
+    # (c) FedGKT with the default nets
+    t0 = time.time()
+    api = build(ENGINE_FEDGKT)
+    say("engines", f"(c) fedgkt: ClientExtractor + ClientHead, ServerHead "
+                   f"(width 256, depth 3), CIFAR-10 stand-in "
+                   f"{api.dataset.train_data_num:,} / "
+                   f"{api.dataset.test_data_num:,}, 4 clients, batch 32; "
+                   f"built in {time.time() - t0:.1f} s")
+    rec, outs = engine_rounds(torch, "(c) fedgkt", api, "rounds", 2, smi)
+    hist = [h for o in outs for h in o["history"]]
+    acc = api.evaluate()
+    rec.update(history=hist, test_acc=acc)
+    say("engines", f"(c) fedgkt: client loss "
+                   f"{[round(h['client_loss'], 4) for h in hist]}, server "
+                   f"loss {[round(h['server_loss'], 4) for h in hist]}; "
+                   f"accuracy (client 0's extractor → server head) {acc:.4f}")
+    if not finite(*[h[k] for h in hist for k in ("client_loss",
+                                                 "server_loss")]) or \
+            not hist[2]["server_loss"] < hist[0]["server_loss"]:
+        fail("(c) fedgkt: a non-finite loss, or the server loss did not fall")
+    out["fedgkt"] = rec
+    del api
+
+    # (d) FedGAN with the default generator and discriminator
+    t0 = time.time()
+    api = build(ENGINE_FEDGAN)
+    say("engines", f"(d) fedgan: Generator + Discriminator (base 64, latent "
+                   f"64), MNIST stand-in {api.images.shape}, 4 clients, 2 a "
+                   f"round, batch 32; built in {time.time() - t0:.1f} s")
+    rec, outs = engine_rounds(torch, "(d) fedgan", api, "rounds", 1, smi)
+    hist = [h for o in outs for h in o["history"]]
+    samples = api.sample(16, seed=1)
+    rec.update(history=hist, sample_range=[float(samples.min()),
+                                           float(samples.max())])
+    say("engines", f"(d) fedgan: D loss "
+                   f"{[round(h['d_loss'], 4) for h in hist]}, G loss "
+                   f"{[round(h['g_loss'], 4) for h in hist]}; 16 samples "
+                   f"{samples.shape} in [{samples.min():.3f}, "
+                   f"{samples.max():.3f}]")
+    if not finite(*[h[k] for h in hist for k in ("d_loss", "g_loss")]) or \
+            samples.shape != (16, 28, 28, 1) or \
+            not (np.abs(samples) <= 1.0).all():
+        fail("(d) fedgan: a non-finite loss, or samples outside [-1, 1]")
+    out["fedgan"] = rec
+    del api
+
+    # (e) split learning, vertical FL, TurboAggregate and the centralized
+    # trainer, through their classes on the card
+    args = sp_args(fedml_tpu_torch, **ENGINE_MNIST)
+    ds, _ = data.load(args)
+    api = SplitNNAPI(args, ds, *split_modules(torch, 28 * 28))
+    acc0 = api.evaluate()
+    rec, outs = engine_rounds(torch, "(e) split_nn", api, "comm_rounds", 1,
+                              smi)
+    acc = api.evaluate()
+    rec.update(first_loss=outs[0][0], last_loss=outs[-1][-1], acc0=acc0,
+               test_acc=acc)
+    say("engines", f"(e) split_nn: 2,000 MNIST-stand-in images of client 0 a"
+                   f" round, batch 32; loss {outs[0][0]:.4f} → "
+                   f"{outs[-1][-1]:.4f}, accuracy {acc0:.4f} → {acc:.4f}")
+    if not (outs[-1][-1] < outs[0][0] and acc > max(acc0, 0.4)):
+        fail("(e) split_nn: did not learn")
+    out["split_nn"] = rec
+
+    vargs = fedml_tpu_torch.load_arguments().update(
+        dataset="nus_wide", train_size=5000, batch_size=64, comm_round=1,
+        learning_rate=0.1, random_seed=0)
+    feats, labels, classes = load_vertical(vargs)
+    api = VerticalFLAPI(vargs, [f[:4000] for f in feats], labels[:4000],
+                        [f[4000:] for f in feats], labels[4000:], classes)
+    acc0 = api.evaluate()
+    rec, outs = engine_rounds(torch, "(e) vertical_fl", api, "rounds", 2,
+                              smi)
+    acc = api.evaluate()
+    rec.update(acc0=acc0, test_acc=acc, last_loss=outs[-1][-1])
+    say("engines", f"(e) vertical_fl: NUS-WIDE widths "
+                   f"{[f.shape[1] for f in feats]} (synthetic), 4,000 / "
+                   f"1,000 rows, batch 64; loss {outs[0][0]:.4f} → "
+                   f"{outs[-1][-1]:.4f}, accuracy {acc0:.4f} → {acc:.4f}")
+    if not acc > max(acc0, 0.6):
+        fail("(e) vertical_fl: did not learn")
+    out["vertical_fl"] = rec
+
+    t0 = time.time()
+    turbo = TurboAggregateAPI(n_clients=len(flat), n_groups=3, seed=0)
+    total = turbo.aggregate(flat)
+    t_turbo = time.time() - t0
+    exact = np.abs(total - np.sum(flat, axis=0)).max()
+    vs_engine = np.abs(total - seg_delta).max()
+    masked = np.abs(dequantize(turbo.observed_partials[0])
+                    - np.sum([flat[c] for c in turbo.groups[0]], 0)).max()
+    say("engines", f"(e) turboaggregate: {len(flat)} flat updates of "
+                   f"{len(flat[0]):,} from (b)'s last cohort in "
+                   f"{len(turbo.groups)} ring groups, {t_turbo:.3f} s on the "
+                   f"host; sum error {exact:.2e} (fixed-point step "
+                   f"{2 ** -16:.1e}), vs the engine's own aggregate "
+                   f"{vs_engine:.2e}; the first group's partial is masked "
+                   f"(differs by up to {masked:.2e})")
+    if not (exact <= len(flat) * 2 ** -16 and vs_engine <= 1e-4
+            and masked > 1.0):
+        fail("(e) turboaggregate: the sum is not exact, or not masked")
+    out["turboaggregate"] = {"sum_err": float(exact),
+                             "vs_engine_err": float(vs_engine),
+                             "host_s": t_turbo, "n": len(flat[0])}
+
+    cargs = sp_args(fedml_tpu_torch, **dict(ENGINE_MNIST, epochs=1))
+    ds, out_dim = data.load(cargs)
+    api = CentralizedTrainer(ds, model.create(cargs, out_dim), None, cargs)
+    rec, _ = engine_rounds(torch, "(e) centralized lr", api, "epochs", 2,
+                           smi)
+    hist = api.history
+    rec["history"] = hist
+    say("engines", f"(e) centralized lr: train loss "
+                   f"{[round(h['train_loss'], 4) for h in hist]}, test "
+                   f"accuracy {hist[-1]['test_acc']:.4f}")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        fail("(e) centralized: the train loss did not fall")
+    out["centralized"] = rec
+    del api
+
+    # (f) card ≡ CPU from the same weights (and z), TF32 off
+    out["card_vs_cpu"] = {}
+    for tag, cfg in ENGINE_CARD_CPU.items():
+        cfg = dict(cfg, comm_round=2, random_seed=0)
+        card = build(cfg)
+        cpu = build(cfg, torch.device("cpu"))
+        for attr in ENGINE_WEIGHTS:
+            if hasattr(card, attr):
+                setattr(cpu, attr, {k: v.cpu() for k, v in
+                                    getattr(card, attr).items()})
+        if tag == "fedgan":
+            zs, draw = [], card.client_noise
+            card.client_noise = lambda s, b: zs.append(draw(s, b)) or zs[-1]
+            cpu.client_noise = lambda s, b: zs.pop(0).cpu()
+        hc, hp = card.train()["history"], cpu.train()["history"]
+        out["card_vs_cpu"][tag] = engine_card_cpu(torch, tag, card, cpu, hc,
+                                                  hp)
+    for tag in ("split_nn", "vertical_fl", "centralized"):
+        args = sp_args(fedml_tpu_torch, **dict(ENGINE_MNIST, train_size=256,
+                                               test_size=64, comm_round=1,
+                                               epochs=2))
+        ds, out_dim = data.load(args)
+        if tag == "split_nn":
+            card, cpu = (SplitNNAPI(args, ds, *split_modules(torch, 784),
+                                    device=d) for d in (None, "cpu"))
+        elif tag == "vertical_fl":
+            vargs = fedml_tpu_torch.load_arguments().update(
+                dataset="nus_wide", train_size=400, batch_size=64,
+                comm_round=2, learning_rate=0.1, random_seed=0)
+            f, y, c = load_vertical(vargs)
+            card, cpu = (VerticalFLAPI(vargs, [a[:320] for a in f], y[:320],
+                                       [a[320:] for a in f], y[320:], c,
+                                       device=d) for d in (None, "cpu"))
+            for pc, pp in zip(card.parties, cpu.parties):
+                pp.w = pc.w.cpu()
+        else:
+            m = model.create(args, out_dim)
+            card, cpu = (CentralizedTrainer(ds, m, d, args)
+                         for d in (None, "cpu"))
+        for attr in ENGINE_WEIGHTS:
+            if hasattr(card, attr):
+                setattr(cpu, attr, {k: v.cpu() for k, v in
+                                    getattr(card, attr).items()})
+        lc, lp = card.train(), cpu.train()
+        hc = lc if tag != "centralized" else [h["train_loss"] for h in lc]
+        hp = lp if tag != "centralized" else [h["train_loss"] for h in lp]
+        out["card_vs_cpu"][tag] = engine_card_cpu(
+            torch, tag, card, cpu, [{"loss": v} for v in hc],
+            [{"loss": v} for v in hp])
+    return out
+
+
+def engine_card_cpu(torch, tag, card, cpu, hc, hp):
+    """Phase 11 (f): the weights and history of a card run against the CPU
+    run from the same start, held to ``ENGINE_CARD_CPU_TOL``."""
+    wc, wp = engine_weights(card), engine_weights(cpu)
+    if wc.keys() != wp.keys() or not wc:
+        fail(f"(f) {tag}: the card and CPU runs hold different weights")
+    err = max(max_err(wc[k].cpu(), v) for k, v in wp.items())
+    h_err = max(abs(a[k] - b[k]) for a, b in zip(hc, hp) for k in a
+                if k != "round")
+    tol = ENGINE_CARD_CPU_TOL.get(tag, 1e-6)
+    say("engines", f"(f) {tag}: card vs CPU from the same weights, "
+                   f"{len(wc)} weight tensors max abs diff {err:.2e}, "
+                   f"history {h_err:.2e} (tol {tol:g})")
+    if not (err <= tol and h_err <= tol):
+        fail(f"(f) {tag}: card and CPU disagree ({err:.2e}, {h_err:.2e})")
+    return {"weights": err, "history": h_err, "tol": tol}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1760,13 +2192,22 @@ def main():
         fail("phase 10 launched a flash-attention kernel")
     say("models", f"phase 10 took {time.time() - t0:.1f} s; no "
                   "flash-attention kernel launched")
+
+    # -- 11. engines: FedNAS, FedSeg, FedGKT, FedGAN, split, VFL, ... -----
+    t0 = time.time()
+    att.reset_launch_counts()
+    engines = engines_phase(torch, fedml_tpu_torch, smi)
+    if any(f.launches for f in att.KERNELS):
+        fail("phase 11 launched a flash-attention kernel")
+    say("engines", f"phase 11 took {time.time() - t0:.1f} s; no "
+                   "flash-attention kernel launched")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
                       "bf16_at_text": list(bf16_at_text.values()),
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
                       "fusion": fusion, "text": text, "resnet": resnet,
-                      "models": models}))
+                      "models": models, "engines": engines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

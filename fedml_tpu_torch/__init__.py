@@ -4,9 +4,13 @@ H100.
 Same module layout and names as the JAX package, so each module's
 counterpart is found at the same path.  Ported so far:
 
-- the single-process FedAvg simulation, ``run_simulation(backend="sp",
-  args=...)`` (``simulation/sp/fedavg_api.py::FedAvgAPI``) on the ``lr``,
-  ``mlp`` and CNN models;
+- the single-process simulation, ``run_simulation(backend="sp",
+  args=...)``: ``FedAvgAPI`` and the algorithm zoo on the sp model zoo,
+  the hierarchical, async and decentralized engines, and FedNAS, FedSeg,
+  FedGKT and FedGAN (``simulation/sp/``);
+- split learning, vertical FL, TurboAggregate and the centralized
+  trainer, built as classes (``simulation/sp/{split_nn,vertical_fl,
+  turboaggregate}.py``, ``simulation/centralized_trainer.py``);
 - the federated LoRA round of a Llama model (``llm/fedllm.py::FedLLMAPI``)
   with its hand-written Hopper flash-attention kernels (``csrc/``, bound in
   ``ops/attention.py``).
@@ -53,7 +57,9 @@ def run_simulation(backend: str = "sp", args: Optional[Arguments] = None,
     """Load the dataset and model that ``args`` names and run the simulation
     ``backend`` (port of ``fedml_tpu.run_simulation``; only ``"sp"`` is
     ported).  Runs on the card unless ``device="cpu"`` (or ``args.device``)
-    asks for the CPU.  Returns the final global params."""
+    asks for the CPU.  Returns what the engine's ``train()`` returns: the
+    final global params for FedAvg and the zoo, a dict with the history
+    for FedNAS, FedSeg, FedGKT and FedGAN."""
     if args is None:
         args = init()
     args.training_type = "simulation"

@@ -62,6 +62,17 @@ def stacked_weighted_average(stacked: TensorDict, weights) -> TensorDict:
         w, leaf.to(torch.float32), dims=1).to(leaf.dtype), stacked)
 
 
+def weighted_average(trees, weights) -> TensorDict:
+    """Weighted FedAvg merge of a list of identically-keyed dicts (the
+    JAX package's ``weighted_average``): stacked, then
+    :func:`stacked_weighted_average` with the weights on the leaves'
+    device."""
+    dev = next(iter(trees[0].values())).device
+    return stacked_weighted_average(
+        tree_stack(trees),
+        torch.as_tensor(weights, dtype=torch.float32, device=dev))
+
+
 def flatten(tree: Mapping, prefix: str = "") -> dict:
     """Nested dict → ``{"a/b/c": leaf}``."""
     out = {}

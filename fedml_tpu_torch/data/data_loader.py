@@ -26,11 +26,14 @@
   agnews, realtext): an ``<name>.npz`` under ``args.data_cache_dir`` (the
   committed ``data_shards/realtext`` shard), else the seeded unigram
   generator; ``vocab_size``, ``seq_len``, ``train_size``, ``test_size``,
-  ``text_class_signal`` and ``text_keyword_width`` override the spec.
+  ``text_class_signal`` and ``text_keyword_width`` override the spec;
+- the segmentation sets (``_SEG_SPECS``: fets2021, fets,
+  autonomous_driving, cityscapes): an ``.npz`` with (N, H, W) label masks,
+  else blocky synthetic masks, partitioned by each image's dominant class.
 
-Every array is bitwise the JAX package's for the same arguments.  The
-other dataset families (large images, segmentation, edge cases) raise,
-naming themselves.
+:func:`load_vertical` gives vertical FL its party feature blocks.  Every
+array is bitwise the JAX package's for the same arguments.  The other
+dataset families (large images, edge cases) raise, naming themselves.
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ from ..core.data.noniid_partition import partition
 from .federated_dataset import FederatedDataset, build_federated
 from .leaf import find_leaf_root, load_leaf, load_shakespeare_raw
 from .synthetic import (synthetic_image_classification, synthetic_lm_tokens,
-                        synthetic_tabular, synthetic_tag_prediction,
-                        synthetic_text_classification)
+                        synthetic_segmentation, synthetic_tabular,
+                        synthetic_tag_prediction,
+                        synthetic_text_classification,
+                        synthetic_vertical_parties)
 
 # (classes, img shape, train_n, test_n), the reference cardinalities
 _IMAGE_SPECS = {
@@ -94,13 +99,20 @@ _TEXTCLS_SPECS = {
     "realtext": (10, 8192, 128, 2967, 530, 0.25, 2.5),
 }
 
+# dense-prediction sets (FeTS2021: 4-modality MRI tumour segmentation;
+# AutonomousDriving: driving scenes): (classes, (H, W, C), train_n, test_n)
+_SEG_SPECS = {
+    "fets2021": (4, (64, 64, 4), 2000, 400),
+    "fets": (4, (64, 64, 4), 2000, 400),
+    "autonomous_driving": (19, (64, 128, 3), 3000, 500),
+    "cityscapes": (19, (64, 128, 3), 3000, 500),
+}
+
 #: dataset families of the JAX loader the port does not load yet
 _UNPORTED = {
     "imagenet": "large image", "imagenet_hdf5": "large image",
     "ilsvrc2012": "large image", "landmarks": "large image",
     "gld23k": "large image", "gld160k": "large image",
-    "fets2021": "segmentation", "fets": "segmentation",
-    "autonomous_driving": "segmentation", "cityscapes": "segmentation",
     "edge_case_examples": "edge case", "edge_case": "edge case",
 }
 
@@ -421,6 +433,28 @@ def load(args) -> Tuple[FederatedDataset, int]:
                              alpha, seed, provenance=prov)
         return ds, classes
 
+    if name in _SEG_SPECS:
+        classes, shape, train_n, test_n = _SEG_SPECS[name]
+        train_n, test_n = _sizes(args, train_n, test_n)
+        shape = tuple(getattr(args, "input_shape", None) or shape)
+        real = _try_load_npz(cache, name) if cache else None
+        if real is not None:
+            tx, ty, vx, vy = real
+        else:
+            tx, ty, vx, vy = synthetic_segmentation(
+                train_n, test_n, classes, shape, seed)
+        # the Dirichlet partition needs one label a sample: each mask's
+        # dominant class (the stand-in for FeTS's per-institution skew)
+        dominant = np.array([np.bincount(m.reshape(-1),
+                                         minlength=classes).argmax()
+                             for m in ty])
+        client_idxs = partition(dominant, client_num, method, alpha, seed)
+        ds = FederatedDataset(
+            tx, ty, vx, vy, client_idxs, classes,
+            provenance=_cache_provenance(cache, "real:npz", name)
+            if real is not None else "synthetic")
+        return ds, classes
+
     if name in ("breast_cancer", "wine", "uci_real"):
         # real tabular bytes without a download: sklearn's breast-cancer
         # (569 × 30, 2 classes) and wine (178 × 13, 3 classes) tables
@@ -477,3 +511,32 @@ def load(args) -> Tuple[FederatedDataset, int]:
         raise NotImplementedError(
             f"dataset {name!r} ({_UNPORTED[name]}) is not ported yet")
     raise ValueError(f"unknown dataset {name!r}")
+
+
+def load_vertical(args):
+    """Vertically partitioned load for vertical FL: ``(party feature
+    arrays, labels, classes)``.  ``breast_cancer``/``wine``/``uci_real``
+    split sklearn's table into contiguous column blocks (standardised over
+    the returned rows); ``nus_wide`` gives party A NUS-WIDE's 634 image
+    features and party B its 1,000 text tags (128 for each further party);
+    any other name ``features_per_party`` (16) each, all from the
+    synthetic generator."""
+    name = str(getattr(args, "dataset", "nus_wide")).lower()
+    parties = int(getattr(args, "vfl_parties", 2))
+    seed = int(getattr(args, "random_seed", 0))
+    n = int(getattr(args, "train_size", 4000))
+    if name in ("breast_cancer", "wine", "uci_real"):
+        # the class count is the whole table's (a small slice may miss one)
+        x, labels, classes, _ = _sklearn_tabular(name, seed)
+        x, labels = x[:n], labels[:n]
+        x = (x - x.mean(0)) / (x.std(0) + 1e-8)
+        splits = np.array_split(np.arange(x.shape[1]), parties)
+        return [x[:, idx] for idx in splits], labels, classes
+    if name in ("nus_wide", "nuswide"):
+        fpp = [634, 1000][:parties] if parties <= 2 else [634, 1000] + \
+            [128] * (parties - 2)
+    else:
+        fpp = int(getattr(args, "features_per_party", 16))
+    classes = int(getattr(args, "num_classes", 2))
+    feats, labels = synthetic_vertical_parties(n, parties, fpp, classes, seed)
+    return feats, labels, classes

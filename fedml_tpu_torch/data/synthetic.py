@@ -2,9 +2,10 @@
 ``fedml_tpu.data.synthetic``): class-conditional Gaussian images for the
 FedAvg path, class-dependent unigram token sequences for the FedNLP text
 path, Markov-chain LM tokens for the LSTM and federated LoRA paths,
-class-conditional Gaussian rows for the tabular sets and multi-hot tags
-for Stack Overflow tag prediction, bitwise the JAX package's for the same
-seed and sizes."""
+class-conditional Gaussian rows for the tabular sets, multi-hot tags
+for Stack Overflow tag prediction, vertically split party features for
+vertical FL and blocky per-pixel masks for segmentation, bitwise the JAX
+package's for the same seed and sizes."""
 
 from __future__ import annotations
 
@@ -134,3 +135,43 @@ def synthetic_tag_prediction(train_n: int, test_n: int, n_tags: int,
     tx, ty = gen(train_n)
     vx, vy = gen(test_n)
     return tx, ty, vx, vy
+
+
+def synthetic_vertical_parties(n: int, parties: int, features_per_party,
+                               classes: int = 2, seed: int = 0,
+                               noise: float = 0.5):
+    """Vertically partitioned features (NUS-WIDE style: each party holds a
+    different feature block of the SAME samples): ``(per-party arrays,
+    labels)``."""
+    rng = np.random.default_rng(seed)
+    if isinstance(features_per_party, int):
+        features_per_party = [features_per_party] * parties
+    total = sum(features_per_party)
+    means = rng.standard_normal((classes, total))
+    y = rng.integers(0, classes, size=n)
+    x = means[y] + noise * rng.standard_normal((n, total))
+    outs, off = [], 0
+    for f in features_per_party:
+        outs.append(x[:, off:off + f].astype(np.float32))
+        off += f
+    return outs, y.astype(np.int64)
+
+
+def synthetic_segmentation(train_n: int, test_n: int, num_classes: int,
+                           shape, seed: int, noise: float = 0.1):
+    """Dense per-pixel labels (the FeTS2021 / AutonomousDriving stand-in):
+    blocky class regions, random label grids at a quarter of the size
+    upsampled 4×, whose channel intensity encodes the class."""
+    rng = np.random.default_rng(seed ^ 0x5E6)
+    n = train_n + test_n
+    h, w = int(shape[0]), int(shape[1])
+    c = int(shape[2]) if len(shape) > 2 else 1
+    gh, gw = max(1, h // 4), max(1, w // 4)
+    grid = rng.integers(0, num_classes, size=(n, gh, gw))
+    y = np.repeat(np.repeat(grid, (h + gh - 1) // gh, axis=1),
+                  (w + gw - 1) // gw, axis=2)[:, :h, :w]
+    x = (y[..., None] / max(num_classes - 1, 1)).astype(np.float32)
+    x = np.broadcast_to(x, (n, h, w, c)).copy()
+    x += noise * rng.standard_normal(x.shape).astype(np.float32)
+    return (x[:train_n], y[:train_n].astype(np.int64),
+            x[train_n:], y[train_n:].astype(np.int64))

@@ -53,6 +53,7 @@ def apply_dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
 _FLAX_LEAF = {
     (nn.Linear, "weight"): ("dense", "kernel"),
     (nn.Conv2d, "weight"): ("conv", "kernel"),
+    (nn.ConvTranspose2d, "weight"): ("conv_transpose", "kernel"),
     (nn.Embedding, "weight"): ("embedding", "embedding"),
     (nn.LayerNorm, "weight"): ("scale", "scale"),
     (nn.GroupNorm, "weight"): ("scale", "scale"),
@@ -62,7 +63,8 @@ _FLAX_LEAF = {
 def param_kinds(module: nn.Module) -> Dict[str, Tuple[str, str, nn.Module]]:
     """``{port name: (kind, flax path, owning module)}`` for every
     parameter, in parameter order.  ``kind`` is "dense", "conv",
-    "embedding", "scale", "bias" or "param" (a bare ``nn.Parameter``, kept
+    "conv_transpose", "embedding", "scale", "bias" or "param" (a bare
+    ``nn.Parameter``, kept
     by its own name); the flax path joins the module path with flax's leaf
     name (``layer_0.wq.weight`` → ``layer_0/wq/kernel``,
     ``tok_embed.weight`` → ``tok_embed/embedding``, ``pos_embed`` →
@@ -110,7 +112,8 @@ class TorchModel:
     #: shape of ONE example (no batch dim), in the dataset's HWC layout
     input_shape: Tuple[int, ...]
     #: drives the loss and metric: "classification", "lm" (cross-entropy
-    #: over every position) or "tag_prediction" (BCE over multi-hot tags)
+    #: over every position), "tag_prediction" (BCE over multi-hot tags) or
+    #: "segmentation" (per-pixel cross-entropy, FedSeg's own loop)
     task: str = "classification"
     #: whether a train-mode apply takes dropout keep-masks
     has_dropout: bool = False
@@ -143,6 +146,9 @@ class TorchModel:
                                                  device=dev)
             elif getattr(owner, "kernel_init", None) == "orthogonal":
                 params[name] = orthogonal(shape, generator)
+            elif kind == "conv_transpose":   # (in, out, kh, kw)
+                params[name] = lecun_normal(
+                    shape, shape[0] * math.prod(shape[2:]), generator)
             else:   # dense/conv kernel: (out, in[, kh, kw])
                 params[name] = lecun_normal(shape, math.prod(shape[1:]),
                                             generator)

@@ -9,6 +9,13 @@ maps each parameter to its flax path.  A ``Dense`` kernel ``(in, out)``
 is a ``Linear`` weight ``(out, in)``, a ``Conv`` kernel HWIO is a
 ``Conv2d`` weight OIHW; an ``Embed`` table, a norm ``scale`` and a bare
 param (``pos_embed``) keep their layout.
+
+A ``ConvTranspose`` kernel (flax's default ``transpose_kernel=False``) is
+HWIO too, but flax convolves the stride-dilated input with the kernel as
+stored, while ``ConvTranspose2d`` is the gradient of a convolution, which
+convolves with the kernel flipped in both spatial dims and in/out swapped.
+So its ``(in, out, kh, kw)`` weight is the kernel flipped in H and W and
+transposed.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ def _to_port(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.T
     if kind == "conv":
         return arr.transpose(3, 2, 0, 1)
+    if kind == "conv_transpose":
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     return arr
 
 
@@ -35,6 +44,8 @@ def _to_flax(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.T
     if kind == "conv":
         return arr.transpose(2, 3, 1, 0)
+    if kind == "conv_transpose":
+        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
     return arr
 
 

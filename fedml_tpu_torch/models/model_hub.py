@@ -7,12 +7,14 @@ models of the sp FedAvg path: ``lr`` (classification, or tag prediction on
 ``vgg11``, ``vgg13``, ``vgg16``, ``vgg19``), ``mobilenet``/``mobilenet_v3``,
 ``efficientnet``, the GCN (``gcn``, ``graph``, ``fedgraphnn``), the LSTM
 language models (``rnn``/``rnn_fedavg``/``rnn_shakespeare`` and
-``rnn_stackoverflow``/``rnn_nwp``, task ``"lm"``) and the FedNLP text
+``rnn_stackoverflow``/``rnn_nwp``, task ``"lm"``), the FedNLP text
 transformer (``text_transformer``, ``transformer_cls``, ``distilbert``,
-``bert``).  Returns a :class:`TorchModel` whose module lives on the
-``meta`` device (shapes only; parameters are passed at apply time).  Every
-other name of the JAX hub raises ``NotImplementedError`` naming itself; an
-unknown ``vgg*`` name raises ``ValueError`` as in the JAX hub."""
+``bert``), the DARTS supernet of FedNAS (``darts``, ``darts_search``) and
+the segmentation UNet of FedSeg (``unet``, ``unet_small``, ``deeplab``,
+task ``"segmentation"``).  Returns a :class:`TorchModel` whose module lives
+on the ``meta`` device (shapes only; parameters are passed at apply time).
+Every other name of the JAX hub raises ``NotImplementedError`` naming
+itself; an unknown ``vgg*`` name raises ``ValueError`` as in the JAX hub."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from .base import TorchModel
 from .cnn import CNNCifar, CNNDropOut, CNNWeb
+from .darts import DARTSNetwork
 from .efficientnet import EfficientNetLite
 from .gcn import GCNPacked
 from .linear import MLP, LogisticRegression
@@ -30,6 +33,7 @@ from .mobilenet import MobileNetV3Small
 from .resnet import resnet18_gn, resnet20, resnet56
 from .rnn import RNNOriginalFedAvg, RNNStackOverflow
 from .text_transformer import TextTransformerClassifier
+from .unet import UNetSmall
 from .vgg import vgg
 
 _IMG28 = (28, 28, 1)
@@ -38,11 +42,14 @@ TEXT_NAMES = ("distilbert", "bert", "transformer_cls", "text_transformer")
 RNN_NAMES = ("rnn", "rnn_fedavg", "rnn_shakespeare")
 RNN_NWP_NAMES = ("rnn_stackoverflow", "rnn_nwp")
 VGG_DEPTHS = {"vgg": 11, "vgg11": 11, "vgg13": 13, "vgg16": 16, "vgg19": 19}
+DARTS_NAMES = ("darts", "darts_search")
+UNET_NAMES = ("unet", "unet_small", "deeplab")
 PORTED = ("lr", "logistic_regression", "mlp", "cnn", "cnn_web", "cnn_cifar",
           "resnet18", "resnet18_gn", "resnet18_gn_w<k>", "resnet56",
           "resnet20", "resnet20_mnn", "mobilenet", "mobilenet_v3",
           "efficientnet", "gcn", "graph", "fedgraphnn") + tuple(
-              VGG_DEPTHS) + RNN_NAMES + RNN_NWP_NAMES + TEXT_NAMES
+              VGG_DEPTHS) + RNN_NAMES + RNN_NWP_NAMES + TEXT_NAMES + \
+    DARTS_NAMES + UNET_NAMES
 
 
 def _img_shape(args) -> Tuple[int, ...]:
@@ -111,6 +118,12 @@ def create(args, output_dim: int = 10) -> TorchModel:
         return TorchModel(m, _IMG32)
     shape = _IMG32 if name == "cnn_cifar" else _img_shape(args)
     with torch.device("meta"):
+        if name in DARTS_NAMES:
+            return TorchModel(DARTSNetwork(output_dim,
+                                           in_channels=shape[-1]), shape)
+        if name in UNET_NAMES:
+            return TorchModel(UNetSmall(output_dim, in_channels=shape[-1]),
+                              shape, task="segmentation")
         if name in ("lr", "logistic_regression"):
             # multi-label tag prediction (BCE over multi-hot tags): the data
             # loader sets task_type; the dataset name covers a model built

@@ -1,19 +1,23 @@
 """Simulator facades (port of ``fedml_tpu.simulation.simulator``): the
 ``sp`` backend, dispatching by ``federated_optimizer`` to the hierarchical,
-async and decentralized engines, and to ``FedAvgAPI`` for the synchronous
-algorithms of the zoo.  The mesh backend (and its reference aliases
-"MPI"/"NCCL"), the other sp engines and two-tier silo aggregation are not
-ported yet and raise by name."""
+async and decentralized engines, FedNAS, FedSeg, FedGKT and FedGAN, and to
+``FedAvgAPI`` for the synchronous algorithms of the zoo.  The mesh backend
+(and its reference aliases "MPI"/"NCCL"), the buffered-async engine and
+two-tier silo aggregation are not ported yet and raise by name."""
 
 from __future__ import annotations
 
 from .sp.async_fedavg import AsyncFedAvgAPI
 from .sp.decentralized import DecentralizedFedAPI
 from .sp.fedavg_api import FedAvgAPI
+from .sp.fedgan import FedGANAPI
+from .sp.fedgkt import FedGKTAPI
+from .sp.fednas import FedNASAPI
+from .sp.fedseg import FedSegAPI
 from .sp.hierarchical_fl import HierarchicalFedAvgAPI
 
 #: sp engines of the JAX package's dispatch that the port does not run yet
-_UNPORTED_SP_ENGINES = ("fedbuff", "fednas", "fedseg", "fedgkt", "fedgan")
+_UNPORTED_SP_ENGINES = ("fedbuff",)
 
 
 class SimulatorSingleProcess:
@@ -34,6 +38,16 @@ class SimulatorSingleProcess:
         elif alg in DecentralizedFedAPI.NAMES:
             self.fl_trainer = DecentralizedFedAPI(args, device, dataset,
                                                   model)
+        elif alg == "fednas":
+            self.fl_trainer = FedNASAPI(args, dataset, model, device)
+        elif alg == "fedseg":
+            self.fl_trainer = FedSegAPI(args, dataset, model, device)
+        elif alg == "fedgkt":
+            self.fl_trainer = FedGKTAPI(args, dataset, device)
+        elif alg == "fedgan":
+            idxs = [dataset.client_idxs[c] for c in range(dataset.num_clients)]
+            self.fl_trainer = FedGANAPI(args, dataset.train_x, idxs,
+                                        device=device)
         elif alg in _UNPORTED_SP_ENGINES:
             raise NotImplementedError(
                 f"the {alg!r} sp engine is not ported yet")

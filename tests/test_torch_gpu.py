@@ -711,3 +711,148 @@ def test_lm_eval_step_on_card_matches_cpu(cuda_device, name):
                     1.0, abs(float(w)))
     (lc, ac), (lp, ap) = card.evaluate(), cpu.evaluate()
     assert abs(lc - lp) <= 1e-5 * max(1.0, abs(lp)) and abs(ac - ap) <= 1e-6
+
+
+#: the other sp engines on the card, at the CPU tests' sizes
+ENGINES_ON_CARD = {
+    "fednas": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="darts", federated_optimizer="FedNAS",
+                   client_num_in_total=4, client_num_per_round=2,
+                   batch_size=4, train_size=64, test_size=16),
+    # lr 0.1, as chip_smoke.py phase 11 (f): at lr 0.05 the 6th step meets
+    # a max-pool window whose top two values lie 1.0e-6 apart, the card's
+    # and the CPU's summation orders pick different maxima, and the routed
+    # gradient jumps the weights 1.5e-5 apart (1.2e-4 after 2 rounds; each
+    # device's run is itself deterministic)
+    "fedseg": dict(dataset="fets2021", input_shape=(16, 16, 1), model="unet",
+                   federated_optimizer="FedSeg", client_num_in_total=4,
+                   client_num_per_round=2, batch_size=4, train_size=48,
+                   test_size=40, learning_rate=0.1),
+    "fedgkt": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="lr", federated_optimizer="FedGKT",
+                   client_num_in_total=3, batch_size=8, train_size=96,
+                   test_size=32),
+    "fedgan": dict(dataset="synthetic", num_classes=3, input_shape=(8, 8, 1),
+                   model="lr", federated_optimizer="FedGAN",
+                   client_num_in_total=4, client_num_per_round=2,
+                   batch_size=8, train_size=96, test_size=32,
+                   learning_rate=2e-4),
+}
+#: what Adam trains (FedGKT's server head at lr 1e-3, FedGAN's nets at
+#: 2e-4): Adam normalises f32 rounding noise into steps of up to lr
+#: (6.97e-6 and 1.45e-6 read on one H100); everything else 1e-6
+ENGINE_CARD_TOL = {"fedgkt": 1e-4, "fedgan": 1e-4}
+_ENGINE_WEIGHTS = ("params", "g_params", "d_params", "_init_e", "_init_h",
+                   "s_params", "client_params", "server_params")
+
+
+def _engine_weights(api):
+    out = {}
+    for attr in _ENGINE_WEIGHTS:
+        for k, v in (getattr(api, attr, None) or {}).items():
+            out[f"{attr}.{k}"] = v
+    for c, nets in (getattr(api, "c_params", None) or {}).items():
+        for i, net in enumerate(nets):
+            out.update({f"c{c}.{i}.{k}": v for k, v in net.items()})
+    return out
+
+
+def _start_cpu_from_card(card, cpu):
+    for attr in _ENGINE_WEIGHTS:
+        if hasattr(card, attr):
+            setattr(cpu, attr, {k: v.cpu() for k, v in
+                                getattr(card, attr).items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", list(ENGINES_ON_CARD))
+def test_engine_rounds_on_card_match_cpu(cuda_device, tag):
+    """Two rounds of FedNAS, FedSeg, FedGKT and FedGAN through the
+    simulator on the card (its default device) and on the CPU from the
+    same weights (and FedGAN's same latent noise): every weight and the
+    history within 1e-6, Adam-trained weights within ``ENGINE_CARD_TOL``;
+    no flash-attention launch."""
+    from fedml_tpu_torch import data, device, model
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    args = load_arguments().update(**dict(dict(
+        comm_round=2, random_seed=0, learning_rate=0.05,
+        partition_method="homo", data_cache_dir=""), **ENGINES_ON_CARD[tag]))
+    ds, out_dim = data.load(args)
+    card, cpu = (FedMLRunner(args, d, ds, model.create(args, out_dim))
+                 .runner.fl_trainer
+                 for d in (device.get_device(args), torch.device("cpu")))
+    assert card.device.type == "cuda" and cpu.device.type == "cpu"
+    _start_cpu_from_card(card, cpu)
+    if tag == "fedgan":
+        zs, draw = [], card.client_noise
+        card.client_noise = lambda s, b: zs.append(draw(s, b)) or zs[-1]
+        cpu.client_noise = lambda s, b: zs.pop(0).cpu()
+    tatt.reset_launch_counts()
+    hc, hp = card.train()["history"], cpu.train()["history"]
+    assert [f.launches for f in tatt.KERNELS] == [0, 0, 0]
+    tol = ENGINE_CARD_TOL.get(tag, 1e-6)
+    wc, wp = _engine_weights(card), _engine_weights(cpu)
+    assert wc.keys() == wp.keys() and wc
+    for k, v in wp.items():
+        assert (wc[k].cpu() - v).abs().max().item() <= tol, k
+    for a, b in zip(hc, hp):
+        assert all(abs(a[k] - b[k]) <= tol for k in a), (a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", ["split_nn", "vertical_fl", "centralized"])
+def test_class_engines_on_card_match_cpu(cuda_device, tag):
+    """Split learning, vertical FL and the centralized trainer, built on
+    the card by default and on the CPU from the same weights: weights and
+    losses within 1e-6."""
+    from torch import nn
+
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import load_arguments
+    from fedml_tpu_torch.data.data_loader import load_vertical
+    from fedml_tpu_torch.simulation.centralized_trainer import \
+        CentralizedTrainer
+    from fedml_tpu_torch.simulation.sp.split_nn import SplitNNAPI
+    from fedml_tpu_torch.simulation.sp.vertical_fl import VerticalFLAPI
+
+    args = load_arguments().update(
+        dataset="mnist", model="lr", train_size=256, test_size=64,
+        client_num_in_total=1, partition_method="homo", batch_size=32,
+        learning_rate=0.1, comm_round=1, epochs=2, random_seed=0,
+        data_cache_dir="")
+    ds, out_dim = data.load(args)
+    if tag == "split_nn":
+        def halves():
+            return (nn.Sequential(nn.Flatten(), nn.Linear(784, 32),
+                                  nn.ReLU()), nn.Linear(32, 10))
+        card, cpu = (SplitNNAPI(args, ds, *halves(), device=d)
+                     for d in (None, "cpu"))
+    elif tag == "vertical_fl":
+        vargs = load_arguments().update(dataset="nus_wide", train_size=400,
+                                        batch_size=64, comm_round=2,
+                                        learning_rate=0.1, random_seed=0)
+        f, y, c = load_vertical(vargs)
+        card, cpu = (VerticalFLAPI(vargs, [a[:320] for a in f], y[:320],
+                                   [a[320:] for a in f], y[320:], c,
+                                   device=d) for d in (None, "cpu"))
+        for pc, pp in zip(card.parties, cpu.parties):
+            pp.w = pc.w.cpu()
+    else:
+        m = model.create(args, out_dim)
+        card, cpu = (CentralizedTrainer(ds, m, d, args)
+                     for d in (None, "cpu"))
+    assert card.device.type == "cuda" and cpu.device.type == "cpu"
+    _start_cpu_from_card(card, cpu)
+    lc, lp = card.train(), cpu.train()
+    if tag == "centralized":
+        lc, lp = ([h["train_loss"] for h in h_] for h_ in (lc, lp))
+    assert np.abs(np.asarray(lc) - np.asarray(lp)).max() <= 1e-6
+    wc, wp = _engine_weights(card), _engine_weights(cpu)
+    if tag == "vertical_fl":
+        wc = {i: p.w for i, p in enumerate(card.parties)}
+        wp = {i: p.w for i, p in enumerate(cpu.parties)}
+    assert wc.keys() == wp.keys() and wc
+    for k, v in wp.items():
+        assert (wc[k].cpu() - v).abs().max().item() <= 1e-6, k

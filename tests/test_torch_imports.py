@@ -90,3 +90,50 @@ def test_zoo_modules_import_with_jax_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {f"fedml_tpu_torch/models/{m}.py" for m in
             ("rnn", "vgg", "mobilenet", "efficientnet", "gcn")} <= walked
+
+
+def test_engine_modules_import_with_jax_unimportable():
+    """FedNAS, FedSeg, FedGKT, FedGAN, split learning, vertical FL,
+    TurboAggregate and the centralized trainer, with their models, the
+    secagg copy and the segmentation and vertical loaders, import and build
+    in a process where ``jax`` and ``fedml_tpu`` cannot be imported at
+    all."""
+    import subprocess
+    import sys
+
+    modules = ("core.mpc.secagg", "models.darts", "models.unet",
+               "models.gan", "models.vfl", "simulation.sp.fednas",
+               "simulation.sp.fedseg", "simulation.sp.fedgkt",
+               "simulation.sp.fedgan", "simulation.sp.split_nn",
+               "simulation.sp.vertical_fl", "simulation.sp.turboaggregate",
+               "simulation.centralized_trainer", "simulation.simulator")
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.models import model_hub\n"
+        "from fedml_tpu_torch.data import data_loader\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "from fedml_tpu_torch.simulation.sp.turboaggregate import \\\n"
+        "    TurboAggregateAPI\n"
+        "for name in ('darts', 'darts_search', 'unet', 'unet_small',\n"
+        "             'deeplab'):\n"
+        "    model_hub.create(load_arguments().update(model=name), 4)\n"
+        "for ds in ('fets2021', 'cityscapes'):\n"
+        "    data_loader.load(load_arguments().update(\n"
+        "        dataset=ds, train_size=8, test_size=4,\n"
+        "        input_shape=(8, 8, 3)))\n"
+        "data_loader.load_vertical(load_arguments().update(\n"
+        "    dataset='nus_wide', train_size=8))\n"
+        "TurboAggregateAPI(4, 2).aggregate([np.ones(3)] * 4)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules} <= walked

@@ -183,11 +183,11 @@ def test_dropout_masks_follow_the_generator():
 
 
 def test_unported_models_raise_by_name():
-    for name in ("darts", "unet", "gan", "tiny_llama"):
+    for name in ("pipe_mlp", "resnet34", "gan", "tiny_llama"):
         with pytest.raises(NotImplementedError, match=name):
             t_hub.create(t_arguments().update(model=name), 10)
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        t_data.load(t_arguments().update(model="lr", dataset="fets2021"))
+    with pytest.raises(NotImplementedError, match="large image"):
+        t_data.load(t_arguments().update(model="lr", dataset="imagenet"))
 
 
 @pytest.mark.parametrize("over", [

@@ -263,12 +263,12 @@ def test_unported_options_raise_by_name(flag, value):
 
 @pytest.mark.parametrize("over,what", [
     (dict(backend="mesh"), "mesh"), (dict(backend="NCCL"), "NCCL"),
-    (dict(federated_optimizer="FedNAS"), "fednas"),
-    (dict(federated_optimizer="FedGKT"), "fedgkt"),
+    (dict(federated_optimizer="FedBuff"), "fedbuff"),
+    (dict(backend="MPI"), "MPI"),
     (dict(federated_optimizer="fedbuff"), "fedbuff"),
-    (dict(num_silos=2), "num_silos"), (dict(model="darts"), "darts"),
+    (dict(num_silos=2), "num_silos"), (dict(model="pipe_mlp"), "pipe_mlp"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
-    (dict(dataset="fets2021"), "fets2021")])
+    (dict(dataset="imagenet"), "imagenet")])
 def test_run_simulation_refuses_what_is_not_ported(over, what):
     """Unported backends, algorithms, models and datasets raise naming
     themselves; an absent cache directory falls back to synthetic data as
