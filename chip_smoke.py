@@ -135,6 +135,30 @@ Phases, each printing its own lines:
    sizes from the same weights (and FedGAN's same z), TF32 off, to 1e-6
    (1e-4 for the Adam-trained nets of FedGKT and FedGAN).  No
    flash-attention kernel launches (checked).
+12. llm — the causal-LM remainder at Llama-2-7B widths (dim 4096, 32
+   heads, ffn 11008, bf16) over a 32,000-token vocabulary at seq 1024,
+   random weights from a seed, depth cut per path: (a) ``CausalLMTrainer``
+   LoRA rank 8, 4 layers, batch 2, accumulation 2, cosine after a warmup of
+   2, clip 1.0, ``max_steps`` 6: eval NLL falls, the base bitwise unchanged,
+   every B adapter non-zero, K1/K2/K3 launched L·(2·micro + eval), L·micro
+   and L·micro times, a checkpoint → new trainer → resume round trip with
+   the same eval NLL; (b) the trainer dense (f32 masters, AdamW), 2 layers,
+   4 steps: the NLL falls, every parameter moves; (c) ``streaming_xent`` at
+   N 2048, D 4096, chunks 8192 and 5000 (padded) against ``causal_nll`` on
+   the dense logits (loss, dh, dw, peak memory of each), and a
+   ``FedLLMAPI`` round with ``streaming_xent_chunk`` 8192 against the
+   dense-loss round from the same weights (2 layers, 2 clients); (d)
+   ``MoEMLP`` (8 experts, top-2) against its plain per-token version, and a
+   MoE LoRA round; (e) ``remat`` "dots" against "full" and "none" on one
+   step (loss, adapter gradients, peak GiB, seconds, K1 twice a layer under
+   both recomputing modes); (f) the sp hub: ``run_simulation`` with
+   ``tiny_llama`` (TINY, f32, GQA 4:2, D 16) on synthetic Shakespeare,
+   K1–K3 once a layer a step for the vmapped cohort, fused (blocks of 8,
+   CUDA graphs) ≡ unfused, ``evaluate_per_client`` of both APIs, one round
+   of ``llama`` at 7B widths (1 layer, 2 clients, seq 256); (g) card ≡ CPU
+   at the CPU tests' sizes and tolerances for the trainer, the streaming
+   loss, MoE and the hub's rounds.  Every path's K1–K3 counts are set to 0
+   just before it and read just after.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -143,7 +167,9 @@ rounds; the bf16 text-shape measurement under ``"bf16_at_text"``; the
 forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
-under ``"models"`` and phase 11's under ``"engines"`` beside them)
+under ``"models"``, phase 11's under ``"engines"`` and phase 12's under
+``"llm"`` beside them; each kernel row adds phase 12's launches a path
+under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -1955,6 +1981,719 @@ def engine_card_cpu(torch, tag, card, cpu, hc, hp):
     return {"weights": err, "history": h_err, "tol": tol}
 
 
+#: phase 12: Llama-2-7B widths (the model's own: dim 4096, 32 heads, ffn
+#: 11008, bf16) over a 32,000-token vocabulary at seq 1024; depth cut per
+#: path
+LLM_SEQ, LLM_VOCAB = 1024, 32000
+#: (a): CausalLMTrainer, LoRA rank 8, 4 layers; 16 windows make 8
+#: micro-steps an epoch, so the 6-update budget ends inside epoch 1
+LLM_TRAINER = dict(llm_n_layers=4, lora_rank=8, batch_size=2,
+                   gradient_accumulation_steps=2, lr_scheduler_type="cosine",
+                   warmup_steps=2, max_grad_norm=1.0, max_steps=6, epochs=2,
+                   learning_rate=1e-3)
+#: (b): the same trainer dense (f32 masters), 2 layers, 4 steps
+LLM_DENSE = dict(llm_n_layers=2, lora_rank=0, batch_size=2, max_steps=4,
+                 epochs=1, learning_rate=1e-4)
+#: (c)/(d)/(e): FedLLMAPI rounds, 2 layers, 2 clients × 2 steps of batch 2
+LLM_ROUND = dict(llm_n_layers=2, lora_rank=8, lora_alpha=16.0,
+                 client_num_in_total=2, client_num_per_round=2, comm_round=1,
+                 batch_size=2, llm_max_local_steps=2, learning_rate=1e-3)
+#: (c): streaming_xent at N 2048 tokens; chunk 5000 pads the last chunk
+LLM_XENT_N, LLM_XENT_CHUNKS = 2048, (8192, 5000)
+#: (f): the hub's tiny_llama at its own width (TINY: dim 64, 4 heads, 2 KV
+#: heads, f32) on synthetic Shakespeare, and llama at 7B widths, 1 layer
+LLM_HUB_TINY = dict(model="tiny_llama", dataset="shakespeare", seq_len=64,
+                    client_num_in_total=10, client_num_per_round=4,
+                    batch_size=8, learning_rate=0.1, train_size=640,
+                    test_size=200, partition_method="homo")
+LLM_HUB_LLAMA = dict(model="llama", dataset="shakespeare", seq_len=256,
+                     llm_n_layers=1, client_num_in_total=2,
+                     client_num_per_round=2, batch_size=4,
+                     learning_rate=0.01, train_size=16, test_size=4,
+                     partition_method="homo", comm_round=1)
+#: (g): the CPU tests' sizes and tolerances (tests/test_torch_{llm_trainer,
+#: xent,moe,llm_paths}.py): trainer losses 1e-5 and adapters 1e-4 (Adam at
+#: lr 1e-3), streaming loss 2e-6 and grads 1e-6 + 1e-5 rel, MoE 1e-5 (aux
+#: 1e-6), the hub's sp rounds 1e-5
+LLM_SMALL_TRAINER = dict(model="tiny_llama", dataset="shakespeare",
+                         seq_len=16, batch_size=4, learning_rate=1e-3,
+                         random_seed=9, lora_rank=4, partition_method="homo",
+                         train_size=12, test_size=8, client_num_in_total=2,
+                         client_num_per_round=2, epochs=3,
+                         gradient_accumulation_steps=2, max_grad_norm=0.5,
+                         warmup_steps=1, lr_scheduler_type="cosine",
+                         max_steps=3, weight_decay=0.01)
+LLM_SMALL_HUB = dict(model="tiny_llama", dataset="shakespeare", seq_len=16,
+                     client_num_in_total=4, client_num_per_round=2,
+                     comm_round=2, batch_size=4, learning_rate=0.1,
+                     train_size=48, test_size=8, random_seed=3,
+                     partition_method="homo")
+#: (c)/(d): the bf16 bound of a kernel-free comparison: both sides round
+#: their outputs to bf16, so an element may differ by an ulp (2^-8 of its
+#: size); held per tensor against 1e-2 of its largest entry
+LLM_BF16_REL = 1e-2
+#: (c): streaming vs the dense f32 logits of the same bf16 operands: the
+#: mean loss, and each of the first LLM_XENT_TOKENS tokens' NLL (the card's
+#: f32 GEMMs sum in an order of their own shape's choosing); a control with
+#: the chunk products left in bf16 must break the per-token limit
+LLM_XENT_LOSS_TOL, LLM_XENT_TOKEN_TOL, LLM_XENT_TOKENS = 1e-5, 1e-4, 256
+#: (c) round, streaming vs dense loss from the same weights: {dtype: (one
+#: step's loss, its adapter gradients of their largest entries, the
+#: rounds' losses, the rounds' adapter updates' norm)}.  f32 is the
+#: witness: its gradients differ by f32 rounding only (3.9e-6 on an H100).
+#: In bf16 the gradient goes back through the bf16 residual stream, where
+#: a last-bit difference of the f32 dh flips bf16 roundings (7.5e-3).  In
+#: both, Adam's first steps are ±lr wherever a gradient is non-zero, so a
+#: near-zero entry whose sign differs moves by 2·lr: the update bounds are
+#: about twice the readings of these correct runs (1.7e-3 in f32, 9.8e-2
+#: in bf16; PERF.md §6)
+LLM_STREAM_TOL = {"bfloat16": (1e-5, LLM_BF16_REL, 1e-3, 0.2),
+                  "float32": (1e-5, 1e-4, 1e-5, 4e-3)}
+
+
+def launch_counts(att):
+    return {f.__name__.replace("flash_attention", "flash"): f.launches
+            for f in att.KERNELS}
+
+
+def counted(torch, att, fn):
+    """``fn()`` with K1–K3's counts set to 0 just before it and read just
+    after: (its result, {kernel: launches})."""
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(att)
+
+
+def expect_launches(layers, k1, k23):
+    return {"flash_fwd": layers * k1, "flash_bwd_dq": layers * k23,
+            "flash_bwd_dkv": layers * k23}
+
+
+def check_launches(tag, got, want):
+    say("llm", f"{tag}: launches {got}, expected {want}")
+    if got != want:
+        fail(f"{tag}: launch counts {got} != expected {want}")
+
+
+def peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def llm_args(fedml_tpu_torch, **over):
+    cfg = dict(model="llama", dataset="shakespeare", seq_len=LLM_SEQ,
+               random_seed=0, partition_method="homo")
+    cfg.update(over)
+    return fedml_tpu_torch.init(fedml_tpu_torch.load_arguments().update(
+        **cfg), should_init_logs=False)
+
+
+def lm_dataset(train_n, test_n, clients):
+    """Synthetic Markov-chain windows of ``LLM_SEQ`` tokens (the LM loaders'
+    generator, seed 0) over 512 of the ``LLM_VOCAB`` ids, placed by a seeded
+    permutation (text uses a small part of a 32k vocabulary too), split
+    evenly over ``clients``; the model's vocabulary is ``LLM_VOCAB``."""
+    import numpy as np
+    from fedml_tpu_torch.data.federated_dataset import build_federated
+    from fedml_tpu_torch.data.synthetic import synthetic_lm_tokens
+
+    ids = np.random.default_rng(0).permutation(LLM_VOCAB)[:512]
+    tx, ty, vx, vy = (ids[a] for a in synthetic_lm_tokens(
+        train_n, test_n, 512, LLM_SEQ, 0))
+    return build_federated(tx, ty, vx, vy, LLM_VOCAB, clients, "homo", 0.5,
+                           0, provenance="synthetic")
+
+
+def rel_err(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() /
+            ref.abs().max().clamp_min(1e-30)).item()
+
+
+def llm_trainer_phase(torch, fedml_tpu_torch, att, smi, out):
+    """Phase 12 (a) and (b)."""
+    import tempfile
+    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
+
+    # (a) LoRA-only, 4 layers
+    ds = lm_dataset(16, 4, 1)
+    with tempfile.TemporaryDirectory() as ckdir:
+        args = llm_args(fedml_tpu_torch, output_dir=ckdir, **LLM_TRAINER)
+        t0 = time.time()
+        tr = CausalLMTrainer(args, ds, device="cuda")
+        cfg, layers = tr.cfg, tr.cfg.n_layers
+        say("llm", f"(a) CausalLMTrainer LoRA rank {cfg.lora_rank}: dim "
+                   f"{cfg.dim}, {cfg.n_heads} heads, ffn {cfg.ffn_dim}, "
+                   f"vocab {cfg.vocab_size}, {cfg.dtype}, {layers} layers, "
+                   f"seq {LLM_SEQ}; built in {time.time() - t0:.1f} s")
+        base = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        micro_s, step = [], tr._step
+
+        def timed_step(x, y):
+            t1 = time.time()
+            loss = step(x, y)
+            torch.cuda.synchronize()
+            micro_s.append(time.time() - t1)
+            return loss
+
+        tr._step = timed_step
+
+        def run():
+            nll0 = tr.evaluate()
+            t1 = time.time()
+            hist = tr.train()["history"]
+            torch.cuda.synchronize()
+            return nll0, time.time() - t1, hist, tr.evaluate()
+
+        (nll0, train_s, hist, nll1), launches = counted(torch, att, run)
+        del tr._step                 # the wrapper held the trainer alive
+        micro = tr.global_step
+        n_eval = 2 * len(ds.test_batches(tr.batch_size)[0])
+        rec = {"layers": layers, "micro_steps": micro,
+               "updates": tr.counts["updates"], "eval_nll_before": nll0,
+               "eval_nll_after": nll1, "history": hist,
+               "step_losses": tr.step_losses, "train_s": train_s,
+               "micro_step_s": micro_s, "s_per_micro_step":
+               sorted(micro_s)[len(micro_s) // 2],
+               "peak_gib": peak_gib(torch), "launches": launches}
+        rec["tokens_per_s"] = (tr.batch_size * LLM_SEQ
+                               / rec["s_per_micro_step"])
+        say("llm", f"(a) {micro} micro-steps ({tr.counts['updates']} "
+                   f"updates, accumulation 2, cosine after warmup 2, clip "
+                   f"1.0) in {train_s:.2f} s with the epochs' checkpoints: "
+                   f"median {rec['s_per_micro_step']:.4f} s a micro-step "
+                   f"(the first {micro_s[0]:.3f} s), "
+                   f"{rec['tokens_per_s']:.0f} train tokens/s; eval NLL "
+                   f"{nll0:.4f} -> {nll1:.4f}; peak {rec['peak_gib']:.2f} "
+                   f"GiB [{smi}]")
+        check_launches("(a) trainer", launches,
+                       expect_launches(layers, 2 * micro + n_eval, micro))
+        if not (finite(nll0, nll1, *tr.step_losses) and nll1 < nll0):
+            fail(f"(a) eval NLL did not fall: {nll0} -> {nll1}")
+        for n, p in tr.model.named_parameters():
+            if not torch.equal(p, base[n]):
+                fail(f"(a) base weight {n} changed")
+        del base
+        n_b = [k for k in tr.lora if k.endswith("/B")]
+        moved = [k for k in n_b if tr.lora[k].abs().max().item() > 0]
+        if len(moved) != len(n_b):
+            fail(f"(a) only {len(moved)} of {len(n_b)} B adapters non-zero")
+        tr.save_checkpoint()
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+        again = CausalLMTrainer(args, ds, device="cuda")
+        if not again.resume_from_checkpoint():
+            fail("(a) no checkpoint to resume from")
+        nll2 = again.evaluate()
+        again.close()
+        del again
+        rec["resumed_eval_nll"] = nll2
+        say("llm", f"(a) base bitwise unchanged; {len(n_b)}/{len(n_b)} B "
+                   f"adapters non-zero; checkpoint -> new trainer -> resume: "
+                   f"eval NLL {nll2:.6f} (before the save {nll1:.6f})")
+        if abs(nll2 - nll1) > 1e-6 * max(1.0, abs(nll1)):
+            fail(f"(a) resumed eval NLL {nll2} != {nll1}")
+        out["trainer_lora"] = rec
+    torch.cuda.empty_cache()
+
+    # (b) dense, f32 masters, 2 layers
+    ds = lm_dataset(8, 4, 1)
+    args = llm_args(fedml_tpu_torch, **LLM_DENSE)
+    tr = CausalLMTrainer(args, ds, device="cuda")
+    layers = tr.cfg.n_layers
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    n_params = sum(p.numel() for p in before.values())
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_dense():
+        nll0 = tr.evaluate()
+        t1 = time.time()
+        tr.train()
+        torch.cuda.synchronize()
+        return nll0, time.time() - t1, tr.evaluate()
+
+    (nll0, train_s, nll1), launches = counted(torch, att, run_dense)
+    steps = tr.global_step
+    n_eval = 2 * len(ds.test_batches(tr.batch_size)[0])
+    still = [n for n, p in tr.model.named_parameters()
+             if torch.equal(p, before[n])]
+    rec = {"layers": layers, "params": n_params, "steps": steps,
+           "step_losses": tr.step_losses, "eval_nll_before": nll0,
+           "eval_nll_after": nll1, "s_per_step": train_s / steps,
+           "peak_gib": peak_gib(torch), "launches": launches,
+           "dtypes": sorted({str(p.dtype) for p in tr.model.parameters()})}
+    say("llm", f"(b) dense trainer, {layers} layers, {n_params:,} f32 "
+               f"master params: {steps} AdamW steps, "
+               f"{rec['s_per_step']:.4f} s a step, losses "
+               f"{[round(x, 4) for x in tr.step_losses]}, eval NLL "
+               f"{nll0:.4f} -> {nll1:.4f}; {len(still)} params unmoved; "
+               f"peak {rec['peak_gib']:.2f} GiB [{smi}]")
+    check_launches("(b) dense trainer", launches,
+                   expect_launches(layers, 2 * steps + n_eval, steps))
+    if rec["dtypes"] != ["torch.float32"]:
+        fail(f"(b) not f32 masters: {rec['dtypes']}")
+    if still or not (finite(nll0, nll1) and nll1 < nll0):
+        fail(f"(b) unmoved params {still[:3]} or NLL {nll0} -> {nll1}")
+    out["trainer_dense"] = rec
+    del tr, before
+    torch.cuda.empty_cache()
+
+
+def llm_xent_phase(torch, fedml_tpu_torch, smi, out):
+    """Phase 12 (c), the loss alone: streaming_xent against causal_nll on
+    the dense f32 logits of the same bf16 h and w: loss, each token's NLL,
+    dh and dw, peak memory of each; and the control, each chunk product
+    left in bf16, which must break the per-token limit."""
+    import torch.nn.functional as F
+    from fedml_tpu_torch.llm.model import causal_nll
+    from fedml_tpu_torch.ops import xent as xent_mod
+    from fedml_tpu_torch.ops.xent import streaming_xent
+
+    d = 4096
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    h = torch.randn(LLM_XENT_N, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(d, LLM_VOCAB, generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    t = torch.randint(0, LLM_VOCAB, (LLM_XENT_N,), generator=gen,
+                      device="cuda")
+
+    def run(loss_fn):
+        hh = h.detach().requires_grad_(True)
+        ww = w.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        loss = loss_fn(hh, ww)
+        dh, dw = torch.autograd.grad(loss, (hh, ww))
+        torch.cuda.synchronize()
+        return {"loss": loss.detach(), "dh": dh, "dw": dw,
+                "s": time.time() - t0,
+                "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 30}
+
+    n_tok = LLM_XENT_TOKENS
+    with torch.no_grad():
+        ref_tok = F.cross_entropy(h[:n_tok].float() @ w.float(), t[:n_tok],
+                                  reduction="none").double()
+
+    def token_err(chunk):
+        """Max over the first tokens of |streaming NLL − dense NLL|, one
+        token a call."""
+        with torch.no_grad():
+            got = torch.stack([streaming_xent(h[i:i + 1], w, t[i:i + 1],
+                                              chunk)
+                               for i in range(n_tok)]).double()
+        return (got - ref_tok).abs().max().item()
+
+    f32_logits = xent_mod._chunk_logits
+
+    def bf16_logits(h2f, w_, base, chunk):
+        logits, wc = f32_logits(h2f, w_, base, chunk)
+        lb = (h2f.bfloat16() @ wc.bfloat16()).float()
+        return torch.where(logits == xent_mod.NEG_INF, logits, lb), wc
+
+    run(lambda a, b: causal_nll(a.float() @ b.float(), t))   # warm
+    dense = run(lambda a, b: causal_nll(a.float() @ b.float(), t))
+    rec = {"n": LLM_XENT_N, "d": d, "v": LLM_VOCAB,
+           "dense": {"loss": dense["loss"].item(), "s": dense["s"],
+                     "peak_gib": dense["peak_gib"]}}
+    say("llm", f"(c) dense logits N {LLM_XENT_N} D {d} V {LLM_VOCAB} bf16: "
+               f"loss {rec['dense']['loss']:.6f}, fwd+bwd "
+               f"{dense['s'] * 1e3:.1f} ms, peak above inputs "
+               f"{dense['peak_gib']:.3f} GiB [{smi}]")
+    for chunk in LLM_XENT_CHUNKS:
+        run(lambda a, b: streaming_xent(a, b, t, chunk))          # warm
+        got = run(lambda a, b: streaming_xent(a, b, t, chunk))
+        errs = {"loss": abs(got["loss"].item() - dense["loss"].item()),
+                "token": token_err(chunk),
+                "dh": rel_err(got["dh"], dense["dh"]),
+                "dw": rel_err(got["dw"], dense["dw"])}
+        xent_mod._chunk_logits = bf16_logits
+        try:
+            with torch.no_grad():
+                c_loss = streaming_xent(h, w, t, chunk).item()
+            ctrl = {"loss": abs(c_loss - dense["loss"].item()),
+                    "token": token_err(chunk)}
+        finally:
+            xent_mod._chunk_logits = f32_logits
+        rec[f"chunk_{chunk}"] = dict(errs, control=ctrl, s=got["s"],
+                                     peak_gib=got["peak_gib"])
+        say("llm", f"(c) streaming chunk {chunk}: loss diff "
+                   f"{errs['loss']:.2e} (tol {LLM_XENT_LOSS_TOL:g}), "
+                   f"per-token NLL over {n_tok} tokens {errs['token']:.2e} "
+                   f"(tol {LLM_XENT_TOKEN_TOL:g}); control, products left "
+                   f"in bf16: loss {ctrl['loss']:.2e}, per-token "
+                   f"{ctrl['token']:.2e} (must exceed "
+                   f"{LLM_XENT_TOKEN_TOL:g}); dh {errs['dh']:.2e} and dw "
+                   f"{errs['dw']:.2e} of their largest entries (tol "
+                   f"{LLM_BF16_REL:g}), fwd+bwd {got['s'] * 1e3:.1f} ms, "
+                   f"peak above inputs {got['peak_gib']:.3f} GiB "
+                   f"({got['peak_gib'] / max(dense['peak_gib'], 1e-9):.2f}x "
+                   "dense) "
+                   f"[{smi}]")
+        if not (errs["loss"] <= LLM_XENT_LOSS_TOL
+                and errs["token"] <= LLM_XENT_TOKEN_TOL
+                and errs["dh"] <= LLM_BF16_REL
+                and errs["dw"] <= LLM_BF16_REL):
+            fail(f"(c) streaming chunk {chunk} disagrees with dense: {errs}")
+        if ctrl["token"] <= LLM_XENT_TOKEN_TOL:
+            fail(f"(c) chunk {chunk}: the bf16-product control passes the "
+                 f"per-token limit ({ctrl}): the check cannot see it")
+    out["xent"] = rec
+
+
+def copy_llm_weights(torch, dst, src):
+    """``src``'s base weights and global adapters into ``dst``."""
+    with torch.no_grad():
+        for p, q in zip(dst.model.parameters(), src.model.parameters()):
+            p.copy_(q)
+    dst.global_lora = {k: v.clone() for k, v in src.global_lora.items()}
+
+
+def stream_vs_dense_round(torch, att, dense, stream, x, y, dtype, smi):
+    """Phase 12 (c) round: ``stream`` (the streaming loss) against ``dense``
+    from the same weights: one round of each (counted for launches), then
+    one loss and its adapter gradients at the dense round's adapters (B
+    non-zero), all held to ``LLM_STREAM_TOL[dtype]``."""
+    copy_llm_weights(torch, stream, dense)
+    start = {k: v.detach().clone() for k, v in dense.global_lora.items()}
+    layers = dense.cfg.n_layers
+    rec = {}
+    for tag, api in (("dense", dense), ("streaming", stream)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        m, launches = counted(torch, att, lambda: api.train_one_round(0))
+        rec[tag] = {"loss": m["train_loss"], "steps": m["steps"],
+                    "s": time.time() - t0, "peak_gib": peak_gib(torch),
+                    "launches": launches}
+        if dtype == "bfloat16":
+            check_launches(f"(c) {tag}-loss round", launches,
+                           expect_launches(layers, 2 * m["steps"],
+                                           m["steps"]))
+    grads = {}
+    for tag, api in (("dense", dense), ("streaming", stream)):
+        lora = {k: v.detach().clone().requires_grad_(True)
+                for k, v in dense.global_lora.items()}
+        loss = api.loss(lora, x, y)
+        grads[tag] = (loss.item(), torch.autograd.grad(
+            loss, list(lora.values())))
+    lerr = abs(grads["streaming"][0] - grads["dense"][0])
+    gerr = max(rel_err(a, b) for a, b in zip(grads["streaming"][1],
+                                             grads["dense"][1]))
+    upd = lambda api: torch.cat([(api.global_lora[k] - start[k]).flatten()
+                                 for k in sorted(start)])
+    ud, us = upd(dense), upd(stream)
+    urel = ((us - ud).norm() / ud.norm()).item()
+    dl = abs(rec["streaming"]["loss"] - rec["dense"]["loss"])
+    err = max(max_err(stream.global_lora[k], v)
+              for k, v in dense.global_lora.items())
+    rec.update(grad_loss_diff=lerr, grad_rel_diff=gerr, loss_diff=dl,
+               update_rel_norm_diff=urel, adapter_max_abs_diff=err)
+    tol = LLM_STREAM_TOL[dtype]
+    say("llm", f"(c) FedLLMAPI round, {dtype}, {layers} layers, 2 clients: "
+               f"one loss + adapter gradients, streaming (chunk "
+               f"{stream.xent_chunk}) vs dense: loss {lerr:.2e} (tol "
+               f"{tol[0]:g}), gradients {gerr:.2e} of their largest entries "
+               f"(tol {tol[1]:g}); the rounds: loss "
+               f"{rec['dense']['loss']:.6f} vs "
+               f"{rec['streaming']['loss']:.6f} (diff {dl:.2e}, tol "
+               f"{tol[2]:g}), adapter updates' norm differs by {urel:.2e} of "
+               f"the dense one (tol {tol[3]:g}), adapters max abs diff "
+               f"{err:.2e}; {rec['dense']['s']:.2f} / "
+               f"{rec['streaming']['s']:.2f} s, peak "
+               f"{rec['dense']['peak_gib']:.2f} / "
+               f"{rec['streaming']['peak_gib']:.2f} GiB [{smi}]")
+    if not (finite(rec["dense"]["loss"], rec["streaming"]["loss"])
+            and lerr <= tol[0] and gerr <= tol[1] and dl <= tol[2]
+            and urel <= tol[3]):
+        fail(f"(c) {dtype} streaming and dense rounds disagree ({lerr:.2e}, "
+             f"{gerr:.2e}, {dl:.2e}, {urel:.2e})")
+    return rec
+
+
+def llm_round_phase(torch, fedml_tpu_torch, att, smi, out):
+    """Phase 12 (c) round, (d) MoE and (e) remat."""
+    import dataclasses
+    from fedml_tpu_torch.llm.fedllm import FedLLMAPI
+    from fedml_tpu_torch.llm.model import causal_nll
+    from fedml_tpu_torch.llm.moe import moe_per_token
+
+    ds = lm_dataset(8, 4, 2)
+    x = torch.as_tensor(ds.train_x[:2], device="cuda")
+    y = torch.as_tensor(ds.train_y[:2], device="cuda")
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            del dense, stream
+            torch.cuda.empty_cache()
+        dense = FedLLMAPI(llm_args(fedml_tpu_torch, model_dtype=dtype,
+                                   **LLM_ROUND), ds, "cuda")
+        stream = FedLLMAPI(llm_args(fedml_tpu_torch, model_dtype=dtype,
+                                    streaming_xent_chunk=8192, **LLM_ROUND),
+                           ds, "cuda")
+        rec[dtype] = stream_vs_dense_round(torch, att, dense, stream, x, y,
+                                           dtype, smi)
+    layers = dense.cfg.n_layers
+    rec = dict(rec.pop("bfloat16"), layers=layers, chunk=stream.xent_chunk,
+               float32=rec["float32"])
+    pc, launches = counted(torch, att, stream.evaluate_per_client)
+    rec["per_client"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                         for k, v in pc.items()}
+    say("llm", f"(f) FedLLMAPI.evaluate_per_client: NLL per client "
+               f"{[round(x, 4) for x in pc['per_client_nll'].tolist()]}, "
+               f"mean {pc['nll_mean']:.4f}, max {pc['nll_max']:.4f}, p90 "
+               f"{pc['nll_p90']:.4f}; K1 launches {launches['flash_fwd']}")
+    if not finite(*pc["per_client_nll"].tolist()):
+        fail("(f) FedLLMAPI per-client NLL not finite")
+    out["streaming_round"] = rec
+
+    # (e) remat "dots" / "full" / "none": one loss + adapter gradients
+    x = torch.as_tensor(ds.train_x[:2], device="cuda")
+    y = torch.as_tensor(ds.train_y[:2], device="cuda")
+    rem = {}
+    for mode in ("none", "full", "dots"):
+        dense.model.cfg = dataclasses.replace(dense.cfg, remat=mode)
+        lora = {k: v.detach().requires_grad_(True)
+                for k, v in dense.global_lora.items()}
+
+        def step():
+            loss = causal_nll(dense.model(x, lora), y)
+            return loss.detach(), torch.autograd.grad(loss,
+                                                      list(lora.values()))
+
+        step()                                                     # warm
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        (loss, grads), launches = counted(torch, att, step)
+        rem[mode] = {"loss": loss, "grads": grads, "s": time.time() - t0,
+                     "peak_gib": peak_gib(torch), "launches": launches}
+        check_launches(f"(e) remat {mode}", launches, expect_launches(
+            layers, 1 if mode == "none" else 2, 1))
+    dense.model.cfg = dense.cfg
+    rec_e = {}
+    for mode, r in rem.items():
+        gerr = max(rel_err(a, b) for a, b in zip(r["grads"],
+                                                 rem["none"]["grads"]))
+        lerr = abs(r["loss"].item() - rem["none"]["loss"].item())
+        rec_e[mode] = {"loss": r["loss"].item(), "s": r["s"],
+                       "peak_gib": r["peak_gib"], "loss_diff": lerr,
+                       "grad_rel_diff": gerr, "launches": r["launches"]}
+        say("llm", f"(e) remat {mode}: loss {r['loss'].item():.6f} (diff "
+                   f"{lerr:.1e}), adapter grads {gerr:.1e} of their largest "
+                   f"entries from 'none' (tol 1e-6), step {r['s']:.3f} s, "
+                   f"peak {r['peak_gib']:.2f} GiB [{smi}]")
+        if lerr > 1e-6 or gerr > 1e-6:
+            fail(f"(e) remat {mode} changes the numbers ({lerr}, {gerr})")
+    out["remat"] = rec_e
+    del dense, stream
+    torch.cuda.empty_cache()
+
+    # (d) MoE: 8 experts top-2
+    api = FedLLMAPI(llm_args(fedml_tpu_torch, n_experts=8, moe_top_k=2,
+                             **LLM_ROUND), ds, "cuda")
+    moe = api.model.layer_0.moe_mlp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    xm = torch.randn((2, LLM_SEQ, api.cfg.dim), generator=gen,
+                     device="cuda").to(api.cfg.dtype)
+    with torch.no_grad():
+        got = moe(xm)
+    ref = moe_per_token(moe, xm)
+    merr = rel_err(got, ref)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    m, launches = counted(torch, att, lambda: api.train_one_round(0))
+    rec_d = {"experts": 8, "top_k": 2, "capacity": moe.capacity(
+        2 * LLM_SEQ), "vs_per_token_rel": merr, "loss": m["train_loss"],
+        "steps": m["steps"], "s": time.time() - t0,
+        "peak_gib": peak_gib(torch), "launches": launches}
+    say("llm", f"(d) MoEMLP (E 8, top-2, capacity {rec_d['capacity']} of "
+               f"{2 * LLM_SEQ} tokens) vs its plain per-token version: "
+               f"{merr:.2e} of the largest entry (tol {LLM_BF16_REL:g}); "
+               f"FedLLMAPI MoE round, {layers} layers: loss "
+               f"{m['train_loss']:.4f}, {rec_d['s']:.2f} s, peak "
+               f"{rec_d['peak_gib']:.2f} GiB [{smi}]")
+    check_launches("(d) MoE round", launches,
+                   expect_launches(layers, 2 * m["steps"], m["steps"]))
+    if merr > LLM_BF16_REL or not finite(m["train_loss"]):
+        fail(f"(d) MoE: plain version {merr:.2e} or loss {m['train_loss']}")
+    out["moe"] = rec_d
+    del api, moe
+    torch.cuda.empty_cache()
+
+
+def llm_hub_phase(torch, fedml_tpu_torch, att, smi, out):
+    """Phase 12 (f): the sp hub's LLM names."""
+    rounds, k = 16, 8
+    cfg = dict(LLM_HUB_TINY, comm_round=rounds, frequency_of_the_test=10 ** 9)
+    # the counted run: run_simulation as a user calls it, unfused, every
+    # round evaluated at rounds 0 and 15
+    args = sp_args(fedml_tpu_torch, **cfg)
+    stager = build_sp(sp_args(fedml_tpu_torch, **cfg))
+    steps = sum(stager._stage_round_arrays(r)[4] for r in range(rounds))
+    n_eval = 2 * len(stager.dataset.test_batches()[0])
+    layers = stager.model.module.cfg.n_layers
+    del stager
+    t0 = time.time()
+    params, launches = counted(torch, att, lambda: fedml_tpu_torch
+                               .run_simulation(backend="sp", args=args))
+    rec = {"layers": layers, "padded_steps": steps,
+           "run_simulation_s": time.time() - t0, "launches": launches}
+    check_launches(f"(f) tiny_llama run_simulation, {rounds} rounds "
+                   f"unfused (vmapped cohort: once a layer a step)",
+                   launches, expect_launches(layers, steps + n_eval, steps))
+    if not all(torch.isfinite(v).all() for v in params.values()):
+        fail("(f) tiny_llama params not finite")
+    rec["fusion"] = fused_vs_unfused(torch, fedml_tpu_torch,
+                                     "(f) tiny_llama", cfg, k, rounds, k, smi)
+    api = build_sp(sp_args(fedml_tpu_torch, **dict(cfg, comm_round=2)))
+    api.train()
+    pc = api.evaluate_per_client(batch_size=64)
+    rec["per_client"] = {key: (v.tolist() if hasattr(v, "tolist") else v)
+                         for key, v in pc.items()}
+    say("llm", f"(f) FedAvgAPI.evaluate_per_client over "
+               f"{len(pc['per_client_acc'])} clients: accuracy mean "
+               f"{pc['acc_mean']:.4f}, std {pc['acc_std']:.4f}, min "
+               f"{pc['acc_min']:.4f}, p10 {pc['acc_p10']:.4f}")
+    if not finite(*pc["per_client_loss"].tolist()):
+        fail("(f) per-client losses not finite")
+    del api
+
+    # llama at 7B widths, 1 layer, one round
+    largs = sp_args(fedml_tpu_torch, **LLM_HUB_LLAMA)
+    api = build_sp(largs)
+    mcfg = api.model.module.cfg
+    n_params = sum(v.numel() for v in api.state.global_params.values())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    m, launches = counted(torch, att, lambda: api.train_one_round(0))
+    lsteps = int(m["allocated_steps"]) // api.clients_per_round
+    rec["llama"] = {"dim": mcfg.dim, "layers": mcfg.n_layers,
+                    "params": n_params, "loss": float(m["train_loss"]),
+                    "s": time.time() - t0, "peak_gib": peak_gib(torch),
+                    "padded_steps": lsteps, "launches": launches}
+    say("llm", f"(f) llama at dim {mcfg.dim}, {mcfg.n_layers} layer, "
+               f"{n_params:,} f32 params, 2 clients vmapped, seq "
+               f"{LLM_HUB_LLAMA['seq_len']}: loss "
+               f"{rec['llama']['loss']:.4f}, {rec['llama']['s']:.2f} s, "
+               f"peak {rec['llama']['peak_gib']:.2f} GiB [{smi}]")
+    check_launches("(f) llama round", launches,
+                   expect_launches(mcfg.n_layers, lsteps, lsteps))
+    if not finite(rec["llama"]["loss"]):
+        fail("(f) llama round loss not finite")
+    del api
+    torch.cuda.empty_cache()
+    out["hub"] = rec
+
+
+def llm_card_cpu_phase(torch, fedml_tpu_torch, smi, out):
+    """Phase 12 (g): card ≡ CPU at the CPU tests' sizes, f32, TF32 off."""
+    import numpy as np
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.llm.moe import MoEMLP
+    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
+    from fedml_tpu_torch.ops.xent import streaming_xent
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    rec = {}
+    args = fedml_tpu_torch.init(fedml_tpu_torch.load_arguments().update(
+        **LLM_SMALL_TRAINER), should_init_logs=False)
+    ds, _ = data.load(args)
+    cpu = CausalLMTrainer(args, ds, device="cpu")
+    card = CausalLMTrainer(args, ds, device="cuda")
+    with torch.no_grad():
+        for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+            p.copy_(q)
+    card.lora = {k: v.to("cuda") for k, v in cpu.lora.items()}
+    cpu.train()
+    card.train()
+    lerr = max(abs(a - b) for a, b in zip(card.step_losses, cpu.step_losses))
+    aerr = max(max_err(card.lora[k].cpu(), v) for k, v in cpu.lora.items())
+    rec["trainer"] = {"loss": lerr, "adapters": aerr}
+    ok = lerr <= 1e-5 and aerr <= 1e-4
+
+    rng = np.random.default_rng(0)
+    h = torch.tensor(rng.standard_normal((2, 12, 24)).astype(np.float32))
+    w = torch.tensor((0.3 * rng.standard_normal((24, 70))).astype(np.float32))
+    t = torch.tensor(rng.integers(0, 70, size=(2, 12)))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        loss = streaming_xent(hh, ww, t.to(dev), 16)
+        res[dev] = (loss.item(), *[g.cpu() for g in torch.autograd.grad(
+            loss, (hh, ww))])
+    card_res = res["cuda"]
+    xerr = {"loss": abs(res["cpu"][0] - card_res[0]),
+            "dh": max_err(card_res[1], res["cpu"][1]),
+            "dw": max_err(card_res[2], res["cpu"][2])}
+    rec["xent"] = xerr
+    ok &= xerr["loss"] <= 2e-6 and all(
+        (card_res[i] - res["cpu"][i]).abs().le(
+            1e-6 + 1e-5 * res["cpu"][i].abs()).all() for i in (1, 2))
+
+    gen = torch.Generator().manual_seed(1)
+    m_cpu = MoEMLP(16, 32, 4, 2)
+    with torch.no_grad():
+        for p in m_cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    m_card = MoEMLP(16, 32, 4, 2).to("cuda")
+    m_card.load_state_dict(m_cpu.state_dict())
+    x = torch.randn((2, 8, 16), generator=gen)
+    (o1, a1), (o2, a2) = m_cpu.forward_with_aux(x), \
+        m_card.forward_with_aux(x.to("cuda"))
+    rec["moe"] = {"out": max_err(o2.detach().cpu(), o1.detach()),
+                  "aux": abs(a1.item() - a2.item())}
+    ok &= rec["moe"]["out"] <= 1e-5 and rec["moe"]["aux"] <= 1e-6
+
+    hargs = sp_args(fedml_tpu_torch, **LLM_SMALL_HUB)
+    hds, n_out = data.load(hargs)
+    apis = [FedAvgAPI(hargs, d, hds, model.create(hargs, n_out))
+            for d in ("cuda", "cpu")]
+    for r in range(LLM_SMALL_HUB["comm_round"]):
+        for api in apis:
+            api.train_one_round(r)
+    herr = max(max_err(apis[0].state.global_params[k].cpu(), v)
+               for k, v in apis[1].state.global_params.items())
+    rec["hub"] = herr
+    ok &= herr <= 1e-5
+    say("llm", f"(g) card ≡ CPU, f32, TF32 off: trainer step losses "
+               f"{lerr:.2e} (tol 1e-5) and adapters {aerr:.2e} (tol 1e-4); "
+               f"streaming loss {xerr['loss']:.2e} (tol 2e-6), dh "
+               f"{xerr['dh']:.2e}, dw {xerr['dw']:.2e} (tol 1e-6 + 1e-5 "
+               f"rel); MoE {rec['moe']['out']:.2e} (tol 1e-5), aux "
+               f"{rec['moe']['aux']:.2e} (tol 1e-6); tiny_llama sp rounds "
+               f"{herr:.2e} (tol 1e-5)")
+    if not ok:
+        fail(f"(g) card and CPU disagree: {rec}")
+    out["card_vs_cpu"] = rec
+
+
+def llm_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 12."""
+    out = {}
+    t0 = time.time()
+    for name, fn in (("trainer", llm_trainer_phase),
+                     ("rounds", llm_round_phase), ("hub", llm_hub_phase)):
+        t1 = time.time()
+        fn(torch, fedml_tpu_torch, att, smi, out)
+        out.setdefault("seconds", {})[name] = time.time() - t1
+    t1 = time.time()
+    llm_xent_phase(torch, fedml_tpu_torch, smi, out)
+    out["seconds"]["xent"] = time.time() - t1
+    t1 = time.time()
+    llm_card_cpu_phase(torch, fedml_tpu_torch, smi, out)
+    out["seconds"]["card_vs_cpu"] = time.time() - t1
+    out["seconds"]["all"] = time.time() - t0
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2201,13 +2940,31 @@ def main():
         fail("phase 11 launched a flash-attention kernel")
     say("engines", f"phase 11 took {time.time() - t0:.1f} s; no "
                    "flash-attention kernel launched")
+
+    # -- 12. llm: the trainer, streaming xent, MoE, remat, the hub's LLMs --
+    t0 = time.time()
+    llm = llm_phase(torch, fedml_tpu_torch, att, smi)
+    for path, r in (("trainer_lora", llm["trainer_lora"]),
+                    ("trainer_dense", llm["trainer_dense"]),
+                    ("streaming_round", llm["streaming_round"]["streaming"]),
+                    ("moe_round", llm["moe"]),
+                    ("remat_dots", llm["remat"]["dots"]),
+                    ("hub_llama", llm["hub"]["llama"])):
+        for name, n in r["launches"].items():
+            rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+                path] = n
+    for name, n in llm["hub"]["launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "hub_tiny_llama"] = n
+    say("llm", f"phase 12 took {time.time() - t0:.1f} s "
+               f"({ {k: round(v, 1) for k, v in llm['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
                       "bf16_at_text": list(bf16_at_text.values()),
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
                       "fusion": fusion, "text": text, "resnet": resnet,
-                      "models": models, "engines": engines}))
+                      "models": models, "engines": engines, "llm": llm}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

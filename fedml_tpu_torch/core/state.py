@@ -16,11 +16,22 @@ under ``torch.func.vmap`` and a padded step can keep the old state with a
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 TensorDict = Dict[str, torch.Tensor]
+
+
+def clip_by_global_norm(grads: TensorDict, max_norm: float) -> TensorDict:
+    """optax's ``clip_by_global_norm``: every leaf ``(g / ‖g‖)·max_norm``
+    when the global norm ``‖g‖ ≥ max_norm``, else unchanged (no epsilon,
+    unlike ``clip_grad_norm_``, and no host sync: a ``where`` on the
+    device)."""
+    norm = torch.sqrt(sum(torch.sum(x * x) for x in grads.values()))
+    keep = norm < max_norm
+    return {k: torch.where(keep, x, (x / norm) * max_norm)
+            for k, x in grads.items()}
 
 
 class ClientOptimizer:
@@ -52,15 +63,13 @@ class ClientOptimizer:
                     for k, v in params.items()}
         return {}
 
-    def _clip(self, g: TensorDict) -> TensorDict:
-        norm = torch.sqrt(sum(torch.sum(x * x) for x in g.values()))
-        trigger = norm < self.clip
-        return {k: torch.where(trigger, x, (x / norm) * self.clip)
-                for k, x in g.items()}
-
     def update(self, grads: TensorDict, state: TensorDict,
-               params: TensorDict) -> Tuple[TensorDict, TensorDict]:
-        g = self._clip(grads) if self.clip > 0 else grads
+               params: TensorDict, lr: Optional[float] = None
+               ) -> Tuple[TensorDict, TensorDict]:
+        """``lr`` overrides the constructor's for this update (a
+        schedule's value, read by the caller)."""
+        lr = self.lr if lr is None else lr
+        g = clip_by_global_norm(grads, self.clip) if self.clip > 0 else grads
         new_state = {}
         if self.kind == "sgd":
             if self.wd:
@@ -69,7 +78,7 @@ class ClientOptimizer:
                 g = {k: x + self.momentum * state[f"trace/{k}"]
                      for k, x in g.items()}
                 new_state = {f"trace/{k}": x for k, x in g.items()}
-            return {k: (-self.lr) * x for k, x in g.items()}, new_state
+            return {k: (-lr) * x for k, x in g.items()}, new_state
         b1, b2 = self.b1, self.b2
         count = state["count"] + 1
         bc1 = 1 - torch.pow(b1, count.to(torch.float32))
@@ -82,8 +91,9 @@ class ClientOptimizer:
             u[k] = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.wd:
                 u[k] = u[k] + self.wd * params[k]
+            u[k] = (-lr) * u[k]     # per leaf: no second copy of the tree
         new_state["count"] = count
-        return {k: (-self.lr) * x for k, x in u.items()}, new_state
+        return u, new_state
 
 
 def make_client_optimizer(args) -> ClientOptimizer:

@@ -15,7 +15,8 @@ class ModelArguments:
     lora_rank: int = 8
     lora_alpha: float = 16.0
     lora_dropout: float = 0.0
-    #: attention selection (auto | flash: the same kernels)
+    #: attention selection (auto | flash: the flash kernels; blockwise: the
+    #: plain streaming softmax; ring: refused, it needs the mesh engine)
     attn_impl: str = "auto"
     dim: Optional[int] = None
     n_layers: Optional[int] = None

@@ -11,6 +11,12 @@ The local optimizer is Adam as ``optax.adamw(lr, weight_decay=0)`` computes
 it, written as a functional update on the adapter dict: a step whose mask
 is 0 leaves the adapters AND the optimizer state (step count included)
 exactly as they were, so such a step is skipped outright.
+
+With ``streaming_xent_chunk > 0`` the loss is the vocab-chunked
+cross-entropy of :mod:`..ops.xent` over the model's final hidden states
+(the chunk clamped to the vocabulary), which never holds the logits.  MoE
+models (``n_experts``) come through the config.  The ``mesh=`` regime of
+the JAX class waits for the mesh engine.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 from ..core import rng as rng_util
 from ..core import tree as tree_util
 from ..data.federated_dataset import FederatedDataset
-from .model import LlamaLM, causal_nll, config_from_args, per_sequence_loglik
+from ..ops.xent import streaming_xent
+from .model import LlamaLM, causal_nll, config_from_args, masked_nll
 
 log = logging.getLogger(__name__)
 
@@ -64,7 +71,12 @@ def rank_mask_tree(lora_template: LoRA, mask_vec: torch.Tensor) -> LoRA:
 class FedLLMAPI:
     """FedAvg over LoRA adapters of a causal LM."""
 
-    def __init__(self, args, dataset: FederatedDataset, device="cuda"):
+    def __init__(self, args, dataset: FederatedDataset, device="cuda",
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "FedLLMAPI(mesh=...): the mesh regime needs the mesh engine, "
+                "not ported yet")
         self.args = args
         self.dataset = dataset
         self.device = torch.device(device)
@@ -83,6 +95,9 @@ class FedLLMAPI:
                 cfg, lora_rank=int(getattr(args, "lora_rank", 8)),
                 lora_alpha=float(getattr(args, "lora_alpha", 16.0)))
         self.cfg = cfg
+        # a chunk wider than the vocabulary would pad the head product
+        self.xent_chunk = min(int(cfg.streaming_xent_chunk or 0),
+                              cfg.vocab_size)
 
         # heterogeneous adapter capacity (HetLoRA-style): device classes
         # train different ranks of the same global adapters
@@ -110,6 +125,15 @@ class FedLLMAPI:
         self.history = []
 
     # -- local training ---------------------------------------------------
+    def loss(self, lora: LoRA, x, y):
+        """Mean token NLL of one batch under ``lora``: dense logits, or the
+        streaming cross-entropy when ``streaming_xent_chunk`` is set."""
+        if self.xent_chunk:
+            h = self.model(x, lora, return_hidden=True)
+            return streaming_xent(h, self.model.lm_head.kernel, y,
+                                  self.xent_chunk)
+        return causal_nll(self.model(x, lora), y)
+
     def _local_train(self, lora0: LoRA, xb, yb, mask: np.ndarray,
                      rank_vec: torch.Tensor):
         """One client's local Adam steps over its real steps (``mask`` is 1
@@ -128,7 +152,7 @@ class FedLLMAPI:
             params = {k: lora[k].detach().requires_grad_(True) for k in keys}
             x = torch.as_tensor(xb[s], device=self.device)
             y = torch.as_tensor(yb[s], device=self.device)
-            loss = causal_nll(self.model(x, params), y)
+            loss = self.loss(params, x, y)
             grads = torch.autograd.grad(loss, [params[k] for k in keys])
             count += 1
             bc1 = 1.0 - _B1 ** count
@@ -193,17 +217,32 @@ class FedLLMAPI:
     # -- evaluation ---------------------------------------------------------
     @torch.no_grad()
     def evaluate(self) -> float:
-        xb, yb, mb = self.dataset.test_batches(batch_size=self.batch_size)
-        nll = torch.zeros((), device=self.device)
-        n = 0.0
-        for x, y, m in zip(xb, yb, mb):
-            logits = self.model(torch.as_tensor(x, device=self.device),
-                                self.global_lora)
-            ll = per_sequence_loglik(logits,
-                                     torch.as_tensor(y, device=self.device))
-            nll = nll - (ll * torch.as_tensor(m, device=self.device)).sum()
-            n += float(m.sum())
+        nll, n = masked_nll(self.model, self.global_lora,
+                            *self.dataset.test_batches(
+                                batch_size=self.batch_size), self.device)
         return float(nll / n)
+
+    @torch.no_grad()
+    def evaluate_per_client(self, batch_size: Optional[int] = None):
+        """The global adapters scored on every client's local sequences:
+        per-client mean NLL and its mean, std, max (the worst-served
+        client) and 90th percentile."""
+        bs = int(batch_size or self.batch_size)
+        clients, X, Y, M = self.dataset.pack_per_client(bs)
+        nlls = []
+        for xb, yb, mb in zip(X, Y, M):
+            nll, n = masked_nll(self.model, self.global_lora, xb, yb, mb,
+                                self.device)
+            nlls.append(nll / torch.clamp_min(n, 1.0))
+        nlls = torch.stack(nlls).cpu().numpy()
+        return {
+            "clients": clients,
+            "per_client_nll": nlls,
+            "nll_mean": float(nlls.mean()),
+            "nll_std": float(nlls.std()),
+            "nll_max": float(nlls.max()),
+            "nll_p90": float(np.percentile(nlls, 90)),
+        }
 
     def train(self) -> LoRA:
         for r in range(self.comm_rounds):

@@ -1,8 +1,10 @@
 """Llama-family causal LM in PyTorch (port of ``fedml_tpu.llm.model``, the
-training path: no decode, paged-cache, MoE or ring-attention code).
+training path: no decode, paged-cache or ring-attention code).
 
 RMSNorm, interleaved-pair rotary embeddings, grouped-query attention through
-:func:`fedml_tpu_torch.ops.attention.flash_attention`, SwiGLU MLP.  Weights
+:func:`fedml_tpu_torch.ops.attention.flash_attention` (or the plain
+``blockwise_attention``), a SwiGLU MLP or a top-k routed mixture of SwiGLU
+experts (:mod:`.moe`).  Weights
 keep the flax layout — kernels ``(in, out)``, applied as ``x @ W`` — and the
 module tree keeps the flax names, so ``named_parameters()`` gives the flax
 paths with ``.`` for ``/`` (``llm/convert.py`` relies on it).
@@ -10,6 +12,19 @@ paths with ``.`` for ``/`` (``llm/convert.py`` relies on it).
 LoRA adapters are not module state: ``forward(tokens, lora)`` takes a flat
 ``{"layer_0/attention/wq/A": tensor, ...}`` dict, so one frozen base serves
 every client of a cohort and per-client state is the adapter dict only.
+An adapter pair of rank 3 (``A (B, in, r)``, ``B (B, r, out)``, one per
+batch row) is applied as two batched products.  With ``lora_rank == 0`` the
+projections are plain ``Dense`` layers (flax names ``wq/kernel``).  The
+base is frozen unless the model is built ``trainable`` (dense fine-tuning,
+the model hub).
+
+``remat`` picks what the training forward keeps: "full" recomputes each
+block in backward, "dots" keeps the outputs of the 2-D matrix products
+(``aten.mm``: the projections, the router, the adapters) and recomputes the
+rest (attention, the batched expert products, the elementwise ops), as
+JAX's ``dots_with_no_batch_dims_saveable`` does; "none" keeps everything.
+Both recomputing modes use ``torch.utils.checkpoint``, which
+``torch.func``'s transforms refuse: the model hub's models run "none".
 
 Type promotion follows the flax model exactly: RMSNorm normalises in f32,
 casts to the input type, then multiplies by its f32 scale (so in the bf16
@@ -21,14 +36,18 @@ computes in f32 over a kernel stored in the storage type.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..ops.attention import flash_attention
+from ..models.base import lecun_normal
+from ..ops.attention import blockwise_attention, flash_attention
+from .moe import MoEMLP
 
 LoRA = Dict[str, torch.Tensor]
 
@@ -48,20 +67,43 @@ class LlamaConfig:
     #: storage type of matmul weights and embeddings; None = ``dtype``.
     #: RMSNorm scales stay f32.
     param_dtype: Any = None
-    attn_impl: str = "auto"     # auto | flash: both are the flash kernels
-    #: "full" recomputes each block in backward (torch.utils.checkpoint),
-    #: "none" keeps every activation
-    remat: str = "full"         # full | none
+    #: auto | flash: the flash kernels; blockwise: the plain streaming
+    #: softmax (autograd); ring: needs the mesh engine (refused)
+    attn_impl: str = "auto"
+    remat: str = "full"         # full | dots | none
     lora_rank: int = 0
     lora_alpha: float = 16.0
+    #: >0 replaces each block's FFN with n_experts top-k routed experts
+    n_experts: int = 0
+    moe_top_k: int = 2
+    #: >0: the federated LoRA round fuses lm_head into a vocab-chunked
+    #: cross-entropy (ops/xent.py) instead of materialising the logits
+    streaming_xent_chunk: int = 0
+    #: serving's decode-cache fields: only their defaults are ported
+    kv_cache_dtype: str = "native"
+    kv_page_tokens: int = 0
+    kv_pool_pages: int = 0
 
     def __post_init__(self):
-        if self.remat not in ("full", "none"):
-            raise ValueError(f"remat={self.remat!r}: the port has 'full' and "
-                             "'none'")
-        if self.attn_impl not in ("auto", "flash"):
-            raise ValueError(f"attn_impl={self.attn_impl!r}: the port has "
-                             "'auto' and 'flash'")
+        if self.remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat={self.remat!r}: must be 'full', "
+                             "'dots', or 'none'")
+        if self.attn_impl not in ("auto", "blockwise", "flash", "ring"):
+            raise ValueError(f"attn_impl={self.attn_impl!r}: must be "
+                             "'auto', 'blockwise', 'flash', or 'ring'")
+        if self.attn_impl == "ring":
+            raise NotImplementedError(
+                "attn_impl='ring': ring attention needs the mesh engine, "
+                "not ported yet")
+        if self.kv_cache_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: "
+                             "must be 'native' or 'int8'")
+        for name, default in (("kv_cache_dtype", "native"),
+                              ("kv_page_tokens", 0), ("kv_pool_pages", 0)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: the decode cache "
+                    "belongs to serving, not ported yet")
 
     @property
     def store_dtype(self):
@@ -90,6 +132,8 @@ def _rope(x, positions, theta: float):
 
 
 class RMSNorm(nn.Module):
+    flax_kinds = {"scale": "scale"}
+
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -102,7 +146,11 @@ class RMSNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel`` in ``dtype``; kernel ``(in, out)`` frozen."""
+    """``y = x @ kernel`` in ``dtype``; kernel ``(in, out)`` frozen.
+    ``lora`` is accepted and unused, so a projection is called the same way
+    with or without adapters."""
+
+    flax_kinds = {"kernel": "kernel"}
 
     def __init__(self, in_features: int, features: int, dtype, param_dtype):
         super().__init__()
@@ -111,14 +159,16 @@ class Dense(nn.Module):
             torch.empty(in_features, features, dtype=param_dtype),
             requires_grad=False)
 
-    def forward(self, x):
+    def forward(self, x, lora: Optional[LoRA] = None):
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
 class LoRADense(nn.Module):
     """Dense with an optional low-rank adapter read from the ``lora`` dict:
     ``y = x·W + (α/r)·(x·A)·B``, the delta in f32.  ``path`` is the
-    module's flax path, set by :class:`LlamaLM`."""
+    module's flax path, set by :class:`LlamaLM`.  Grouped apply: adapters
+    with a leading axis aligned with x's batch (``A (B, in, r)``, ``B (B,
+    r, out)``) run as two batched products."""
 
     def __init__(self, in_features: int, features: int, rank: int,
                  alpha: float, dtype, param_dtype):
@@ -132,7 +182,12 @@ class LoRADense(nn.Module):
         y = self.base(x)
         if self.rank > 0 and lora is not None:
             a, b = lora[f"{self.path}/A"], lora[f"{self.path}/B"]
-            delta = x.float() @ a @ b
+            xf = x.float()
+            if a.dim() == 3:
+                delta = torch.einsum("b...i,bir->b...r", xf, a)
+                delta = torch.einsum("b...r,bro->b...o", delta, b)
+            else:
+                delta = xf @ a @ b
             y = y + (delta * (self.alpha / self.rank)).to(y.dtype)
         return y
 
@@ -142,8 +197,11 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.dim // cfg.n_heads
-        mk = lambda i, o: LoRADense(i, o, cfg.lora_rank, cfg.lora_alpha,
-                                    cfg.dtype, cfg.store_dtype)
+        if cfg.lora_rank > 0:
+            mk = lambda i, o: LoRADense(i, o, cfg.lora_rank, cfg.lora_alpha,
+                                        cfg.dtype, cfg.store_dtype)
+        else:
+            mk = lambda i, o: Dense(i, o, cfg.dtype, cfg.store_dtype)
         self.wq = mk(cfg.dim, cfg.n_heads * hd)
         self.wk = mk(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = mk(cfg.dim, cfg.n_kv_heads * hd)
@@ -158,7 +216,10 @@ class Attention(nn.Module):
         v = self.wv(x, lora).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, True, None)
+        if cfg.attn_impl == "blockwise":
+            out = blockwise_attention(q, k, v, causal=True)
+        else:
+            out = flash_attention(q, k, v, True, None)
         out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         return self.wo(out, lora)
 
@@ -181,14 +242,22 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         self.attention = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps)
-        self.mlp = MLP(cfg)
+        if cfg.n_experts > 0:
+            self.moe_mlp = MoEMLP(cfg.dim, cfg.ffn_dim, cfg.n_experts,
+                                  cfg.moe_top_k, dtype=cfg.dtype,
+                                  param_dtype=cfg.store_dtype)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x, positions, lora: Optional[LoRA] = None):
         h = x + self.attention(self.attn_norm(x), positions, lora)
-        return h + self.mlp(self.mlp_norm(h))
+        ffn = self.moe_mlp if hasattr(self, "moe_mlp") else self.mlp
+        return h + ffn(self.mlp_norm(h))
 
 
 class Embed(nn.Module):
+    flax_kinds = {"embedding": "embedding"}
+
     def __init__(self, vocab: int, dim: int, dtype, param_dtype):
         super().__init__()
         self.dtype = dtype
@@ -199,12 +268,24 @@ class Embed(nn.Module):
         return F.embedding(tokens, self.embedding).to(self.dtype)
 
 
+def _save_mm_outputs(ctx, op, *args, **kwargs):
+    """remat "dots": keep what a 2-D matrix product returns, recompute the
+    rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_mm_outputs)
+
+
 class LlamaLM(nn.Module):
     """Submodules carry the flax names: ``tok_embed``, ``layer_{i}``,
-    ``final_norm``, ``lm_head``.  Every parameter is frozen; gradients flow
-    only to the adapter tensors passed in ``lora``."""
+    ``final_norm``, ``lm_head``.  The parameters are frozen (gradients flow
+    only to the adapter tensors passed in ``lora``) unless ``trainable``."""
 
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.tok_embed = Embed(cfg.vocab_size, cfg.dim, cfg.dtype,
@@ -218,6 +299,7 @@ class LlamaLM(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, LoRADense):
                 mod.path = name.replace(".", "/")
+        self.requires_grad_(trainable)
 
     def lora_shapes(self) -> Dict[str, tuple]:
         """Flat adapter paths → shapes: A ``(in, r)``, B ``(r, out)``."""
@@ -232,27 +314,43 @@ class LlamaLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Random base weights from ``generator`` (on the weights' device):
-        kernels N(0, 1/fan_in), embeddings N(0, 1/dim), norm scales 1."""
+        kernels N(0, 1/fan_in), embeddings N(0, 1/dim), norm scales 1; the
+        MoE router and experts lecun-normal as flax draws them (fan_in the
+        product of all but the last axis)."""
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
+                continue
+            if ".moe_mlp." in name:
+                p.copy_(lecun_normal(p.shape, math.prod(p.shape[:-1]),
+                                     generator))
                 continue
             fan = p.shape[0] if name.endswith("kernel") else p.shape[1]
             w = torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32)
             p.copy_(w.mul_(fan ** -0.5))
 
-    def forward(self, tokens, lora: Optional[LoRA] = None):
+    def forward(self, tokens, lora: Optional[LoRA] = None,
+                return_hidden: bool = False):
+        """Logits ``(..., S, V)`` in f32, or with ``return_hidden`` the
+        final-norm hidden states (the streaming cross-entropy applies
+        ``lm_head`` itself)."""
         x = self.tok_embed(tokens)
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
-        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
         for i in range(self.cfg.n_layers):
             block = getattr(self, f"layer_{i}")
-            if remat:
+            if remat == "full":
                 x = checkpoint(block, x, positions, lora, use_reentrant=False)
+            elif remat == "dots":
+                x = checkpoint(block, x, positions, lora, use_reentrant=False,
+                               context_fn=_dots_context)
             else:
                 x = block(x, positions, lora)
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x)
 
 
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -276,10 +374,45 @@ def config_from_args(args, vocab: Optional[int] = None) -> LlamaConfig:
     remat = getattr(args, "llm_remat", None)
     if remat:
         overrides["remat"] = str(remat)
+    kvd = getattr(args, "llm_kv_cache_dtype", None)
+    if kvd:
+        overrides["kv_cache_dtype"] = str(kvd)
     dt = getattr(args, "model_dtype", None)
     if dt:
         overrides["dtype"] = _DTYPE_NAMES[str(dt)]
+    sx = getattr(args, "streaming_xent_chunk", None)
+    if sx is not None:
+        overrides["streaming_xent_chunk"] = int(sx)
+    n_experts = getattr(args, "n_experts", None)
+    if n_experts is not None:
+        overrides["n_experts"] = int(n_experts)
+        overrides["moe_top_k"] = int(getattr(args, "moe_top_k", 2))
     return dataclasses.replace(base, **overrides)
+
+
+def build_causal_lm(args, vocab: Optional[int] = None):
+    """The model hub's causal LM (names ``transformer``, ``gpt``,
+    ``llama``, ``tiny_llama``): a :class:`TorchModel` with task "lm" over
+    int32 token windows of ``seq_len`` (default ``min(max_seq_len, 512)``).
+    The sp trainers train every parameter, so the weights are f32 masters
+    (bf16 storage loses AdamW updates below ~2^-9 relative).  They run
+    under ``torch.func``, whose transforms refuse ``torch.utils.
+    checkpoint``: the blocks run without recompute (the same numbers, more
+    memory), and an ``llm_remat`` other than "none" raises."""
+    from ..models.base import TorchModel
+
+    remat = getattr(args, "llm_remat", None)
+    if remat and str(remat) != "none":
+        raise NotImplementedError(
+            f"llm_remat={remat!r} in the model hub: torch.func (the sp "
+            "trainers) refuses torch.utils.checkpoint")
+    cfg = dataclasses.replace(config_from_args(args, vocab), remat="none")
+    if cfg.lora_rank == 0 and cfg.param_dtype is None:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    seq = int(getattr(args, "seq_len", min(cfg.max_seq_len, 512)))
+    with torch.device("meta"):
+        module = LlamaLM(cfg, trainable=True)
+    return TorchModel(module, (seq,), task="lm", input_dtype=torch.int32)
 
 
 def causal_nll(logits, targets):
@@ -292,3 +425,19 @@ def per_sequence_loglik(logits, targets):
     """Mean per-sequence token log-likelihood (for masked eval sums)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return logp.gather(-1, targets[..., None])[..., 0].mean(-1)
+
+
+def masked_nll(model, lora, xb, yb, mb, device):
+    """Summed NLL of the batches ``xb``/``yb`` under ``lora``, each
+    sequence's mean token NLL weighted by its mask ``mb`` (0 on padding
+    rows): ``(nll_sum, count)`` as device tensors."""
+    nll = torch.zeros((), device=device)
+    cnt = torch.zeros((), device=device)
+    for x, y, m in zip(xb, yb, mb):
+        m = torch.as_tensor(m, device=device)
+        ll = per_sequence_loglik(model(torch.as_tensor(x, device=device),
+                                       lora),
+                                 torch.as_tensor(y, device=device))
+        nll = nll - (ll * m).sum()
+        cnt = cnt + m.sum()
+    return nll, cnt

@@ -63,7 +63,9 @@ _FLAX_LEAF = {
 def param_kinds(module: nn.Module) -> Dict[str, Tuple[str, str, nn.Module]]:
     """``{port name: (kind, flax path, owning module)}`` for every
     parameter, in parameter order.  ``kind`` is "dense", "conv",
-    "conv_transpose", "embedding", "scale", "bias" or "param" (a bare
+    "conv_transpose", "embedding", "scale", "bias", "kernel" (a kernel in
+    flax's own layout, listed in its module's ``flax_kinds``: the causal
+    LM's ``(in, out)`` and ``(E, in, out)``) or "param" (a bare
     ``nn.Parameter``, kept
     by its own name); the flax path joins the module path with flax's leaf
     name (``layer_0.wq.weight`` → ``layer_0/wq/kernel``,
@@ -74,7 +76,11 @@ def param_kinds(module: nn.Module) -> Dict[str, Tuple[str, str, nn.Module]]:
         path, _, leaf = name.rpartition(".")
         owner = module.get_submodule(path)
         kind, flax_leaf = "param", leaf
-        if leaf == "bias":
+        own = getattr(owner, "flax_kinds", {})
+        if leaf in own:
+            # a module that keeps flax's own layout names its leaves' kinds
+            kind = own[leaf]
+        elif leaf == "bias":
             kind = "bias"
         else:
             for (mtype, pname), (k, fl) in _FLAX_LEAF.items():
@@ -144,6 +150,9 @@ class TorchModel:
                 std = owner.normal_init_std[name.rsplit(".", 1)[-1]]
                 params[name] = std * torch.randn(shape, generator=generator,
                                                  device=dev)
+            elif kind == "kernel":   # flax layout: fan_in is all but the
+                params[name] = lecun_normal(      # output axis
+                    shape, math.prod(shape[:-1]), generator)
             elif getattr(owner, "kernel_init", None) == "orthogonal":
                 params[name] = orthogonal(shape, generator)
             elif kind == "conv_transpose":   # (in, out, kh, kw)

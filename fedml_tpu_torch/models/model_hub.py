@@ -11,7 +11,9 @@ language models (``rnn``/``rnn_fedavg``/``rnn_shakespeare`` and
 transformer (``text_transformer``, ``transformer_cls``, ``distilbert``,
 ``bert``), the DARTS supernet of FedNAS (``darts``, ``darts_search``) and
 the segmentation UNet of FedSeg (``unet``, ``unet_small``, ``deeplab``,
-task ``"segmentation"``).  Returns a :class:`TorchModel` whose module lives
+task ``"segmentation"``) and the causal LM (``transformer``, ``gpt``,
+``llama``, ``tiny_llama``: ``llm/model.py::build_causal_lm``, task
+``"lm"``).  Returns a :class:`TorchModel` whose module lives
 on the ``meta`` device (shapes only; parameters are passed at apply time).
 Every other name of the JAX hub raises ``NotImplementedError`` naming
 itself; an unknown ``vgg*`` name raises ``ValueError`` as in the JAX hub."""
@@ -44,12 +46,13 @@ RNN_NWP_NAMES = ("rnn_stackoverflow", "rnn_nwp")
 VGG_DEPTHS = {"vgg": 11, "vgg11": 11, "vgg13": 13, "vgg16": 16, "vgg19": 19}
 DARTS_NAMES = ("darts", "darts_search")
 UNET_NAMES = ("unet", "unet_small", "deeplab")
+CAUSAL_LM_NAMES = ("transformer", "gpt", "llama", "tiny_llama")
 PORTED = ("lr", "logistic_regression", "mlp", "cnn", "cnn_web", "cnn_cifar",
           "resnet18", "resnet18_gn", "resnet18_gn_w<k>", "resnet56",
           "resnet20", "resnet20_mnn", "mobilenet", "mobilenet_v3",
           "efficientnet", "gcn", "graph", "fedgraphnn") + tuple(
               VGG_DEPTHS) + RNN_NAMES + RNN_NWP_NAMES + TEXT_NAMES + \
-    DARTS_NAMES + UNET_NAMES
+    DARTS_NAMES + UNET_NAMES + CAUSAL_LM_NAMES
 
 
 def _img_shape(args) -> Tuple[int, ...]:
@@ -72,6 +75,9 @@ def create(args, output_dim: int = 10) -> TorchModel:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (the port creates "
             f"{', '.join(PORTED)})")
+    if name in CAUSAL_LM_NAMES:
+        from ..llm.model import build_causal_lm
+        return build_causal_lm(args, output_dim)
     if name in TEXT_NAMES:
         seq_len = int(getattr(args, "seq_len", 128))
         with torch.device("meta"):

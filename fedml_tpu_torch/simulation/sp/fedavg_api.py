@@ -473,6 +473,37 @@ class FedAvgAPI:
             return float(res[:, 0].mean()), float(res[:, 1].mean())
         return self.trainer.evaluate(self.state.global_params, *self._test)
 
+    @torch.no_grad()
+    def evaluate_per_client(self, split: str = "train", batch_size: int = 64):
+        """The global model scored on every client's local data (the
+        reference's ``_local_test_on_all_clients``): per-client accuracy
+        and loss, and the accuracy's mean, std, min and 10th percentile.
+        ``split="test"`` takes the natural per-client test partition where
+        the dataset has one, else the train split."""
+        if self.population:
+            raise NotImplementedError(
+                "evaluate_per_client of a population: score one member")
+        clients, X, Y, M = self.dataset.pack_per_client(batch_size, split)
+        params = self.state.global_params
+        eval_step = self.trainer.make_eval_step()
+        losses, accs = [], []
+        for xb, yb, mb in zip(X, Y, M):
+            tot = torch.zeros(3, dtype=torch.float32, device=self.device)
+            for b in zip(*self._to_device(xb, yb, mb)):
+                tot = tot + torch.stack(eval_step(params, *b))
+            n = torch.clamp_min(tot[2], 1.0)
+            losses.append(tot[0] / n)
+            accs.append(tot[1] / n)
+        accs = torch.stack(accs).cpu().numpy()
+        return {
+            "per_client_acc": accs,
+            "per_client_loss": torch.stack(losses).cpu().numpy(),
+            "acc_mean": float(accs.mean()),
+            "acc_std": float(accs.std()),
+            "acc_min": float(accs.min()),
+            "acc_p10": float(np.percentile(accs, 10)),
+        }
+
     def _is_log_round(self, round_idx: int) -> bool:
         return (round_idx % self.eval_freq == 0
                 or round_idx == self.comm_rounds - 1)

@@ -856,3 +856,231 @@ def test_class_engines_on_card_match_cpu(cuda_device, tag):
     assert wc.keys() == wp.keys() and wc
     for k, v in wp.items():
         assert (wc[k].cpu() - v).abs().max().item() <= 1e-6, k
+
+
+# -- the causal-LM remainder (streaming xent, MoE, trainer, remat, hub) ---
+def _llm_trainer(device, **over):
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
+
+    cfg = dict(model="tiny_llama", dataset="shakespeare", seq_len=16,
+               batch_size=4, learning_rate=1e-3, random_seed=9, lora_rank=4,
+               partition_method="homo", train_size=12, test_size=8,
+               client_num_in_total=2, client_num_per_round=2, epochs=3,
+               gradient_accumulation_steps=2, max_grad_norm=0.5,
+               warmup_steps=1, lr_scheduler_type="cosine", max_steps=3,
+               weight_decay=0.01)
+    cfg.update(over)
+    args = fedml_tpu_torch.init(fedml_tpu_torch.load_arguments().update(
+        **cfg), should_init_logs=False)
+    ds, _ = data.load(args)
+    return CausalLMTrainer(args, ds, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,chunk", [(70, 16), (64, 64)])
+def test_streaming_xent_on_card_matches_cpu(cuda_device, v, chunk):
+    """The streaming cross-entropy on the card against the CPU on the same
+    f32 inputs (tests/test_torch_xent.py's shape): loss 2e-6, dh and dw
+    1e-6 + 1e-5 relative."""
+    from fedml_tpu_torch.ops.xent import streaming_xent
+
+    rng = np.random.default_rng(0)
+    h = torch.tensor(rng.standard_normal((2, 12, 24)).astype(np.float32))
+    w = torch.tensor((0.3 * rng.standard_normal((24, v))).astype(np.float32))
+    t = torch.tensor(rng.integers(0, v, size=(2, 12)))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        loss = streaming_xent(hh, ww, t.to(dev), chunk)
+        res[dev] = [loss.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, (hh, ww))]
+    assert abs(res["cuda"][0].item() - res["cpu"][0].item()) <= 2e-6
+    for a, b in zip(res["cuda"][1:], res["cpu"][1:]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,chunk", [(70, 16), (64, 64)])
+def test_streaming_xent_bf16_on_card_keeps_f32_logits(cuda_device, v, chunk,
+                                                      monkeypatch):
+    """bf16 h and w on the card: the loss and each token's NLL within 1e-5
+    of the dense f32 logits of the same operands; with the chunk products
+    left in bf16 (the control) the per-token NLL moves by more."""
+    from fedml_tpu_torch.ops import xent as xent_mod
+    from fedml_tpu_torch.ops.xent import streaming_xent
+
+    rng = np.random.default_rng(0)
+    h = torch.tensor(rng.standard_normal((24, 24)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    w = torch.tensor((0.3 * rng.standard_normal((24, v))).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    t = torch.tensor(rng.integers(0, v, size=24), device="cuda")
+    ref = torch.nn.functional.cross_entropy(h.float() @ w.float(), t,
+                                            reduction="none")
+
+    def errs():
+        tok = torch.stack([streaming_xent(h[i:i + 1], w, t[i:i + 1], chunk)
+                           for i in range(24)])
+        return (abs(streaming_xent(h, w, t, chunk).item()
+                    - ref.mean().item()),
+                (tok - ref).abs().max().item())
+
+    assert max(errs()) <= 1e-5
+    f32_logits = xent_mod._chunk_logits
+
+    def bf16_logits(h2f, w_, base, chunk_):
+        logits, wc = f32_logits(h2f, w_, base, chunk_)
+        lb = (h2f.bfloat16() @ wc.bfloat16()).float()
+        return torch.where(logits == xent_mod.NEG_INF, logits, lb), wc
+
+    monkeypatch.setattr(xent_mod, "_chunk_logits", bf16_logits)
+    assert errs()[1] > 1e-5
+
+
+@pytest.mark.gpu
+def test_moe_on_card_matches_cpu_and_its_per_token_version(cuda_device):
+    """MoEMLP on the card against the CPU from the same weights (outputs
+    1e-5, aux 1e-6) and against its plain per-token version (1e-5)."""
+    from fedml_tpu_torch.llm.moe import MoEMLP, moe_per_token
+
+    gen = torch.Generator().manual_seed(1)
+    cpu = MoEMLP(16, 32, 4, 2, capacity_factor=0.5)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    card = MoEMLP(16, 32, 4, 2, capacity_factor=0.5).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 8, 16), generator=gen)
+    o1, a1 = cpu.forward_with_aux(x)
+    o2, a2 = card.forward_with_aux(x.cuda())
+    torch.testing.assert_close(o2.detach().cpu(), o1.detach(), atol=1e-5,
+                               rtol=0)
+    assert abs(a1.item() - a2.item()) <= 1e-6
+    torch.testing.assert_close(o2.detach(), moe_per_token(card, x.cuda()),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_llm_trainer_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """The LoRA trainer (accumulation 2, clip, warmup + cosine, max_steps)
+    on the card against the CPU from the same weights: every micro-step's
+    loss within 1e-5 and the adapters within 1e-4 (Adam at lr 1e-3); K1
+    twice a layer a micro-step (remat "full") and K2/K3 once."""
+    cpu, card = _llm_trainer("cpu"), _llm_trainer("cuda")
+    with torch.no_grad():
+        for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+            p.copy_(q)
+    card.lora = {k: v.cuda() for k, v in cpu.lora.items()}
+    cpu.train()
+    tatt.reset_launch_counts()
+    card.train()
+    torch.cuda.synchronize()
+    layers, micro = card.cfg.n_layers, card.global_step
+    assert [f.launches for f in tatt.KERNELS] == [
+        2 * layers * micro, layers * micro, layers * micro]
+    np.testing.assert_allclose(card.step_losses, cpu.step_losses, atol=1e-5,
+                               rtol=0)
+    for k, v in cpu.lora.items():
+        assert (card.lora[k].cpu() - v).abs().max() <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_remat_modes_on_card_agree_and_launch_k1_as_expected(cuda_device):
+    """One bf16 step of a 2-layer model at head dim 128 under each remat
+    mode: the same loss and adapter gradients (to 1e-6 of each leaf's
+    largest entry); K1 once a layer under "none", twice under "full" and
+    "dots" (attention is recomputed: it is no 2-D product)."""
+    import dataclasses
+
+    from fedml_tpu_torch.llm import model as tmodel
+    from fedml_tpu_torch.llm.fedllm import lora_init
+
+    cfg = dataclasses.replace(tmodel.TINY, dim=256, n_heads=2, n_kv_heads=2,
+                              ffn_dim=512, lora_rank=4,
+                              dtype=torch.bfloat16)
+    with torch.device("cuda"):
+        m = tmodel.LlamaLM(cfg)
+    m.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(1),
+                     m.lora_shapes(), "cuda")
+    lora = {k: v + 0.01 for k, v in lora.items()}
+    tok = torch.randint(0, 256, (2, 64), device="cuda")
+    out = {}
+    for remat in ("none", "full", "dots"):
+        m.cfg = dataclasses.replace(cfg, remat=remat)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in lora.items()}
+        tatt.reset_launch_counts()
+        loss = tmodel.causal_nll(m(tok, leaves), tok)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        out[remat] = (loss.item(), grads,
+                      [f.launches for f in tatt.KERNELS])
+    assert out["none"][2] == [2, 2, 2]
+    assert out["full"][2] == out["dots"][2] == [4, 2, 2]
+    for remat in ("full", "dots"):
+        assert abs(out[remat][0] - out["none"][0]) <= 1e-6
+        for a, b in zip(out[remat][1], out["none"][1]):
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+@pytest.mark.gpu
+def test_hub_tiny_llama_on_card_matches_cpu_once_a_layer_a_step(
+        cuda_device):
+    """Two sp rounds of the hub's ``tiny_llama`` (f32, GQA 4:2, head dim
+    16, vmapped cohort) on the card and the CPU from the same weights:
+    params within 1e-5 (tests/test_torch_llm_paths.py's tolerance against
+    JAX), K1–K3 once a layer a padded step for the whole cohort, and the
+    per-client evaluation within 1e-5."""
+    cfg = dict(model="tiny_llama", dataset="shakespeare", seq_len=16,
+               client_num_in_total=4, client_num_per_round=2, comm_round=2,
+               batch_size=4, learning_rate=0.1, train_size=48, test_size=8,
+               random_seed=3, partition_method="homo")
+    card, cpu = _sp_api("cuda", **cfg), _sp_api("cpu", **cfg)
+    tatt.reset_launch_counts()
+    steps = 0
+    for r in range(2):
+        m = card.train_one_round(r)
+        cpu.train_one_round(r)
+        steps += int(m["allocated_steps"]) // card.clients_per_round
+    torch.cuda.synchronize()
+    layers = card.model.module.cfg.n_layers
+    assert [f.launches for f in tatt.KERNELS] == [layers * steps] * 3
+    for k, v in cpu.state.global_params.items():
+        assert (card.state.global_params[k].cpu() - v).abs().max() <= 1e-5, k
+    a, b = card.evaluate_per_client(batch_size=4), \
+        cpu.evaluate_per_client(batch_size=4)
+    for key in ("per_client_acc", "per_client_loss"):
+        np.testing.assert_allclose(a[key], b[key], atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [{"streaming_xent_chunk": 40},
+                                  {"n_experts": 4, "moe_top_k": 2}])
+def test_fedllm_round_options_on_card_match_cpu(cuda_device, over):
+    """A federated LoRA round with the streaming loss (chunk 40 over the
+    90-token vocabulary: padded) or MoE blocks, card against CPU from the
+    same weights: loss and adapters within 1e-4 (Adam at lr 1e-3)."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.llm.fedllm import FedLLMAPI
+
+    args = fedml_tpu_torch.init(fedml_tpu_torch.load_arguments().update(
+        model="tiny_llama", dataset="shakespeare", seq_len=16,
+        client_num_in_total=4, client_num_per_round=2, comm_round=1,
+        batch_size=4, learning_rate=1e-3, random_seed=9,
+        llm_max_local_steps=3, lora_rank=4, partition_method="homo",
+        train_size=64, test_size=8, **over), should_init_logs=False)
+    ds, _ = data.load(args)
+    cpu, card = FedLLMAPI(args, ds, "cpu"), FedLLMAPI(args, ds, "cuda")
+    with torch.no_grad():
+        for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+            p.copy_(q)
+    card.global_lora = {k: v.cuda() for k, v in cpu.global_lora.items()}
+    lc = cpu.train_one_round(0)["train_loss"]
+    lg = card.train_one_round(0)["train_loss"]
+    assert abs(lc - lg) <= 1e-4
+    for k, v in cpu.global_lora.items():
+        assert (card.global_lora[k].cpu() - v).abs().max() <= 1e-4, k

@@ -137,3 +137,36 @@ def test_engine_modules_import_with_jax_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules} <= walked
+
+
+def test_causal_lm_modules_import_without_jax_or_transformers():
+    """The trainer, the streaming cross-entropy, MoE, the checkpointer, the
+    HF import and the hub's LLM names import and build in a process where
+    ``jax``, ``fedml_tpu`` and ``transformers`` cannot be imported at all
+    (the card's machine has no ``transformers``: only reading a checkpoint
+    path imports it)."""
+    import subprocess
+    import sys
+
+    modules = ("ops.xent", "llm.moe", "llm.trainer", "llm.hf_import",
+               "core.checkpoint", "llm.fedllm", "simulation.sp.fedavg_api")
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu',\n"
+        "          'transformers'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.models import model_hub\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "for name in ('transformer', 'gpt', 'llama', 'tiny_llama'):\n"
+        "    model_hub.create(load_arguments().update(model=name,\n"
+        "                                             llm_n_layers=1), 90)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules} <= walked
