@@ -159,6 +159,25 @@ Phases, each printing its own lines:
    at the CPU tests' sizes and tolerances for the trainer, the streaming
    loss, MoE and the hub's rounds.  Every path's K1–K3 counts are set to 0
    just before it and read just after.
+13. mesh — the mesh engine as a world of 1 over NCCL (the process group
+   the port makes when there is none, checked): (a) ``run_simulation``
+   with ``backend`` "mesh", "MPI" and "NCCL" on ``lr`` ≡ the sp engine's
+   run, and phase 5(b)'s FEMNIST CNN through ``MeshFedAvgAPI`` for FedAvg,
+   SCAFFOLD and FedOpt (server Adam at ``server_lr`` 0.01) under both
+   merge layouts (``replicated``, ``scatter``) and every
+   ``collective_precision`` (fp32, bf16, int8, the same rounding noise
+   given to both engines): 2 rounds ≡
+   the sp engine's to 1e-6 (the replicated layout at bf16/int8, which
+   quantizes only the numerator, round 0 ≡ the sp engine's fp32 master),
+   with each round's seconds beside the sp engine's; (b) the text
+   transformer at phase 8's realtext configuration, 2 rounds on the mesh
+   ≡ the sp engine's with K1/K2/K3 launched as often; (c)
+   ``FedLLMAPI(mesh=make_mesh(client=1))`` at phase 4's widths (2 layers)
+   ≡ the single-device round, K1–K3 bf16 launched as often; (d)
+   ``round_block`` 4 on the mesh (FEMNIST SCAFFOLD, scatter: the merge's
+   NCCL calls and the row-sharded table inside the CUDA graph) ≡ unfused
+   with a graph captured.  At the end the process group is torn down
+   (``core.mesh.shutdown_world``), which must return within 60 s.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -167,9 +186,9 @@ rounds; the bf16 text-shape measurement under ``"bf16_at_text"``; the
 forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
-under ``"models"``, phase 11's under ``"engines"`` and phase 12's under
-``"llm"`` beside them; each kernel row adds phase 12's launches a path
-under ``launches_by_path``)
+under ``"models"``, phase 11's under ``"engines"``, phase 12's under
+``"llm"`` and phase 13's under ``"mesh"`` beside them; each kernel row adds
+phase 12's and phase 13's launches a path under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -181,6 +200,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 #: H100 SXM, dense.  f32: the kernels' f32-accurate products run on the
@@ -2694,6 +2714,261 @@ def llm_phase(torch, fedml_tpu_torch, att, smi):
     return out
 
 
+# -- phase 13: the mesh engine ------------------------------------------------
+
+#: phase 13 (a): the FEMNIST CNN rounds, each algorithm under both merge
+#: layouts and every collective precision, beside the sp engine's.  FedOpt
+#: runs its default server Adam at server_lr 0.01: at the default 1.0 its
+#: first step moves every weight by about 1, and the CNN's loss read
+#: 4.7e26 after one round (NaN at int8) in a CPU rehearsal
+MESH_ALGS = {"FedAvg": {}, "SCAFFOLD": {}, "FedOpt": {"server_lr": 0.01}}
+MESH_LAYOUTS = ("replicated", "scatter")
+MESH_PRECISIONS = ("fp32", "bf16", "int8")
+#: phase 13 (a): run_simulation on lr through each backend name
+MESH_LR = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+               train_size=6000, test_size=1000, model="lr",
+               client_num_in_total=100, client_num_per_round=10,
+               batch_size=10, learning_rate=0.03, partition_method="homo",
+               comm_round=2)
+#: mesh ≡ sp on one card: the f32 rounds, and the quantized ones given the
+#: same noise (the mesh's reducers normalise the weights first, as the sp
+#: engine does, so a world of 1 sums in the sp engine's order)
+MESH_TOL = 1e-6
+#: the text transformer trains with Adam: held as phase 8 (e) holds it
+MESH_TEXT_TOL = 1e-5
+#: the LoRA parity limit (phase 4's card vs CPU)
+MESH_LORA_TOL = 1e-4
+#: seconds the process group's teardown may take
+TEARDOWN_LIMIT = 60
+
+
+def card_noise(torch):
+    """``quant_noise`` drawing from seeded generators on the card: the same
+    tensors for the sp engine and every shard of the mesh."""
+    def hook(r, shard, slot, kind, shape):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1000 * r + slot)
+        if kind == "uniform":
+            return torch.rand(shape, generator=g, device="cuda")
+        return torch.randint(0, 1 << 16, shape, generator=g, device="cuda",
+                             dtype=torch.int64)
+    return hook
+
+
+def two_rounds(torch, api, after_first=None):
+    """A warm round and a timed one: (losses, seconds of the second,
+    ``after_first(api)`` read between them)."""
+    losses = [float(api.train_one_round(0)["train_loss"])]
+    first = after_first(api) if after_first else None
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses.append(float(api.train_one_round(1)["train_loss"]))
+    torch.cuda.synchronize()
+    return losses, time.time() - t0, first
+
+
+def params_err(a, b):
+    return max(max_err(a[k], b[k]) for k in b)
+
+
+def mesh_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 13."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.core.mesh import make_mesh
+    from fedml_tpu_torch.llm.configurations import (
+        build_fedllm, llama2_7b_round_arguments)
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out = {"seconds": {}}
+    t_all = time.time()
+
+    # (a) run_simulation through each backend name, on lr
+    t1 = time.time()
+    ref = fedml_tpu_torch.run_simulation(
+        backend="sp", args=sp_args(fedml_tpu_torch, **MESH_LR))
+    for b in ("mesh", "MPI", "NCCL"):
+        got = fedml_tpu_torch.run_simulation(
+            backend=b, args=sp_args(fedml_tpu_torch, **MESH_LR))
+        err = params_err(got, ref)
+        say("mesh", f"run_simulation(backend={b!r}) on lr: params vs sp "
+                    f"{err:.2e} (tol {MESH_TOL:g})")
+        if err > MESH_TOL:
+            fail(f"mesh: backend {b!r} disagrees with sp ({err:.2e})")
+    if not (dist.is_initialized() and dist.get_world_size() == 1
+            and "nccl" in str(dist.get_backend()).lower()):
+        fail("mesh: the process group is not a world of 1 over NCCL")
+    out["process_group"] = {"backend": str(dist.get_backend()),
+                            "world": dist.get_world_size()}
+    check_policy(torch, "mesh")
+
+    # (a) the FEMNIST CNN grid
+    args0 = sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN)
+    dataset, out_dim = data.load(args0)
+    cnn = model.create(args0, out_dim)
+    grid = out["femnist"] = {}
+    for alg, extra in MESH_ALGS.items():
+        for prec in MESH_PRECISIONS:
+            cfg = dict(SP_FEMNIST_CNN, federated_optimizer=alg,
+                       collective_precision=prec, **extra)
+            sp = FedAvgAPI(sp_args(fedml_tpu_torch, **cfg), dev, dataset,
+                           cnn)
+            sp.quant_noise = card_noise(torch) if prec != "fp32" else None
+            # the quantized sp engine's fp32 master after round 0
+            sp_losses, sp_s, sp_master = two_rounds(
+                torch, sp, lambda a: a.flat.unflatten(a.state.master_flat)
+                if prec != "fp32" else None)
+            for lay in MESH_LAYOUTS:
+                api = MeshFedAvgAPI(sp_args(fedml_tpu_torch, backend="mesh",
+                                            update_sharding=lay, **cfg),
+                                    dev, dataset, cnn)
+                api.quant_noise = sp.quant_noise
+                # the replicated layout quantizes only the numerator (it has
+                # no broadcast): after round 0 its fp32 params are the sp
+                # engine's master, the same noise given; later rounds start
+                # from different copies (fp32 here, the quantized broadcast
+                # there), so round 0 is the exact check
+                partial = prec != "fp32" and lay == "replicated"
+                losses, s, first = two_rounds(
+                    torch, api, lambda a: {k: v.clone() for k, v in
+                                           a.state.global_params.items()}
+                    if partial else None)
+                api._stager.close()
+                if partial:
+                    err = params_err(first, sp_master)
+                    loss_err = abs(losses[0] - sp_losses[0])
+                else:
+                    err = params_err(api.state.global_params,
+                                     sp.state.global_params)
+                    loss_err = max(abs(a - b)
+                                   for a, b in zip(losses, sp_losses))
+                ok = err <= MESH_TOL and loss_err <= MESH_TOL and all(
+                    x == x and abs(x) < float("inf") for x in losses)
+                key = f"{alg}/{lay}/{prec}"
+                grid[key] = {"losses": losses, "s_per_round": s,
+                             "sp_s_per_round": sp_s, "params_err": err,
+                             "loss_err": loss_err,
+                             "compared": "round 0 vs the sp master"
+                             if partial else "2 rounds"}
+                say("mesh", f"FEMNIST CNN {key}: losses {losses[0]:.4f} "
+                            f"{losses[1]:.4f}; vs sp "
+                            f"({grid[key]['compared']}) params {err:.2e}, "
+                            f"losses {loss_err:.2e} (tol {MESH_TOL:g}); "
+                            f"{s:.4f} s a round, sp {sp_s:.4f} [{smi}]")
+                if not ok:
+                    fail(f"mesh: {key} disagrees with the sp engine")
+                del api
+            del sp
+    out["seconds"]["femnist"] = time.time() - t1
+
+    # (b) the text transformer at realtext: mesh ≡ sp, same launches
+    t1 = time.time()
+    text = out["text"] = {}
+    runs = {}
+    for name, over in (("sp", {}), ("mesh", {"backend": "mesh"})):
+        api = build_sp(sp_args(fedml_tpu_torch, **dict(
+            TEXT_REALTEXT, comm_round=2, **over)))
+        att.reset_launch_counts()
+        losses, s, _ = two_rounds(torch, api)
+        launches = {f.__name__.replace("flash_attention", "flash"):
+                    f.launches for f in att.KERNELS}
+        runs[name] = api
+        text[name] = {"losses": losses, "s_per_round": s,
+                      "launches": launches}
+        if name == "mesh":
+            api._stager.close()
+    err = params_err(runs["mesh"].state.global_params,
+                     runs["sp"].state.global_params)
+    text["params_err"] = err
+    say("mesh", f"text (realtext, 2 rounds): mesh vs sp params {err:.2e} "
+                f"(tol {MESH_TEXT_TOL:g}); launches mesh "
+                f"{text['mesh']['launches']}, sp {text['sp']['launches']}; "
+                f"{text['mesh']['s_per_round']:.4f} s a round, sp "
+                f"{text['sp']['s_per_round']:.4f} [{smi}]")
+    if err > MESH_TEXT_TOL:
+        fail(f"mesh: text rounds disagree with sp ({err:.2e})")
+    if text["mesh"]["launches"] != text["sp"]["launches"] or \
+            not all(text["mesh"]["launches"].values()):
+        fail("mesh: the text rounds' K1-K3 launches differ from sp's")
+    del runs
+    out["seconds"]["text"] = time.time() - t1
+
+    # (c) FedLLMAPI(mesh=...) at the LoRA slice's widths, 2 layers
+    t1 = time.time()
+    lora = out["lora"] = {}
+    apis = {}
+    for name, mesh in (("single", None), ("mesh", make_mesh(client=1))):
+        args = llama2_7b_round_arguments(2)
+        args.update(comm_round=1)
+        api = apis[name] = build_fedllm(args, device="cuda", mesh=mesh)
+        att.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = api.train_one_round(0)
+        torch.cuda.synchronize()
+        lora[name] = {"loss": m["train_loss"], "steps": m["steps"],
+                      "seconds": time.time() - t0,
+                      "launches": {f.__name__.replace("flash_attention",
+                                                      "flash"): f.launches
+                                   for f in att.KERNELS}}
+    err = params_err(apis["mesh"].global_lora, apis["single"].global_lora)
+    lora["adapters_err"] = err
+    say("mesh", f"FedLLMAPI(mesh=make_mesh(client=1)), Llama-2-7B widths, "
+                f"2 layers: adapters vs single device {err:.2e} (tol "
+                f"{MESH_LORA_TOL:g}); loss {lora['mesh']['loss']:.4f} vs "
+                f"{lora['single']['loss']:.4f}; launches "
+                f"{lora['mesh']['launches']} vs {lora['single']['launches']};"
+                f" {lora['mesh']['seconds']:.2f} s vs "
+                f"{lora['single']['seconds']:.2f} s [{smi}]")
+    if err > MESH_LORA_TOL or lora["mesh"]["launches"] != \
+            lora["single"]["launches"] or \
+            not all(lora["mesh"]["launches"].values()):
+        fail("mesh: the LoRA mesh round disagrees with the single-device "
+             "round")
+    del apis
+    torch.cuda.empty_cache()
+    out["seconds"]["lora"] = time.time() - t1
+
+    # (d) round_block on the mesh: the merge's NCCL calls in the graph
+    t1 = time.time()
+    fused = out["fused"] = {}
+    k, rounds = 4, 8
+    cfg = dict(SP_FEMNIST_CNN, federated_optimizer="SCAFFOLD",
+               backend="mesh", update_sharding="scatter", comm_round=rounds)
+    apis = {}
+    for name, rb in (("unfused", 1), ("fused", k)):
+        api = apis[name] = build_sp(sp_args(fedml_tpu_torch, round_block=rb,
+                                            **cfg))
+        run = run_unfused if rb == 1 else run_blocks
+        run(api, 0, k)
+        dt, _ = sync_time(torch, lambda: run(api, k, rounds))
+        fused[name] = {"s_per_round": dt / (rounds - k)}
+        api._stager.close()
+        if api._block_stager is not None:
+            api._block_stager.close()
+    u, f = apis["unfused"], apis["fused"]
+    us, fs = u.full_state(), f.full_state()
+    err = max(params_err(fs.global_params, us.global_params),
+              max_err(fs.c_server, us.c_server),
+              params_err(f.full_client_table(), u.full_client_table()))
+    captures = f._block_fn.captures
+    # the graphs hold the NCCL communicator the teardown destroys
+    f._block_fn.release()
+    fused.update(max_abs_err=err, graphs_captured=captures)
+    say("mesh", f"round_block {k} on the mesh (FEMNIST SCAFFOLD, scatter, "
+                f"{rounds} rounds): fused vs unfused params, c_server and "
+                f"table {err:.2e} (tol {FUSED_TOL:g}); {captures} graph(s) "
+                f"captured; {fused['unfused']['s_per_round']:.4f} vs "
+                f"{fused['fused']['s_per_round']:.4f} s a round [{smi}]")
+    if err > FUSED_TOL or not captures:
+        fail("mesh: fused and unfused mesh rounds disagree, or no graph")
+    out["seconds"]["fused"] = time.time() - t1
+    out["seconds"]["all"] = time.time() - t_all
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2958,13 +3233,41 @@ def main():
             "hub_tiny_llama"] = n
     say("llm", f"phase 12 took {time.time() - t0:.1f} s "
                f"({ {k: round(v, 1) for k, v in llm['seconds'].items()} })")
+
+    # -- 13. mesh: the mesh engine as a world of 1 over NCCL -----------------
+    t0 = time.time()
+    mesh = mesh_phase(torch, fedml_tpu_torch, att, smi)
+    for name, n in mesh["text"]["mesh"]["launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "mesh_text"] = n
+    for name, n in mesh["lora"]["mesh"]["launches"].items():
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "mesh_lora"] = n
+    say("mesh", f"phase 13 took {time.time() - t0:.1f} s "
+                f"({ {k: round(v, 1) for k, v in mesh['seconds'].items()} })")
+    # the world of 1 phase 13 made, torn down as a user tears it down
+    t0 = time.time()
+    watchdog = threading.Timer(
+        TEARDOWN_LIMIT, lambda: (print(
+            "chip_smoke: FAILED: shutdown_world did not return within "
+            f"{TEARDOWN_LIMIT} s", file=sys.stderr, flush=True),
+            os._exit(1)))
+    watchdog.daemon = True
+    watchdog.start()
+    from fedml_tpu_torch.core.mesh import shutdown_world
+    shutdown_world()
+    watchdog.cancel()
+    mesh["seconds"]["teardown"] = time.time() - t0
+    say("mesh", f"shutdown_world returned in "
+                f"{mesh['seconds']['teardown']:.2f} s")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
                       "bf16_at_text": list(bf16_at_text.values()),
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
                       "fusion": fusion, "text": text, "resnet": resnet,
-                      "models": models, "engines": engines, "llm": llm}))
+                      "models": models, "engines": engines, "llm": llm,
+                      "mesh": mesh}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

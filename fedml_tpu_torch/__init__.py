@@ -8,6 +8,10 @@ counterpart is found at the same path.  Ported so far:
   args=...)``: ``FedAvgAPI`` and the algorithm zoo on the sp model zoo,
   the hierarchical, async and decentralized engines, and FedNAS, FedSeg,
   FedGKT and FedGAN (``simulation/sp/``);
+- the 1-D mesh engine, ``run_simulation(backend="mesh")`` ("MPI" and
+  "NCCL" too): clients sharded over the ranks of a ``torch.distributed``
+  process group, NCCL on the card and gloo on the CPU (``simulation/
+  mesh/``), a world of 1 unless the caller starts more ranks;
 - split learning, vertical FL, TurboAggregate and the centralized
   trainer, built as classes (``simulation/sp/{split_nn,vertical_fl,
   turboaggregate}.py``, ``simulation/centralized_trainer.py``);
@@ -55,9 +59,11 @@ def run_simulation(backend: str = "sp", args: Optional[Arguments] = None,
                    client_trainer=None, server_aggregator=None,
                    device: Optional[str] = None):
     """Load the dataset and model that ``args`` names and run the simulation
-    ``backend`` (port of ``fedml_tpu.run_simulation``; only ``"sp"`` is
-    ported).  Runs on the card unless ``device="cpu"`` (or ``args.device``)
-    asks for the CPU.  Returns what the engine's ``train()`` returns: the
+    ``backend`` (port of ``fedml_tpu.run_simulation``): ``"sp"``, or
+    ``"mesh"`` / ``"MPI"`` / ``"NCCL"`` for the mesh engine over the
+    process group (made as a world of 1 when the caller has none).  Runs
+    on the card unless ``device="cpu"`` (or ``args.device``) asks for the
+    CPU.  Returns what the engine's ``train()`` returns: the
     final global params for FedAvg and the zoo, a dict with the history
     for FedNAS, FedSeg, FedGKT and FedGAN."""
     if args is None:

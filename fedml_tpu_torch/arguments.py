@@ -67,6 +67,24 @@ _DEFAULTS: Dict[str, Any] = dict(
     # ship index tensors (device_data)
     sp_client_mode="vmap",
     device_data=True,
+    # the mesh engine (backend "mesh"): the client axis spans the process
+    # group (-1); a factor above 1 on another axis is refused by name.
+    # update_sharding: replicated | scatter | auto (scatter above one
+    # shard); async_staging builds the next round's cohort on a worker
+    # thread, staging_depth rounds ahead
+    mesh_client=-1,
+    mesh_stage=1,
+    mesh_data=1,
+    mesh_model=1,
+    mesh_seq=1,
+    mesh_shape=None,
+    update_sharding="auto",
+    async_staging=True,
+    staging_depth=1,
+    # quantized collectives: fp32 | bf16 | int8 | auto (bf16 above one
+    # shard); quant_block is the int8 quantizer's per-scale chunk
+    collective_precision="fp32",
+    quant_block=256,
 )
 
 

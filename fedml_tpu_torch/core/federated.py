@@ -1,5 +1,6 @@
 """Federated round algebra (port of ``fedml_tpu.core.federated``): the
-placement primitives, the stacked reducer, the :class:`AlgorithmSpec`
+placement primitives, the reducers (stacked for the sp engine, all-reduce
+and reduce-scatter for the mesh), the :class:`AlgorithmSpec`
 registry of the algorithm zoo and the :class:`RoundProgram` that composes
 them.  A round reads ``broadcast -> client_map -> weighted reductions ->
 server update``; which reductions an algorithm needs beyond the weighted
@@ -104,6 +105,71 @@ class StackedReducer:
 
     def sum_scalar(self, vec):
         return torch.sum(vec)
+
+
+def weighted_sums(stacked, w):
+    """Per-leaf f32 ``Σ_i w_i · leaf_i`` over the leading client axis."""
+    w = w.to(torch.float32)
+    return tree_util.tree_map(
+        lambda l: torch.tensordot(w, l.to(torch.float32), dims=1), stacked)
+
+
+class PsumReducer:
+    """Mesh replicated merge over the client axis (``mesh``: a
+    :class:`~fedml_tpu_torch.core.mesh.Mesh`): the weights are all-reduced
+    first, then each rank's partial sum of its clients weighted by their
+    share of the total, then one all-reduce.  That is the sp engine's
+    order (:class:`StackedReducer` normalises the weights, then sums), so
+    a world of 1 merges bitwise as the sp engine does; a CNN's rounds
+    amplify a last-bit difference in the merge chaotically (to ~3e-3 in
+    one FEMNIST round on the card), and the mesh ≡ sp check stays exact.
+    A tree's leaves travel as one flat vector: one collective for the
+    weight, one for the numerators."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def wavg(self, stacked, w):
+        num = weighted_sums(stacked, w / self.mesh.psum(torch.sum(w)))
+        names = list(num)
+        summed = self.mesh.psum(torch.cat([num[k].reshape(-1)
+                                           for k in names]))
+        out, off = {}, 0
+        for k in names:
+            n = num[k].numel()
+            out[k] = summed[off:off + n].reshape(num[k].shape)
+            off += n
+        return out
+
+    def wavg_scalar(self, vec, w):
+        p = w / self.mesh.psum(torch.sum(w))
+        return self.mesh.psum(torch.sum(p * vec))
+
+    def sum_scalar(self, vec):
+        return self.mesh.psum(torch.sum(vec))
+
+
+class ScatterReducer:
+    """Mesh scatter merge (arXiv:2004.13336): a tree aggregate flattens
+    into one padded vector (``flat_spec``) and reduce-scatters, so each
+    shard receives only its contiguous chunk; scalars still all-reduce.
+    Weighted in the sp engine's order, as :class:`PsumReducer`."""
+
+    def __init__(self, flat_spec, mesh):
+        self.flat = flat_spec
+        self.mesh = mesh
+
+    def wavg(self, stacked, w):
+        p = w / self.mesh.psum(torch.sum(w))
+        return self.mesh.psum_scatter(
+            self.flat.flatten(weighted_sums(stacked, p)))
+
+    def wavg_scalar(self, vec, w):
+        p = w / self.mesh.psum(torch.sum(w))
+        return self.mesh.psum(torch.sum(p * vec))
+
+    def sum_scalar(self, vec):
+        return self.mesh.psum(torch.sum(vec))
 
 
 # --------------------------------------------------------------------------
@@ -356,12 +422,13 @@ def check_algorithm(name: str) -> str:
 # --------------------------------------------------------------------------
 
 def build_aggregates(spec: AlgorithmSpec, red, opt, state, outs,
-                     w, hp=None) -> Dict[str, Any]:
+                     w, hp=None, include_avg: bool = True) -> Dict[str, Any]:
     """The round's cross-client reductions, built from the algorithm's
     spec with the engine's reducer (``hp``: the swept hyperparameters, or
-    ``None``)."""
+    ``None``).  ``include_avg=False`` leaves ``avg_params`` out: the
+    quantized merge builds it itself."""
     agg: Dict[str, Any] = {"n_sampled": red.sum_scalar(_real(opt, outs, w))}
-    if spec.avg_params:
+    if spec.avg_params and include_avg:
         agg["avg_params"] = red.wavg(outs.params, w)
     for a in spec.aggregates:
         src = a.source(opt, state, outs, hp)

@@ -105,3 +105,24 @@ def make_client_optimizer(args) -> ClientOptimizer:
         momentum=float(getattr(args, "momentum", 0.0) or 0.0),
         weight_decay=float(getattr(args, "weight_decay", 0.0) or 0.0),
         clip=float(getattr(args, "clip_grad_norm", 0.0) or 0.0))
+
+
+def resolve_collective_precision(args, n_shards: int = 1) -> str:
+    """``args.collective_precision`` for an engine on ``n_shards`` client
+    shards (port of ``fedml_tpu.core.state.resolve_collective_precision``).
+
+    ``fp32`` (default) keeps the collectives exact; ``bf16`` / ``int8``
+    quantize the merge numerator (with error feedback) and the
+    post-update broadcast while the server update keeps an fp32 master
+    copy; ``auto`` picks bf16 when the payload crosses an interconnect
+    (more than one shard) and fp32 otherwise."""
+    mode = str(getattr(args, "collective_precision", "fp32")
+               or "fp32").lower()
+    if mode == "auto":
+        return "bf16" if n_shards > 1 else "fp32"
+    from .compression.blockscale import COLLECTIVE_PRECISIONS
+    if mode not in COLLECTIVE_PRECISIONS:
+        raise ValueError(
+            f"collective_precision must be one of "
+            f"{COLLECTIVE_PRECISIONS + ('auto',)}, got {mode!r}")
+    return mode

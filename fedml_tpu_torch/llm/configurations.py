@@ -16,7 +16,7 @@ class ModelArguments:
     lora_alpha: float = 16.0
     lora_dropout: float = 0.0
     #: attention selection (auto | flash: the flash kernels; blockwise: the
-    #: plain streaming softmax; ring: refused, it needs the mesh engine)
+    #: plain streaming softmax; ring: refused, not ported)
     attn_impl: str = "auto"
     dim: Optional[int] = None
     n_layers: Optional[int] = None
@@ -142,9 +142,9 @@ def build_fedllm(args=None,
                  model_args: Optional[ModelArguments] = None,
                  dataset_args: Optional[DatasetArguments] = None,
                  experiment_args: Optional[ExperimentArguments] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Compose the three configs onto args and build a ready FedLLMAPI on
-    ``device``."""
+    ``device`` (on ``mesh``'s ranks when one is given)."""
     import fedml_tpu_torch
     from .. import data as data_mod
     from .fedllm import FedLLMAPI
@@ -156,4 +156,4 @@ def build_fedllm(args=None,
             cfg.apply_to(args)
     args = fedml_tpu_torch.init(args, should_init_logs=False)
     dataset, _ = data_mod.load(args)
-    return FedLLMAPI(args, dataset, device=device)
+    return FedLLMAPI(args, dataset, device=device, mesh=mesh)

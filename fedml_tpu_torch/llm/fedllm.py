@@ -15,8 +15,16 @@ exactly as they were, so such a step is skipped outright.
 With ``streaming_xent_chunk > 0`` the loss is the vocab-chunked
 cross-entropy of :mod:`..ops.xent` over the model's final hidden states
 (the chunk clamped to the vocabulary), which never holds the logits.  MoE
-models (``n_experts``) come through the config.  The ``mesh=`` regime of
-the JAX class waits for the mesh engine.
+models (``n_experts``) come through the config.
+
+``mesh=`` (a :class:`~fedml_tpu_torch.core.mesh.Mesh` whose only factor
+above 1 is ``client``) runs the round over the ranks of the process group:
+the cohort is padded on the host to a multiple of the shard count (zero
+weight, no rank components, every step masked), each rank trains its
+contiguous block of clients against its own copy of the frozen base, and
+the weighted adapter merge is one all-reduce of the numerators, the
+per-component weights and the loss.  The base and the adapters stay whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -74,9 +82,15 @@ class FedLLMAPI:
     def __init__(self, args, dataset: FederatedDataset, device="cuda",
                  mesh=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "FedLLMAPI(mesh=...): the mesh regime needs the mesh engine, "
-                "not ported yet")
+            bad = {a: n for a, n in mesh.shape.items()
+                   if a != "client" and n > 1}
+            if bad:
+                raise NotImplementedError(
+                    f"FedLLMAPI(mesh=...) with mesh axes {bad}: the 2-D "
+                    "client x model layout is not ported (the port runs "
+                    "the client axis)")
+            device = mesh.device
+        self.mesh = mesh
         self.args = args
         self.dataset = dataset
         self.device = torch.device(device)
@@ -187,32 +201,61 @@ class FedLLMAPI:
         x, y, mask, w = self.dataset.cohort_batches(
             clients, self.batch_size, self.seed, round_idx, self.epochs,
             max_steps=self.max_steps)
+        rows = slice(0, len(clients))
+        if self.mesh is not None:
+            # host-pad to the shard count, then this rank's block
+            from ..core.mesh import pad_to_multiple
+            pad = pad_to_multiple(len(clients), self.mesh.size) - len(clients)
+            padc = lambda a: np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
+            x, y, mask, w = padc(x), padc(y), padc(mask), padc(w)
+            rank_masks = torch.cat([rank_masks, rank_masks.new_zeros(
+                (pad, rank_masks.shape[1]))])
+            per = len(w) // self.mesh.size
+            rows = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
         loras, losses = [], []
-        for c in range(len(clients)):
+        for c in range(rows.start, rows.stop):
             lora_c, loss_c = self._local_train(self.global_lora, x[c], y[c],
                                                mask[c], rank_masks[c])
             loras.append(lora_c)
             losses.append(loss_c)
-        weights = torch.as_tensor(w, device=self.device)
-        self.global_lora = self._merge(loras, rank_masks, weights)
-        losses = torch.stack(losses)
-        round_loss = (losses * weights).sum() / weights.sum()
+        weights = torch.as_tensor(w[rows], device=self.device)
+        self.global_lora, round_loss = self._merge(
+            loras, rank_masks[rows], weights, torch.stack(losses))
         # "steps": the real (unmasked) local steps the cohort took
         return {"train_loss": float(round_loss), "steps": int(mask.sum())}
 
-    def _merge(self, loras, rank_masks, weights) -> LoRA:
-        """Each rank component averages over the clients that hold it; a
-        component nobody in the cohort holds keeps its global value."""
-        merged = {}
+    def _merge(self, loras, rank_masks, weights, losses):
+        """The merged adapters and the round's weighted loss.  Each rank
+        component averages over the clients that hold it; a component
+        nobody in the cohort holds keeps its global value.  On a mesh the
+        numerators, the component weights and the loss sums of this rank's
+        clients travel in one all-reduce."""
+        parts = {}
         for k, g in self.global_lora.items():
             stacked = torch.stack([l[k] for l in loras])
             m = torch.stack([rank_mask_tree({k: g}, rv)[k]
                              for rv in rank_masks])
             wm = weights.reshape((-1,) + (1,) * g.dim()) * m.expand_as(stacked)
-            tot = wm.sum(0)
-            avg = (stacked * wm).sum(0) / torch.clamp_min(tot, 1e-12)
-            merged[k] = torch.where(tot > 0, avg, g)
-        return merged
+            parts[k] = ((stacked * wm).sum(0), wm.sum(0))
+        loss_sums = torch.stack([(losses * weights).sum(), weights.sum()])
+        if self.mesh is not None:
+            names = list(parts)
+            flat = torch.cat([t.reshape(-1) for k in names
+                              for t in parts[k]] + [loss_sums])
+            flat = self.mesh.psum(flat)
+            off = 0
+            for k in names:
+                shape = self.global_lora[k].shape
+                n = self.global_lora[k].numel()
+                parts[k] = (flat[off:off + n].reshape(shape),
+                            flat[off + n:off + 2 * n].reshape(shape))
+                off += 2 * n
+            loss_sums = flat[off:]
+        merged = {}
+        for k, (num, tot) in parts.items():
+            avg = num / torch.clamp_min(tot, 1e-12)
+            merged[k] = torch.where(tot > 0, avg, self.global_lora[k])
+        return merged, loss_sums[0] / loss_sums[1]
 
     # -- evaluation ---------------------------------------------------------
     @torch.no_grad()

@@ -68,7 +68,7 @@ class LlamaConfig:
     #: RMSNorm scales stay f32.
     param_dtype: Any = None
     #: auto | flash: the flash kernels; blockwise: the plain streaming
-    #: softmax (autograd); ring: needs the mesh engine (refused)
+    #: softmax (autograd); ring: over the mesh (not ported, refused)
     attn_impl: str = "auto"
     remat: str = "full"         # full | dots | none
     lora_rank: int = 0
@@ -93,8 +93,8 @@ class LlamaConfig:
                              "'auto', 'blockwise', 'flash', or 'ring'")
         if self.attn_impl == "ring":
             raise NotImplementedError(
-                "attn_impl='ring': ring attention needs the mesh engine, "
-                "not ported yet")
+                "attn_impl='ring': ring attention over the mesh is not "
+                "ported yet")
         if self.kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: "
                              "must be 'native' or 'int8'")

@@ -49,8 +49,8 @@ class MoEMLP(nn.Module):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError(
-                "MoEMLP(mesh=...): expert parallelism needs the mesh engine, "
-                "not ported yet")
+                "MoEMLP(mesh=...): expert parallelism over the mesh is not "
+                "ported yet")
         from .model import Dense
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor

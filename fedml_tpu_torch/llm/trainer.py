@@ -86,8 +86,8 @@ class CausalLMTrainer:
     def __init__(self, args, dataset, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "CausalLMTrainer(mesh=...): the mesh regime needs the mesh "
-                "engine, not ported yet")
+                "CausalLMTrainer(mesh=...): the mesh regime of the "
+                "centralized trainer is not ported yet")
         self.args = args
         self.dataset = dataset
         self.device = get_device(args, device)

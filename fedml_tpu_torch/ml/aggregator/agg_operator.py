@@ -3,9 +3,13 @@
 algorithms keep (FedOpt's optimizer moments, SCAFFOLD's c_server, FedDyn's
 h, Mime's momentum) and each algorithm's transition from the round's
 aggregates, with the population's swept hyperparameters (``hp``) and the
-exact merge of cohort-bucket partials.  Not ported: the mesh engine's
-scatter-mode layout (``init_sharded``, ``update_shard``), the silo partial
-reducer and the quantized-collective fields.
+exact merge of cohort-bucket partials, and the mesh engine's two layouts:
+the replicated one (every aux field mirrors the params dict) and the
+scatter one (``init_sharded``: every aux field a flat f32 vector of the
+padded flat model, of which each client shard keeps one chunk, and
+``update_shard`` transitioning that chunk).  The quantized collectives
+add three fields (``ef_num``, ``master_flat``, ``ef_bcast``).  Not
+ported: the silo partial reducer.
 """
 
 from __future__ import annotations
@@ -14,23 +18,42 @@ import dataclasses
 import types
 from typing import Any, Optional
 
+import torch
+
 from ...core import federated
 from ...core import tree as tree_util
+from ...core.flatmodel import FlatSpec
 from ...core.state import ClientOptimizer
+
+#: the key a flat vector takes in the dicts the server optimizer works on
+#: (scatter layout: ``opt_state`` is ``{"mu/flat", "nu/flat", "count"}``)
+FLAT = "flat"
 
 
 @dataclasses.dataclass
 class ServerState:
     """Server-side state.  The fields beyond the round counter and the
-    global params are ``None`` unless the algorithm keeps them; each
-    mirrors the params' ``{name: tensor}`` dict (``opt_state`` is the
-    server optimizer's state dict)."""
+    global params are ``None`` unless the algorithm keeps them.  In the
+    replicated layout each mirrors the params' ``{name: tensor}`` dict
+    (``opt_state`` is the server optimizer's state dict); in the scatter
+    layout (:meth:`ServerOptimizer.init_sharded`) each is a flat f32
+    vector (``opt_state`` a dict of them)."""
     round_idx: int
     global_params: Any
     opt_state: Any = None        # FedOpt server optimizer state
     c_server: Any = None         # SCAFFOLD
     h: Any = None                # FedDyn
     momentum: Any = None         # Mime
+    # -- quantized collectives; all None at collective_precision fp32 ----
+    #: error-feedback residual of the quantized merge numerator,
+    #: ``(n_shards, flat_len)``: one row per shard
+    ef_num: Any = None
+    #: fp32 master of the flat params: with a quantized broadcast,
+    #: ``global_params`` holds the low-precision copy the clients train
+    #: from and the server update transitions this master
+    master_flat: Any = None
+    #: error-feedback residual of the int8 params broadcast
+    ef_bcast: Any = None
 
     def replace(self, **changes) -> "ServerState":
         return dataclasses.replace(self, **changes)
@@ -70,7 +93,14 @@ class ServerOptimizer:
                 self.server_tx = ClientOptimizer(
                     "adam", self.server_lr, b1=self.server_momentum, b2=0.99)
 
-    def init(self, params) -> ServerState:
+    def init(self, params, collective_precision: str = "fp32",
+             ef_shards: int = 1, quantized_broadcast: bool = True,
+             flat: FlatSpec = None) -> ServerState:
+        """The replicated-layout state.  A quantized ``collective_precision``
+        adds one EF row per shard (``ef_shards``) over the unpadded flat
+        view ``flat`` (default: the params in dict order), and, when the
+        broadcast is quantized too (the sp engine; not the mesh's
+        replicated merge), the fp32 master and at int8 its residual."""
         st = ServerState(round_idx=0, global_params=params)
         if self.server_tx is not None:
             st = st.replace(opt_state=self.server_tx.init(params))
@@ -80,6 +110,44 @@ class ServerOptimizer:
             st = st.replace(h=tree_util.tree_zeros_like(params))
         if self.algorithm == "mime":
             st = st.replace(momentum=tree_util.tree_zeros_like(params))
+        if collective_precision != "fp32":
+            vec = (flat or FlatSpec.of(params)).flatten(params)
+            st = st.replace(ef_num=torch.zeros((ef_shards, vec.shape[0]),
+                                               dtype=torch.float32,
+                                               device=vec.device))
+            if quantized_broadcast:
+                st = st.replace(master_flat=vec)
+                if collective_precision == "int8":
+                    st = st.replace(ef_bcast=torch.zeros_like(vec))
+        return st
+
+    def init_sharded(self, params, n_shards: int, flat: FlatSpec,
+                     collective_precision: str = "fp32") -> ServerState:
+        """Scatter-layout state (arXiv:2004.13336): every aux field a flat
+        f32 vector over ``flat`` (the padded flat view, its length a
+        multiple of ``n_shards``), whole here; the mesh layout keeps one
+        chunk per shard (``simulation/mesh/layout.py``).
+        ``global_params`` stays the params dict the clients train from.
+        A quantized precision adds the EF rows (one per shard), the fp32
+        master and at int8 the broadcast residual."""
+        vec = flat.flatten(params)
+        zeros = lambda: torch.zeros_like(vec)
+        st = ServerState(round_idx=0, global_params=params)
+        if self.server_tx is not None:
+            st = st.replace(opt_state=self.server_tx.init({FLAT: vec}))
+        if self.algorithm == "scaffold":
+            st = st.replace(c_server=zeros())
+        if self.algorithm == "feddyn":
+            st = st.replace(h=zeros())
+        if self.algorithm == "mime":
+            st = st.replace(momentum=zeros())
+        if collective_precision != "fp32":
+            st = st.replace(ef_num=torch.zeros((n_shards, vec.shape[0]),
+                                               dtype=torch.float32,
+                                               device=vec.device),
+                            master_flat=vec)
+            if collective_precision == "int8":
+                st = st.replace(ef_bcast=zeros())
         return st
 
     def compute_aggregates(self, state: ServerState, client_params_stacked,
@@ -182,3 +250,35 @@ class ServerOptimizer:
 
         # FedAvg / FedAvg_seq / FedProx: params ← weighted average
         return state.replace(round_idx=nxt, global_params=avg)
+
+    def update_shard(self, state: ServerState, gshard: torch.Tensor,
+                     agg: dict, hp=None):
+        """Stage 2 on this shard's contiguous flat chunk of the model (the
+        scatter layout): ``gshard`` is the current params' chunk, ``agg``
+        holds reduce-scattered chunks and all-reduced scalars, and
+        ``state``'s aux fields are this shard's chunks.  Every transition
+        is elementwise, so :meth:`update_from_aggregates` runs on the
+        chunks wrapped as one-leaf ``{FLAT: chunk}`` dicts.  Returns
+        ``(new_gshard, replaced_fields)``; the caller all-gathers only
+        ``new_gshard``, the aux chunks stay on their shard."""
+        wrap = lambda v: None if v is None else {FLAT: v}
+        new = self.update_from_aggregates(
+            state.replace(global_params={FLAT: gshard},
+                          **{f: wrap(getattr(state, f)) for f in _FLAT_AUX}),
+            agg_dicts(agg), hp)
+        fields = {f: getattr(new, f)[FLAT] for f in _FLAT_AUX
+                  if getattr(new, f) is not None}
+        if new.opt_state is not None:
+            fields["opt_state"] = new.opt_state
+        return new.global_params[FLAT], fields
+
+
+#: the aux fields the scatter layout keeps as one flat chunk a shard
+_FLAT_AUX = ("c_server", "h", "momentum")
+
+
+def agg_dicts(agg: dict) -> dict:
+    """A scatter-layout aggregate dict with each flat chunk wrapped as the
+    one-leaf dict ``{FLAT: chunk}`` a tree-wise spec transition reads."""
+    return {k: {FLAT: v} if isinstance(v, torch.Tensor) and v.dim() >= 1
+            else v for k, v in agg.items()}

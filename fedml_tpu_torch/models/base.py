@@ -163,6 +163,14 @@ class TorchModel:
                                             generator)
         return params
 
+    def flat_layout(self) -> Tuple[Tuple[str, str], ...]:
+        """``(name, kind)`` of every parameter in the JAX package's flat
+        order (its flax path's ``tree_flatten`` order: nested keys sorted),
+        for :class:`~fedml_tpu_torch.core.flatmodel.FlatSpec`."""
+        kinds = param_kinds(self.module)
+        order = sorted(kinds, key=lambda n: tuple(kinds[n][1].split("/")))
+        return tuple((n, kinds[n][0]) for n in order)
+
     def dropout_sites(self) -> Sequence[Tuple[Tuple[int, ...], float]]:
         """(per-example shape, rate) of each dropout the train forward
         applies, in order."""

@@ -1,0 +1,488 @@
+"""Mesh-sharded federated simulation (port of
+``fedml_tpu.simulation.mesh.engine``) on ``torch.distributed``.
+
+The JAX package runs the round as one ``jit(shard_map(...))`` program over
+the ``client`` axis of a device mesh.  Here the round is SPMD over the
+ranks of a process group (NCCL on the card, gloo on the CPU): every rank
+stages the same padded cohort on the host, takes its contiguous block of
+clients (:class:`~.layout.MeshLayout`), runs them through the sp engine's
+per-client body (the same ``LocalTrainer`` and ``torch.func.vmap`` client
+map), and the merge runs over the process group.  Which aggregates the
+merge computes is the algorithm's spec (``core/federated.py``), built with
+this engine's reducer:
+
+- ``replicated``: ``PsumReducer``; each leaf's weighted numerator is
+  all-reduced and every rank runs the full server update;
+- ``scatter`` (the default above one shard): ``ScatterReducer``, the
+  layout of arXiv:2004.13336: the numerators flatten into one padded
+  vector and reduce-scatter, so each rank receives only its chunk;
+  ``ServerOptimizer.update_shard`` transitions that chunk (FedOpt's
+  moments, SCAFFOLD's ``c_server``, FedDyn's ``h`` and Mime's momentum stay
+  on their rank) and the new params come back by one all-gather.
+
+``collective_precision`` bf16/int8 quantizes the merge numerator against
+this rank's error-feedback row and, in the scatter layout, the broadcast
+chunk too, with the server update on the shard-resident fp32 master.
+
+Per-client randomness does not depend on the rank: every rank draws the
+whole cohort's dropout masks from the round's generator, as the sp engine
+does, and takes its block; the quantization noise of shard ``i`` comes
+from a generator of its own (``round_engine.noise_source``).  So a mesh of
+any size runs the sp engine's rounds, up to the order of the f32 sums.
+
+The per-client state table (SCAFFOLD/FedDyn) is sharded by rows over the
+ranks, plus one scratch row; a round gathers its cohort's rows by one
+all-reduce (each rank contributes the rows it holds) and writes them back
+after one all-gather, both on the device, so a captured block holds them.
+
+``round_block`` K > 1 replays each round of a block as a CUDA graph on the
+card (``round_engine.BlockRoundFn``) with the merge's NCCL collectives
+captured inside the graph.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from ...core import federated
+from ...core import rng as rng_util
+from ...core.compression import blockscale
+from ...core.flatmodel import FlatSpec
+from ...ml.aggregator.agg_operator import ServerOptimizer, ServerState
+from ...ml.trainer.local_trainer import LocalTrainer
+from ..round_engine import BlockRoundFn, draw_dropout, ef_numerator, \
+    next_pow2, payload_noise
+from ..sp.fedavg_api import FedAvgAPI
+from ..staging import AsyncCohortStager
+from .collectives import wire_cast
+from .layout import MeshLayout
+
+log = logging.getLogger(__name__)
+
+
+def _bcast_mask(own: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return own.reshape(own.shape + (1,) * (like.dim() - own.dim()))
+
+
+def sharded_take(table, ids: torch.Tensor, lo: int, mesh):
+    """Rows ``ids`` of a table sharded by rows over the ranks (this rank
+    holds rows ``lo .. lo + len``): each rank fills the rows it holds,
+    zeros elsewhere, and one all-reduce per leaf assembles them.  An id
+    no rank holds reads as zeros.  ``table``: a tensor or a dict of them;
+    ``ids``: any shape of int64."""
+    def take(t):
+        local = ids - lo
+        own = (local >= 0) & (local < t.shape[0])
+        rows = t[torch.where(own, local, 0)]
+        return mesh.psum(torch.where(_bcast_mask(own, rows), rows,
+                                     torch.zeros((), dtype=t.dtype,
+                                                 device=t.device)))
+    if isinstance(table, torch.Tensor):
+        return take(table)
+    return {k: take(t) for k, t in table.items()}
+
+
+def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
+                         layout: MeshLayout, update_sharding: str,
+                         flat: FlatSpec, flat_pad: FlatSpec = None,
+                         collective_precision: str = "fp32",
+                         quant_block: int = blockscale.DEFAULT_BLOCK,
+                         train_x=None, train_y=None, data_lo=None):
+    """``core(state, data, mask, w, drop, cohort, table, noise,
+    inplace=False) -> (new_state, metrics, table)``: one round on this
+    rank.
+
+    ``data`` is the whole padded cohort: its ``(C, S, B)`` index tensor
+    over the device-resident dataset (``train_x``/``train_y``; this rank's
+    row block of it when ``data_lo`` is set, the ``sharded`` mode), or the
+    ``(x, y)`` batches (``host``).  ``mask`` ``(C, S)`` and ``w`` ``(C,)``
+    are whole too; ``drop`` holds this rank's block of dropout masks;
+    ``cohort`` ``(C,)`` the client ids (the sentinel on pad rows) that
+    index the row-sharded ``table`` (``None`` without per-client state),
+    which has one scratch row past this rank's rows.  ``noise(slot, kind,
+    shape)`` is this shard's rounding noise.  ``flat`` is the params'
+    unpadded flat view, ``flat_pad`` the scatter layout's padded one.
+    ``inplace`` writes the table rows into ``table`` (the graph's static
+    buffers)."""
+    mesh = layout.mesh
+    spec = server_opt.spec
+    scatter = update_sharding == "scatter"
+    precision = collective_precision
+    quantized = precision != "fp32"
+    if quantized and not spec.avg_params:
+        raise ValueError(
+            f"collective_precision={precision!r} quantizes the avg_params "
+            f"merge numerator, which the {server_opt.algorithm!r} spec "
+            "does not use")
+    if scatter and flat_pad is None:
+        raise ValueError("the scatter layout needs the padded flat view")
+    program = federated.RoundProgram(spec, trainer.make_local_train(),
+                                     server_opt, "vmap")
+    n, rank = layout.n_client_shards, layout.rank
+
+    def cohort_data(data, rows):
+        if train_x is None:
+            x, y = data
+            return x[rows], y[rows]
+        idx = data.to(torch.long)
+        if data_lo is None:
+            idx = idx[rows]
+            return train_x[idx], train_y[idx]
+        # dataset rows sharded over the ranks: one all-reduce assembles
+        # the cohort's examples on every rank
+        return (sharded_take(train_x, idx, data_lo, mesh)[rows],
+                sharded_take(train_y, idx, data_lo, mesh)[rows])
+
+    def table_gather(table, cohort, rows):
+        """This rank's clients' rows of the row-sharded table."""
+        held = next(iter(table.values())).shape[0] - 1
+        got = sharded_take({k: t[:held] for k, t in table.items()}, cohort,
+                           rank * held, mesh)
+        return {k: v[rows] for k, v in got.items()}
+
+    def table_scatter(table, cohort, new_rows, inplace):
+        """The cohort's new rows (every rank's, all-gathered) written into
+        the rows this rank holds; the others go to the scratch row."""
+        held = next(iter(table.values())).shape[0] - 1
+        local = cohort - rank * held
+        local = torch.where((local >= 0) & (local < held), local, held)
+        new_rows = {k: mesh.all_gather(v) for k, v in new_rows.items()}
+        if inplace:
+            for k, t in table.items():
+                t.index_copy_(0, local, new_rows[k].to(t.dtype))
+            return table
+        return {k: t.index_copy(0, local, new_rows[k].to(t.dtype))
+                for k, t in table.items()}
+
+    def merge_replicated(state: ServerState, outs, w, noise):
+        red = federated.PsumReducer(mesh)
+        if not quantized:
+            agg = federated.build_aggregates(spec, red, server_opt, state,
+                                             outs, w)
+            return server_opt.update_from_aggregates(state, agg)
+        # the EF-quantized numerator: this shard's contribution to the
+        # average plus its residual row, quantized, all-reduced at the
+        # wire precision; auxiliary aggregates stay fp32
+        agg = federated.build_aggregates(spec, red, server_opt, state, outs,
+                                         w, include_avg=False)
+        deq, new_ef = ef_numerator(state, flat, outs, w,
+                                   mesh.psum(torch.sum(w)), noise, precision,
+                                   quant_block)
+        agg["avg_params"] = flat.unflatten(
+            mesh.psum(wire_cast(deq, precision)).to(torch.float32))
+        new_state = server_opt.update_from_aggregates(state, agg)
+        return new_state.replace(ef_num=new_ef)
+
+    def merge_scatter(state: ServerState, outs, w, noise):
+        red = federated.ScatterReducer(flat_pad, mesh)
+        fields = {}
+        if quantized:
+            agg = federated.build_aggregates(spec, red, server_opt, state,
+                                             outs, w, include_avg=False)
+            deq, fields["ef_num"] = ef_numerator(
+                state, flat_pad, outs, w, mesh.psum(torch.sum(w)), noise,
+                precision, quant_block)
+            agg["avg_params"] = mesh.psum_scatter(
+                wire_cast(deq, precision)).to(torch.float32)
+            # the chunk transitions from the shard-resident fp32 master:
+            # global_params is the quantized copy the clients trained from
+            gshard = state.master_flat
+        else:
+            agg = federated.build_aggregates(spec, red, server_opt, state,
+                                             outs, w)
+            gshard = flat_pad.chunk(flat_pad.flatten(state.global_params),
+                                    rank, n)
+        new_gshard, new_fields = server_opt.update_shard(state, gshard, agg)
+        fields.update(new_fields)
+        out_chunk = new_gshard
+        if quantized:
+            send, new_ef_bcast, _ = blockscale.quantize_broadcast(
+                new_gshard, state.ef_bcast, precision,
+                payload_noise(noise, 1, precision, new_gshard.shape[0],
+                              quant_block, broadcast=True), quant_block)
+            fields["master_flat"] = new_gshard
+            if state.ef_bcast is not None:
+                fields["ef_bcast"] = new_ef_bcast
+            out_chunk = wire_cast(send, precision)
+        new_params = flat_pad.unflatten(
+            mesh.all_gather(out_chunk).to(torch.float32))
+        return state.replace(round_idx=state.round_idx + 1,
+                             global_params=new_params, **fields)
+
+    def core(state: ServerState, data, mask, w, drop, cohort, table,
+             noise=None, inplace: bool = False):
+        rows = layout.local_rows(mask.shape[0])
+        x, y = cohort_data(data, rows)
+        mask, w = mask[rows], w[rows]
+        c = None if table is None else table_gather(table, cohort, rows)
+        ctx_state = state
+        if scatter:
+            # client-visible server state (SCAFFOLD's c_server in the
+            # corrected gradient, Mime's momentum in the client step) is
+            # shard-resident: gather it whole for the train phase
+            gathered = {f: flat_pad.unflatten(mesh.all_gather(
+                getattr(state, f))) for f in ("c_server", "momentum")
+                if getattr(state, f) is not None}
+            ctx_state = state.replace(**gathered)
+        outs = program.run_clients(ctx_state, x, y, mask, drop, c)
+        merge = merge_scatter if scatter else merge_replicated
+        new_state = merge(state, outs, w, noise)
+        if table is not None:
+            table = table_scatter(table, cohort, outs.new_client_state,
+                                  inplace)
+        sums = mesh.psum(torch.stack([
+            torch.sum(outs.loss * w), torch.sum(w),
+            torch.sum(outs.num_steps).to(torch.float32)]))
+        metrics = {"train_loss": sums[0] / sums[1], "total_steps": sums[2]}
+        return new_state, metrics, table
+
+    return core
+
+
+def local_dropout(model, generator, n_real: int, lead, rows: slice):
+    """This rank's block of a round's dropout masks: the whole cohort's
+    ``n_real`` clients drawn as the sp engine draws them, zero masks for
+    the pad rows up to ``lead[0]``, then the rows ``rows``."""
+    drop = draw_dropout(model, generator, (n_real,) + tuple(lead[1:]))
+    if drop is None:
+        return None
+    pad = lead[0] - n_real
+    out = []
+    for d in drop:
+        if pad:
+            d = torch.cat([d, torch.zeros((pad,) + tuple(d.shape[1:]),
+                                          dtype=d.dtype, device=d.device)])
+        out.append(d[rows])
+    return tuple(out)
+
+
+class MeshBlockRoundFn(BlockRoundFn):
+    """:class:`~..round_engine.BlockRoundFn` over the mesh round core: the
+    staged block holds the whole padded cohort, each round draws the
+    cohort's dropout masks and keeps this rank's block, and the round
+    gathers and writes its table rows itself (row-sharded)."""
+
+    def __init__(self, core, model, has_table: bool, n_real: int,
+                 layout: MeshLayout):
+        super().__init__(core, model, has_table)
+        self.n_real = n_real
+        self.layout = layout
+
+    def _draw(self, gen, lead):
+        return local_dropout(self.model, gen, self.n_real, lead,
+                             self.layout.local_rows(lead[0]))
+
+    def _round(self, state, idx, mask, w, drop, cohort, table, hp,
+               inplace: bool):
+        return self.core(state, idx, mask, w, drop, cohort, table, None,
+                         inplace)
+
+
+class MeshFedAvgAPI(FedAvgAPI):
+    """The sp engine's driver surface; rounds run over the mesh.
+
+    ``mesh``: a :class:`~fedml_tpu_torch.core.mesh.Mesh`, else the one
+    ``args`` names (``mesh_shape``, ``mesh_client``) over the process
+    group, made as a world of 1 when there is none.  ``device`` is the
+    mesh's.  ``args.update_sharding``: "replicated" | "scatter" | "auto"
+    (scatter above one shard).  ``args.device_data``: True/"replicated"
+    (the dataset on every rank), "sharded" (rows split over the ranks) or
+    False/"host" (cohort batches staged on the host).
+    ``args.async_staging`` (default True) builds round r+1's cohort on a
+    worker thread while round r runs."""
+
+    def __init__(self, args, device, dataset, model, mesh=None):
+        if mesh is None:
+            from ...device import get_device
+            device = get_device(args, device)
+        self.layout = MeshLayout.from_args(args, mesh, device)
+        self.mesh = self.layout.mesh
+        self.n_shards = self.layout.n_client_shards
+        self.rank = self.layout.rank
+        mode = str(getattr(args, "update_sharding", "auto") or "auto").lower()
+        if mode == "auto":
+            mode = "scatter" if self.n_shards > 1 else "replicated"
+        if mode not in ("replicated", "scatter"):
+            raise ValueError(
+                f"update_sharding must be 'replicated', 'scatter' or "
+                f"'auto', got {mode!r}")
+        self.update_sharding = mode
+        super().__init__(args, self.mesh.device, dataset, model,
+                         client_mode="vmap")
+        self._stager = AsyncCohortStager(
+            self._stage_cohort,
+            enabled=bool(getattr(args, "async_staging", True)),
+            depth=int(getattr(args, "staging_depth", 1) or 1),
+            limit=self.comm_rounds)
+
+    @property
+    def scatter(self) -> bool:
+        return self.update_sharding == "scatter"
+
+    # -- state and tables ----------------------------------------------------
+    def _init_server_state(self, params):
+        """This rank's part of the initial state: in the scatter layout
+        the chunks of the flat aux vectors (``init_sharded``), in the
+        replicated one the whole aux trees; with quantized collectives its
+        EF row (the replicated merge quantizes only the numerator, so its
+        params stay fp32 and it keeps no master)."""
+        if self.scatter:
+            self.flat_pad = self.layout.flat_spec_of(
+                params, self.model.flat_layout())
+            whole = self.server_opt.init_sharded(
+                params, self.n_shards, self.flat_pad,
+                collective_precision=self.collective_precision)
+        else:
+            self.flat_pad = None
+            whole = self.server_opt.init(
+                params, collective_precision=self.collective_precision,
+                ef_shards=self.n_shards, quantized_broadcast=False,
+                flat=self.flat)
+        return self.layout.shard_state(whole, self.scatter)
+
+    def _init_client_table(self):
+        """This rank's block of the per-client state table (rows padded to
+        a multiple of the shard count) plus one scratch row; pad rows of
+        a cohort carry the sentinel id ``_table_rows``."""
+        self._table_rows = self.layout.pad_rows(self.dataset.num_clients)
+        from ...core import tree as tree_util
+        return tree_util.client_table_init(
+            self.state.global_params,
+            self._table_rows // self.n_shards + 1)
+
+    def full_state(self) -> ServerState:
+        """The whole server state, as one controller would hold it: the
+        shard-resident vectors and EF rows gathered (a collective)."""
+        return self.layout.gather_state(self.state, self.scatter)
+
+    def full_client_table(self):
+        """The whole per-client table, ``(num_clients, ...)`` rows
+        gathered from every rank (a collective), or ``None``."""
+        if self.client_table is None:
+            return None
+        n = self.dataset.num_clients
+        return {k: self.mesh.all_gather(t[:-1])[:n]
+                for k, t in self.client_table.items()}
+
+    # -- the round -----------------------------------------------------------
+    def _build_round_fn(self, client_mode: str):
+        mode = getattr(self.args, "device_data", True)
+        if isinstance(mode, str):
+            mode = mode.lower()
+        self._gather = mode not in (False, "host", "off")
+        self._sharded_data = mode == "sharded"
+        train_x = train_y = data_lo = None
+        if self._gather:
+            tx = torch.as_tensor(self.dataset.train_x)
+            ty = torch.as_tensor(self.dataset.train_y)
+            if self._sharded_data:
+                # this rank's block of the rows: resident memory per rank
+                # is |dataset| / n_shards (pad rows are never indexed)
+                rows = self.layout.local_rows(
+                    self.layout.pad_rows(tx.shape[0]))
+                data_lo = rows.start
+                tx, ty = tx[rows], ty[rows]
+            train_x = tx.to(self.device)
+            train_y = ty.to(self.device)
+            self._dev_data = (train_x, train_y)
+        return make_mesh_round_core(
+            self.trainer, self.server_opt, self.layout, self.update_sharding,
+            self.flat, self.flat_pad, self.collective_precision,
+            self.quant_block, train_x, train_y, data_lo)
+
+    def _n_cohort(self) -> int:
+        return min(self.clients_per_round, self.dataset.num_clients)
+
+    def _stage_cohort(self, round_idx: int):
+        """One round's whole cohort on the host, its rows padded to a
+        multiple of the shard count (zero weight, the sentinel id) and its
+        steps to a power of two.  A pure function of the round index, so
+        the stager may build it ahead on its worker thread."""
+        clients = self._client_sampling(round_idx)
+        n = len(clients)
+        pad_c = self.layout.pad_rows(n) - n
+        if self._gather:
+            idx, mask, w = self.dataset.cohort_indices(
+                clients, self.batch_size, self.seed, round_idx, self.epochs)
+            arrays = [idx]
+        else:
+            x, y, mask, w = self.dataset.cohort_batches(
+                clients, self.batch_size, self.seed, round_idx, self.epochs)
+            arrays = [x, y]
+        steps = next_pow2(mask.shape[1])
+        pad_s = steps - mask.shape[1]
+        arrays = [np.pad(a, [(0, pad_c), (0, pad_s)]
+                         + [(0, 0)] * (a.ndim - 2)) for a in arrays]
+        mask = np.pad(mask, [(0, pad_c), (0, pad_s)])
+        w = np.pad(w, (0, pad_c))
+        cohort = np.concatenate([np.asarray(clients, np.int64),
+                                 np.full(pad_c, self._sentinel(),
+                                         np.int64)])
+        return arrays, mask, w, cohort
+
+    def _sentinel(self) -> int:
+        return getattr(self, "_table_rows", self.dataset.num_clients)
+
+    def train_one_round(self, round_idx: int):
+        nxt = round_idx + 1 if round_idx + 1 < self.comm_rounds else None
+        arrays, mask, w, cohort = self._stager.get(round_idx, prefetch=nxt)
+        gen = rng_util.round_key(self._root, round_idx)
+        c_pad, steps = mask.shape
+        drop = local_dropout(self.model, gen, self._n_cohort(),
+                             (c_pad, steps, self.batch_size),
+                             self.layout.local_rows(c_pad))
+        arrays = self._to_device(*arrays)
+        data = arrays[0] if self._gather else tuple(arrays)
+        mask, w, cohort = self._to_device(mask, w, cohort)
+        self.state, metrics, self.client_table = self.round_fn(
+            self.state, data, mask, w, drop, cohort, self.client_table,
+            self._noise(round_idx, gen, shard=self.rank))
+        metrics = dict(metrics)
+        metrics["allocated_steps"] = c_pad * steps
+        return metrics
+
+    # -- fused round blocks --------------------------------------------------
+    def _build_block_fn(self):
+        if not self._gather:
+            raise ValueError(
+                "round_block fusion on the mesh engine needs device-resident "
+                "data (device_data=True or 'sharded'): staging a block must "
+                "ship index tensors, not cohorts")
+        return MeshBlockRoundFn(self.round_fn, self.model,
+                                self.client_table is not None,
+                                self._n_cohort(), self.layout)
+
+    def _stage_block(self, start_round: int):
+        """One block's stacked whole-cohort arrays (host numpy), rows
+        padded as :meth:`_stage_cohort` pads them, steps to the block's
+        largest pow2 class, each round's own class kept."""
+        k = min(self._round_block, self.comm_rounds - start_round)
+        per = [self._stage_cohort(r)
+               for r in range(start_round, start_round + k)]
+        round_steps = [p[1].shape[1] for p in per]
+        steps = max(round_steps)
+        c = per[0][1].shape[0]
+        idx_blk = np.zeros((k, c, steps, self.batch_size), np.int32)
+        mask_blk = np.zeros((k, c, steps), np.float32)
+        w_blk = np.zeros((k, c), np.float32)
+        cohort_blk = np.zeros((k, c), np.int64)
+        for i, (arrays, mask, w, cohort) in enumerate(per):
+            s = mask.shape[1]
+            idx_blk[i, :, :s] = arrays[0]
+            mask_blk[i, :, :s] = mask
+            w_blk[i] = w
+            cohort_blk[i] = cohort
+        return k, round_steps, idx_blk, mask_blk, w_blk, cohort_blk
+
+    def train(self):
+        try:
+            return super().train()
+        finally:
+            self._stager.close()
+            # the block's graphs hold the NCCL communicator: release them,
+            # so that the caller may destroy the process group
+            if self._block_fn is not None:
+                self._block_fn.release()

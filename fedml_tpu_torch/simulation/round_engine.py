@@ -1,5 +1,5 @@
 """The federated round as one function of the cohort tensors (port of
-``fedml_tpu.simulation.round_engine``, fp32 branch)::
+``fedml_tpu.simulation.round_engine``)::
 
     x:(C, S, B, ...)  y:(C, S, B)  mask:(C, S)  weights:(C,)
 
@@ -13,6 +13,16 @@ randomness (dropout keep-masks for every client, step and example) is drawn
 up front from the round's generator, outside any ``vmap``, so ``scan`` and
 ``vmap`` see the same masks.  Threefry bits are not reproduced (see
 ``core/rng.py``).
+
+With ``collective_precision`` bf16 or int8 the merge numerator is
+quantized against the error-feedback row ``state.ef_num``, the server
+update transitions the fp32 ``state.master_flat``, and
+``state.global_params`` becomes the quantized broadcast copy the next
+round's clients train from: the single-shard form of the mesh engine's
+collective layer.  The rounding noise of slot ``s`` (0: the merge, 1: the
+broadcast) comes from ``child_key(child_key(round generator,
+QUANT_KEY_TAG), s)``, or from a ``noise(slot, kind, shape)`` callable
+the caller passes.
 
 Three programs build on the round:
 
@@ -36,17 +46,99 @@ from typing import Callable, Optional
 import torch
 
 from ..core import federated
+from ..core import rng as rng_util
+from ..core.compression import blockscale
+from ..core.flatmodel import FlatSpec
 from ..ml.aggregator.agg_operator import ServerOptimizer, ServerState
 from ..ml.trainer.local_trainer import LocalTrainer
 
-#: ServerState fields that hold tensors (``round_idx`` is a host counter)
-STATE_FIELDS = ("global_params", "opt_state", "c_server", "h", "momentum")
+#: ServerState fields that hold tensors (``round_idx`` is a host counter);
+#: each is a ``{name: tensor}`` dict or, in the mesh's scatter layout and
+#: for the quantized fields, one tensor
+STATE_FIELDS = ("global_params", "opt_state", "c_server", "h", "momentum",
+                "ef_num", "master_flat", "ef_bcast")
+
+#: word the round's generator folds in for the collective layer's noise
+#: (the JAX package's tag for its threefry key)
+QUANT_KEY_TAG = 0x5C41E
 
 
 def state_fields(state: ServerState) -> dict:
-    """The state's set tensor fields, ``{field: {name: tensor}}``."""
+    """The state's set tensor fields, ``{field: {name: tensor} | tensor}``."""
     return {f: getattr(state, f) for f in STATE_FIELDS
             if getattr(state, f) is not None}
+
+
+def noise_source(generator: torch.Generator, shard=None):
+    """``noise(slot, kind, shape)`` of a round's collective layer: a child
+    generator per slot of the round's quantization generator (per shard
+    first on the mesh), as the JAX package folds its keys."""
+    def noise(slot, kind, shape):
+        base = rng_util.child_key(generator, QUANT_KEY_TAG)
+        if shard is not None:
+            base = rng_util.child_key(base, int(shard))
+        return rng_util.child_key(base, int(slot))
+
+    return noise
+
+
+def payload_noise(noise, slot: int, precision: str, n: int, block: int,
+                  broadcast: bool = False):
+    """The noise argument of one quantized payload of ``n`` elements
+    (``None`` where it rounds to nearest: fp32, and bf16's broadcast)."""
+    if precision == "fp32" or noise is None or \
+            (broadcast and precision == "bf16"):
+        return None
+    if precision == "bf16":
+        return noise(slot, "bits", (n,))
+    return noise(slot, "uniform", (-(-n // block), block))
+
+
+def ef_numerator(state: ServerState, flat: FlatSpec, outs, weights, den,
+                 noise, precision: str, block: int):
+    """The EF-quantized merge numerator of one shard: its clients'
+    weighted sum of params over ``den`` (the cohort's total weight) plus
+    its error-feedback row ``state.ef_num[0]``, flattened by ``flat`` and
+    quantized with slot 0's noise.  Returns ``(deq, new_ef_num)``: the
+    dequantized payload and the residual row the next round adds back."""
+    v = state.ef_num[0] + flat.flatten(
+        federated.weighted_sums(outs.params, weights)) / den
+    deq, _ = blockscale.collective_quantize(
+        v, precision, payload_noise(noise, 0, precision, v.shape[0], block),
+        block)
+    return deq, (v - deq)[None]
+
+
+def make_quantized_update(server_opt: ServerOptimizer, reducer,
+                          precision: str, quant_block: int, flat: FlatSpec):
+    """``update(state, outs, weights, noise, hp) -> new_state`` of the sp
+    engine's quantized collective layer (one shard): stage 1 with the
+    EF-quantized numerator (the auxiliary aggregates stay fp32), stage 2
+    on the fp32 master, then the quantized broadcast copy."""
+    spec = server_opt.spec
+
+    def update(state: ServerState, outs, weights, noise, hp=None):
+        agg = federated.build_aggregates(spec, reducer, server_opt, state,
+                                         outs, weights, hp,
+                                         include_avg=False)
+        deq, new_ef = ef_numerator(state, flat, outs, weights,
+                                   torch.sum(weights), noise, precision,
+                                   quant_block)
+        agg["avg_params"] = flat.unflatten(deq)
+        master = flat.unflatten(state.master_flat)
+        new_state = server_opt.update_from_aggregates(
+            state.replace(global_params=master), agg, hp)
+        new_master = flat.flatten(new_state.global_params)
+        send, new_ef_bcast, _ = blockscale.quantize_broadcast(
+            new_master, state.ef_bcast, precision,
+            payload_noise(noise, 1, precision, new_master.shape[0],
+                          quant_block, broadcast=True), quant_block)
+        return new_state.replace(global_params=flat.unflatten(send),
+                                 master_flat=new_master,
+                                 ef_num=new_ef,
+                                 ef_bcast=new_ef_bcast)
+
+    return update
 
 
 def draw_dropout(model, generator: torch.Generator, lead):
@@ -74,18 +166,37 @@ def draw_member_dropout(model, generator: torch.Generator, lead,
 
 
 def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
-                    mode: str = "scan") -> Callable:
-    """``core(state, x, y, mask, weights, drop, c_clients=None, hp=None) ->
-    (new_state, metrics, new_client_state)`` with the dropout masks
-    ``drop`` given: the round with no randomness of its own."""
+                    mode: str = "scan", collective_precision: str = "fp32",
+                    quant_block: int = blockscale.DEFAULT_BLOCK,
+                    flat: FlatSpec = None) -> Callable:
+    """``core(state, x, y, mask, weights, drop, c_clients=None, hp=None,
+    noise=None) -> (new_state, metrics, new_client_state)`` with the
+    dropout masks ``drop`` and the quantization noise ``noise`` given: the
+    round with no randomness of its own.  A quantized
+    ``collective_precision`` needs ``flat``, the params' unpadded flat
+    view."""
     program = federated.RoundProgram(server_opt.spec,
                                      trainer.make_local_train(), server_opt,
                                      mode)
+    quantized = collective_precision != "fp32"
+    if quantized and not server_opt.spec.avg_params:
+        raise ValueError(
+            f"collective_precision={collective_precision!r} quantizes the "
+            f"avg_params merge numerator, which the "
+            f"{server_opt.algorithm!r} spec does not use")
+    qupdate = (make_quantized_update(server_opt, program.reducer,
+                                     collective_precision, quant_block, flat)
+               if quantized else None)
 
     def core(state: ServerState, x, y, mask, weights, drop, c_clients=None,
-             hp=None):
-        new_state, outs, _ = program(state, x, y, mask, weights, drop,
-                                     c_clients, hp)
+             hp=None, noise=None):
+        if quantized:
+            outs = program.run_clients(state, x, y, mask, drop, c_clients,
+                                       hp)
+            new_state = qupdate(state, outs, weights, noise, hp)
+        else:
+            new_state, outs, _ = program(state, x, y, mask, weights, drop,
+                                         c_clients, hp)
         metrics = {
             "train_loss": torch.sum(outs.loss * weights) / torch.sum(weights),
             "total_steps": torch.sum(outs.num_steps),
@@ -96,54 +207,60 @@ def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
 
 
 def make_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
-                  mode: str = "scan") -> Callable:
+                  mode: str = "scan", **quant) -> Callable:
     """``round_fn(state, x, y, mask, weights, generator, c_clients=None,
-    hp=None) -> (new_state, metrics, new_client_state)``.  ``c_clients``
-    holds the cohort's per-client state rows (SCAFFOLD/FedDyn; ``None``
-    otherwise) and ``new_client_state`` their updated rows; the stacked
+    hp=None, noise=None) -> (new_state, metrics, new_client_state)``.
+    ``c_clients`` holds the cohort's per-client state rows
+    (SCAFFOLD/FedDyn; ``None`` otherwise) and ``new_client_state`` their updated rows; the stacked
     client params are not returned.  ``metrics`` holds device scalars
     (``train_loss``: the weight-averaged client loss, ``total_steps``: the
-    real steps taken), read by the caller only when it logs."""
-    core = make_round_core(trainer, server_opt, mode)
+    real steps taken), read by the caller only when it logs.  ``quant``:
+    :func:`make_round_core`'s quantization arguments; ``noise`` defaults
+    to :func:`noise_source` of ``generator``."""
+    core = make_round_core(trainer, server_opt, mode, **quant)
     model = trainer.model
 
     def round_fn(state: ServerState, x, y, mask, weights,
-                 generator: torch.Generator, c_clients=None, hp=None):
+                 generator: torch.Generator, c_clients=None, hp=None,
+                 noise=None):
         drop = draw_dropout(model, generator, x.shape[:3])
-        return core(state, x, y, mask, weights, drop, c_clients, hp)
+        return core(state, x, y, mask, weights, drop, c_clients, hp,
+                    noise or noise_source(generator))
 
     return round_fn
 
 
 def make_gather_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
                      train_x: torch.Tensor, train_y: torch.Tensor,
-                     mode: str = "vmap") -> Callable:
+                     mode: str = "vmap", **quant) -> Callable:
     """:func:`make_round_core` over the device-resident dataset: ``core(
-    state, idx, mask, weights, drop, c_clients=None, hp=None)`` with the
-    ``(C, S, B)`` index tensor in place of the data."""
-    inner = make_round_core(trainer, server_opt, mode)
+    state, idx, mask, weights, drop, c_clients=None, hp=None, noise=None)``
+    with the ``(C, S, B)`` index tensor in place of the data."""
+    inner = make_round_core(trainer, server_opt, mode, **quant)
 
     def core(state: ServerState, idx, mask, weights, drop, c_clients=None,
-             hp=None):
+             hp=None, noise=None):
         idx = idx.to(torch.long)
         return inner(state, train_x[idx], train_y[idx], mask, weights, drop,
-                     c_clients, hp)
+                     c_clients, hp, noise)
 
     return core
 
 
 def make_gather_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
                          train_x: torch.Tensor, train_y: torch.Tensor,
-                         mode: str = "vmap") -> Callable:
+                         mode: str = "vmap", **quant) -> Callable:
     """Device-gather variant: the dataset lives on the device once and the
     round takes only the ``(C, S, B)`` index tensor from the host."""
-    core = make_gather_core(trainer, server_opt, train_x, train_y, mode)
+    core = make_gather_core(trainer, server_opt, train_x, train_y, mode,
+                            **quant)
     model = trainer.model
 
     def round_fn(state: ServerState, idx, mask, weights, generator,
-                 c_clients=None, hp=None):
+                 c_clients=None, hp=None, noise=None):
         drop = draw_dropout(model, generator, idx.shape[:3])
-        return core(state, idx, mask, weights, drop, c_clients, hp)
+        return core(state, idx, mask, weights, drop, c_clients, hp,
+                    noise or noise_source(generator))
 
     return round_fn
 
@@ -185,15 +302,16 @@ def make_population_round_fn(trainer: LocalTrainer,
                              server_opt: ServerOptimizer,
                              train_x: torch.Tensor, train_y: torch.Tensor,
                              population, mode: str = "vmap") -> Callable:
-    """``pop_fn(states, idx, mask, w, generator, c_stacked, hps)``: the
-    gather round mapped over the member axis of ``states`` /
-    ``c_stacked`` / ``hps``; the cohort inputs are shared."""
+    """``pop_fn(states, idx, mask, w, generator, c_stacked, hps,
+    noise=None)``: the gather round mapped over the member axis of
+    ``states`` / ``c_stacked`` / ``hps``; the cohort inputs are shared
+    (``noise`` is unused: a population runs fp32 collectives)."""
     core = make_population_core(
         make_gather_core(trainer, server_opt, train_x, train_y, mode),
         server_opt.spec.client_state)
     model = trainer.model
 
-    def pop_fn(states, idx, mask, w, generator, c_stacked, hps):
+    def pop_fn(states, idx, mask, w, generator, c_stacked, hps, noise=None):
         drop = draw_member_dropout(model, generator, idx.shape[:3],
                                    population)
         return core(states, idx, mask, w, drop, c_stacked, hps)
@@ -241,6 +359,15 @@ class BlockRoundFn:
         self._static = None
         #: graphs captured so far (one per step class and cohort size)
         self.captures = 0
+
+    def release(self) -> None:
+        """Drop the captured graphs, their pool and static buffers (the
+        next call captures anew).  On the mesh a graph holds the NCCL
+        communicator it captured collectives of, which cannot be
+        destroyed while the graph lives."""
+        self._slots = {}
+        self._pool = None
+        self._static = None
 
     # -- shared pieces -------------------------------------------------------
     def _draw(self, gen, lead):
@@ -291,20 +418,14 @@ class BlockRoundFn:
         fields = state_fields(state)
         if self._static is None:
             self._static = types.SimpleNamespace(
-                fields={f: {k: v.clone() for k, v in d.items()}
-                        for f, d in fields.items()},
-                table=None if table is None else
-                {k: v.clone() for k, v in table.items()})
+                fields={f: _clone(d) for f, d in fields.items()},
+                table=None if table is None else _clone(table))
             return self._static
         st = self._static
         for f, d in fields.items():
-            for k, v in d.items():
-                if st.fields[f][k] is not v:
-                    st.fields[f][k].copy_(v)
+            _copy_into(st.fields[f], d)
         if table is not None:
-            for k, v in table.items():
-                if st.table[k] is not v:
-                    st.table[k].copy_(v)
+            _copy_into(st.table, table)
         return st
 
     def _capture(self, slots, round_idx, hp):
@@ -320,9 +441,7 @@ class BlockRoundFn:
                                m["total_steps"].to(torch.float32)])
             if copy_back:
                 for f, d in state_fields(new).items():
-                    for k, v in d.items():
-                        if st.fields[f][k] is not v:
-                            st.fields[f][k].copy_(v)
+                    _copy_into(st.fields[f], d)
                 slots.out.copy_(out)
             return out
 
@@ -385,6 +504,26 @@ class BlockRoundFn:
         metrics = {"train_loss": out[:, 0].movedim(0, -1),
                    "total_steps": out[:, 1].movedim(0, -1)}
         return new_state, metrics, st.table
+
+
+def _clone(d):
+    """A copy of a state field or table: a ``{name: tensor}`` dict or one
+    tensor."""
+    if isinstance(d, torch.Tensor):
+        return d.clone()
+    return {k: v.clone() for k, v in d.items()}
+
+
+def _copy_into(dst, src) -> None:
+    """Copy ``src`` into the static buffers ``dst`` (same structure),
+    skipping a buffer that already is the source."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+        return
+    for k, v in src.items():
+        if dst[k] is not v:
+            dst[k].copy_(v)
 
 
 def make_block_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,

@@ -1,9 +1,11 @@
 """Simulator facades (port of ``fedml_tpu.simulation.simulator``): the
 ``sp`` backend, dispatching by ``federated_optimizer`` to the hierarchical,
 async and decentralized engines, FedNAS, FedSeg, FedGKT and FedGAN, and to
-``FedAvgAPI`` for the synchronous algorithms of the zoo.  The mesh backend
-(and its reference aliases "MPI"/"NCCL"), the buffered-async engine and
-two-tier silo aggregation are not ported yet and raise by name."""
+``FedAvgAPI`` for the synchronous algorithms of the zoo; and the ``mesh``
+backend (the reference's "MPI" and "NCCL" name it too), dispatching to
+the ring-gossip mesh engine for decentralized SGD and to
+``MeshFedAvgAPI`` otherwise.  The buffered-async engine and two-tier silo
+aggregation are not ported yet and raise by name."""
 
 from __future__ import annotations
 
@@ -62,6 +64,28 @@ class SimulatorSingleProcess:
         return self.fl_trainer.train()
 
 
+class SimulatorMesh:
+    def __init__(self, args, device, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        if client_trainer is not None or server_aggregator is not None:
+            raise NotImplementedError(
+                "custom client trainers and server aggregators are not "
+                "ported yet")
+        from .mesh.decentralized_mesh import MeshDecentralizedAPI
+        from .mesh.engine import MeshFedAvgAPI
+        alg = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+        if alg in MeshDecentralizedAPI.NAMES:
+            # ring gossip as per-edge send/recv (push_sum's asymmetric W
+            # has no ring form: the engine refuses it)
+            self.fl_trainer = MeshDecentralizedAPI(args, device, dataset,
+                                                   model)
+        else:
+            self.fl_trainer = MeshFedAvgAPI(args, device, dataset, model)
+
+    def run(self):
+        return self.fl_trainer.train()
+
+
 def create_simulator(args, device, dataset, model, client_trainer=None,
                      server_aggregator=None):
     backend = str(getattr(args, "backend", "sp"))
@@ -69,7 +93,6 @@ def create_simulator(args, device, dataset, model, client_trainer=None,
         return SimulatorSingleProcess(args, device, dataset, model,
                                       client_trainer, server_aggregator)
     if backend in ("mesh", "MPI", "NCCL"):
-        raise NotImplementedError(
-            f"simulation backend {backend!r} (the mesh engine) is not ported "
-            "yet")
+        return SimulatorMesh(args, device, dataset, model, client_trainer,
+                             server_aggregator)
     raise ValueError(f"unknown simulation backend {backend!r}")

@@ -11,7 +11,7 @@ rows back, and keep the round's metrics on the device until a log round
 reads them.  Evaluation runs every ``frequency_of_the_test`` rounds and at
 the last.
 
-Three options of the JAX engine's round program are ported:
+Four options of the JAX engine's round program are ported:
 
 - ``round_block`` K > 1: K rounds a block (:meth:`FedAvgAPI.train_block`),
   staged on a worker thread, copied to the card once, replayed as CUDA
@@ -19,10 +19,17 @@ Three options of the JAX engine's round program are ported:
 - ``cohort_bucketing``: clients grouped by pow2 step class, one partial
   round a bucket, the aggregates merged exactly;
 - ``population`` / ``population_axes``: P experiments over
-  :class:`~fedml_tpu_torch.core.federated.HParams` in one round program.
+  :class:`~fedml_tpu_torch.core.federated.HParams` in one round program;
+- ``collective_precision`` bf16 / int8: the merge numerator quantized with
+  error feedback, the server update on an fp32 master, the clients
+  trained from the quantized broadcast copy (``round_engine``).  Its
+  rounding noise can be given per round: ``quant_noise(round_idx, shard,
+  slot, kind, shape)`` (``shard`` is None here) returns the noise tensor.
+  Not with bucketing (refused, as in the JAX package), a population or
+  ``round_block`` (not ported; refused by name).
 
-The tracing, health, client-store, data-paging, quantized-collective,
-checkpoint and registered-population options are not ported: each raises
+The tracing, health, client-store, data-paging, checkpoint and
+registered-population options are not ported: each raises
 ``NotImplementedError`` naming itself when set.
 """
 
@@ -37,6 +44,9 @@ import torch
 from ...core import federated
 from ...core import rng as rng_util
 from ...core import tree as tree_util
+from ...core.compression.blockscale import DEFAULT_BLOCK
+from ...core.flatmodel import FlatSpec
+from ...core.state import resolve_collective_precision
 from ...data.federated_dataset import FederatedDataset
 from ...device import get_device
 from ...ml.aggregator.agg_operator import ServerOptimizer
@@ -45,7 +55,7 @@ from ...models.base import TorchModel
 from ..round_engine import (BUCKETABLE_ALGS, draw_dropout,
                             make_block_round_fn, make_bucket_agg_fn,
                             make_gather_round_fn, make_population_round_fn,
-                            make_round_fn, next_pow2)
+                            make_round_fn, next_pow2, noise_source)
 from ..staging import AsyncCohortStager
 
 log = logging.getLogger(__name__)
@@ -60,8 +70,6 @@ def _unported_options(args):
         ("metrics_port", g("metrics_port") is not None),
         ("client_store", bool(g("client_store", False))),
         ("data_paging", bool(g("data_paging", False))),
-        ("collective_precision != 'fp32'",
-         str(g("collective_precision", "fp32") or "fp32").lower() != "fp32"),
         ("checkpoint_dir", bool(g("checkpoint_dir"))),
         ("registered_clients", bool(int(g("registered_clients", 0) or 0))),
     )
@@ -115,6 +123,11 @@ class FedAvgAPI:
     (``None`` for the other algorithms).  With a population every tensor of
     ``state`` and ``client_table`` gains a leading ``(P,)`` member axis."""
 
+    #: whether this class's rounds run the quantized collective layer
+    #: (``collective_precision`` bf16/int8); an engine with a round loop
+    #: of its own that does not refuses it
+    QUANTIZED_ROUNDS = True
+
     def __init__(self, args, device, dataset: FederatedDataset,
                  model: TorchModel, client_mode: str = "vmap",
                  algorithm=None):
@@ -158,7 +171,32 @@ class FedAvgAPI:
                 raise ValueError(f"{type(self).__name__} does not implement "
                                  "cohort_bucketing")
         self._bucket_fn = None
+        # the collective layer, resolved against the engine's shard count
+        # (the mesh engine sets n_shards first, so "auto" sees the mesh)
+        self.collective_precision = resolve_collective_precision(
+            args, getattr(self, "n_shards", 1))
+        self.quant_block = int(getattr(args, "quant_block", 0)
+                               or DEFAULT_BLOCK)
+        #: per-round rounding noise of the collective layer; None draws it
+        #: from the round's generator (``round_engine.noise_source``)
+        self.quant_noise = None
         self._round_block = int(getattr(args, "round_block", 1) or 1)
+        if self.collective_precision != "fp32":
+            if self._bucketing:
+                # bucket partials merge on the host: there is no single
+                # merge to quantize against one EF buffer
+                raise ValueError(
+                    "collective_precision requires the unbucketed cohort "
+                    "path")
+            for name, on in (
+                    ("a population", self.population),
+                    ("round_block > 1", self._round_block > 1),
+                    (type(self).__name__, not self.QUANTIZED_ROUNDS)):
+                if on:
+                    raise NotImplementedError(
+                        f"collective_precision="
+                        f"{self.collective_precision!r} with {name} is not "
+                        "ported (unset one to run)")
         if self._round_block > 1:
             if self._bucketing:
                 raise ValueError(
@@ -177,8 +215,10 @@ class FedAvgAPI:
         # model on every device; the rounds draw on the device
         params = model.init(rng_util.purpose_key(rng_util.root_key(self.seed),
                                                  "init"))
-        self.state = self.server_opt.init(
-            {k: v.to(self.device) for k, v in params.items()})
+        params = {k: v.to(self.device) for k, v in params.items()}
+        #: the params' unpadded flat view, in the JAX package's layout
+        self.flat = FlatSpec.of(params, 1, model.flat_layout())
+        self.state = self._init_server_state(params)
         self._hp = None
         if self.population:
             # every member starts from the same init; the states diverge
@@ -191,15 +231,58 @@ class FedAvgAPI:
         self.round_fn = self._build_round_fn(client_mode)
         self.client_table = None
         if self.server_opt.spec.client_state:
-            gp = self.state.global_params
-            if self.population:
-                gp = federated.population_member(gp, 0)
-            self.client_table = tree_util.client_table_init(
-                gp, self.dataset.num_clients)
-            if self.population:
-                self.client_table = federated.stack_member_states(
-                    self.client_table, self.population.size)
+            self.client_table = self._init_client_table()
         self.metrics_history = []
+
+    def _init_server_state(self, params):
+        """The initial server state; with quantized collectives it also
+        holds the EF row, the fp32 flat master and at int8 the broadcast
+        residual.  The mesh engine overrides the layout."""
+        return self.server_opt.init(
+            params, collective_precision=self.collective_precision,
+            flat=self.flat)
+
+    def _init_client_table(self):
+        """The per-client state table: one zero row per dataset client
+        (member-stacked with a population)."""
+        gp = self.state.global_params
+        if self.population:
+            gp = federated.population_member(gp, 0)
+        table = tree_util.client_table_init(gp, self.dataset.num_clients)
+        if self.population:
+            table = federated.stack_member_states(table,
+                                                  self.population.size)
+        return table
+
+    def reset_params(self, params):
+        """Restart from ``params`` (a ``{name: tensor}`` dict): the server
+        state is made anew from them, as at construction.  Parity runs
+        start both packages from the same weights this way."""
+        params = {k: v.to(self.device) for k, v in params.items()}
+        state = self._init_server_state(params)
+        if self.population:
+            state = federated.stack_member_states(state,
+                                                  self.population.size)
+        self.state = state
+
+    def _quant(self) -> dict:
+        """The round builders' quantization arguments."""
+        return dict(collective_precision=self.collective_precision,
+                    quant_block=self.quant_block, flat=self.flat)
+
+    def _noise(self, round_idx: int, gen, shard=None):
+        """The round's ``noise(slot, kind, shape)``: the ``quant_noise``
+        hook's tensors when set, else :func:`noise_source` of ``gen``."""
+        if self.quant_noise is None:
+            return noise_source(gen, shard)
+        hook = self.quant_noise
+
+        def noise(slot, kind, shape):
+            x = hook(round_idx, shard, slot, kind, shape)
+            return x.to(self.device) if isinstance(x, torch.Tensor) \
+                else torch.tensor(np.asarray(x), device=self.device)
+
+        return noise
 
     def _build_round_fn(self, client_mode: str):
         if bool(getattr(self.args, "device_data", True)):
@@ -217,12 +300,13 @@ class FedAvgAPI:
                     self.population, mode=client_mode)
             return make_gather_round_fn(self.trainer, self.server_opt,
                                         self._dev_x, self._dev_y,
-                                        mode=client_mode)
+                                        mode=client_mode, **self._quant())
         if self.population:
             raise ValueError(
                 "population vmap needs the device-gather cohort path "
                 "(device_data=True): members share one staged cohort")
-        return make_round_fn(self.trainer, self.server_opt, mode=client_mode)
+        return make_round_fn(self.trainer, self.server_opt, mode=client_mode,
+                             **self._quant())
 
     # -- round pieces --------------------------------------------------------
     def _client_sampling(self, round_idx: int) -> np.ndarray:
@@ -267,12 +351,13 @@ class FedAvgAPI:
         if self._bucketing:
             return self._train_one_round_bucketed(round_idx)
         gen = rng_util.round_key(self._root, round_idx)
+        noise = self._noise(round_idx, gen)
         if hasattr(self, "_dev_x"):
             clients, idx, mask, w, steps = self._stage_round_arrays(round_idx)
             idx, mask, w = self._to_device(idx, mask, w)
             c_stacked = self._gather_c(clients)
             self.state, metrics, new_c = self.round_fn(
-                self.state, idx, mask, w, gen, c_stacked, self._hp)
+                self.state, idx, mask, w, gen, c_stacked, self._hp, noise)
         else:
             clients = self._client_sampling(round_idx)
             x, y, mask, w = self.dataset.cohort_batches(
@@ -286,7 +371,7 @@ class FedAvgAPI:
             x, y, mask, w = self._to_device(x, y, mask, w)
             c_stacked = self._gather_c(clients)
             self.state, metrics, new_c = self.round_fn(
-                self.state, x, y, mask, w, gen, c_stacked)
+                self.state, x, y, mask, w, gen, c_stacked, None, noise)
         self._scatter_c(clients, new_c)
         metrics = dict(metrics)
         metrics["allocated_steps"] = len(clients) * steps

@@ -20,6 +20,9 @@ from .fedavg_api import FedAvgAPI, fedavg_inside
 
 
 class HierarchicalFedAvgAPI(FedAvgAPI):
+    #: its rounds run FedAvg inside an engine of its own: the quantized
+    #: collective layer is not ported to it
+    QUANTIZED_ROUNDS = False
     #: ``federated_optimizer`` names that select this engine
     NAMES = ("hierarchicalfl", "hierarchical_fl")
 

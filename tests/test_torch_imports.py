@@ -170,3 +170,37 @@ def test_causal_lm_modules_import_without_jax_or_transformers():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules} <= walked
+
+
+def test_mesh_modules_import_with_jax_unimportable():
+    """The mesh engine, its layout, collectives, launcher, the
+    hierarchical and ring-gossip engines, the flat model view and the
+    quantizer import in a process where ``jax`` and ``fedml_tpu`` cannot
+    be imported at all, and the quantizer runs there."""
+    import subprocess
+    import sys
+
+    modules = ("core.mesh", "core.flatmodel", "core.compression.blockscale",
+               "simulation.mesh.layout", "simulation.mesh.collectives",
+               "simulation.mesh.engine", "simulation.mesh.launch",
+               "simulation.mesh.mesh_simulator",
+               "simulation.mesh.hierarchical_mesh",
+               "simulation.mesh.decentralized_mesh", "simulation.simulator")
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.core.compression import blockscale\n"
+        "blockscale.collective_quantize(torch.ones(300), 'int8',\n"
+        "                               torch.Generator())\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules} <= walked
