@@ -178,6 +178,34 @@ Phases, each printing its own lines:
    NCCL calls and the row-sharded table inside the CUDA graph) ≡ unfused
    with a graph captured.  At the end the process group is torn down
    (``core.mesh.shutdown_world``), which must return within 60 s.
+14. serving — Llama-2-7B widths (dim 4096, 32 heads and KV heads, ffn
+   11008, vocab 32,000, bf16, ``max_seq_len`` 4096, LoRA rank 8 on the
+   projections, blockwise attention for the full-buffer forwards), depth
+   ``--layers``, random weights from seed 0, byte-tokenized prompts: (a)
+   ``generate`` with the KV cache against the plain full-buffer step over
+   32 new tokens, ms a token of each; (b) the dense engine (8 slots,
+   ``buf_len`` 1024, 16 requests of 32–900 tokens, 64 new each): each
+   request against ``generate``, horizon 4 against 1, tokens/s, time to
+   first token, a decode step's ms, host launch calls and device busy time
+   beside its bound, peak GiB beside ``estimate_serving_memory``; (c) int8
+   KV: one layer's attention output against native (≤ 5e-2 relative), the
+   tokens beside native's; (d) the paged engine (16-token pages, 64-token
+   chunks) against the dense engine, prefix pages shared, every page free
+   after the drain, and a pool too small for the longest requests (they
+   park, then complete); (e) 8 saturated rank-8 adapters mixed with base
+   traffic in one batch, each request against ``generate`` with its
+   adapter; (f) the server over loopback HTTP against the engine
+   (completions, chat, an SSE stream joining to the chat reply, an adapter
+   by ``model=``, 404 for an unknown one); the P·V product's bits against
+   a bf16 matmul with cuBLAS's reduced-precision reduction on and off; (g)
+   card ≡ CPU on TINY in f32: the dense, int8 and paged decode logits to
+   1e-5.  Every token of every greedy stream of (a)–(e), before and after
+   any parting, is held teacher-forced to an f32 witness (the weights
+   upcast, the plain forward): within ``SERVE_TIE_FACTOR`` times the bf16
+   plain forward's logit distance from the witness of the witness's top
+   logit; the paths' logit differences on identical inputs are held to the
+   same limit, and another request's stream must fail it.  Each parting
+   is printed and recorded.  K1–K3 launch 0 times (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -187,8 +215,9 @@ forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
 under ``"models"``, phase 11's under ``"engines"``, phase 12's under
-``"llm"`` and phase 13's under ``"mesh"`` beside them; each kernel row adds
-phase 12's and phase 13's launches a path under ``launches_by_path``)
+``"llm"``, phase 13's under ``"mesh"`` and phase 14's under ``"serving"``
+beside them; each kernel row adds phase 12's, 13's and 14's launches a
+path under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -2969,6 +2998,718 @@ def mesh_phase(torch, fedml_tpu_torch, att, smi):
     return out
 
 
+# -- 14. serving ----------------------------------------------------------
+SERVE_SLOTS = 8
+SERVE_BUF = 1024
+SERVE_REQUESTS = 16
+SERVE_NEW = 64
+SERVE_PROMPTS = (32, 900)        # byte-tokenized prompt lengths, spread
+SERVE_PAGE = 16
+SERVE_CHUNK = 64
+SERVE_ADAPTERS = 8
+SERVE_LORA_RANK = 8
+SERVE_ADAPTER_NEW = 16
+SERVE_GEN_BUF = 256              # (a): the plain step re-runs this buffer
+SERVE_GEN_NEW = 32
+SERVE_INT8_NEW = 16
+SERVE_TINY_TOL = 1e-5
+#: an int8 code that parts from the CPU's at a rounding tie moves one K or V
+#: entry by one step: the logits of that row are then held to this
+SERVE_INT8_TIE_TOL = 1e-3
+#: int8 KV against native: relative error of one layer's attention output
+SERVE_INT8_ATTN_TOL = 5e-2
+#: every greedy token of every stream below is held to the f32 witness (the
+#: same weights upcast to f32, exactly, through the plain forward with TF32
+#: off), teacher-forced on that stream: the witness's logit of the token
+#: must lie within the limit of its top logit.  The limit is this factor
+#: times the largest logit distance of the bf16 plain forward (a path this
+#: phase does not test) from the witness: a bf16 path within that distance
+#: of the witness gives its greedy token a witness gap of at most twice it.
+#: Two paths' logit difference on identical inputs is held to the same
+#: limit, and a stream scored against another request's prompt must fail it
+SERVE_TIE_FACTOR = 2.0
+#: the share of the control's tokens that must fail the limit
+SERVE_CONTROL_MIN = 0.5
+
+
+def serve_prompts(np, tok, n, lo, hi, seed):
+    """``n`` byte-tokenized prompts of ``lo..hi`` tokens (BOS included),
+    printable ASCII from a seeded generator, lengths spread evenly and
+    shuffled."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.linspace(lo, hi, n).astype(int))
+    return [tok.encode("".join(chr(c) for c in rng.integers(32, 127, m - 1)))
+            for m in lengths]
+
+
+def logits_gap(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def decode_logits(torch, model, ids, dev, lora=None, **cache_kw):
+    """Teacher-forced logits of one row over ``ids`` by the decode path."""
+    cache = model.init_cache(1, dev, **cache_kw)
+    with torch.no_grad():
+        return model(torch.tensor([ids], device=dev), lora, decode=True,
+                     start_pos=0, cache=cache)[0]
+
+
+class Witness:
+    """The f32 witness of a bf16 model: its weights upcast to f32 (exact)
+    in a model of the same widths, run by the plain forward (no cache,
+    blockwise attention) with TF32 off."""
+
+    def __init__(self, torch, lm, model, dev):
+        import dataclasses
+        self.torch, self.dev = torch, dev
+        cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+        with torch.device("meta"):
+            self.model = lm.LlamaLM(cfg)
+        self.model.load_state_dict(
+            {k: v.float() for k, v in model.state_dict().items()},
+            assign=True)
+        self.gaps = {}
+
+    def logits(self, ids, lora=None):
+        torch = self.torch
+        lora = {k: v.float() for k, v in lora.items()} if lora else None
+        with torch.no_grad():
+            return self.model(torch.tensor([ids], device=self.dev), lora)[0]
+
+    def stream_gaps(self, prompt, toks, lora=None, key=None):
+        """Teacher-forced on ``toks``: the witness's top logit less its logit
+        of each token, at the position that chose it."""
+        memo = (tuple(prompt), tuple(toks), key)
+        if memo not in self.gaps:
+            torch = self.torch
+            logits = self.logits(prompt + toks[:-1], lora)[len(prompt) - 1:]
+            chosen = logits.gather(
+                -1, torch.tensor(toks, device=self.dev)[:, None])[:, 0]
+            self.gaps[memo] = (logits.max(-1).values - chosen).tolist()
+        return self.gaps[memo]
+
+
+def check_streams(wit, limit, out, tag, prompts, want, got, loras=None):
+    """Every token of both streams of each request within ``limit`` of the
+    witness's top logit, teacher-forced on its own stream (so tokens after
+    a parting are checked too); records each parting with both tokens'
+    witness gaps, and fails on a token off the limit.  ``loras``: one
+    (name, adapter) a request, or None."""
+    parted, worst, n = 0, 0.0, 0
+    for r, (p, w, g) in enumerate(zip(prompts, want, got)):
+        key = loras[r][0] if loras else None
+        lora = loras[r][1] if loras else None
+        gw = wit.stream_gaps(p, w, lora, key)
+        gg = wit.stream_gaps(p, g, lora, key)
+        for name, gaps, toks in (("reference", gw, w), ("tested", gg, g)):
+            j = max(range(len(gaps)), key=gaps.__getitem__)
+            if gaps[j] > limit:
+                fail(f"serving {tag}: request {r}'s {name} stream's token "
+                     f"{j} ({toks[j]}) is {gaps[j]:.3e} under the witness's "
+                     f"top logit, limit {limit:.3e}")
+        worst = max(worst, *gw, *gg)
+        n += len(g)
+        if w == g:
+            continue
+        i = next((j for j in range(min(len(w), len(g))) if w[j] != g[j]),
+                 None)
+        if i is None:
+            fail(f"serving {tag}: request {r} lengths {len(g)} vs {len(w)}")
+        parted += 1
+        out["ties"].append({"path": tag, "request": r, "step": i,
+                            "want": w[i], "got": g[i], "gap_want": gw[i],
+                            "gap_got": gg[i], "limit": limit})
+        say("serving", f"{tag}: request {r} parts at token {i} ({g[i]} for "
+                       f"{w[i]}): witness gaps {gw[i]:.3e} and {gg[i]:.3e}, "
+                       f"limit {limit:.3e}")
+    say("serving", f"{tag}: {len(want) - parted}/{len(want)} requests equal "
+                   f"token for token, {parted} parted at near ties; all "
+                   f"{n} tested tokens (and the reference's) within "
+                   f"{worst:.3e} of the witness's top logit, limit "
+                   f"{limit:.3e}")
+    return parted
+
+
+def run_engine(torch, eng, prompts, new, adapters=None):
+    """All requests submitted at once, each drained on its own thread:
+    (tokens, wall seconds to the last token, seconds to each first
+    token)."""
+    adapters = adapters or [None] * len(prompts)
+    outs = [[] for _ in prompts]
+    first = [None] * len(prompts)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    qs = [eng.submit(p, max_new_tokens=new, adapter=a)
+          for p, a in zip(prompts, adapters)]
+
+    def drain(i, q):
+        while True:
+            t = q.get(timeout=600)
+            if t is None:
+                return
+            if first[i] is None:
+                first[i] = time.time() - t0
+            outs[i].append(t)
+
+    threads = [threading.Thread(target=drain, args=(i, q), daemon=True)
+               for i, q in enumerate(qs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+        if th.is_alive():
+            fail("serving: an engine request did not finish in 900 s")
+    return outs, time.time() - t0, first
+
+
+def saturated_adapters(torch, model, n, dev):
+    """``n`` LoRA adapters with A ~ N(0, 1/in) and B ~ N(0, 1/(4r)), both
+    non-zero (a zero B would let a wrong-row gather pass), from seeds."""
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=dev)
+        g.manual_seed(100 + i)
+        lora = {}
+        for k, shape in model.lora_shapes().items():
+            fan = shape[0] if k.endswith("/A") else 4 * shape[0]
+            lora[k] = torch.randn(shape, generator=g, device=dev) * fan ** -0.5
+        out.append(lora)
+    return out
+
+
+class IdTokenizer:
+    """The byte tokenizer's encoding; decodes every id as ``" <id>"``, so
+    a random model's tokens (mostly past the 256 bytes) show as text."""
+
+    eos_id = 257
+
+    def encode(self, text):
+        return [256] + list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return "".join(f" {int(i)}" for i in ids)
+
+
+def serve_http(port, path, payload):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serving_tiny_card_vs_cpu(torch, lm, out):
+    """(g): TINY in f32, the dense, int8 and paged decode paths' logits on
+    the card against the CPU's from the same weights, prefill + 4 steps."""
+    import dataclasses
+    errs = {}
+    for kv in ("native", "int8"):
+        for paged in (False, True):
+            over = dict(kv_cache_dtype=kv)
+            if paged:
+                over.update(kv_page_tokens=8, kv_pool_pages=12)
+            cfg = dataclasses.replace(lm.TINY, max_seq_len=64, **over)
+            cpu = lm.LlamaLM(cfg)
+            cpu.init_weights(torch.Generator().manual_seed(7))
+            card = lm.LlamaLM(cfg).cuda()
+            card.load_state_dict(cpu.state_dict())
+            gen = torch.Generator().manual_seed(8)
+            toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+            bt = torch.tensor([[3, 1, 7, 6], [2, 5, 4, 9]])
+            caches = {m: m.init_cache(2) for m in (cpu, card)}
+            worst, tie = 0.0, False
+            for s0, s1 in ((0, 16), (16, 17), (17, 18), (18, 19), (19, 20)):
+                got = {}
+                for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                    kw = {"block_tables": bt.to(dev),
+                          "start_pos": torch.full((2,), s0, device=dev)} \
+                        if paged else {"start_pos": s0}
+                    with torch.no_grad():
+                        got[dev] = m(toks[:, s0:s1].to(dev), decode=True,
+                                     cache=caches[m], **kw).cpu()
+                if kv == "int8":
+                    tie = tie or any(
+                        not torch.equal(a[k].cpu(), b[k].cpu())
+                        for a, b in zip(caches[cpu].layers,
+                                        caches[card].layers)
+                        for k in ("k", "v"))
+                worst = max(worst, logits_gap(got["cuda"], got["cpu"]))
+            tol = SERVE_INT8_TIE_TOL if tie else SERVE_TINY_TOL
+            name = f"{kv}{'_paged' if paged else ''}"
+            errs[name] = worst
+            say("serving", f"(g) TINY f32 {name}: card vs CPU decode logits "
+                           f"max abs diff {worst:.2e} (tol {tol:g}"
+                           f"{'; an int8 code parted at a rounding tie' if tie else ''})")
+            if worst > tol:
+                fail(f"serving (g): {name} card and CPU disagree")
+    out["card_vs_cpu"] = errs
+
+
+def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
+    """Phase 14."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedml_tpu_torch.core.memory_estimate import (
+        estimate_paged_serving_memory, estimate_serving_memory)
+    from fedml_tpu_torch.llm import model as lm
+    from fedml_tpu_torch.serving import ContinuousBatchingEngine
+    from fedml_tpu_torch.serving.templates import openai_compat as oc
+
+    dev = torch.device("cuda", 0)
+    out = {"seconds": {}, "ties": [], "layers": layers}
+    # the streams and the paths' logit differences, held to the witness
+    # once every engine has stopped
+    checks, deltas = [], {}
+    t_phase = time.time()
+    cfg = dataclasses.replace(lm.LLAMA2_7B, n_layers=layers,
+                              lora_rank=SERVE_LORA_RANK, attn_impl="blockwise")
+    with torch.device(dev):
+        model = lm.LlamaLM(cfg)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("serving", f"Llama-2-7B widths (dim {cfg.dim}, {cfg.n_heads} heads, "
+                   f"{cfg.n_kv_heads} KV heads, ffn {cfg.ffn_dim}, vocab "
+                   f"{cfg.vocab_size}, bf16, max_seq_len {cfg.max_seq_len}), "
+                   f"depth {layers} of 32, {n_params / 1e9:.2f} B params, "
+                   f"random weights from seed 0 [{smi}]")
+    tok = oc.ByteTokenizer()
+
+    # (a) generate: KV-cached decode against the plain full-buffer step
+    t0 = time.time()
+    prompt = serve_prompts(np, tok, 1, 64, 64, 1)[0]
+    apply_fn = lambda params, tokens: model(tokens)
+    times = {}
+    for name, kw in (("cached", {"model": model}),
+                     ("plain", {"device": dev})):
+        oc.generate(apply_fn, None, prompt, max_new_tokens=2,
+                    buf_len=SERVE_GEN_BUF, **kw)          # warm
+        torch.cuda.synchronize()
+        t1 = time.time()
+        toks = oc.generate(apply_fn, None, prompt,
+                           max_new_tokens=SERVE_GEN_NEW,
+                           buf_len=SERVE_GEN_BUF, **kw)
+        torch.cuda.synchronize()
+        times[name] = ((time.time() - t1) * 1e3 / len(toks), toks)
+    with torch.no_grad():
+        ids = prompt + times["plain"][1]
+        plain = model(torch.tensor([ids], device=dev))[0]
+    deltas["(a) plain step vs decode"] = logits_gap(
+        plain, decode_logits(torch, model, ids, dev, page_tokens=0))
+    checks.append(("generate", "(a) generate vs plain step", [prompt],
+                   [times["plain"][1]], [times["cached"][1]]))
+    out["generate"] = {"ms_per_token": times["cached"][0],
+                       "plain_ms_per_token": times["plain"][0],
+                       "logit_delta": deltas["(a) plain step vs decode"]}
+    say("serving", f"(a) generate: {times['cached'][0]:.1f} ms/token cached "
+                   f"vs {times['plain'][0]:.1f} ms/token re-running the "
+                   f"{SERVE_GEN_BUF}-token buffer [{smi}]")
+    out["seconds"]["a"] = time.time() - t0
+
+    # (b) the dense engine: every request against generate, horizon 4 ≡ 1
+    t0 = time.time()
+    prompts = serve_prompts(np, tok, SERVE_REQUESTS, *SERVE_PROMPTS, 2)
+    refs = [oc.generate(None, None, p, max_new_tokens=SERVE_NEW,
+                        buf_len=SERVE_BUF, model=model) for p in prompts]
+    # the batched step against one-row steps on identical inputs
+    ids = prompts[0][:64]
+    with torch.no_grad():
+        one = decode_logits(torch, model, ids, dev, page_tokens=0)
+        cache = model.init_cache(SERVE_SLOTS, dev, page_tokens=0)
+        many = model(torch.tensor([ids] * SERVE_SLOTS, device=dev),
+                     decode=True, start_pos=0, cache=cache)
+        del cache
+    delta_b = max(logits_gap(many[i], one) for i in range(SERVE_SLOTS))
+    deltas["(b) 8 rows vs 1"] = delta_b
+    engines = {}
+    for horizon in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ContinuousBatchingEngine(model, None, slots=SERVE_SLOTS,
+                                       buf_len=SERVE_BUF, horizon=horizon)
+        got, wall, first = run_engine(torch, eng, prompts, SERVE_NEW)
+        peak = torch.cuda.max_memory_allocated()
+        ticks = eng.kv_stats()["ticks"]
+        rec = {"horizon": horizon, "wall_s": wall, "ticks": ticks,
+               "tokens": sum(map(len, got)),
+               "tokens_per_s": sum(map(len, got)) / wall,
+               "ttft_s_median": float(np.median(first)),
+               "ttft_s_first_wave_max": max(first[:SERVE_SLOTS]),
+               "ttft_s_max": max(first), "peak_gib": peak / 2 ** 30}
+        if horizon == 1:
+            est = estimate_serving_memory(
+                n_params=n_params, n_slots=SERVE_SLOTS,
+                cache_bytes=eng._caches.nbytes(), vocab_size=cfg.vocab_size,
+                horizon=horizon, param_bytes=2)
+            rec["estimate_gib"] = est["total_gib"]
+            rec["cache_gib"] = eng._caches.nbytes() / 2 ** 30
+            _, fn, args = eng.step_programs()[0]
+            with torch.no_grad():
+                fn(*args)
+                sec, _ = sync_time(torch, lambda: [fn(*args)
+                                                   for _ in range(5)])
+                prof = profile_rounds(torch, lambda: fn(*args), 1)
+            rec["step_ms"] = sec * 1e3 / 5
+            rec["step_launches"] = prof["host_launches"]
+            rec["step_kernels"] = prof["device_kernels"]
+            rec["step_busy_ms"] = prof["busy_s"] * 1e3
+            # the least time: the weights (of the embedding table only
+            # the slots' rows), and every slot's whole max_seq_len cache
+            # (K and V), read once a step
+            embed = model.tok_embed.embedding.numel()
+            step_bytes = 2 * (n_params - embed + SERVE_SLOTS * cfg.dim) \
+                + eng._caches.nbytes()
+            rec["step_bound_ms"] = step_bytes / PEAK_BYTES * 1e3
+            del fn, args                # they hold the engine's cache
+        eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+        engines[horizon] = (got, rec)
+        say("serving", f"(b) dense engine, {SERVE_SLOTS} slots, buf_len "
+                       f"{SERVE_BUF}, horizon {horizon}: {SERVE_REQUESTS} "
+                       f"requests x {SERVE_NEW} tokens in {wall:.2f} s = "
+                       f"{rec['tokens_per_s']:.1f} tokens/s; time to first "
+                       f"token median {rec['ttft_s_median']:.3f} s, first "
+                       f"wave max {rec['ttft_s_first_wave_max']:.3f} s; "
+                       f"{ticks} step calls; peak {rec['peak_gib']:.2f} GiB"
+                       f" [{smi}]")
+    b1 = engines[1][1]
+    say("serving", f"(b) decode step (8 slots, horizon 1): {b1['step_ms']:.2f}"
+                   f" ms, {b1['step_launches']:.0f} host launch calls, "
+                   f"{b1['step_kernels']:.0f} device kernels, device busy "
+                   f"{b1['step_busy_ms']:.2f} ms; bound {b1['step_bound_ms']:.2f}"
+                   f" ms (weights, {SERVE_SLOTS} embedding rows and "
+                   f"{SERVE_SLOTS} whole caches at "
+                   f"{PEAK_BYTES / 1e12:.2f} TB/s) [{smi}]")
+    say("serving", f"(b) peak {b1['peak_gib']:.2f} GiB vs "
+                   f"estimate_serving_memory {b1['estimate_gib']:.2f} GiB "
+                   f"(caches {b1['cache_gib']:.2f} GiB)")
+    checks.append(("dense_engine", "(b) engine vs generate", prompts, refs,
+                   engines[1][0]))
+    checks.append(("dense_engine", "(b) horizon 4 vs 1", prompts,
+                   engines[1][0], engines[4][0]))
+    out["dense_engine"] = {"h1": engines[1][1], "h4": engines[4][1],
+                           "logit_delta": delta_b}
+    out["seconds"]["b"] = time.time() - t0
+
+    # (c) int8 KV against native, on the same weights
+    t0 = time.time()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    with torch.device("meta"):
+        model8 = lm.LlamaLM(cfg8)
+    model8.load_state_dict(model.state_dict(), assign=True)
+    with torch.no_grad():
+        x = model.tok_embed(torch.tensor([prompts[1]], device=dev))
+        x = model.layer_0.attn_norm(x)
+        pos = torch.arange(x.shape[1], device=dev)
+        o = {}
+        for name, m in (("native", model), ("int8", model8)):
+            c = m.init_cache(1, dev, page_tokens=0)
+            ctx = lm._DecodeCtx(pos, 0, c, None, m.cfg, 1, x.shape[1])
+            o[name] = m.layer_0.attention(x, pos, None, c.layers[0],
+                                          ctx).float()
+    attn_err = ((o["int8"] - o["native"]).norm()
+                / o["native"].norm()).item()
+    n8 = SERVE_SLOTS // 2
+    toks8 = [oc.generate(None, None, p, max_new_tokens=SERVE_INT8_NEW,
+                         buf_len=SERVE_BUF, model=model8)
+             for p in prompts[:n8]]
+    same = sum(a == b[:SERVE_INT8_NEW] for a, b in zip(toks8, refs[:n8]))
+    first_same = sum(a[:1] == b[:1] for a, b in zip(toks8, refs[:n8]))
+    out["int8"] = {"attn_rel_err": attn_err, "requests_equal": same,
+                   "first_token_equal": first_same, "requests": n8}
+    say("serving", f"(c) int8 KV: layer-0 attention output relative error "
+                   f"{attn_err:.3e} (tol {SERVE_INT8_ATTN_TOL:g}); greedy "
+                   f"tokens equal to native on {same}/{n8} requests over "
+                   f"{SERVE_INT8_NEW} tokens, first token on {first_same}/{n8}")
+    if not attn_err < SERVE_INT8_ATTN_TOL:
+        fail("serving (c): int8 KV attention error above its tolerance")
+    del model8
+    out["seconds"]["c"] = time.time() - t0
+
+    # (d) the paged engine: against the dense engine, prefix pages shared,
+    # every page free after the drain, a parked request completes
+    t0 = time.time()
+    with torch.no_grad():
+        ids = prompts[0][:200]
+        dense_l = decode_logits(torch, model, ids, dev, page_tokens=0)
+        pool = model.init_cache(0, dev, page_tokens=SERVE_PAGE,
+                                pool_pages=1 + SERVE_BUF // SERVE_PAGE)
+        bt = torch.arange(1, 1 + SERVE_BUF // SERVE_PAGE,
+                          device=dev)[None]
+        paged_l = model(torch.tensor([ids], device=dev), decode=True,
+                        start_pos=torch.zeros(1, dtype=torch.long,
+                                              device=dev),
+                        cache=pool, block_tables=bt)[0]
+        del pool
+    deltas["(d) paged vs dense"] = logits_gap(paged_l, dense_l)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, None, slots=SERVE_SLOTS,
+                                   buf_len=SERVE_BUF,
+                                   kv_page_tokens=SERVE_PAGE,
+                                   prefill_chunk_tokens=SERVE_CHUNK,
+                                   prefix_cache_slots=SERVE_SLOTS)
+    got, wall, first = run_engine(torch, eng, prompts, SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    pool_bytes = eng._pool.nbytes()
+    hd = cfg.dim // cfg.n_heads
+    est = estimate_paged_serving_memory(
+        n_params=n_params, n_slots=SERVE_SLOTS, pool_bytes=pool_bytes,
+        block_table_bytes=eng._btabs.nbytes,
+        window_bytes=2 * 2 * SERVE_SLOTS * cfg.n_kv_heads
+        * eng.max_blocks * SERVE_PAGE * hd * 2,
+        vocab_size=cfg.vocab_size, param_bytes=2)
+    checks.append(("paged_engine", "(d) paged vs dense engine", prompts,
+                   engines[1][0], got))
+    shared0 = eng.kv_stats()["pages_shared"]
+    first_p = eng.generate(prompts[0], max_new_tokens=SERVE_NEW)
+    again = eng.generate(prompts[0], max_new_tokens=SERVE_NEW)
+    kv = eng.kv_stats()
+    checks.append(("paged_engine", "(d) prefix pages shared", [prompts[0]],
+                   [first_p], [again]))
+    if not kv["pages_shared"] > shared0:
+        fail("serving (d): no prefix page was shared")
+    eng.prefix_cache.clear()
+    kv_after = eng.kv_stats()
+    if kv_after["pages_free"] != kv_after["pool_pages"] - 1:
+        fail(f"serving (d): {kv_after['pages_free']} pages free of "
+             f"{kv_after['pool_pages'] - 1} after the drain")
+    rec = {"wall_s": wall, "tokens_per_s": sum(map(len, got)) / wall,
+           "ttft_s_median": float(np.median(first)),
+           "peak_gib": peak / 2 ** 30, "estimate_gib": est["total_gib"],
+           "pool_gib": pool_bytes / 2 ** 30,
+           "pool_pages": kv["pool_pages"], "pages_shared": kv["pages_shared"],
+           "prefill_chunks": kv["prefill_chunks"], "ticks": kv["ticks"],
+           "logit_delta": deltas["(d) paged vs dense"]}
+    _, fn, args = eng.step_programs()[0]
+    with torch.no_grad():
+        fn(*args)
+        sec, _ = sync_time(torch, lambda: [fn(*args) for _ in range(5)])
+    rec["step_ms"] = sec * 1e3 / 5
+    del fn, args
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    # a pool for about one and a half of the longest requests: the rest park
+    long = sorted(prompts, key=len)[-3:]
+    need = -(-min(len(long[-1]) + SERVE_NEW, SERVE_BUF) // SERVE_PAGE)
+    eng = ContinuousBatchingEngine(model, None, slots=3, buf_len=SERVE_BUF,
+                                   kv_page_tokens=SERVE_PAGE,
+                                   kv_pool_pages=1 + need + need // 2,
+                                   prefill_chunk_tokens=SERVE_CHUNK)
+    parked, _, _ = run_engine(torch, eng, long, SERVE_NEW)
+    kv = eng.kv_stats()
+    eng.stop()
+    del eng
+    ref_long = [engines[1][0][prompts.index(p)] for p in long]
+    checks.append(("paged_engine", "(d) parked vs dense", long, ref_long,
+                   parked))
+    if not kv["pool"]["exhausted"] > 0:
+        fail("serving (d): the small pool never ran dry")
+    if kv["pages_free"] != kv["pool_pages"] - 1:
+        fail("serving (d): pages left held after the parked drain")
+    rec["parked_exhausted"] = kv["pool"]["exhausted"]
+    out["paged_engine"] = rec
+    say("serving", f"(d) paged engine ({SERVE_PAGE}-token pages, "
+                   f"{SERVE_CHUNK}-token chunks, {rec['pool_pages']} pages "
+                   f"= {rec['pool_gib']:.2f} GiB): {wall:.2f} s = "
+                   f"{rec['tokens_per_s']:.1f} tokens/s, TTFT median "
+                   f"{rec['ttft_s_median']:.3f} s, step {rec['step_ms']:.2f} "
+                   f"ms, {rec['prefill_chunks']} chunks; "
+                   f"{rec['pages_shared']} prefix pages shared, every page "
+                   f"free after the drain; a pool of {1 + need + need // 2} "
+                   f"pages ran dry {rec['parked_exhausted']} times and its "
+                   f"parked requests completed; peak {rec['peak_gib']:.2f} "
+                   f"GiB vs estimate {rec['estimate_gib']:.2f} GiB [{smi}]")
+    out["seconds"]["d"] = time.time() - t0
+
+    # (e) the adapter bank: 8 saturated adapters mixed with base traffic
+    t0 = time.time()
+    loras = saturated_adapters(torch, model, SERVE_ADAPTERS, dev)
+    names = [f"a{i}" for i in range(SERVE_ADAPTERS)]
+    # even requests on an adapter (each adapter twice), odd ones base
+    mix = [names[(i // 2) % SERVE_ADAPTERS] if i % 2 == 0 else None
+           for i in range(SERVE_REQUESTS)]
+    lora_of = lambda a: loras[names.index(a)] if a else None
+    refs_e = [oc.generate(None, None, p, max_new_tokens=SERVE_ADAPTER_NEW,
+                          buf_len=SERVE_BUF, model=model, lora=lora_of(a))
+              for p, a in zip(prompts, mix)]
+    # grouped (3-D) adapters on 8 identical rows against the 2-D apply
+    with torch.no_grad():
+        ids = prompts[0][:64]
+        one = decode_logits(torch, model, ids, dev, loras[0], page_tokens=0)
+        cache = model.init_cache(SERVE_SLOTS, dev, page_tokens=0)
+        grouped = {k: v[None].expand(SERVE_SLOTS, *v.shape)
+                   for k, v in loras[0].items()}
+        many = model(torch.tensor([ids] * SERVE_SLOTS, device=dev), grouped,
+                     decode=True, start_pos=0, cache=cache)
+        del cache
+    deltas["(e) grouped adapters vs 2-D"] = max(
+        logits_gap(many[i], one) for i in range(SERVE_SLOTS))
+    eng = ContinuousBatchingEngine(model, None, slots=SERVE_SLOTS,
+                                   buf_len=SERVE_BUF,
+                                   adapter_slots=SERVE_ADAPTERS + 1)
+    for name, lora in zip(names, loras):
+        eng.registry.register(name, lora)
+    got, wall, _ = run_engine(torch, eng, prompts, SERVE_ADAPTER_NEW, mix)
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    moved = sum(a != b for a, b in zip(
+        refs_e[::2], [r[:SERVE_ADAPTER_NEW] for r in refs[::2]]))
+    if moved < SERVE_ADAPTERS // 2:
+        fail(f"serving (e): only {moved} adapter streams differ from base")
+    checks.append(("adapters", "(e) adapter bank vs generate", prompts,
+                   refs_e, got, [(a, lora_of(a)) for a in mix]))
+    out["adapters"] = {"wall_s": wall, "tokens_per_s": sum(map(len, got))
+                       / wall, "adapter_streams_off_base": moved,
+                       "logit_delta": deltas["(e) grouped adapters vs 2-D"]}
+    say("serving", f"(e) adapter bank: {SERVE_ADAPTERS} rank-"
+                   f"{SERVE_LORA_RANK} adapters + base in one batch, "
+                   f"{SERVE_REQUESTS} requests x {SERVE_ADAPTER_NEW} tokens "
+                   f"in {wall:.2f} s; {moved}/{SERVE_REQUESTS // 2} adapter "
+                   f"streams differ from base [{smi}]")
+    out["seconds"]["e"] = time.time() - t0
+
+    # (f) the server over loopback HTTP, against the engine; every token id
+    # renders as text, so the SSE stream's pieces must join to the chat
+    # reply of the same greedy request
+    t0 = time.time()
+    srv = oc.OpenAICompatServer(None, None, tokenizer=IdTokenizer(),
+                                model=model, batch_slots=4,
+                                buf_len=SERVE_GEN_BUF,
+                                adapters={"a0": loras[0]}, adapter_slots=3)
+    port = srv.start()
+    chat_req = {"messages": [{"role": "user", "content": "hello"}],
+                "max_tokens": 16}
+    try:
+        code, body = serve_http(port, "/v1/completions",
+                                {"prompt": "Federated serving",
+                                 "max_tokens": 16})
+        comp = json.loads(body)
+        code2, body2 = serve_http(port, "/v1/chat/completions", chat_req)
+        chat = json.loads(body2)
+        code3, body3 = serve_http(port, "/v1/chat/completions",
+                                  dict(chat_req, stream=True))
+        code4, _ = serve_http(port, "/v1/completions",
+                              {"prompt": "x", "model": "nope"})
+        code5, body5 = serve_http(port, "/v1/completions",
+                                  {"prompt": "Federated serving",
+                                   "max_tokens": 16, "model": "a0"})
+    finally:
+        srv.stop()
+    chunks = [x for x in body3.split("\n\n") if x]
+    streamed = "".join(
+        json.loads(c[len("data: "):])["choices"][0]["delta"]["content"]
+        for c in chunks[:-1] if c.startswith("data: {"))
+    text = chat["choices"][0]["message"]["content"] if code2 == 200 else None
+    ok = (code == 200 and comp["object"] == "text_completion"
+          and len(comp["choices"][0]["text"].split()) == 16
+          and code2 == 200 and chat["object"] == "chat.completion"
+          and chat["choices"][0]["message"]["role"] == "assistant"
+          and code3 == 200 and chunks[-1] == "data: [DONE]"
+          and len(chunks) > 1 and streamed == text
+          and code4 == 404 and code5 == 200
+          and json.loads(body5)["choices"][0]["text"]
+          != comp["choices"][0]["text"])
+    out["server"] = {"completion": code, "chat": code2, "stream": code3,
+                     "stream_chunks": len(chunks) - 1,
+                     "stream_equals_chat": streamed == text,
+                     "unknown_adapter": code4, "adapter": code5}
+    say("serving", f"(f) server over loopback: completions {code} (16 "
+                   f"tokens), chat {code2}, SSE stream {code3} with "
+                   f"{len(chunks) - 1} chunks and [DONE] joining to the chat "
+                   f"reply: {streamed == text}; model=a0 {code5} (other "
+                   f"text than base), unknown adapter {code4}")
+    if not ok:
+        fail(f"serving (f): server responses {out['server']}")
+    out["seconds"]["f"] = time.time() - t0
+
+    # every stream of (a)-(e), token by token, against the f32 witness
+    t0 = time.time()
+    wit = Witness(torch, lm, model, dev)
+    eps = 0.0
+    longest = max(range(SERVE_REQUESTS), key=lambda r: len(prompts[r]))
+    for ids in (prompt + times["plain"][1], prompts[longest] + refs[longest]):
+        with torch.no_grad():
+            plain = model(torch.tensor([ids], device=dev))[0]
+        eps = max(eps, logits_gap(plain, wit.logits(ids)))
+    limit = SERVE_TIE_FACTOR * eps
+    say("serving", f"witness: the bf16 plain forward sits within {eps:.3e} "
+                   f"of the f32 witness's logits (over {len(ids)} and "
+                   f"{len(prompt) + len(times['plain'][1])} positions); limit "
+                   f"{SERVE_TIE_FACTOR} x that = {limit:.3e}")
+    for name, delta in deltas.items():
+        say("serving", f"{name}: logit difference on identical inputs "
+                       f"{delta:.3e} (limit {limit:.3e})")
+        if delta > limit:
+            fail(f"serving {name}: the paths differ by {delta:.3e}, more "
+                 f"than the limit {limit:.3e} bf16 rounding explains")
+    for section, *check in checks:
+        parted = check_streams(wit, limit, out, *check)
+        out[section]["parted"] = out[section].get("parted", 0) + parted
+    # the control: request 1's stream scored after request 0's prompt
+    wrong = wit.stream_gaps(prompts[0], refs[1])
+    share = sum(g > limit for g in wrong) / len(wrong)
+    out["witness"] = {"plain_vs_witness": eps, "limit": limit,
+                      "deltas": deltas, "control_off_limit": share,
+                      "control_gap_median": float(np.median(wrong)),
+                      "streams": len(wit.gaps)}
+    say("serving", f"witness control: another request's stream fails the "
+                   f"limit on {share:.0%} of its {len(wrong)} tokens (witness "
+                   f"gap median {np.median(wrong):.3e}); {len(wit.gaps)} "
+                   f"distinct streams checked in {time.time() - t0:.1f} s")
+    if share < SERVE_CONTROL_MIN:
+        fail(f"serving: the limit {limit:.3e} passes {1 - share:.0%} of a "
+             "wrong stream's tokens")
+    del wit
+    torch.cuda.empty_cache()
+    out["seconds"]["witness"] = time.time() - t0
+
+    # the P·V product: bf16 inputs, f32 accumulation, one cast, as computed
+    # (cuBLAS with an f32 output) against a bf16 matmul with the reduced-
+    # precision-reduction flag at its default and off
+    g = torch.Generator(device=dev).manual_seed(3)
+    probs = torch.softmax(torch.randn(SERVE_SLOTS, cfg.n_kv_heads, 1,
+                                      cfg.max_seq_len, generator=g,
+                                      device=dev), -1).to(torch.bfloat16)
+    v = torch.randn(SERVE_SLOTS, cfg.n_kv_heads, cfg.max_seq_len, hd,
+                    generator=g, device=dev).to(torch.bfloat16)
+    exact = torch.matmul(probs.double(), v.double()).to(torch.bfloat16)
+    ours = lm._acc_f32(probs, v).to(torch.bfloat16)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    default_mm = torch.matmul(probs, v)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    strict_mm = torch.matmul(probs, v)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    pv = {"f32_out_vs_f64": int((ours != exact).sum()),
+          "bf16_default_vs_f64": int((default_mm != exact).sum()),
+          "bf16_strict_vs_f64": int((strict_mm != exact).sum()),
+          "elements": exact.numel()}
+    out["pv_bits"] = pv
+    say("serving", f"P.V bits at the decode shape: bf16 elements off the "
+                   f"f64 product rounded once: f32-output cuBLAS (the port) "
+                   f"{pv['f32_out_vs_f64']}, bf16 matmul with reduced-"
+                   f"precision reduction {'on' if flag else 'off'} (default) "
+                   f"{pv['bf16_default_vs_f64']}, off "
+                   f"{pv['bf16_strict_vs_f64']}, of {pv['elements']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (g) card ≡ CPU on TINY in f32
+    t0 = time.time()
+    serving_tiny_card_vs_cpu(torch, lm, out)
+    out["seconds"]["g"] = time.time() - t0
+    out["seconds"]["phase"] = time.time() - t_phase
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -3260,6 +4001,23 @@ def main():
     mesh["seconds"]["teardown"] = time.time() - t0
     say("mesh", f"shutdown_world returned in "
                 f"{mesh['seconds']['teardown']:.2f} s")
+
+    # -- 14. serving: decode, the engines, the adapter bank, the server ----
+    t0 = time.time()
+    att.reset_launch_counts()
+    serving = serving_phase(torch, fedml_tpu_torch, att, smi, opts.layers)
+    torch.cuda.synchronize()
+    serving["launches"] = launch_counts(att)
+    for name, n in serving["launches"].items():
+        for shape in ("slice", "text"):
+            rows[f"{name}@{shape}"].setdefault("launches_by_path", {})[
+                "serving"] = n
+    if any(serving["launches"].values()):
+        fail(f"serving launched a flash-attention kernel: "
+             f"{serving['launches']}")
+    say("serving", f"phase 14 took {time.time() - t0:.1f} s "
+                   f"({ {k: round(v, 1) for k, v in serving['seconds'].items()} }"
+                   f"); K1-K3 launches {serving['launches']}")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -3267,7 +4025,7 @@ def main():
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
                       "fusion": fusion, "text": text, "resnet": resnet,
                       "models": models, "engines": engines, "llm": llm,
-                      "mesh": mesh}))
+                      "mesh": mesh, "serving": serving}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,11 @@ counterpart is found at the same path.  Ported so far:
   turboaggregate}.py``, ``simulation/centralized_trainer.py``);
 - the federated LoRA round of a Llama model (``llm/fedllm.py::FedLLMAPI``)
   with its hand-written Hopper flash-attention kernels (``csrc/``, bound in
-  ``ops/attention.py``).
+  ``ops/attention.py``);
+- serving (``serving/``): KV-cached ``generate`` (dense, int8 or paged
+  cache) with the prefix caches, the continuous-batching engine with
+  chunked prefill, the multi-tenant adapter bank and the OpenAI-compatible
+  server.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

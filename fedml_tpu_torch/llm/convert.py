@@ -8,6 +8,12 @@ packages from the same weights: :func:`from_flax` loads the JAX package's
 ``lm_head/kernel``) into a :class:`~fedml_tpu_torch.llm.model.LlamaLM`
 and a flat adapter dict; :func:`to_flax` is the inverse.  The port keeps the
 flax names and layouts, so the mapping is the path with ``.`` for ``/``.
+
+For serving, :func:`lora_from_flax` reads one adapter tree (a bank row of
+the JAX registry) into the flat dict the port's bank takes, and
+:func:`cache_from_flax` / :func:`cache_to_flax` carry a flax ``cache``
+collection (``layer_{i}/attention/{k,v,k_scale,v_scale}``) to and from the
+port's :class:`~fedml_tpu_torch.llm.model.KVCache`.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.tree import flatten, unflatten
-from .model import LlamaConfig, LlamaLM
+from .model import KVCache, LlamaConfig, LlamaLM
 
 
 def from_flax(params_np: Mapping, lora_np: Optional[Mapping],
@@ -71,3 +77,43 @@ def to_flax(model: Optional[LlamaLM], lora: Optional[Mapping] = None):
         lora_np = unflatten({k: v.detach().float().cpu().numpy()
                              for k, v in lora.items()})
     return params, lora_np
+
+
+def lora_from_flax(lora_np: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
+    """One flax adapter tree (``{"layer_0": {"attention": {"wq": {"A":
+    ...}}}}``) as the port's flat f32 adapter dict."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in flatten(lora_np).items()}
+
+
+_CACHE_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def cache_from_flax(cache_np: Mapping, device="cuda") -> KVCache:
+    """A flax ``cache`` collection (numpy leaves, int8 kept int8) as a
+    :class:`KVCache` on ``device``; bf16 leaves may arrive as f32 and are
+    kept in the dtype they come in."""
+    flat = flatten(cache_np)
+    n = 1 + max(int(k.split("/")[0][len("layer_"):]) for k in flat)
+    layers = []
+    for i in range(n):
+        lay = {}
+        for name in _CACHE_NAMES:
+            key = f"layer_{i}/attention/{name}"
+            if key in flat:
+                lay[name] = torch.from_numpy(
+                    np.array(flat[key])).to(device)
+        layers.append(lay)
+    return KVCache(layers)
+
+
+def cache_to_flax(cache: KVCache):
+    """Inverse of :func:`cache_from_flax`: nested dicts of numpy arrays
+    (float leaves as f32)."""
+    out = {}
+    for i, lay in enumerate(cache.layers):
+        for name, t in lay.items():
+            t = t.detach().cpu()
+            out[f"layer_{i}/attention/{name}"] = (
+                t.numpy() if t.dtype == torch.int8 else t.float().numpy())
+    return unflatten(out)

@@ -1,5 +1,5 @@
-"""Llama-family causal LM in PyTorch (port of ``fedml_tpu.llm.model``, the
-training path: no decode, paged-cache or ring-attention code).
+"""Llama-family causal LM in PyTorch (port of ``fedml_tpu.llm.model``: the
+training path and the KV-cached decode paths of serving; no ring attention).
 
 RMSNorm, interleaved-pair rotary embeddings, grouped-query attention through
 :func:`fedml_tpu_torch.ops.attention.flash_attention` (or the plain
@@ -26,6 +26,17 @@ JAX's ``dots_with_no_batch_dims_saveable`` does; "none" keeps everything.
 Both recomputing modes use ``torch.utils.checkpoint``, which
 ``torch.func``'s transforms refuse: the model hub's models run "none".
 
+``forward(..., decode=True, cache=...)`` is serving's decode path: the new
+tokens' K/V are written into a :class:`KVCache` (made by
+:meth:`LlamaLM.init_cache`, mutated in place) and attention is computed
+against it in plain PyTorch, as the JAX package computes it outside any
+Pallas kernel: a dense per-row cache of ``max_seq_len`` positions, or, with
+``block_tables``, a page pool shared by every row.  Either may hold int8 rows
+with one f32 scale per (row or page, head, position).  The scores are f32
+products of the bf16 (or int8) inputs, the probabilities times V a bf16
+product accumulated in f32 and cast once, as the JAX einsums with
+``preferred_element_type=f32`` compute them.
+
 Type promotion follows the flax model exactly: RMSNorm normalises in f32,
 casts to the input type, then multiplies by its f32 scale (so in the bf16
 config its output is f32, cast back to bf16 by the next projection); LoRA
@@ -37,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -79,8 +90,12 @@ class LlamaConfig:
     #: >0: the federated LoRA round fuses lm_head into a vocab-chunked
     #: cross-entropy (ops/xent.py) instead of materialising the logits
     streaming_xent_chunk: int = 0
-    #: serving's decode-cache fields: only their defaults are ported
-    kv_cache_dtype: str = "native"
+    #: decode cache: "native" keeps ``dtype``, "int8" stores K/V rows as
+    #: int8 with one f32 scale per (row or page, head, position)
+    kv_cache_dtype: str = "native"  # native | int8
+    #: >0: the decode cache is one pool of ``kv_pool_pages`` pages of
+    #: ``kv_page_tokens`` tokens per layer, addressed through block tables;
+    #: page 0 is the trash page (serving/paged_kv.py)
     kv_page_tokens: int = 0
     kv_pool_pages: int = 0
 
@@ -98,12 +113,15 @@ class LlamaConfig:
         if self.kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: "
                              "must be 'native' or 'int8'")
-        for name, default in (("kv_cache_dtype", "native"),
-                              ("kv_page_tokens", 0), ("kv_pool_pages", 0)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the decode cache "
-                    "belongs to serving, not ported yet")
+        if self.kv_page_tokens < 0 or self.kv_pool_pages < 0:
+            raise ValueError("kv_page_tokens/kv_pool_pages must be >= 0")
+        if (self.kv_pool_pages > 0) != (self.kv_page_tokens > 0):
+            raise ValueError(
+                "paged KV needs BOTH kv_page_tokens and kv_pool_pages "
+                f"(got {self.kv_page_tokens}/{self.kv_pool_pages})")
+        if self.kv_pool_pages == 1:
+            raise ValueError("kv_pool_pages=1 is only the reserved trash "
+                             "page — need at least 2")
 
     @property
     def store_dtype(self):
@@ -116,19 +134,32 @@ TINY = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 LLAMA2_7B = LlamaConfig()
 
 
-def _rope(x, positions, theta: float):
-    """Rotary embedding on x ``(B, H, S, D)``, positions ``(S,)``.  Channel
-    pairs are interleaved (``x[..., 0::2]``, ``x[..., 1::2]``); angles are
-    f32 and the result is cast back to ``x.dtype``."""
-    d = x.shape[-1]
+def _rope_tables(positions, d: int, theta: float):
+    """cos and sin of the rotary angles for positions ``(S,)`` or ``(B,
+    S)``, in f32, shaped to broadcast over x ``(B, H, S, d/2)``."""
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                          device=x.device) / d))
+                                          device=positions.device) / d))
     angles = positions[..., None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if positions.dim() == 2:         # (B, S, d/2) -> (B, 1, S, d/2)
+        cos, sin = cos[:, None], sin[:, None]
+    return cos, sin
+
+
+def _apply_rope(x, cos, sin):
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.stack([out1, out2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _rope(x, positions, theta: float):
+    """Rotary embedding on x ``(B, H, S, D)``, positions ``(S,)`` shared by
+    the batch or ``(B, S)`` per row (the engine's step, every slot at its
+    own depth).  Channel pairs are interleaved (``x[..., 0::2]``,
+    ``x[..., 1::2]``); angles are f32 and the result is cast back to
+    ``x.dtype``."""
+    return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
 
 
 class RMSNorm(nn.Module):
@@ -192,6 +223,153 @@ class LoRADense(nn.Module):
         return y
 
 
+class KVCache:
+    """The decode cache: per layer a dict of tensors ``k``, ``v`` (and, for
+    int8, ``k_scale``, ``v_scale``), in the JAX "cache" collection's shapes.
+    Dense: ``(b, h_kv, max_seq_len, d)`` and scales ``(b, h_kv,
+    max_seq_len)``; paged: one pool ``(pool_pages, h_kv, page_tokens, d)``
+    and scales ``(pool_pages, h_kv, page_tokens)``.  The decode forward
+    writes into it in place; :meth:`clone` is a copy that later writes do not
+    reach (the prefix caches keep clones)."""
+
+    def __init__(self, layers: List[Dict[str, torch.Tensor]]):
+        self.layers = layers
+
+    def clone(self) -> "KVCache":
+        return KVCache([{k: t.clone() for k, t in lay.items()}
+                        for lay in self.layers])
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for lay in self.layers for t in lay.values())
+
+    def rows(self, index) -> "KVCache":
+        """The dense cache's rows ``index`` (a slice keeps a view)."""
+        return KVCache([{k: t[index] for k, t in lay.items()}
+                        for lay in self.layers])
+
+    def copy_rows_(self, index, src: "KVCache") -> None:
+        """Write ``src`` into rows ``index`` of this dense cache."""
+        for lay, other in zip(self.layers, src.layers):
+            for k, t in lay.items():
+                t[index] = other[k]
+
+
+def _acc_f32(a, b):
+    """``a @ b`` of the inputs' exact values, accumulated and returned in
+    f32 (``einsum(..., preferred_element_type=f32)``).  On the card bf16
+    inputs go to cuBLAS with an f32 output (``bmm(out_dtype=f32)``); other
+    inputs are upcast, which is exact, and multiplied in f32 (TF32 off on
+    the card, ``device.py``)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        lead = a.shape[:-2]
+        out = torch.bmm(a.reshape((-1,) + a.shape[-2:]),
+                        b.reshape((-1,) + b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(lead + out.shape[-2:])
+    return torch.matmul(a.float(), b.float())
+
+
+def _quant_rows(x):
+    """int8 rows with one f32 scale per row: ``max|x| / 127`` floored at
+    1e-8/127, round half to even, clipped to ±127."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    q8 = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q8, scale
+
+
+class _DecodeCtx:
+    """What every layer of one decode forward shares, computed once: the
+    rope tables, where the new rows go and which cache positions each query
+    attends.
+
+    Dense (``block_tables`` None): the new rows go at ``start`` (an int, or
+    a ``(b,)`` tensor of per-row starts), clamped as
+    ``lax.dynamic_update_slice`` clamps a start that would overrun, so an
+    overrunning write lands on the last ``s`` positions; rope and the mask
+    keep the unclamped positions.  Every query attends to every cache
+    position ``<=`` its own.
+
+    Paged: each new row goes to ``pool[table[pos // P], :, pos % P]``, and
+    each row reads its whole block-table window (``max_blocks * P``
+    positions, the window index being the logical position).  Unallocated
+    table entries are 0, the trash page: writes past a row's reservation
+    land there, and its reads are always masked."""
+
+    def __init__(self, positions, start, cache: "KVCache", block_tables,
+                 cfg: LlamaConfig, b: int, s: int):
+        dev = positions.device
+        self.cos, self.sin = _rope_tables(positions, cfg.dim // cfg.n_heads,
+                                          cfg.rope_theta)
+        k0 = cache.layers[0]["k"]
+        self.paged = block_tables is not None
+        if self.paged:
+            ptok = k0.shape[2]
+            pos = positions if positions.dim() == 2 else \
+                positions[None].expand(b, s)
+            self.tables = block_tables.to(dev).long()
+            max_blocks = self.tables.shape[1]
+            blk = pos // ptok
+            self.page = torch.where(
+                blk < max_blocks,
+                self.tables.gather(1, blk.clamp(max=max_blocks - 1)),
+                torch.zeros_like(blk))
+            self.offs = pos % ptok
+            self.window = max_blocks * ptok
+            kv_pos = torch.arange(self.window, device=dev)
+            self.mask = (kv_pos <= pos[..., None])[:, None, None]
+            return
+        length = k0.shape[2]
+        if isinstance(start, torch.Tensor):
+            st = start.clamp(0, length - s)
+            self.idx = st[:, None] + torch.arange(s, device=dev)   # (b, s)
+            self.rows = torch.arange(b, device=dev)[:, None]
+            self.span = None
+        else:
+            st = min(max(int(start), 0), length - s)
+            self.span = slice(st, st + s)
+        kv_pos = torch.arange(length, device=dev)
+        mask = kv_pos <= positions[..., None]      # (s, L) or (b, s, L)
+        self.mask = mask[None, None, None] if mask.dim() == 2 \
+            else mask[:, None, None]
+
+    def write_read(self, att: "Attention", cache, k, v):
+        """Write one layer's new rows into its cache; return what that
+        layer attends over: ``(k, v, k_scale, v_scale, mask)`` with K/V
+        ``(b, h_kv, W, d)`` (scales None unless int8)."""
+        kw, vw, ksw, vsw = att._rows_to_store(k, v)
+        names = ("k", "v", "k_scale", "v_scale")
+        new = (kw, vw, ksw, vsw)
+        if self.paged:
+            # (b, s, h_kv, ...): the page and offset indices, split by the
+            # head slice, go to the front as in numpy
+            for name, t in zip(names, new):
+                if t is not None:
+                    cache[name][self.page, :, self.offs] = t.transpose(1, 2)
+            b = k.shape[0]
+            window = self.window
+            tables = self.tables
+
+            def gather(pool):                    # -> (b, h_kv, W, ...)
+                g = pool[tables].movedim(2, 1)   # (b, h_kv, MB, P, ...)
+                return g.reshape((b, g.shape[1], window) + g.shape[4:])
+
+            got = [gather(cache[n]) if t is not None else None
+                   for n, t in zip(names, new)]
+            return (*got, self.mask)
+        for name, t in zip(names, new):
+            if t is None:
+                continue
+            if self.span is not None:
+                cache[name][:, :, self.span] = t
+            else:
+                # the target is (b, s, h_kv, ...), as for the pages
+                cache[name][self.rows, :, self.idx] = t.transpose(1, 2)
+        return (cache["k"], cache["v"], cache.get("k_scale"),
+                cache.get("v_scale"), self.mask)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -207,21 +385,62 @@ class Attention(nn.Module):
         self.wv = mk(cfg.dim, cfg.n_kv_heads * hd)
         self.wo = mk(cfg.n_heads * hd, cfg.dim)
 
-    def forward(self, x, positions, lora: Optional[LoRA] = None):
+    def forward(self, x, positions, lora: Optional[LoRA] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                ctx: Optional["_DecodeCtx"] = None):
         cfg = self.cfg
         hd = cfg.dim // cfg.n_heads
         b, s, _ = x.shape
         q = self.wq(x, lora).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
         k = self.wk(x, lora).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
         v = self.wv(x, lora).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        if cfg.attn_impl == "blockwise":
-            out = blockwise_attention(q, k, v, causal=True)
+        if cache is not None:
+            q = _apply_rope(q, ctx.cos, ctx.sin)
+            k = _apply_rope(k, ctx.cos, ctx.sin)
+            out = self._cached_attend(q, *ctx.write_read(self, cache, k, v))
         else:
-            out = flash_attention(q, k, v, True, None)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+            if cfg.attn_impl == "blockwise":
+                out = blockwise_attention(q, k, v, causal=True)
+            else:
+                out = flash_attention(q, k, v, True, None)
         out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
         return self.wo(out, lora)
+
+    def _rows_to_store(self, k, v):
+        """The new rows in the cache's storage: ``(k, v, k_scale, v_scale)``
+        (scales None unless int8)."""
+        if self.cfg.kv_cache_dtype == "int8":
+            k8, ks = _quant_rows(k)
+            v8, vs = _quant_rows(v)
+            return k8, v8, ks, vs
+        return k.to(self.cfg.dtype), v.to(self.cfg.dtype), None, None
+
+    def _cached_attend(self, q, kf, vf, ks, vs, mask):
+        """Grouped attention of q ``(b, h, s, d)`` over ``(b, h_kv, W, d)``
+        rows, no KV repeat: f32 scores, int8 scales folded into the scores
+        and the probabilities, masked positions at -1e30 (exp gives exactly
+        0), probabilities cast to the compute type for the P·V product."""
+        cfg = self.cfg
+        b, h, s, hd = q.shape
+        g = kf.shape[1]
+        rep = h // g
+        width = kf.shape[2]
+        qg = q.reshape(b, g, rep * s, hd)
+        kc = kf if kf.dtype != torch.int8 else kf.to(q.dtype)
+        scores = _acc_f32(qg, kc.transpose(-1, -2)).reshape(
+            b, g, rep, s, width)
+        if ks is not None:
+            scores = scores * ks[:, :, None, None, :]
+        scores = scores / (hd ** 0.5)
+        scores = torch.where(mask, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        if vs is not None:
+            probs = probs * vs[:, :, None, None, :]
+        probs = probs.to(cfg.dtype).reshape(b, g, rep * s, width)
+        out = _acc_f32(probs, vf.to(cfg.dtype)).to(cfg.dtype)
+        return out.reshape(b, h, s, hd)
 
 
 class MLP(nn.Module):
@@ -249,8 +468,10 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg)
 
-    def forward(self, x, positions, lora: Optional[LoRA] = None):
-        h = x + self.attention(self.attn_norm(x), positions, lora)
+    def forward(self, x, positions, lora: Optional[LoRA] = None,
+                cache=None, ctx=None):
+        h = x + self.attention(self.attn_norm(x), positions, lora, cache,
+                               ctx)
         ffn = self.moe_mlp if hasattr(self, "moe_mlp") else self.mlp
         return h + ffn(self.mlp_norm(h))
 
@@ -330,17 +551,67 @@ class LlamaLM(nn.Module):
                             dtype=torch.float32)
             p.copy_(w.mul_(fan ** -0.5))
 
-    def forward(self, tokens, lora: Optional[LoRA] = None,
+    def init_cache(self, batch: int, device=None, *,
+                   page_tokens: Optional[int] = None,
+                   pool_pages: Optional[int] = None) -> KVCache:
+        """A zeroed decode cache.  Dense, ``batch`` rows of ``max_seq_len``
+        positions, unless the config (or ``page_tokens``/``pool_pages``)
+        asks for a page pool, which has no batch axis.  In ``dtype`` or
+        int8 (``kv_cache_dtype``); on the weights' device by default."""
+        cfg = self.cfg
+        if device is None:
+            device = self.tok_embed.embedding.device
+        ptok = cfg.kv_page_tokens if page_tokens is None else page_tokens
+        pages = cfg.kv_pool_pages if pool_pages is None else pool_pages
+        hd = cfg.dim // cfg.n_heads
+        lead = (pages, cfg.n_kv_heads, ptok) if ptok > 0 else \
+            (batch, cfg.n_kv_heads, cfg.max_seq_len)
+        int8 = cfg.kv_cache_dtype == "int8"
+        store = torch.int8 if int8 else cfg.dtype
+        layers = []
+        for _ in range(cfg.n_layers):
+            lay = {"k": torch.zeros(lead + (hd,), dtype=store, device=device),
+                   "v": torch.zeros(lead + (hd,), dtype=store, device=device)}
+            if int8:
+                lay["k_scale"] = torch.zeros(lead, device=device)
+                lay["v_scale"] = torch.zeros(lead, device=device)
+            layers.append(lay)
+        return KVCache(layers)
+
+    def forward(self, tokens, lora: Optional[LoRA] = None, *,
+                decode: bool = False, start_pos=None,
+                cache: Optional[KVCache] = None, block_tables=None,
                 return_hidden: bool = False):
         """Logits ``(..., S, V)`` in f32, or with ``return_hidden`` the
         final-norm hidden states (the streaming cross-entropy applies
-        ``lm_head`` itself)."""
+        ``lm_head`` itself).
+
+        ``decode=True`` is the KV-cached path: ``cache`` (from
+        :meth:`init_cache`) is written in place, and ``start_pos`` gives
+        the position of ``tokens[:, 0]``: an int, or a ``(B,)`` tensor of
+        per-row depths (the engine's slots).  ``block_tables`` ``(B,
+        max_blocks)`` selects the paged pool."""
+        if decode and cache is None:
+            raise ValueError("decode=True needs a cache (LlamaLM.init_cache)")
         x = self.tok_embed(tokens)
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
-        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
+        start = 0 if start_pos is None else start_pos
+        if isinstance(start, torch.Tensor) and start.dim() == 1:
+            start = start.to(tokens.device)
+            positions = positions[None, :] + start[:, None]
+        elif start_pos is not None:
+            if isinstance(start, torch.Tensor):
+                start = int(start)
+            positions = positions + start
+        remat = self.cfg.remat if torch.is_grad_enabled() and not decode \
+            else "none"
+        ctx = _DecodeCtx(positions, start, cache, block_tables, self.cfg,
+                         *tokens.shape[:2]) if decode else None
         for i in range(self.cfg.n_layers):
             block = getattr(self, f"layer_{i}")
-            if remat == "full":
+            if decode:
+                x = block(x, positions, lora, cache.layers[i], ctx)
+            elif remat == "full":
                 x = checkpoint(block, x, positions, lora, use_reentrant=False)
             elif remat == "dots":
                 x = checkpoint(block, x, positions, lora, use_reentrant=False,

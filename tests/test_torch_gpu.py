@@ -1084,3 +1084,95 @@ def test_fedllm_round_options_on_card_match_cpu(cuda_device, over):
     assert abs(lc - lg) <= 1e-4
     for k, v in cpu.global_lora.items():
         assert (card.global_lora[k].cpu() - v).abs().max() <= 1e-4, k
+
+
+# -- serving (PR 15): the decode paths, the engine and the bank on the card --
+def _serving_pair(cuda_device, **over):
+    """A TINY f32 LlamaLM on the CPU and its copy on the card."""
+    import dataclasses
+
+    from fedml_tpu_torch.llm import model as lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(lm.TINY, max_seq_len=64, vocab_size=258,
+                              **over)
+    cpu = lm.LlamaLM(cfg)
+    cpu.init_weights(torch.Generator().manual_seed(5))
+    card = lm.LlamaLM(cfg).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["native", "int8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_logits_on_card_match_cpu(cuda_device, kv, paged):
+    """Prefill and 4 single-token steps: the card's decode logits within
+    1e-5 of the CPU's (f32, TF32 off) on the dense, int8 and paged caches."""
+    over = {"kv_cache_dtype": kv}
+    if paged:
+        over.update(kv_page_tokens=8, kv_pool_pages=12)
+    cpu, card = _serving_pair(cuda_device, **over)
+    toks = torch.randint(0, 258, (2, 20), generator=torch.Generator()
+                         .manual_seed(6))
+    bt = torch.tensor([[3, 1, 7, 6], [2, 5, 4, 9]])
+    caches = {"cpu": cpu.init_cache(2), "card": card.init_cache(2)}
+    for s0, s1 in ((0, 16), (16, 17), (17, 18), (18, 19), (19, 20)):
+        got = {}
+        for name, m, dev in (("cpu", cpu, "cpu"), ("card", card,
+                                                   cuda_device)):
+            kw = {"block_tables": bt.to(dev),
+                  "start_pos": torch.full((2,), s0, device=dev)} \
+                if paged else {"start_pos": s0}
+            with torch.no_grad():
+                got[name] = m(toks[:, s0:s1].to(dev), decode=True,
+                              cache=caches[name], **kw).cpu()
+        assert (got["card"] - got["cpu"]).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_bf16_score_products_are_f32_of_exact_inputs(cuda_device):
+    """The decode scores and P·V: bf16 inputs multiplied exactly and summed
+    in f32 (``_acc_f32``) ≡ the f32 product of the upcast inputs to f32
+    rounding, far inside bf16's."""
+    from fedml_tpu_torch.llm.model import _acc_f32
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4, 8, 16, 128, generator=g,
+                    device=cuda_device).bfloat16()
+    b = torch.randn(4, 8, 128, 1000, generator=g,
+                    device=cuda_device).bfloat16()
+    got = _acc_f32(a, b)
+    assert got.dtype == torch.float32
+    want = torch.matmul(a.double(), b.double())
+    assert ((got.double() - want).abs() / want.abs().clamp_min(1)).max() \
+        <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, {"kv_page_tokens": 8,
+                                     "prefill_chunk_tokens": 8},
+                                {"horizon": 3}])
+def test_engine_on_card_matches_generate(cuda_device, kw):
+    """The engine on the card (dense, paged, horizon 3) gives each request
+    ``generate``'s greedy tokens, and a sampled request the same draws (f32
+    TINY, one generator per request)."""
+    from fedml_tpu_torch.serving import ContinuousBatchingEngine
+    from fedml_tpu_torch.serving.templates.openai_compat import generate
+
+    _, card = _serving_pair(cuda_device, lora_rank=4)
+    prompts = [[5, 17, 42], list(range(30, 58)), [7] * 11, [1, 2, 3, 4]]
+    eng = ContinuousBatchingEngine(card, None, slots=2, buf_len=48,
+                                   adapter_slots=2, **kw)
+    try:
+        for temp in (0.0, 0.8):
+            qs = [eng.submit(p, max_new_tokens=9, temperature=temp, seed=i)
+                  for i, p in enumerate(prompts)]
+            got = [[t for t in iter(lambda: q.get(timeout=120), None)]
+                   for q in qs]
+            want = [generate(None, None, p, max_new_tokens=9, buf_len=48,
+                             model=card, temperature=temp, seed=i)
+                    for i, p in enumerate(prompts)]
+            assert got == want, temp
+    finally:
+        eng.stop()

@@ -78,13 +78,31 @@ def test_config_from_args_reads_what_the_jax_one_reads():
     ("kv_page_tokens", {"kv_page_tokens": 16, "kv_pool_pages": 4}),
     ("ring", {"attn_impl": "ring"})])
 def test_jax_fields_the_port_does_not_run_raise_by_name(field, over):
+    """``attn_impl="ring"`` still raises by name; the decode-cache fields,
+    ported with serving, are taken as the JAX config takes them and refused
+    where the JAX config refuses them."""
     dataclasses.replace(jmodel.TINY, **over)      # the JAX config takes it
-    with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(tmodel.TINY, **over)
-    if field == "kv_cache_dtype":
+    if field == "ring":
         with pytest.raises(NotImplementedError, match=field):
-            tmodel.config_from_args(types.SimpleNamespace(
-                llm_kv_cache_dtype="int8"))
+            dataclasses.replace(tmodel.TINY, **over)
+        return
+    got = dataclasses.replace(tmodel.TINY, **over)
+    assert all(getattr(got, k) == v for k, v in over.items())
+    if field == "kv_cache_dtype":
+        bad = [{"kv_cache_dtype": "int4"}]
+        args = types.SimpleNamespace(llm_kv_cache_dtype="int8")
+        assert tmodel.config_from_args(args).kv_cache_dtype == \
+            jmodel.config_from_args(args).kv_cache_dtype == "int8"
+    else:
+        bad = [{"kv_page_tokens": 16, "kv_pool_pages": 1},
+               {"kv_page_tokens": 16}, {"kv_pool_pages": 4},
+               {"kv_page_tokens": -1, "kv_pool_pages": 4}]
+    for b in bad:
+        with pytest.raises(ValueError) as want:
+            dataclasses.replace(jmodel.TINY, **b)
+        with pytest.raises(ValueError) as got_err:
+            dataclasses.replace(tmodel.TINY, **b)
+        assert str(got_err.value) == str(want.value)
 
 
 # -- the federated LoRA round ---------------------------------------------
