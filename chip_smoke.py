@@ -85,11 +85,11 @@ Phases, each printing its own lines:
    4 layers, 8 heads, FFN 512, f32) on the committed real text shard
    (``data_shards/realtext``, the ``realtext_docs`` row of
    ``tools/run_baseline_rows.py``: 10 clients, 5 a round, batch 16, Adam at
-   3e-3, clip 1.0, α 0.5), ``vmap`` clients: (a) 24 unfused rounds with
+   3e-3, clip 1.0, α 0.5), ``vmap`` clients: (a) 8 unfused rounds with
    K1, K2 and K3 each launched once per layer per step for the whole
-   cohort (K1 also per eval batch), counted; (b) the same 24 rounds in
-   blocks of 8 (CUDA graphs), test accuracy above 0.6 after both; (c)
-   fused ≡ unfused to 1e-6 with a graph captured; (d) a profiled pass of
+   cohort (K1 also per eval batch), counted; (b) 24 rounds in blocks of 8
+   (CUDA graphs), test accuracy above 0.6; (c) the first fused block ≡
+   the 8 unfused rounds to 1e-6 with a graph captured; (d) a profiled pass of
    each: host launch calls and device kernels a round, device busy share,
    K1–K3's share of device time, peak GiB, real samples/s; (e) the small
    config of ``tests/test_model_zoo_ext.py``, 2 SGD rounds card vs CPU
@@ -104,7 +104,7 @@ Phases, each printing its own lines:
    clients, 10 a round, batch 10, lr 1.47) on the synthetic Markov-chain
    stand-in at 16,000 / 2,000 windows and (b) Stack Overflow next-word
    prediction (``rnn_stackoverflow``, vocab 10,004, seq 20; batch 16) on
-   50,000 / 5,000, each 8 rounds unfused and 16 in blocks of 8 (CUDA
+   50,000 / 5,000, each 4 rounds unfused and 8 in blocks of 4 (CUDA
    graphs), fused ≡ unfused to 1e-6 after the first block with a graph
    captured, s/round, host launch calls and device kernels a round, busy
    share, peak GiB, test loss (below round 0's) and accuracy; (c) tag
@@ -184,8 +184,8 @@ Phases, each printing its own lines:
    ``--layers``, random weights from seed 0, byte-tokenized prompts: (a)
    ``generate`` with the KV cache against the plain full-buffer step over
    32 new tokens, ms a token of each; (b) the dense engine (8 slots,
-   ``buf_len`` 1024, 16 requests of 32–900 tokens, 64 new each): each
-   request against ``generate``, horizon 4 against 1, tokens/s, time to
+   ``buf_len`` 1024, 16 requests of 32–900 tokens, 64 new each): the first
+   2 requests against ``generate``, horizon 4 against 1, tokens/s, time to
    first token, a decode step's ms, host launch calls and device busy time
    beside its bound, peak GiB beside ``estimate_serving_memory``; (c) int8
    KV: one layer's attention output against native (≤ 5e-2 relative), the
@@ -206,6 +206,37 @@ Phases, each printing its own lines:
    logit; the paths' logit differences on identical inputs are held to the
    same limit, and another request's stream must fail it.  Each parting
    is printed and recorded.  K1–K3 launch 0 times (checked).
+15. serving_spec — on phase 14's model, prompts and dense-engine streams:
+   (a) the int8 weight-only tree (``quantize_params_int8``): its bytes
+   against bf16, ``quantization_error``, the plain engine over the 16
+   requests (tokens/s, time to first token, a decode step's ms, host
+   launch calls, device busy time and bound, peak GiB) beside phase 14
+   (b)'s, one request against the int8 tree's ``generate``; (b)
+   ``speculative_generate`` of one 64-token request with the int8 tree of
+   the target as draft and with a 2-layer draft at the same widths: ms a
+   token beside ``generate``'s, acceptance, target and draft forwards,
+   and a (k+1)-token verify block's logits against 1-token steps; (c) the
+   ``SpeculativeBatchingEngine`` (8 slots, k 4, the int8 draft) over the
+   16 requests against the dense engine's streams: tokens/s, time to
+   first token, its stats; (d) one HTTP request to the server with a draft
+   and ``batch_slots``; (e) the adapter cache mode: 4 adapters through 3
+   bank rows against the bank-resident engine, hits, misses and
+   evictions; (f) card ≡ CPU on TINY f32: speculative tokens (a
+   misaligned draft, an int8 draft) equal plain greedy on both devices.
+   Every stream is held to a witness as phase 14's are: the bf16 model's
+   for (b)–(e), the int8 tree's (its dequantized weights upcast to f32)
+   for (a), each with its control; the peak GiB of each sub-phase is
+   printed.  K1–K3 launch 0 times (checked).
+16. planes — phase 5 (b)'s FEMNIST CNN: (a) FedBuff with K the cohort at
+   zero latency ≡ the sync rounds bitwise (the atomic-cohort fast path),
+   and a heavy-tailed run (log-normal latency, 2 generations in flight,
+   dropout, a staleness cap): finite losses, staleness, drops; (b) a
+   SCAFFOLD ``client_store`` run ≡ the dense table bitwise (state and
+   every row), ``data_paging`` ≡ the host-staged path bitwise, and
+   ``registered_clients`` 10^6 with only the sampled rows touched; (c) a
+   ``checkpoint_dir`` run stopped after 2 rounds and resumed from its step
+   and store sidecar ≡ the uninterrupted run bitwise.  Seconds a round of
+   each beside the sync engine's.  K1–K3 launch 0 times (checked).
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -215,9 +246,10 @@ forward+backward times, the slice's round numbers, phase 5's numbers
 under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
 under ``"models"``, phase 11's under ``"engines"``, phase 12's under
-``"llm"``, phase 13's under ``"mesh"`` and phase 14's under ``"serving"``
-beside them; each kernel row adds phase 12's, 13's and 14's launches a
-path under ``launches_by_path``)
+``"llm"``, phase 13's under ``"mesh"``, phase 14's under ``"serving"``,
+phase 15's under ``"serving_spec"`` and phase 16's under ``"planes"``
+beside them; each kernel row adds phase 12's to 16's launches a path
+under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -1139,9 +1171,11 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
 
 #: phase 8: the realtext_docs row of tools/run_baseline_rows.py, the text
 #: transformer at its full default width (dim 256, 4 layers, 8 heads, FFN
-#: 512) on the committed real text shard; 24 rounds, then 2 more unfused
-#: and a whole block of 8 fused under the profiler (a 2-round tail block
-#: under the profiler read 383 of the 384 K1–K3 a round on one H100)
+#: 512) on the committed real text shard; 24 fused rounds (the accuracy
+#: bar) and 8 unfused (held bitwise to the fused run's first block), then
+#: 1 more unfused round and a whole block of 8 fused under the profiler (a
+#: 2-round tail block under the profiler read 383 of the 384 K1–K3 a round
+#: on one H100)
 TEXT_REALTEXT = dict(
     dataset="realtext", model="text_transformer", seq_len=128,
     vocab_size=8192, data_cache_dir=os.path.join(
@@ -1152,6 +1186,9 @@ TEXT_REALTEXT = dict(
     partition_method="hetero", partition_alpha=0.5, sp_client_mode="vmap",
     comm_round=32)
 TEXT_ROUNDS, TEXT_BLOCK, TEXT_ACC_BAR = 24, 8, 0.6
+#: the unfused run's rounds: the fused run's first block, which it must
+#: equal bitwise (the fused rounds go on to the accuracy bar)
+TEXT_UNFUSED_ROUNDS = 8
 #: phase 8 (e): tests/test_model_zoo_ext.py's text config (seq 32, vocab
 #: 512, dim 64, 2 layers, 4 heads), 2 SGD rounds card vs CPU
 TEXT_SMALL = dict(dataset="20news", model="distilbert", seq_len=32,
@@ -1241,7 +1278,7 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
             # read just after: once per layer per step for the whole cohort
             att.reset_launch_counts()
             seconds, losses, steps, samples = [], [], 0, []
-            for r in range(rounds):
+            for r in range(TEXT_UNFUSED_ROUNDS):
                 dt, m = sync_time(torch, lambda: api.train_one_round(r))
                 seconds.append(dt)
                 losses.append(float(m["train_loss"]))
@@ -1255,8 +1292,8 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
             expect = {"flash_fwd": layers * (steps + n_eval),
                       "flash_bwd_dq": layers * steps,
                       "flash_bwd_dkv": layers * steps}
-            say("text", f"(a) {n_params:,} parameters; unfused {rounds} "
-                        f"rounds: {steps} padded steps of 5 clients × 16 "
+            say("text", f"(a) {n_params:,} parameters; unfused "
+                        f"{TEXT_UNFUSED_ROUNDS} rounds: {steps} padded steps of 5 clients × 16 "
                         f"sequences, {n_eval} eval batches; launches "
                         f"{launches}, expected {expect} (once per layer per "
                         f"step for the whole cohort, K1 also per eval "
@@ -1264,7 +1301,7 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
             if launches != expect:
                 fail(f"(a) launch counts {launches} != expected {expect}")
             out["launches"] = launches
-            rec.update(s_per_round=sum(seconds[1:]) / (rounds - 1),
+            rec.update(s_per_round=sum(seconds[1:]) / (len(seconds) - 1),
                        samples_per_s=sum(samples[1:]) / sum(seconds[1:]),
                        first_round_s=seconds[0], round_losses=losses)
         else:
@@ -1273,6 +1310,9 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
                 dt, ms = sync_time(torch, lambda: api.train_block(r))
                 seconds.append(dt)
                 blocks.append(ms[1])
+                if r + k == TEXT_UNFUSED_ROUNDS:
+                    snap = {key: v.clone()
+                            for key, v in state_tensors(api).items()}
             rec["test_loss"], rec["test_acc"] = api.evaluate()
             real = sum(float(b["total_steps"].sum()) for b in blocks[1:])
             rec.update(s_per_round=sum(seconds[1:]) / (rounds - k),
@@ -1283,26 +1323,29 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
                        .reshape(-1).tolist(),
                        graphs_captured=api._block_fn.captures)
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_r = TEXT_UNFUSED_ROUNDS if rb == 1 else rounds
         say("text", f"(b) {mode}: {rec['s_per_round']:.4f} s/round after "
                     f"the first {'round' if rb == 1 else 'block'} "
                     f"({rec['samples_per_s']:.0f} real samples/s), test "
                     f"loss {rec['test_loss']:.4f}, accuracy "
-                    f"{rec['test_acc']:.4f} after {rounds} rounds (bar "
-                    f"{TEXT_ACC_BAR}), peak {rec['peak_gib']:.3f} GiB "
-                    f"[{smi}]")
-        if not rec["test_acc"] > TEXT_ACC_BAR:
+                    f"{rec['test_acc']:.4f} after {n_r} rounds"
+                    f"{'' if rb == 1 else f' (bar {TEXT_ACC_BAR})'}, peak "
+                    f"{rec['peak_gib']:.3f} GiB [{smi}]")
+        if rb > 1 and not rec["test_acc"] > TEXT_ACC_BAR:
             fail(f"(b) {mode}: realtext accuracy {rec['test_acc']:.4f} "
                  f"after {rounds} rounds")
         out[mode] = rec
     u, f = apis["unfused"], apis["fused"]
     if not f._block_fn.captures:
         fail("(c) the fused text rounds captured no CUDA graph")
-    got, ref = state_tensors(f), state_tensors(u)
-    err = max(max_err(got[key], v) for key, v in ref.items())
+    ref = state_tensors(u)
+    err = max(max_err(snap[key], v) for key, v in ref.items())
+    del snap
     loss_err = max(abs(a - b) for a, b in zip(
         out["fused"]["round_losses"], out["unfused"]["round_losses"]))
     say("text", f"(c) fused (K {k}, {f._block_fn.captures} graph(s)) vs "
-                f"unfused after {rounds} rounds: params and server state "
+                f"unfused after {TEXT_UNFUSED_ROUNDS} rounds: params and "
+                f"server state "
                 f"max abs diff {err:.2e}, per-round losses "
                 f"{loss_err:.2e} (tol {FUSED_TOL:g})")
     if not (err <= FUSED_TOL and loss_err <= FUSED_TOL):
@@ -1310,8 +1353,9 @@ def text_phase(torch, fedml_tpu_torch, att, smi):
              f"{loss_err:.2e})")
     out.update(fused_max_abs_err=err, fused_loss_max_abs_err=loss_err)
     # (d) a profiled pass of each engine (the state goes on: counting only)
+    n_u = TEXT_UNFUSED_ROUNDS
     out["unfused"].update(profile_rounds(
-        torch, lambda: run_unfused(u, rounds, rounds + 2), 2))
+        torch, lambda: run_unfused(u, n_u, n_u + 1), 1))
     out["fused"].update(profile_rounds(
         torch, lambda: run_blocks(f, rounds, rounds + k), k))
     for mode in ("unfused", "fused"):
@@ -1424,6 +1468,8 @@ ZOO_CARD_CPU = {
                       partition_method="homo"),
 }
 ZOO_CARD_CPU_TOL = 1e-6
+#: phase 10 (a)/(b): rounds a block (and the unfused rounds before it)
+LM_BLOCK = 4
 
 
 def finite(*xs):
@@ -1542,12 +1588,12 @@ def models_phase(torch, fedml_tpu_torch, smi):
     out = {}
     t0 = time.time()
     out["shakespeare_rnn"] = lm_rounds(torch, fedml_tpu_torch, "(a) rnn",
-                                       ZOO_SHAKESPEARE_RNN, 8, smi)
+                                       ZOO_SHAKESPEARE_RNN, LM_BLOCK, smi)
     say("models", f"(a) took {time.time() - t0:.1f} s")
     t0 = time.time()
     out["stackoverflow_nwp"] = lm_rounds(
         torch, fedml_tpu_torch, "(b) rnn_stackoverflow",
-        ZOO_STACKOVERFLOW_NWP, 8, smi)
+        ZOO_STACKOVERFLOW_NWP, LM_BLOCK, smi)
     say("models", f"(b) took {time.time() - t0:.1f} s")
 
     # (c) tag prediction and (d) tabular LR: one warm round, then timed
@@ -3011,6 +3057,9 @@ SERVE_LORA_RANK = 8
 SERVE_ADAPTER_NEW = 16
 SERVE_GEN_BUF = 256              # (a): the plain step re-runs this buffer
 SERVE_GEN_NEW = 32
+#: (b): requests whose engine stream is also held to ``generate``'s (the
+#: witness scores every token of every request's stream)
+SERVE_GEN_REFS = 2
 SERVE_INT8_NEW = 16
 SERVE_TINY_TOL = 1e-5
 #: an int8 code that parts from the CPU's at a rounding tie moves one K or V
@@ -3312,11 +3361,13 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
                    f"{SERVE_GEN_BUF}-token buffer [{smi}]")
     out["seconds"]["a"] = time.time() - t0
 
-    # (b) the dense engine: every request against generate, horizon 4 ≡ 1
+    # (b) the dense engine: the first requests against generate, horizon
+    # 4 ≡ 1
     t0 = time.time()
     prompts = serve_prompts(np, tok, SERVE_REQUESTS, *SERVE_PROMPTS, 2)
     refs = [oc.generate(None, None, p, max_new_tokens=SERVE_NEW,
-                        buf_len=SERVE_BUF, model=model) for p in prompts]
+                        buf_len=SERVE_BUF, model=model)
+            for p in prompts[:SERVE_GEN_REFS]]
     # the batched step against one-row steps on identical inputs
     ids = prompts[0][:64]
     with torch.no_grad():
@@ -3390,8 +3441,10 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     say("serving", f"(b) peak {b1['peak_gib']:.2f} GiB vs "
                    f"estimate_serving_memory {b1['estimate_gib']:.2f} GiB "
                    f"(caches {b1['cache_gib']:.2f} GiB)")
-    checks.append(("dense_engine", "(b) engine vs generate", prompts, refs,
-                   engines[1][0]))
+    base = engines[1][0]    # the streams (c), (e) and the control read
+    checks.append(("dense_engine", "(b) engine vs generate",
+                   prompts[:SERVE_GEN_REFS], refs,
+                   base[:SERVE_GEN_REFS]))
     checks.append(("dense_engine", "(b) horizon 4 vs 1", prompts,
                    engines[1][0], engines[4][0]))
     out["dense_engine"] = {"h1": engines[1][1], "h4": engines[4][1],
@@ -3420,8 +3473,8 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     toks8 = [oc.generate(None, None, p, max_new_tokens=SERVE_INT8_NEW,
                          buf_len=SERVE_BUF, model=model8)
              for p in prompts[:n8]]
-    same = sum(a == b[:SERVE_INT8_NEW] for a, b in zip(toks8, refs[:n8]))
-    first_same = sum(a[:1] == b[:1] for a, b in zip(toks8, refs[:n8]))
+    same = sum(a == b[:SERVE_INT8_NEW] for a, b in zip(toks8, base[:n8]))
+    first_same = sum(a[:1] == b[:1] for a, b in zip(toks8, base[:n8]))
     out["int8"] = {"attn_rel_err": attn_err, "requests_equal": same,
                    "first_token_equal": first_same, "requests": n8}
     say("serving", f"(c) int8 KV: layer-0 attention output relative error "
@@ -3562,7 +3615,7 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     del eng
     torch.cuda.empty_cache()
     moved = sum(a != b for a, b in zip(
-        refs_e[::2], [r[:SERVE_ADAPTER_NEW] for r in refs[::2]]))
+        refs_e[::2], [r[:SERVE_ADAPTER_NEW] for r in base[::2]]))
     if moved < SERVE_ADAPTERS // 2:
         fail(f"serving (e): only {moved} adapter streams differ from base")
     checks.append(("adapters", "(e) adapter bank vs generate", prompts,
@@ -3636,7 +3689,7 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     wit = Witness(torch, lm, model, dev)
     eps = 0.0
     longest = max(range(SERVE_REQUESTS), key=lambda r: len(prompts[r]))
-    for ids in (prompt + times["plain"][1], prompts[longest] + refs[longest]):
+    for ids in (prompt + times["plain"][1], prompts[longest] + base[longest]):
         with torch.no_grad():
             plain = model(torch.tensor([ids], device=dev))[0]
         eps = max(eps, logits_gap(plain, wit.logits(ids)))
@@ -3655,7 +3708,7 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
         parted = check_streams(wit, limit, out, *check)
         out[section]["parted"] = out[section].get("parted", 0) + parted
     # the control: request 1's stream scored after request 0's prompt
-    wrong = wit.stream_gaps(prompts[0], refs[1])
+    wrong = wit.stream_gaps(prompts[0], base[1])
     share = sum(g > limit for g in wrong) / len(wrong)
     out["witness"] = {"plain_vs_witness": eps, "limit": limit,
                       "deltas": deltas, "control_off_limit": share,
@@ -3699,13 +3752,585 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
                    f"precision reduction {'on' if flag else 'off'} (default) "
                    f"{pv['bf16_default_vs_f64']}, off "
                    f"{pv['bf16_strict_vs_f64']}, of {pv['elements']}")
-    del model
+    del probs, v, exact, ours, default_mm, strict_mm
     torch.cuda.empty_cache()
+    # phase 15 goes on with this model, the prompts and the dense engine's
+    # streams (popped by main before the JSON line)
+    out["_carry"] = {"model": model, "prompts": prompts, "base": base,
+                     "engine_h1": engines[1][1]}
 
     # (g) card ≡ CPU on TINY in f32
     t0 = time.time()
     serving_tiny_card_vs_cpu(torch, lm, out)
     out["seconds"]["g"] = time.time() - t0
+    out["seconds"]["phase"] = time.time() - t_phase
+    return out
+
+
+# -- 15. serving's remainder ---------------------------------------------
+SPEC_K = 4
+SPEC_DRAFT_LAYERS = 2
+SPEC_NEW = 64                    # (b): tokens of the one request
+SPEC_SERVER_SLOTS = 2
+SPEC_CACHE_ROWS = 3              # (e): bank rows, the zero row included
+SPEC_CACHE_ADAPTERS = 4
+SPEC_CACHE_MIX = ["a0", "a1", "a2", "a3", "a0", None, "a2", "a1"]
+SPEC_TINY_NEW = 20
+
+
+class _DequantizedView:
+    """The model as the int8 path sees it: its weights dequantized to the
+    compute type one at a time (the f32 witness upcasts each as it goes,
+    so no second bf16 copy of the model is held)."""
+
+    def __init__(self, model, qparams, dequantize):
+        self.cfg = model.cfg
+        self._model, self._pairs = model, qparams.pairs()
+        self._deq = dequantize
+
+    def state_dict(self):
+        model, pairs, deq = self._model, self._pairs, self._deq
+
+        class _Items:
+            def items(self):
+                for k, v in model.state_dict().items():
+                    yield k, (deq(*pairs[k], model.cfg.dtype)
+                              if k in pairs else v)
+        return _Items()
+
+
+def witness_limit(torch, wit, forward, seqs):
+    """``SERVE_TIE_FACTOR`` times the largest logit distance of the tested
+    weights' plain forward from the witness over ``seqs``."""
+    eps = 0.0
+    for ids in seqs:
+        with torch.no_grad():
+            got = forward(ids)
+        eps = max(eps, logits_gap(got, wit.logits(ids)))
+    return eps, SERVE_TIE_FACTOR * eps
+
+
+def serving_tiny_spec_card_vs_cpu(torch, lm, out):
+    """(f): TINY in f32, speculative decode (a misaligned draft and the
+    target's int8 tree) against plain greedy on the card and on the CPU,
+    from the same weights."""
+    import dataclasses
+
+    from fedml_tpu_torch.llm.quantization import quantize_params_int8
+    from fedml_tpu_torch.serving import speculative_generate
+    from fedml_tpu_torch.serving.templates import openai_compat as oc
+
+    cfg = dataclasses.replace(lm.TINY, max_seq_len=64, attn_impl="blockwise")
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        t, d = lm.LlamaLM(cfg), lm.LlamaLM(cfg)
+        t.init_weights(torch.Generator().manual_seed(7))
+        d.init_weights(torch.Generator().manual_seed(9))
+        t, d = t.to(dev), d.to(dev)
+        q, _ = quantize_params_int8(t)
+        prompt = list(range(3, 19))
+        greedy = oc.generate(None, None, prompt, max_new_tokens=SPEC_TINY_NEW,
+                             buf_len=48, model=t)
+        spec, st = speculative_generate(t, None, d, None, prompt,
+                                        max_new_tokens=SPEC_TINY_NEW,
+                                        buf_len=48, k=SPEC_K)
+        spec8, st8 = speculative_generate(t, None, t, q, prompt,
+                                          max_new_tokens=SPEC_TINY_NEW,
+                                          buf_len=48, k=SPEC_K)
+        if not spec == spec8 == greedy:
+            fail(f"serving_spec (f) {dev}: speculative tokens differ from "
+                 "plain greedy")
+        streams[dev] = (greedy, st["accepted"], st8["accepted"])
+    same = streams["cpu"] == streams["cuda"]
+    say("serving_spec", f"(f) TINY f32: speculative (misaligned draft, int8 "
+                        f"draft) tokens equal plain greedy on the CPU and on "
+                        f"the card; card ≡ CPU tokens and acceptance: {same}")
+    if not same:
+        fail("serving_spec (f): card and CPU speculative streams differ")
+    out["card_vs_cpu"] = {"tokens_equal": same,
+                          "accepted": streams["cuda"][1:]}
+
+
+def serving_rest_phase(torch, fedml_tpu_torch, att, smi, carry):
+    """Phase 15: the int8 weight-only tree, speculative decode, the
+    speculative engine, the server with a draft, the adapter cache mode, on
+    phase 14's model, prompts and dense-engine streams."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedml_tpu_torch.llm import model as lm
+    from fedml_tpu_torch.llm.quantization import (dequantize_weight,
+                                                  make_quantized_apply,
+                                                  quantization_error,
+                                                  quantize_params_int8)
+    from fedml_tpu_torch.serving import (ContinuousBatchingEngine,
+                                         SpeculativeBatchingEngine,
+                                         speculative_generate)
+    from fedml_tpu_torch.serving.templates import openai_compat as oc
+
+    dev = torch.device("cuda", 0)
+    model, prompts, base = carry["model"], carry["prompts"], carry["base"]
+    cfg = model.cfg
+    out = {"seconds": {}, "ties": [], "peak_gib": {}}
+    checks, checks8, deltas = [], [], {}
+    t_phase = time.time()
+    tok = oc.ByteTokenizer()
+
+    def sub_start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return time.time()
+
+    def sub_end(name, t0):
+        torch.cuda.synchronize()
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["seconds"][name] = time.time() - t0
+
+    # (a) the int8 weight-only tree: bytes, error, the plain engine
+    t0 = sub_start()
+    qp, qst = quantize_params_int8(model)
+    qerr = quantization_error(model, qp)
+    say("serving_spec", f"(a) int8 weight-only tree: {qst['quantized_bytes'] / 2 ** 30:.2f}"
+                        f" GiB against {qst['dense_bytes'] / 2 ** 30:.2f} GiB "
+                        f"bf16 (ratio {qst['ratio']:.3f}); quantization error "
+                        f"max {qerr['max_rel_err']:.3e}, mean "
+                        f"{qerr['mean_rel_err']:.3e} of each leaf's max "
+                        f"magnitude [{smi}]")
+    eng = ContinuousBatchingEngine(model, qp, slots=SERVE_SLOTS,
+                                   buf_len=SERVE_BUF)
+    got8, wall, first = run_engine(torch, eng, prompts, SERVE_NEW)
+    ticks = eng.kv_stats()["ticks"]
+    _, fn, args = eng.step_programs()[0]
+    with torch.no_grad():
+        fn(*args)
+        sec, _ = sync_time(torch, lambda: [fn(*args) for _ in range(5)])
+        prof = profile_rounds(torch, lambda: fn(*args), 1)
+    embed_q = qp["tok_embed.embedding.__q8__.q"].numel()
+    step_bytes = qst["quantized_bytes"] - embed_q + SERVE_SLOTS * cfg.dim \
+        + eng._caches.nbytes()
+    del fn, args
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    ref8 = [oc.generate(None, qp, p, max_new_tokens=SERVE_NEW,
+                        buf_len=SERVE_BUF, model=model) for p in prompts[:1]]
+    checks8.append(("int8", "(a) int8 engine vs int8 generate", prompts[:1],
+                    ref8, got8[:1]))
+    checks8.append(("int8", "(a) int8 engine streams", prompts, got8, got8))
+    h1 = carry["engine_h1"]
+    rec = {"bytes": qst["quantized_bytes"], "bf16_bytes": qst["dense_bytes"],
+           "max_rel_err": qerr["max_rel_err"],
+           "mean_rel_err": qerr["mean_rel_err"], "wall_s": wall,
+           "ticks": ticks, "tokens_per_s": sum(map(len, got8)) / wall,
+           "ttft_s_median": float(np.median(first)),
+           "step_ms": sec * 1e3 / 5,
+           "step_launches": prof["host_launches"],
+           "step_kernels": prof["device_kernels"],
+           "step_busy_ms": prof["busy_s"] * 1e3,
+           "step_bound_ms": step_bytes / PEAK_BYTES * 1e3,
+           "streams_equal_bf16": sum(a == b for a, b in zip(got8, base))}
+    out["int8"] = rec
+    say("serving_spec", f"(a) plain engine on the int8 tree, {SERVE_SLOTS} "
+                        f"slots: {SERVE_REQUESTS} x {SERVE_NEW} tokens in "
+                        f"{wall:.2f} s = {rec['tokens_per_s']:.1f} tokens/s "
+                        f"(bf16, phase 14 (b): {h1['tokens_per_s']:.1f}); "
+                        f"TTFT median {rec['ttft_s_median']:.3f} s "
+                        f"({h1['ttft_s_median']:.3f}); decode step "
+                        f"{rec['step_ms']:.2f} ms ({h1['step_ms']:.2f}), "
+                        f"{rec['step_launches']:.0f} host launch calls "
+                        f"({h1['step_launches']:.0f}), device busy "
+                        f"{rec['step_busy_ms']:.2f} ms "
+                        f"({h1['step_busy_ms']:.2f}); bound "
+                        f"{rec['step_bound_ms']:.2f} ms "
+                        f"({h1['step_bound_ms']:.2f}); "
+                        f"{rec['streams_equal_bf16']}/{SERVE_REQUESTS} "
+                        f"streams equal the bf16 engine's [{smi}]")
+    sub_end("a", t0)
+    say("serving_spec", f"(a) peak {out['peak_gib']['a']:.2f} GiB "
+                        f"(phase 14 (b) bf16: {h1['peak_gib']:.2f} GiB)")
+
+    # (b) speculative_generate: the int8 tree as draft, and a 2-layer draft
+    t0 = sub_start()
+    prompt = serve_prompts(np, tok, 1, 64, 64, 1)[0]
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC_DRAFT_LAYERS, lora_rank=0)
+    with torch.device(dev):
+        draft = lm.LlamaLM(dcfg)
+    draft.init_weights(torch.Generator(device=dev).manual_seed(1))
+    runs = {}
+    for name, fn in (
+            ("generate", lambda n: (oc.generate(
+                None, None, prompt, max_new_tokens=n, buf_len=SERVE_GEN_BUF,
+                model=model), {})),
+            ("int8_draft", lambda n: speculative_generate(
+                model, None, model, qp, prompt, max_new_tokens=n,
+                buf_len=SERVE_GEN_BUF, k=SPEC_K)),
+            ("2_layer_draft", lambda n: speculative_generate(
+                model, None, draft, None, prompt, max_new_tokens=n,
+                buf_len=SERVE_GEN_BUF, k=SPEC_K))):
+        fn(4)                                            # warm
+        torch.cuda.synchronize()
+        t1 = time.time()
+        toks, st = fn(SPEC_NEW)
+        torch.cuda.synchronize()
+        runs[name] = dict(st, ms_per_token=(time.time() - t1) * 1e3
+                          / len(toks), tokens=toks)
+    for name in ("int8_draft", "2_layer_draft"):
+        r = runs[name]
+        checks.append(("spec", f"(b) {name} vs generate", [prompt],
+                       [runs["generate"]["tokens"]], [r["tokens"]]))
+        say("serving_spec", f"(b) speculative_generate, {name.replace('_', ' ')}, "
+                            f"k {SPEC_K}: {r['ms_per_token']:.1f} ms/token vs "
+                            f"generate's {runs['generate']['ms_per_token']:.1f}"
+                            f"; acceptance {r['acceptance_rate']:.3f} "
+                            f"({r['accepted']}/{r['proposed']}), "
+                            f"{r['target_forwards']} target and "
+                            f"{r['draft_forwards']} draft forwards for "
+                            f"{len(r['tokens'])} tokens [{smi}]")
+    out["speculative"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                          for k, v in runs.items()}
+    # a (k+1)-token verify block against 1-token steps on identical inputs
+    ids = prompt + runs["generate"]["tokens"][:SPEC_K + 1]
+    n = len(prompt)
+    with torch.no_grad():
+        caches = [model.init_cache(1, dev, page_tokens=0) for _ in range(2)]
+        for c in caches:
+            model(torch.tensor([prompt], device=dev), decode=True,
+                  start_pos=0, cache=c)
+        blk = model(torch.tensor([ids[n:]], device=dev), decode=True,
+                    start_pos=n, cache=caches[0])[0]
+        steps = torch.cat([model(torch.tensor([[ids[n + j]]], device=dev),
+                                 decode=True, start_pos=n + j,
+                                 cache=caches[1])[0]
+                           for j in range(SPEC_K + 1)])
+        del caches
+    deltas[f"(b) {SPEC_K + 1}-token verify block vs 1-token steps"] = \
+        logits_gap(blk, steps)
+    sub_end("b", t0)
+
+    # (c) the speculative engine, the int8 tree as draft, over the 16
+    # requests
+    t0 = sub_start()
+    eng = SpeculativeBatchingEngine(model, None, model, qp,
+                                    slots=SERVE_SLOTS, buf_len=SERVE_BUF,
+                                    k=SPEC_K)
+    got_s, wall, first = run_engine(torch, eng, prompts, SERVE_NEW)
+    st = dict(eng.stats)
+    eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    checks.append(("spec_engine", "(c) speculative engine vs dense engine",
+                   prompts, base, got_s))
+    rec = dict(st, wall_s=wall, tokens_per_s=sum(map(len, got_s)) / wall,
+               ttft_s_median=float(np.median(first)),
+               acceptance_rate=st["accepted"] / max(st["proposed"], 1))
+    out["spec_engine"] = rec
+    sub_end("c", t0)
+    say("serving_spec", f"(c) speculative engine, {SERVE_SLOTS} slots, k "
+                        f"{SPEC_K}, int8 draft: {SERVE_REQUESTS} x "
+                        f"{SERVE_NEW} tokens in {wall:.2f} s = "
+                        f"{rec['tokens_per_s']:.1f} tokens/s (plain engine, "
+                        f"phase 14 (b): {h1['tokens_per_s']:.1f}); TTFT "
+                        f"median {rec['ttft_s_median']:.3f} s "
+                        f"({h1['ttft_s_median']:.3f}); "
+                        f"{st['target_block_forwards']} target block "
+                        f"forwards, {st['accepted']}/{st['proposed']} "
+                        f"proposals accepted; peak "
+                        f"{out['peak_gib']['c']:.2f} GiB [{smi}]")
+
+    # (d) the server: one HTTP request with a draft and batch_slots
+    t0 = sub_start()
+    srv = oc.OpenAICompatServer(None, None, tokenizer=IdTokenizer(),
+                                model=model, draft_model=draft,
+                                batch_slots=SPEC_SERVER_SLOTS,
+                                buf_len=SERVE_GEN_BUF, spec_k=SPEC_K)
+    port = srv.start()
+    try:
+        code, body = serve_http(port, "/v1/completions",
+                                {"prompt": "Federated serving",
+                                 "max_tokens": 16})
+        stats = dict(srv._engine.stats)
+    finally:
+        srv.stop()
+    ids = IdTokenizer().encode("Federated serving")
+    ref = oc.generate(None, None, ids, max_new_tokens=16,
+                      buf_len=SERVE_GEN_BUF, model=model,
+                      eos_id=IdTokenizer.eos_id)
+    got = [int(x) for x in json.loads(body)["choices"][0]["text"].split()] \
+        if code == 200 else []
+    if code != 200 or not got or not stats["target_block_forwards"]:
+        fail(f"serving_spec (d): server reply {code}, {len(got)} tokens, "
+             f"stats {stats}")
+    checks.append(("server", "(d) server with a draft vs generate", [ids],
+                   [ref], [got]))
+    out["server"] = {"code": code, "stats": stats}
+    say("serving_spec", f"(d) server with a {SPEC_DRAFT_LAYERS}-layer draft "
+                        f"and batch_slots {SPEC_SERVER_SLOTS}: completions "
+                        f"{code}, 16 tokens through the speculative engine "
+                        f"({stats['target_block_forwards']} block forwards)")
+    sub_end("d", t0)
+
+    # (e) the adapter cache mode: 4 adapters through a 3-row cache, against
+    # the bank-resident engine
+    t0 = sub_start()
+    loras = saturated_adapters(torch, model, SPEC_CACHE_ADAPTERS, dev)
+    names = [f"a{i}" for i in range(SPEC_CACHE_ADAPTERS)]
+    ps = prompts[:len(SPEC_CACHE_MIX)]
+    res = {}
+    for mode, kw in (("bank", {"adapter_slots": SPEC_CACHE_ADAPTERS + 1}),
+                     ("cache", {"adapter_cache_slots": SPEC_CACHE_ROWS})):
+        eng = ContinuousBatchingEngine(model, None, slots=SERVE_SLOTS,
+                                       buf_len=SERVE_BUF, **kw)
+        for name, lora in zip(names, loras):
+            eng.registry.register(name, lora)
+        got, wall, _ = run_engine(torch, eng, ps, SERVE_ADAPTER_NEW,
+                                  SPEC_CACHE_MIX)
+        res[mode] = (got, wall, dict(eng.registry.stats))
+        eng.stop()
+        del eng
+    torch.cuda.empty_cache()
+    lora_of = lambda a: loras[names.index(a)] if a else None
+    checks.append(("adapter_cache", "(e) adapter cache vs bank", ps,
+                   res["bank"][0], res["cache"][0],
+                   [(a, lora_of(a)) for a in SPEC_CACHE_MIX]))
+    cst = res["cache"][2]
+    if not (cst["cache_misses"] >= SPEC_CACHE_ADAPTERS
+            and cst["cache_evictions"] > 0):
+        fail(f"serving_spec (e): the cache never missed and evicted: {cst}")
+    out["adapter_cache"] = {"stats": cst, "wall_s": res["cache"][1],
+                            "bank_wall_s": res["bank"][1]}
+    say("serving_spec", f"(e) adapter cache mode, {SPEC_CACHE_ROWS} rows "
+                        f"(zero row included) for {SPEC_CACHE_ADAPTERS} "
+                        f"adapters, {len(ps)} requests x "
+                        f"{SERVE_ADAPTER_NEW} tokens in "
+                        f"{res['cache'][1]:.2f} s (bank-resident "
+                        f"{res['bank'][1]:.2f} s): {cst['cache_hits']} hits, "
+                        f"{cst['cache_misses']} misses, "
+                        f"{cst['cache_evictions']} evictions [{smi}]")
+    sub_end("e", t0)
+
+    # every stream against its witness: the bf16 model's, then the int8
+    # tree's (its dequantized weights upcast); never beside an engine
+    t0 = sub_start()
+    out["witness"] = {}
+    for which, wmodel, forward, cks in (
+            ("bf16", model, lambda ids: model(
+                torch.tensor([ids], device=dev))[0], checks),
+            ("int8", _DequantizedView(model, qp, dequantize_weight),
+             lambda ids: make_quantized_apply(model)(
+                 qp, torch.tensor([ids], device=dev))[0], checks8)):
+        wit = Witness(torch, lm, wmodel, dev)
+        streams = base if which == "bf16" else got8
+        longest = max(range(SERVE_REQUESTS), key=lambda r: len(prompts[r]))
+        eps, limit = witness_limit(torch, wit, forward, [
+            prompt + runs["generate"]["tokens"],
+            prompts[longest] + streams[longest]])
+        say("serving_spec", f"witness ({which}): the plain forward sits "
+                            f"within {eps:.3e} of the f32 witness; limit "
+                            f"{SERVE_TIE_FACTOR} x that = {limit:.3e}")
+        if which == "bf16":
+            for name, delta in deltas.items():
+                say("serving_spec", f"{name}: logit difference on identical"
+                                    f" inputs {delta:.3e} (limit "
+                                    f"{limit:.3e})")
+                if delta > limit:
+                    fail(f"serving_spec {name}: the paths differ by "
+                         f"{delta:.3e}, more than the limit {limit:.3e}")
+        for section, *check in cks:
+            parted = check_streams(wit, limit, out, *check)
+            out.setdefault(section, {})
+            out[section]["parted"] = out[section].get("parted", 0) + parted
+        wrong = wit.stream_gaps(prompts[0], streams[1])
+        share = sum(g > limit for g in wrong) / len(wrong)
+        out["witness"][which] = {"plain_vs_witness": eps, "limit": limit,
+                                 "control_off_limit": share,
+                                 "streams": len(wit.gaps)}
+        say("serving_spec", f"witness ({which}) control: another request's "
+                            f"stream fails the limit on {share:.0%} of its "
+                            f"{len(wrong)} tokens")
+        if share < SERVE_CONTROL_MIN:
+            fail(f"serving_spec: the {which} limit {limit:.3e} passes "
+                 f"{1 - share:.0%} of a wrong stream's tokens")
+        del wit
+        torch.cuda.empty_cache()
+    out["witness"]["deltas"] = deltas
+    sub_end("witness", t0)
+    del qp, draft
+    torch.cuda.empty_cache()
+
+    # (f) card ≡ CPU on TINY f32
+    t0 = sub_start()
+    serving_tiny_spec_card_vs_cpu(torch, lm, out)
+    sub_end("f", t0)
+    out["seconds"]["phase"] = time.time() - t_phase
+    return out
+
+
+# -- 16. the sp planes: FedBuff, the client store, checkpoints -------------
+PLANES_ROUNDS = 3
+PLANES_HEAVY = dict(async_latency_median_s=2.0, async_latency_sigma=1.6,
+                    async_inflight_gens=2, async_dropout=0.1,
+                    async_max_staleness=3)
+PLANES_REGISTERED = 10 ** 6
+
+
+def _state_equal(torch, a, b):
+    from fedml_tpu_torch.core.checkpoint import state_to_flat
+    fa, fb = state_to_flat(a.state), state_to_flat(b.state)
+    return set(fa) == set(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def _rows(api):
+    import numpy as np
+    if api._store is not None:
+        api._pager.drain_writebacks()
+        return api._store.gather(np.arange(api.registered_clients))
+    return {k: v.cpu().numpy() for k, v in (api.client_table or {}).items()}
+
+
+def planes_phase(torch, fedml_tpu_torch, smi):
+    """Phase 16: phase 5 (b)'s FEMNIST CNN through FedBuff, the client
+    store, data paging, a registered population and a checkpoint resume."""
+    import shutil
+
+    import numpy as np
+
+    from fedml_tpu_torch import data, device, model
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    out = {"seconds": {}}
+    t_phase = time.time()
+    # one dataset for every run (the options below do not change it)
+    ds, n_out = data.load(sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN))
+
+    def build(**over):
+        """The engine a user script builds (``build_sp``) for phase 5
+        (b)'s configuration with ``over``, on the shared dataset."""
+        cfg = dict(SP_FEMNIST_CNN, comm_round=PLANES_ROUNDS + 1)
+        cfg.update(over)
+        args = sp_args(fedml_tpu_torch, **cfg)
+        return FedMLRunner(args, device.get_device(args), ds,
+                           model.create(args, n_out)).runner.fl_trainer
+
+    def rounds(api, n=PLANES_ROUNDS):
+        """``n`` rounds: seconds a round after the first (warm), and each
+        round's metrics."""
+        ms, dts = [], []
+        for r in range(n):
+            dt, m = sync_time(torch, lambda: api.train_one_round(r))
+            ms.append(m)
+            dts.append(dt)
+        return sum(dts[1:]) / (n - 1), ms
+
+    # (a) FedBuff at zero staleness ≡ the sync round, and a heavy tail
+    t0 = time.time()
+    sync = build()
+    s_sync, _ = rounds(sync)
+    fb = build(federated_optimizer="fedbuff")
+    s_fb, _ = rounds(fb)
+    same = _state_equal(torch, sync, fb)
+    heavy = build(federated_optimizer="fedbuff", **PLANES_HEAVY)
+    s_heavy, ms = rounds(heavy, PLANES_ROUNDS + 1)
+    losses = [float(m["train_loss"]) for m in ms]
+    rec = {"s_per_round_sync": s_sync, "s_per_round_fedbuff": s_fb,
+           "s_per_apply_heavy": s_heavy, "zero_staleness_bitwise": same,
+           "fastpath_applies": fb.fastpath_applies,
+           "heavy_losses": losses,
+           "heavy_staleness_p99": ms[-1]["staleness_p99"],
+           "heavy_dropped": heavy.updates_dropped,
+           "heavy_dispatched": heavy.clients_dispatched,
+           "heavy_sim_s": heavy.sim.now}
+    out["fedbuff"] = rec
+    say("planes", f"(a) FedBuff, FEMNIST CNN, K = cohort 10: zero-staleness "
+                  f"run bitwise the sync rounds: {same} ({fb.fastpath_applies}"
+                  f" fast-path applies), {s_fb:.4f} s/round vs the sync "
+                  f"engine's {s_sync:.4f}; heavy tail (median 2 s, σ 1.6, 2 "
+                  f"generations in flight, dropout 0.1, staleness ≤ 3): "
+                  f"{s_heavy:.4f} s/apply, losses "
+                  f"{[round(x, 4) for x in losses]}, staleness p99 "
+                  f"{rec['heavy_staleness_p99']:.1f}, {heavy.updates_dropped}"
+                  f" of {heavy.clients_dispatched} updates dropped, "
+                  f"{heavy.sim.now:.1f} simulated s [{smi}]")
+    if not same or fb.fastpath_applies != PLANES_ROUNDS:
+        fail("planes (a): the zero-staleness FedBuff rounds are not the sync "
+             "rounds")
+    if not (finite(*losses) and heavy.fastpath_applies < len(ms)
+            and heavy.updates_dropped > 0):
+        fail(f"planes (a): the heavy-tailed run {rec}")
+    del sync, fb, heavy
+    out["seconds"]["a"] = time.time() - t0
+
+    # (b) the client store ≡ the dense table (SCAFFOLD), data paging ≡ the
+    # host path, a registered population of 10^6
+    t0 = time.time()
+    dense = build(federated_optimizer="SCAFFOLD")
+    s_dense, _ = rounds(dense)
+    store = build(federated_optimizer="SCAFFOLD", client_store=True,
+                  store_page_size=16)
+    s_store, _ = rounds(store)
+    rd, rs = _rows(dense), _rows(store)
+    same = _state_equal(torch, dense, store) and all(
+        np.array_equal(rd[k], rs[k]) for k in rd)
+    host = build(device_data=False)
+    s_host, _ = rounds(host, 2)
+    paged = build(data_paging=True, data_page_size=256)
+    s_paged, _ = rounds(paged, 2)
+    same_paged = _state_equal(torch, host, paged)
+    reg = build(federated_optimizer="SCAFFOLD", client_store=True,
+                registered_clients=PLANES_REGISTERED, store_page_size=64)
+    s_reg, _ = rounds(reg, 2)
+    reg._pager.drain_writebacks()   # the last round's rows land first
+    rst = reg._store.stats()
+    sampled = len(np.unique(np.concatenate(
+        [reg._client_sampling(r) for r in range(2)])))
+    rec = {"store_bitwise_dense": same, "s_per_round_dense": s_dense,
+           "s_per_round_store": s_store, "paged_bitwise_host": same_paged,
+           "s_per_round_host": s_host, "s_per_round_paged": s_paged,
+           "registered_touched_rows": rst["touched_rows"],
+           "registered_resident_bytes": rst["resident_bytes"],
+           "registered_dense_bytes": reg._store.dense_nbytes(),
+           "s_per_round_registered": s_reg}
+    out["store"] = rec
+    say("planes", f"(b) client store (SCAFFOLD) bitwise the dense table: "
+                  f"{same}, {s_store:.4f} s/round vs {s_dense:.4f}; data "
+                  f"paging bitwise the host path: {same_paged}, "
+                  f"{s_paged:.4f} vs {s_host:.4f} s/round; 10^6 registered: "
+                  f"{rst['touched_rows']} rows touched ({sampled} sampled), "
+                  f"{rst['resident_bytes'] / 2 ** 20:.2f} MiB resident of a "
+                  f"{rec['registered_dense_bytes'] / 2 ** 30:.1f} GiB dense "
+                  f"table, {s_reg:.4f} s/round [{smi}]")
+    if not (same and same_paged and rst["touched_rows"] == sampled):
+        fail(f"planes (b): {rec}")
+    del dense, store, host, paged, reg
+    out["seconds"]["b"] = time.time() - t0
+
+    # (c) a run stopped after 2 rounds and resumed ≡ the uninterrupted run
+    t0 = time.time()
+    # a scratch directory inside the checkout, removed after the check
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".phase16_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    over = dict(federated_optimizer="SCAFFOLD", client_store=True,
+                store_page_size=16)
+    full = build(**over)
+    full.train()
+    first = build(**dict(over, comm_round=2, checkpoint_dir=ckpt,
+                         checkpoint_freq=1))
+    first.train()
+    resumed = build(**over, checkpoint_dir=ckpt, checkpoint_freq=1)
+    resumed.train()
+    ra, rb = _rows(full), _rows(resumed)
+    same = _state_equal(torch, full, resumed) and all(
+        np.array_equal(ra[k], rb[k]) for k in ra)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["checkpoint"] = {"resumed_bitwise": same,
+                         "resumed_rounds": len(resumed.metrics_history)}
+    say("planes", f"(c) checkpoint_dir: {PLANES_ROUNDS + 1} rounds, stopped "
+                  f"after 2 and resumed from the step and its store sidecar, "
+                  f"bitwise the uninterrupted run: {same}")
+    if not same or len(resumed.metrics_history) != PLANES_ROUNDS - 1:
+        fail("planes (c): the resumed run differs from the uninterrupted one")
+    out["seconds"]["c"] = time.time() - t0
     out["seconds"]["phase"] = time.time() - t_phase
     return out
 
@@ -4018,6 +4643,44 @@ def main():
     say("serving", f"phase 14 took {time.time() - t0:.1f} s "
                    f"({ {k: round(v, 1) for k, v in serving['seconds'].items()} }"
                    f"); K1-K3 launches {serving['launches']}")
+    carry = serving.pop("_carry")
+
+    # -- 15. serving's remainder: int8 trees, speculative decode, the cache --
+    t0 = time.time()
+    att.reset_launch_counts()
+    spec = serving_rest_phase(torch, fedml_tpu_torch, att, smi, carry)
+    del carry
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spec["launches"] = launch_counts(att)
+    for name, n in spec["launches"].items():
+        for shape in ("slice", "text"):
+            rows[f"{name}@{shape}"].setdefault("launches_by_path", {})[
+                "serving_spec"] = n
+    if any(spec["launches"].values()):
+        fail(f"phase 15 launched a flash-attention kernel: "
+             f"{spec['launches']}")
+    say("serving_spec", f"phase 15 took {time.time() - t0:.1f} s "
+                        f"({ {k: round(v, 1) for k, v in spec['seconds'].items()} }"
+                        f"); peak GiB by sub-phase "
+                        f"{ {k: round(v, 2) for k, v in spec['peak_gib'].items()} }"
+                        f"; K1-K3 launches {spec['launches']}")
+
+    # -- 16. the sp planes: FedBuff, the client store, checkpoints ----------
+    t0 = time.time()
+    att.reset_launch_counts()
+    planes = planes_phase(torch, fedml_tpu_torch, smi)
+    planes["launches"] = launch_counts(att)
+    for name, n in planes["launches"].items():
+        for shape in ("slice", "text"):
+            rows[f"{name}@{shape}"].setdefault("launches_by_path", {})[
+                "planes"] = n
+    if any(planes["launches"].values()):
+        fail(f"phase 16 launched a flash-attention kernel: "
+             f"{planes['launches']}")
+    say("planes", f"phase 16 took {time.time() - t0:.1f} s "
+                  f"({ {k: round(v, 1) for k, v in planes['seconds'].items()} }"
+                  f"); K1-K3 launches {planes['launches']}")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -4025,7 +4688,8 @@ def main():
                       "slice": slice_rec, "sp": sp, "zoo": zoo,
                       "fusion": fusion, "text": text, "resnet": resnet,
                       "models": models, "engines": engines, "llm": llm,
-                      "mesh": mesh, "serving": serving}))
+                      "mesh": mesh, "serving": serving,
+                      "serving_spec": spec, "planes": planes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

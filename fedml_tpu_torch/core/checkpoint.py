@@ -5,20 +5,34 @@ A checkpoint is one file per step, ``step_<n>.pt``: ``torch.save`` of
 ``{"step": n, "state": {name: tensor}, "client_state": {name: tensor} or
 None}``, written to a temporary file and renamed into place, the oldest
 pruned past ``max_to_keep``.  State is a flat dict of tensors (the trainer's
-``{"train/...", "opt/..."}``); a dense per-client table travels the same way
-as ``client_state``.  An orbax checkpoint of the JAX package is not read,
-and the client-store sidecars wait for the client-state plane.
+``{"train/...", "opt/..."}``, or a federated ``ServerState`` through
+:func:`state_to_flat`); a dense per-client table travels the same way as
+``client_state``.  A sparse client store
+(:class:`~fedml_tpu_torch.store.ClientStateStore`) is saved beside the step
+as ``store_<n>.npz``, its written rows only (the JAX package's sidecar
+layout), and restored into the caller's store in place.  An orbax
+checkpoint of the JAX package is not read, nor a ``checkpoint_codec="wire"``
+one (the fedwire codec is not ported).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 TensorDict = Dict[str, torch.Tensor]
+
+
+def _is_store(client_state) -> bool:
+    """A sparse client store, duck-typed so this module does not import
+    the store package."""
+    return (hasattr(client_state, "to_checkpoint")
+            and hasattr(client_state, "load_checkpoint"))
 
 
 def _check_flat(what: str, tree) -> None:
@@ -28,8 +42,44 @@ def _check_flat(what: str, tree) -> None:
             isinstance(k, str) and isinstance(v, torch.Tensor)
             for k, v in tree.items()):
         raise NotImplementedError(
-            f"{what}: the port checkpoints flat {{name: tensor}} dicts only "
-            "(client stores wait for the client-state plane)")
+            f"{what}: a checkpoint of {type(tree).__name__} is not "
+            "implemented: the port checkpoints flat {name: tensor} dicts "
+            "and a client store (store/clientstore.py)")
+
+
+def state_to_flat(state) -> TensorDict:
+    """A federated ``ServerState`` (or any dataclass of tensors and
+    ``{name: tensor}`` dicts) as one flat dict: ``field`` or
+    ``field/name``, the host round counter as a 0-d int64 tensor."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v
+        elif isinstance(v, Mapping):
+            out.update({f"{f.name}/{k}": t for k, t in v.items()})
+        else:
+            out[f.name] = torch.tensor(int(v), dtype=torch.int64)
+    return out
+
+
+def state_from_flat(flat: Mapping, like):
+    """Inverse of :func:`state_to_flat` against the structure of ``like``
+    (a state of the same kind): a restored state."""
+    changes = {}
+    for f in dataclasses.fields(like):
+        v = getattr(like, f.name)
+        if v is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = flat[f.name]
+        elif isinstance(v, Mapping):
+            changes[f.name] = {k: flat[f"{f.name}/{k}"] for k in v}
+        else:
+            changes[f.name] = int(flat[f.name])
+    return dataclasses.replace(like, **changes)
 
 
 class RoundCheckpointer:
@@ -50,10 +100,19 @@ class RoundCheckpointer:
                 continue
         return sorted(out)
 
+    def _store_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"store_{int(step)}.npz")
+
     def save(self, round_idx: int, state: TensorDict,
-             client_state: Optional[TensorDict] = None) -> None:
-        """Write ``state`` (and ``client_state``) as step ``round_idx``,
-        moved to the CPU; then prune the oldest steps."""
+             client_state=None) -> None:
+        """Write ``state`` (and ``client_state``: a flat dict, or a client
+        store saved sparse as the step's sidecar) as step ``round_idx``,
+        moved to the CPU; then prune the oldest steps and their
+        sidecars."""
+        store = client_state if _is_store(client_state) else None
+        if store is not None:
+            client_state = None
+            np.savez(self._store_path(round_idx), **store.to_checkpoint())
         _check_flat("state", state)
         _check_flat("client_state", client_state)
         host = lambda tree: None if tree is None else {
@@ -66,6 +125,14 @@ class RoundCheckpointer:
         steps = self.steps()
         for step in steps[:max(len(steps) - self.max_to_keep, 0)]:
             os.remove(self._path(step))
+        keep = set(self.steps())
+        for p in glob.glob(os.path.join(self.directory, "store_*.npz")):
+            try:
+                step = int(os.path.basename(p)[len("store_"):-len(".npz")])
+            except ValueError:
+                continue
+            if step not in keep:
+                os.remove(p)
 
     def latest_round(self) -> Optional[int]:
         steps = self.steps()
@@ -80,12 +147,24 @@ class RoundCheckpointer:
         """``(state, client_state)`` of step ``round_idx`` (the latest by
         default), or ``None`` if there is none.  With ``template`` (a pair
         of flat dicts, the second may be ``None``) each tensor comes back on
-        its template's device and in its dtype, and the names must match."""
+        its template's device and in its dtype, and the names must match.
+        A client store as the second template is loaded in place, from the
+        step's sidecar (or, for a step saved with a dense table, from that
+        table), and returned."""
         step = round_idx if round_idx is not None else self.latest_round()
         if step is None:
             return None
         blob = self._load(step)
         state, client = blob["state"], blob["client_state"]
+        if template is not None and _is_store(template[1]):
+            store = template[1]
+            sidecar = self._store_path(step)
+            if os.path.exists(sidecar):
+                with np.load(sidecar) as z:
+                    store.load_checkpoint({k: z[k] for k in z.files})
+            elif client:
+                store.load_dense(client)
+            return _like(state, template[0], "state"), store
         if template is not None:
             state = _like(state, template[0], "state")
             if template[1] is not None and client is not None:

@@ -20,6 +20,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import rng as rng_util
@@ -347,8 +348,9 @@ for _name in ("mime", "fedsgd"):
             "avg_grad",
             source=lambda opt, state, outs, hp: outs.grad_sum),)))
 
-# buffered-async FedAvg: the round shape is FedAvg's, but it runs on the
-# buffered-async engine, which is not ported (check_algorithm refuses it)
+# buffered-async FedAvg: the round shape is FedAvg's; it names the
+# buffered-async engine (simulation/async_engine.py), which runs the spec of
+# ``async_base_optimizer`` over its buffer
 register_algorithm(AlgorithmSpec("fedbuff"))
 
 
@@ -397,24 +399,161 @@ QFEDAVG = register_algorithm(AlgorithmSpec(
     )))
 
 
-#: registered names the port refuses, each with the reason
-_REFUSED = {"fedbuff": "it runs on the buffered-async engine, which is not "
-                       "ported yet"}
-
-
 def check_algorithm(name: str) -> str:
-    """Lower-cased ``name`` if the port runs it: every registered algorithm
-    but ``fedbuff``.  Raises otherwise, naming the algorithm."""
+    """Lower-cased ``name`` if the port runs it (every registered
+    algorithm); raises otherwise, naming the algorithm."""
     name = name.lower()
-    runnable = sorted(set(_SPECS) - set(_REFUSED))
-    if name in _REFUSED:
-        raise NotImplementedError(
-            f"federated_optimizer {name!r}: {_REFUSED[name]} (the port "
-            f"runs {runnable})")
+    runnable = sorted(_SPECS)
     if name not in _SPECS:
         raise ValueError(f"unknown federated_optimizer {name!r} "
                          f"(the port runs {runnable})")
     return name
+
+
+# --------------------------------------------------------------------------
+# buffered-async aggregation (FedBuff, arXiv:2106.06639)
+# --------------------------------------------------------------------------
+# - :func:`client_update_rows` evaluates the spec's per-client sources at
+#   DISPATCH, unreduced, so a buffer can weight each row by its staleness
+#   when it lands;
+# - :func:`update_buffer_add` lands arrivals in a K-row buffer at host-given
+#   slots (slot K is the padding sentinel: such a lane is dropped);
+# - :func:`update_buffer_apply` finishes the buffer with the sync engines'
+#   own stacked reductions, so K = cohort rows landed in dispatch order
+#   with zero staleness reproduce the synchronous merge;
+# - :func:`scale_partial` staleness-discounts a ``{num, den}`` partial.
+
+def _tmap(fn, *trees):
+    """``fn`` over the tensors of nested dicts of the same structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tmap(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def staleness_discount(tau, alpha: float) -> torch.Tensor:
+    """FedBuff's staleness discount ``s(τ) = 1/(1+τ)^α``; exactly 1 at
+    ``τ = 0``, so a fresh update keeps its weight bit for bit."""
+    tau = torch.as_tensor(tau, dtype=torch.float32)
+    return torch.pow(1.0 + tau, -float(alpha))
+
+
+def client_update_rows(spec: "AlgorithmSpec", opt, state, outs, w,
+                       hp: Optional[HParams] = None) -> Dict[str, Any]:
+    """Per-client unreduced aggregate rows against the dispatch-time
+    ``state`` (FedNova and q-FedAvg deltas reference the params the client
+    trained from): ``n_rows`` the real-client mask; a wavg or scalar
+    aggregate ``{"src": stacked, "w": (C,)}``; a sum aggregate ``{"src":
+    src * ww}`` (pre-weighted)."""
+    rows: Dict[str, Any] = {"n_rows": _real(opt, outs, w)}
+    if spec.avg_params:
+        rows["avg_params"] = {"src": outs.params,
+                              "w": torch.as_tensor(w, dtype=torch.float32)}
+    for a in spec.aggregates:
+        src = a.source(opt, state, outs, hp)
+        ww = a.weights(opt, outs, w, hp)
+        if a.kind in ("wavg", "scalar"):
+            rows[a.name] = {"src": src, "w": ww}
+        else:
+            rows[a.name] = {"src": src * ww}
+    return rows
+
+
+def update_buffer_zeros(spec: "AlgorithmSpec", rows: Dict[str, Any],
+                        k: int) -> Dict[str, Any]:
+    """A zeroed ``k``-row buffer shaped like ``rows`` (leading client axis
+    resized to ``k``), with the per-row discount and staleness lanes, the
+    occupancy and the server model version."""
+    first = next(iter(_leaves(rows)))
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                   device=first.device)
+    return {
+        "rows": _tmap(lambda l: torch.zeros((int(k),) + tuple(l.shape[1:]),
+                                            dtype=l.dtype, device=l.device),
+                      rows),
+        "s": z(int(k)), "tau": z(int(k)), "occupancy": z(), "version": z(),
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def update_buffer_add(buf: Dict[str, Any], rows: Dict[str, Any],
+                      idx, slots, s, tau) -> Dict[str, Any]:
+    """Land arrivals in the buffer: lane j takes row ``idx[j]`` of
+    ``rows`` (a generation's stacked outputs) into slot ``slots[j]`` with
+    discount ``s[j]`` and staleness ``tau[j]``.  Lanes whose slot is ``K``
+    (or more) are padding and dropped, as XLA drops an out-of-bounds
+    scatter.  ``idx``/``slots``/``s``/``tau`` are host arrays; the buffer is
+    updated in place and returned."""
+    idx, slots = np.asarray(idx, np.int64), np.asarray(slots, np.int64)
+    k = buf["s"].shape[0]
+    keep = slots < k
+    if not keep.any():
+        return buf
+    dev = buf["s"].device
+    src = torch.as_tensor(idx[keep], device=dev)
+    dst = torch.as_tensor(slots[keep], device=dev)
+
+    def land(d, r):
+        d[dst] = r.index_select(0, src).to(d.dtype)
+        return d
+
+    _tmap(land, buf["rows"], rows)
+    buf["s"][dst] = torch.as_tensor(np.asarray(s, np.float32)[keep],
+                                    device=dev)
+    buf["tau"][dst] = torch.as_tensor(np.asarray(tau, np.float32)[keep],
+                                      device=dev)
+    buf["occupancy"] = buf["occupancy"] + float(keep.sum())
+    return buf
+
+
+def update_buffer_apply(spec: "AlgorithmSpec", opt, state, buf,
+                        hp: Optional[HParams] = None):
+    """Finish the buffer into one aggregate dict with the stacked
+    reductions over staleness-weighted ``s_i · w_i``, and run the server
+    transition.  Returns ``(new_state, agg, fresh)``, ``fresh`` the zeroed
+    buffer with its version one higher."""
+    s = buf["s"]
+    red = StackedReducer()
+    agg: Dict[str, Any] = {"n_sampled": torch.sum(s * buf["rows"]["n_rows"])}
+    if spec.avg_params:
+        e = buf["rows"]["avg_params"]
+        agg["avg_params"] = red.wavg(e["src"], s * e["w"])
+    for a in spec.aggregates:
+        e = buf["rows"][a.name]
+        if a.kind == "wavg":
+            agg[a.name] = red.wavg(e["src"], s * e["w"])
+        elif a.kind == "scalar":
+            agg[a.name] = red.wavg_scalar(e["src"], s * e["w"])
+        else:   # sum: the rows arrived pre-weighted
+            agg[a.name] = torch.sum(s * e["src"])
+    new_state = opt.update_from_aggregates(state, agg, hp)
+    fresh = _tmap(torch.zeros_like, buf)
+    fresh["version"] = buf["version"] + 1.0
+    return new_state, agg, fresh
+
+
+def scale_partial(spec: "AlgorithmSpec", partial: Dict[str, Any],
+                  s) -> Dict[str, Any]:
+    """Staleness-discount a partial aggregate by ``s``: every numerator and
+    denominator of a ``{"num", "den"}`` entry scales (so combining the
+    discounted partials gives the staleness-weighted average), as does any
+    other entry."""
+    s = torch.as_tensor(s, dtype=torch.float32)
+
+    def scale_entry(v):
+        if isinstance(v, dict) and set(v) == {"num", "den"}:
+            return {"num": _tmap(lambda l: s * l, v["num"]),
+                    "den": s * v["den"]}
+        return _tmap(lambda l: s * l, v)
+
+    return {k: scale_entry(v) for k, v in partial.items()}
 
 
 # --------------------------------------------------------------------------

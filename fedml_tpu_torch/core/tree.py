@@ -147,3 +147,57 @@ def cohort_scatter(table: TensorDict, cohort, new_rows: TensorDict,
     pos, ids = _in_range(table, cohort, axis)
     return tree_map(lambda t, n: t.index_copy(
         axis, ids, n.index_select(axis, pos).to(t.dtype)), table, new_rows)
+
+
+def client_table_nbytes(row: Mapping, rows: int) -> int:
+    """Bytes a dense ``rows``-client state table of rows shaped like
+    ``row`` (numpy arrays) would take: the number the sparse store
+    (``store/clientstore.py``) exists not to allocate."""
+    return rows * sum(np.asarray(x).nbytes for x in row.values())
+
+
+# -- sparse host-side row ops (store/) ---------------------------------------
+# The paged client-state store keeps rows as numpy pages on the host, keyed
+# by client id.  These are the numpy twins of cohort_gather/cohort_scatter
+# with the same out-of-range semantics (reads fill zero, writes drop), over
+# flat ``{name: array}`` rows whose leaves go in sorted name order.
+
+def page_groups(ids, page_size: int, n_rows: int):
+    """Group the in-range entries of ``ids`` by page: yields ``(page_id,
+    in_page_rows, cohort_positions)``, so a paged gather or scatter touches
+    each page once.  Ids outside ``[0, n_rows)`` are skipped."""
+    ids = np.asarray(ids, np.int64)
+    pos_all = np.nonzero((ids >= 0) & (ids < n_rows))[0]
+    pids = ids[pos_all] // page_size
+    for pid in np.unique(pids):
+        pos = pos_all[pids == pid]
+        yield int(pid), ids[pos] - int(pid) * page_size, pos
+
+
+def rows_gather_np(pages_get, ids, template: Mapping, n_rows: int,
+                   page_size: int) -> Dict[str, np.ndarray]:
+    """Rows ``ids`` of a paged host store stacked on a leading cohort axis.
+    ``pages_get(page_id)`` returns the page's per-leaf ``(page_size, ...)``
+    list (sorted-name order); ``template`` fixes the row shapes and
+    dtypes.  Out-of-range ids read as zero rows."""
+    ids = np.asarray(ids, np.int64)
+    names = sorted(template)
+    out = [np.zeros((len(ids),) + tuple(np.shape(template[k])),
+                    np.asarray(template[k]).dtype) for k in names]
+    for pid, rows, pos in page_groups(ids, page_size, n_rows):
+        page = pages_get(pid)
+        for leaf_out, leaf_page in zip(out, page):
+            leaf_out[pos] = leaf_page[rows]
+    return dict(zip(names, out))
+
+
+def rows_scatter_np(pages_get, ids, new_rows: Mapping, n_rows: int,
+                    page_size: int) -> None:
+    """Write cohort-stacked ``new_rows`` into the paged host store; ids
+    outside ``[0, n_rows)`` drop."""
+    leaves = [new_rows[k] for k in sorted(new_rows)]
+    for pid, rows, pos in page_groups(ids, page_size, n_rows):
+        page = pages_get(pid)
+        for leaf_page, leaf_new in zip(page, leaves):
+            leaf_page[rows] = np.asarray(leaf_new)[pos].astype(
+                leaf_page.dtype)

@@ -10,7 +10,10 @@ and a flat adapter dict; :func:`to_flax` is the inverse.  The port keeps the
 flax names and layouts, so the mapping is the path with ``.`` for ``/``.
 
 For serving, :func:`lora_from_flax` reads one adapter tree (a bank row of
-the JAX registry) into the flat dict the port's bank takes, and
+the JAX registry) into the flat dict the port's bank takes,
+:func:`quantized_from_flax` an int8 weight-only tree of
+``fedml_tpu.llm.quantization`` into the port's
+:class:`~fedml_tpu_torch.llm.quantization.QuantizedParams`, and
 :func:`cache_from_flax` / :func:`cache_to_flax` carry a flax ``cache``
 collection (``layer_{i}/attention/{k,v,k_scale,v_scale}``) to and from the
 port's :class:`~fedml_tpu_torch.llm.model.KVCache`.
@@ -25,6 +28,7 @@ import torch
 
 from ..core.tree import flatten, unflatten
 from .model import KVCache, LlamaConfig, LlamaLM
+from .quantization import Q8, QuantizedParams
 
 
 def from_flax(params_np: Mapping, lora_np: Optional[Mapping],
@@ -84,6 +88,32 @@ def lora_from_flax(lora_np: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     ...}}}}``) as the port's flat f32 adapter dict."""
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in flatten(lora_np).items()}
+
+
+def quantized_from_flax(qtree_np: Mapping, device="cuda",
+                        dtype=torch.float32) -> QuantizedParams:
+    """A JAX int8 weight-only tree (nested dicts of numpy arrays whose
+    quantized leaves are ``{"__q8__": 1, "q": int8, "scale": f32}``) as the
+    port's quantized dict: codes and scales carried bitwise, every other
+    leaf as ``dtype`` (the flax path with ``.`` for ``/``)."""
+    out = QuantizedParams()
+
+    def walk(node, path):
+        if isinstance(node, Mapping) and "__q8__" in node:
+            out[path + Q8 + ".q"] = torch.from_numpy(
+                np.array(node["q"], np.int8)).to(device)
+            out[path + Q8 + ".scale"] = torch.from_numpy(
+                np.array(node["scale"], np.float32)).to(device)
+        elif isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else str(k))
+        else:
+            out[path] = torch.tensor(np.asarray(node, np.float32),
+                                     dtype=dtype, device=device)
+
+    walk(qtree_np, "")
+    out.check()
+    return out
 
 
 _CACHE_NAMES = ("k", "v", "k_scale", "v_scale")

@@ -1,16 +1,23 @@
 """Serving (port of ``fedml_tpu.serving``): KV-cached ``generate`` with the
 prefix caches, the continuous-batching engine (dense or paged KV, chunked
-prefill), the multi-tenant adapter bank, the OpenAI-compatible server, and
-the predictor ABC with its HTTP inference runner.
+prefill), speculative decode (``speculative_generate`` and the
+speculative batching engine), the multi-tenant adapter bank with its cache
+mode over an adapter store, int8 weight-only trees on every decode path,
+the OpenAI-compatible server, and the predictor ABC with its HTTP
+inference runner.
 
 Not ported, each refused by name: the federated serving client and server
 (``FedMLModelServingClient``/``FedMLModelServingServer``, with
 ``cross_silo/``), the StableHLO artifact export (``save_model_artifact``,
-``load_model_artifact``), speculative decode and the adapter store.
+``load_model_artifact``) and the observability hooks (``metrics_port``,
+``slo_rules``).
 """
 
-from .adapters import AdapterRegistry, BankFullError
-from .batching import ContinuousBatchingEngine
+from .adapter_store import AdapterStore
+from .adapters import AdapterMissError, AdapterRegistry, BankFullError
+from .batching import (ContinuousBatchingEngine, PagedKVUnsupportedError,
+                       SpeculativeBatchingEngine)
+from .speculative import speculative_generate
 from .fedml_inference_runner import FedMLInferenceRunner
 from .fedml_predictor import FedMLPredictor
 from .templates.openai_compat import OpenAICompatServer, generate
@@ -46,7 +53,10 @@ def load_model_artifact(*args, **kwargs):
     _refuse("load_model_artifact (export)", "the StableHLO artifact export")
 
 
-__all__ = ["AdapterRegistry", "BankFullError", "ContinuousBatchingEngine",
+__all__ = ["AdapterMissError", "AdapterRegistry", "AdapterStore",
+           "BankFullError", "ContinuousBatchingEngine",
            "FedMLInferenceRunner", "FedMLModelServingClient",
            "FedMLModelServingServer", "FedMLPredictor", "OpenAICompatServer",
-           "generate", "load_model_artifact", "save_model_artifact"]
+           "PagedKVUnsupportedError", "SpeculativeBatchingEngine",
+           "generate", "load_model_artifact", "save_model_artifact",
+           "speculative_generate"]

@@ -22,6 +22,15 @@ Two memory planes:
 Multi-tenant LoRA: with an :class:`~fedml_tpu_torch.serving.adapters
 .AdapterRegistry` each slot carries a bank row and the step applies
 ``bank[rows]`` as grouped adapter products (row 0 is the zero adapter).
+``adapter_cache_slots`` N makes the bank an N-row cache over a host (and,
+with ``adapter_store_dir``, disk) adapter store: a request whose adapter is
+not resident parks while its row pages in, and the pin is taken at
+admission.
+
+:class:`SpeculativeBatchingEngine` runs continuous batching with a draft
+model (greedy only): each tick one draft catch-up and k-token proposal for
+every slot, then one (k+1)-token target verify, per-row starts in one
+batch where the JAX package ``vmap``s a one-row program.
 
 Greedy output is the same as the single-request
 :func:`~fedml_tpu_torch.serving.templates.openai_compat.generate` path,
@@ -29,9 +38,7 @@ and a sampled request draws from its own ``torch.Generator`` in the same
 order there and here.  A daemon thread drives the card, its device set
 explicitly.
 
-Not ported, each refused by name: speculative decode
-(:class:`SpeculativeBatchingEngine`), the adapter cache mode
-(``adapter_cache_slots``, ``adapter_store_dir``) and the observability hooks
+Not ported, each refused by name: the observability hooks
 (``metrics_port``, ``slo_rules``, ``hist_labels``, ``traceparent``).
 """
 
@@ -48,8 +55,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .adapters import AdapterRegistry
+from .adapters import AdapterMissError, AdapterRegistry
 from .paged_kv import PagedBlockPool, PagedPrefixCache, PageExhaustedError
+from .speculative import propose_block, sync_rows, verify_greedy_block
 from .templates.openai_compat import (_LEFT_OUT, TAIL_BLOCK, PrefixCache,
                                       _apply, _build_cached_decode,
                                       _check_params, _not_ported,
@@ -57,6 +65,13 @@ from .templates.openai_compat import (_LEFT_OUT, TAIL_BLOCK, PrefixCache,
                                       _sample_rows)
 
 log = logging.getLogger(__name__)
+
+
+class PagedKVUnsupportedError(ValueError):
+    """Raised at construction for a paged target or draft in the
+    speculative engine: its verify and propose blocks write multi-token
+    windows into contiguous per-slot caches, which a shared page pool is
+    not."""
 
 
 class _UnservableError(Exception):
@@ -70,7 +85,9 @@ class _Slot:
                  # paged prefill state (free -> prefilling -> live): prompt
                  # ids and replay cursor, adapter token, reserved blocks
                  "prefilling", "pf_ids", "pf_next", "pf_n", "pf_atok",
-                 "n_blocks")
+                 "n_blocks",
+                 # speculative engine: this request's draft proposals
+                 "drafts_proposed", "drafts_accepted")
 
     def __init__(self):
         self.live = False
@@ -87,6 +104,8 @@ class _Slot:
         self.pf_n = 0
         self.pf_atok = None
         self.n_blocks = 0
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
 
 
 class ContinuousBatchingEngine:
@@ -109,13 +128,9 @@ class ContinuousBatchingEngine:
                  adapter_cache_slots: int = 0,
                  adapter_store_dir: Optional[str] = None):
         for name, val in (("metrics_port", metrics_port),
-                          ("slo_rules", slo_rules),
-                          ("adapter_store_dir", adapter_store_dir)):
+                          ("slo_rules", slo_rules)):
             if val is not None:
                 raise _not_ported(name, _LEFT_OUT[name])
-        if adapter_cache_slots:
-            raise _not_ported("adapter_cache_slots",
-                              _LEFT_OUT["adapter_cache_slots"])
         if hist_labels != 8:
             raise _not_ported("hist_labels",
                               "the serving histograms (observability)")
@@ -129,9 +144,21 @@ class ContinuousBatchingEngine:
         self.top_p = float(top_p)
         self.registry = adapter_registry
         self._owns_registry = False
-        if adapter_slots and self.registry is None:
+        if adapter_cache_slots and self.registry is None:
+            from .adapter_store import AdapterStore
+            store = AdapterStore(
+                model, spill_dir=adapter_store_dir,
+                max_resident_pages=(16 if adapter_store_dir else 0))
+            self.registry = AdapterRegistry(
+                model, capacity=int(adapter_cache_slots), store=store)
+            self._owns_registry = True
+        elif adapter_slots and self.registry is None:
             self.registry = AdapterRegistry(model, capacity=int(adapter_slots))
             self._owns_registry = True
+        # cache mode: the pin is taken at admission (the engine thread owns
+        # page-in and install), and a fetch that lands wakes the loop
+        self._store_mode = (self.registry is not None
+                            and self.registry.store is not None)
         self.horizon = max(1, int(horizon))
 
         self.kv_page_tokens = int(kv_page_tokens)
@@ -191,6 +218,10 @@ class ContinuousBatchingEngine:
         # requests taken off _waiting but not admittable yet (page pool
         # dry); engine-thread-confined, retried before new admissions
         self._parked: List[dict] = []
+        # set under _cond by the adapter fetch worker, and by a finish that
+        # released a pin or pages; cleared by the parked-retry pass
+        self._fetch_ready = False
+        self._pin_released = False
         self._cond = threading.Condition()
         self._stopped = False
         # weight swap staged by update_params(); applied by the engine
@@ -200,6 +231,8 @@ class ContinuousBatchingEngine:
         self.serve_stats: Dict[str, Any] = {
             "admits": 0, "tokens": 0, "requests": {}}
         self._stats_lock = threading.Lock()
+        if self._store_mode:
+            self.registry.on_fetch_done = self._on_adapter_fetched
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
@@ -217,7 +250,12 @@ class ContinuousBatchingEngine:
                               "request tracing (observability)")
         out: "queue.Queue" = queue.Queue()
         row, atok = 0, None
-        if self.registry is not None:
+        if self._store_mode:
+            # the name is checked here, the pin deferred to admission
+            if adapter is not None and adapter not in self.registry:
+                raise KeyError(f"unknown adapter {adapter!r}; have "
+                               f"{self.registry.names()}")
+        elif self.registry is not None:
             row, atok = self.registry.acquire(adapter)
         elif adapter:
             raise ValueError("engine built without an adapter registry "
@@ -283,6 +321,16 @@ class ContinuousBatchingEngine:
                         "weight swap did not land within "
                         f"{timeout}s (in-flight requests still draining)")
                 self._cond.wait(timeout=min(0.5, remaining))
+
+    def _on_adapter_fetched(self, name: str) -> None:
+        """Fetch-worker callback (cache mode): wake the loop so requests
+        parked on a miss retry."""
+        with self._cond:
+            self._fetch_ready = True
+            self._cond.notify()
+
+    def _on_swap(self) -> None:
+        """Called on the engine thread when a staged weight swap lands."""
 
     def stop(self):
         self._stopped = True
@@ -405,6 +453,7 @@ class ContinuousBatchingEngine:
         if self.registry is not None and s.adapter_row:
             self.registry.release(s.adapter_row)
             s.adapter_row = 0
+        self._pin_released = True
 
     def _emit(self, i: int, tok: int) -> bool:
         """Deliver one sampled token; False when the slot is done (eos,
@@ -586,15 +635,31 @@ class ContinuousBatchingEngine:
                 self._finish(i)
 
     def _admit_one(self, req: dict, slot: int) -> bool:
-        """Page reservation (paged engines), then the admission.  False when
-        the request parked (pool dry) or failed open."""
+        """The cache-mode adapter pin and the page reservation (paged
+        engines), then the admission.  False when the request parked (its
+        adapter paging in, or the pool dry) or failed open."""
         try:
+            if (self._store_mode and req.get("adapter") is not None
+                    and req.get("adapter_token") is None):
+                row, atok = self.registry.acquire(req["adapter"])
+                req["adapter_row"], req["adapter_token"] = row, atok
             if self.paged:
                 self._reserve_pages(req, slot)
-        except PageExhaustedError:
+        except AdapterMissError:
+            req["_park_reason"] = "adapter"
             self._parked.append(req)
             return False
-        except _UnservableError:
+        except PageExhaustedError:
+            # drop a pin just taken, so a parked request holds no row
+            if self._store_mode and req.get("adapter_row"):
+                self.registry.release(req["adapter_row"])
+                req["adapter_row"], req["adapter_token"] = 0, None
+            req["_park_reason"] = "pages"
+            self._parked.append(req)
+            return False
+        except (_UnservableError, KeyError, RuntimeError):
+            # an unservable reservation, an adapter evicted since submit,
+            # or a failed fetch: fail this request open
             if self.registry is not None and req.get("adapter_row"):
                 self.registry.release(req["adapter_row"])
             req["q"].put(None)
@@ -621,6 +686,16 @@ class ContinuousBatchingEngine:
                 self.registry.release(req["adapter_row"])
         self._parked.clear()
 
+    def _parked_actionable(self) -> bool:
+        """Caller holds ``_cond``: is a parked retry worth waking for?
+        Page-parked requests retry whenever pages may have freed;
+        adapter-parked ones once a fetch landed or a pin was released."""
+        if not self._parked:
+            return False
+        if self._fetch_ready or self._pin_released:
+            return True
+        return any(r.get("_park_reason") == "pages" for r in self._parked)
+
     def _run(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -644,7 +719,7 @@ class ContinuousBatchingEngine:
                        and self._pending_params is None
                        and not any(s.live or s.prefilling
                                    for s in self._slots)
-                       and not self._parked):
+                       and not self._parked_actionable()):
                     self._cond.wait(timeout=0.5)
                 if self._stopped:
                     for i, s in enumerate(self._slots):
@@ -663,9 +738,13 @@ class ContinuousBatchingEngine:
                     self._pending_params = None
                     if self.prefix_cache is not None:
                         self.prefix_cache.clear()
+                    self._on_swap()
                     swap_pending = False
                     self._cond.notify_all()
                 retry_parked = bool(self._parked) and not swap_pending
+                if retry_parked:
+                    self._fetch_ready = False
+                    self._pin_released = False
 
             # admission is paused while a swap waits for the drain; parked
             # requests retry first, and a parked head never blocks fresh
@@ -726,13 +805,182 @@ class ContinuousBatchingEngine:
                     break
 
 
-class SpeculativeBatchingEngine:
-    """Continuous batching × speculative decode: not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("SpeculativeBatchingEngine (draft_model)",
-                          _LEFT_OUT["draft_model"])
 
 
-__all__ = ["ContinuousBatchingEngine", "SpeculativeBatchingEngine",
-           "PageExhaustedError"]
+class SpeculativeBatchingEngine(ContinuousBatchingEngine):
+    """Continuous batching × speculative decoding (greedy only).
+
+    Every tick runs, for all slots at once, the draft's catch-up and
+    ``k``-token proposal (:func:`~fedml_tpu_torch.serving.speculative
+    .propose_block` at per-row starts), then one ``(k+1)``-token target
+    verify (:func:`~fedml_tpu_torch.serving.speculative.verify_greedy_block`),
+    so a slot advances up to ``k + 1`` tokens a tick and the target runs
+    one block forward a tick whatever the acceptance.  The output is the
+    plain engine's greedy stream (the draft changes only how many target
+    forwards are spent).  The draft caches sit one row per slot.
+
+    Verify and propose blocks write up to position ``buf_len + k``, so both
+    models need ``max_seq_len >= buf_len + k + 1``: checked here, since the
+    decode forward would clamp an overrunning write onto canonical K/V.
+    ``params`` / ``draft_params``: ``None``, a ``{name: tensor}`` dict, or
+    an int8 weight-only tree."""
+
+    def __init__(self, model, params, draft_model, draft_params,
+                 slots: int = 4, buf_len: int = 256, k: int = 4,
+                 prefix_cache_slots: int = 0,
+                 prefix_max_tail: int = TAIL_BLOCK,
+                 hist_labels: int = 8,
+                 slo_rules: Optional[List[Dict[str, Any]]] = None):
+        self.k = int(k)
+        if self.k < 1:
+            raise ValueError(f"k={k}: need >= 1")
+        for m, name in ((model, "model"), (draft_model, "draft_model")):
+            cfg = getattr(m, "cfg", None)
+            if getattr(cfg, "kv_page_tokens", 0):
+                raise PagedKVUnsupportedError(
+                    f"{name} is built with kv_page_tokens="
+                    f"{cfg.kv_page_tokens}: speculative decoding needs "
+                    "contiguous per-slot caches; use ContinuousBatchingEngine "
+                    "for paged serving, or a dense model here")
+            msl = getattr(cfg, "max_seq_len", None)
+            if msl is None:
+                raise ValueError(
+                    f"{name} has no cfg.max_seq_len: the speculative block "
+                    "writes cannot be shown to stay in bounds")
+            if msl < buf_len + self.k + 1:
+                raise ValueError(
+                    f"{name}.cfg.max_seq_len={msl} < buf_len+k+1="
+                    f"{buf_len + self.k + 1}: speculative blocks would clamp "
+                    "their cache writes")
+        _check_params(draft_params)
+        self.draft_model = draft_model
+        self.raw_draft = draft_params
+        self._pending_draft = None
+        self._hist: Dict[int, List[int]] = {}
+        self._fds = np.zeros(int(slots), np.int64)
+        self._d_prefill, _, _ = _build_cached_decode(draft_model, 0, 1.0)
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            self._d_caches = draft_model.init_cache(int(slots), dev,
+                                                    page_tokens=0)
+        #: target block forwards (one per live slot a tick), proposals
+        #: examined and accepted
+        self.stats = {"target_block_forwards": 0, "proposed": 0,
+                      "accepted": 0}
+        super().__init__(model, params, slots=slots, buf_len=buf_len,
+                         top_k=0, horizon=1,
+                         prefix_cache_slots=prefix_cache_slots,
+                         prefix_max_tail=prefix_max_tail,
+                         hist_labels=hist_labels, slo_rules=slo_rules)
+
+    def update_params(self, params, draft_params=None, wait: bool = True,
+                      timeout: float = 60.0) -> None:
+        """Swap the target (and optionally the draft) weights after the
+        in-flight drain.  A stale draft only lowers the acceptance rate, so
+        the draft swap is optional."""
+        if draft_params is not None:
+            _check_params(draft_params)
+            with self._cond:
+                self._pending_draft = draft_params
+        super().update_params(params, wait=wait, timeout=timeout)
+
+    def _on_swap(self) -> None:
+        if self._pending_draft is not None:
+            self.raw_draft = self._pending_draft
+            self._pending_draft = None
+
+    def submit(self, prompt_ids, max_new_tokens: int = 64,
+               temperature: float = 0.0, seed: int = 0, eos_id=None,
+               adapter: Optional[str] = None,
+               traceparent: Optional[str] = None):
+        if float(temperature) != 0.0:
+            raise ValueError("SpeculativeBatchingEngine is greedy-only "
+                             "(temperature 0); use ContinuousBatchingEngine "
+                             "for sampled requests")
+        return super().submit(prompt_ids, max_new_tokens=max_new_tokens,
+                              temperature=0.0, seed=seed, eos_id=eos_id,
+                              adapter=adapter, traceparent=traceparent)
+
+    def _admit(self, req, slot):
+        self._hist[slot] = list(req["prompt_ids"])
+        super()._admit(req, slot)   # the target's prefill and first token
+        ids = req["prompt_ids"]
+        n = len(ids)
+        buf = torch.zeros((1, self.buf_len), dtype=torch.long,
+                          device=self.device)
+        buf[0, :n] = torch.tensor(ids, dtype=torch.long)
+        _, dcache = self._d_prefill(self.raw_draft, None, buf, n, None, 0.0)
+        self._d_caches.copy_rows_(slice(slot, slot + 1), dcache)
+        self._fds[slot] = n
+        s = self._slots[slot]
+        s.drafts_proposed = s.drafts_accepted = 0
+
+    def _emit(self, i: int, tok: int) -> bool:
+        s = self._slots[i]
+        before = s.remaining
+        cont = super()._emit(i, tok)
+        if s.remaining < before:   # the token was delivered
+            self._hist[i].append(tok)
+        return cont
+
+    def _spec_tick(self, draw, raw, sync_bufs, sync_lens, fds, curs, poss):
+        """The draft's propose block and the target's verify block over
+        every slot: ``(d_tokens (slots, k), greedy (slots, k+1))``."""
+        d_tokens, _ = propose_block(self.draft_model, draw, self._d_caches,
+                                    sync_bufs, sync_lens, fds, self.k)
+        blocks = torch.cat([curs[:, None], d_tokens], dim=1)
+        greedy, _ = verify_greedy_block(self.model, raw, self._caches,
+                                        blocks, poss)
+        return d_tokens, greedy
+
+    def _dispatch(self, live):
+        kp1 = self.k + 1
+        sync_bufs = np.zeros((self.n_slots, kp1), np.int64)
+        sync_lens = np.ones(self.n_slots, np.int64)
+        for i in live:
+            s = self._slots[i]
+            self._toks[i] = s.cur_tok
+            self._poss[i] = s.pos
+            sync_bufs[i] = sync_rows(self._hist[i], int(self._fds[i]), s.pos,
+                                     kp1)
+            sync_lens[i] = s.pos + 1 - int(self._fds[i])
+        dev = self.device
+        d_tokens, greedy = self._spec_tick(
+            self.raw_draft, self.raw_params,
+            torch.as_tensor(sync_bufs, device=dev),
+            torch.as_tensor(sync_lens, device=dev),
+            torch.as_tensor(self._fds, device=dev),
+            torch.as_tensor(self._toks, device=dev),
+            torch.as_tensor(self._poss, device=dev))
+        d_host = d_tokens.cpu().numpy()
+        g_host = greedy.cpu().numpy()
+        self.stats["target_block_forwards"] += len(live)
+
+        for i in live:
+            s = self._slots[i]
+            self._fds[i] = s.pos + 1   # the draft confirmed the old cur
+            for j in range(self.k):
+                # only the proposals examined count: eos or the budget can
+                # end the acceptance loop mid-block
+                self.stats["proposed"] += 1
+                s.drafts_proposed += 1
+                dj, gj = int(d_host[i, j]), int(g_host[i, j])
+                s.pos += 1
+                if dj != gj:
+                    # first disagreement: the target's own token replaces it
+                    if not self._emit(i, gj):
+                        self._finish(i)
+                    break
+                self.stats["accepted"] += 1
+                s.drafts_accepted += 1
+                if not self._emit(i, dj):
+                    self._finish(i)
+                    break
+            else:
+                # every proposal accepted: the target's continuation token
+                s.pos += 1
+                if not self._emit(i, int(g_host[i, self.k])):
+                    self._finish(i)
+
+__all__ = ["ContinuousBatchingEngine", "PagedKVUnsupportedError",
+           "SpeculativeBatchingEngine", "PageExhaustedError"]

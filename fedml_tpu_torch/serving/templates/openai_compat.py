@@ -14,17 +14,20 @@
   are not JAX's threefry ones, so a seed gives other samples than the JAX
   package; inside the port, :func:`generate` and the batching engine draw
   the same sequence for a request).
-- **Weights.**  ``params`` is ``None`` (the model's own weights) or a
+- **Weights.**  ``params`` is ``None`` (the model's own weights), a
   ``{name: tensor}`` dict with ``named_parameters()`` names, applied through
-  ``torch.func.functional_call``; the prefix caches key their entries on its
-  identity, so a swapped dict never meets KV computed under the old one.
+  ``torch.func.functional_call``, or an int8 weight-only tree of
+  ``llm/quantization.py`` (each weight dequantized at the product that
+  consumes it); the prefix caches key their entries on its identity, so a
+  swapped tree never meets KV computed under the old one.
+- **Speculative decode.**  With ``draft_model``/``draft_params`` greedy
+  requests run ``serving/speculative.py`` (or its batching engine), with
+  the same output as plain greedy decode.
 - **No extra dependencies.**  The stdlib HTTP server, bound to loopback by
   default, and a byte-level tokenizer unless one is given.
 
-Not ported, each refused by name: speculative decode (``draft_model``), the
-adapter cache mode (``adapter_cache_slots``, ``adapter_store_dir``), the
-observability hooks (``metrics_port``, ``slo_rules``; a ``traceparent``
-header is not read), and int8 weight-only trees.
+Not ported, each refused by name: the observability hooks
+(``metrics_port``, ``slo_rules``; a ``traceparent`` header is not read).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Mapping, Optional
 
 import torch
+
+from ...llm.quantization import QuantizedParams, weight_dtype
 
 log = logging.getLogger(__name__)
 
@@ -70,26 +75,34 @@ def _not_ported(name: str, what: str):
 
 
 def _check_params(params) -> None:
-    """Refuse a weight tree the port does not run: an int8 weight-only
-    tree of ``llm/quantization.py`` (nested ``{"__q8__": ...}`` leaves, or
-    integer weights)."""
+    """Refuse a weight tree the port does not run: anything but ``None``,
+    a ``{name: float tensor}`` dict, or an int8 weight-only tree of
+    :func:`~fedml_tpu_torch.llm.quantization.quantize_params_int8` (a
+    :class:`~fedml_tpu_torch.llm.quantization.QuantizedParams`)."""
     if params is None:
         return
     if not isinstance(params, Mapping):
-        raise TypeError("params must be None (the model's own weights) or "
-                        "a {name: tensor} dict")
+        raise TypeError("params must be None (the model's own weights), a "
+                        "{name: tensor} dict or a QuantizedParams tree")
+    if isinstance(params, QuantizedParams):
+        params.check()
+        return
     for name, t in params.items():
         if "__q8__" in str(name) or not isinstance(t, torch.Tensor) \
                 or not t.is_floating_point():
-            raise _not_ported(
-                "int8 weight-only trees (llm/quantization.py)",
-                f"a quantized weight ({name!r})")
+            raise TypeError(
+                f"params[{name!r}]: not a float tensor; an int8 weight-only "
+                "tree must be the QuantizedParams of "
+                "llm/quantization.py::quantize_params_int8")
 
 
 def _apply(model, params, *args, **kw):
-    """``model(*args, **kw)`` with ``params`` (None: its own weights)."""
+    """``model(*args, **kw)`` with ``params`` (None: its own weights; a
+    quantized tree dequantizes each weight at its consuming product)."""
     if params is None:
         return model(*args, **kw)
+    if isinstance(params, QuantizedParams):
+        params = params.lazy(weight_dtype(model))
     return torch.func.functional_call(model, params, args, kw)
 
 
@@ -420,20 +433,34 @@ class OpenAICompatServer:
         :class:`~fedml_tpu_torch.serving.adapters.AdapterRegistry` bank of
         ``adapter_slots`` rows, else each request carries its dict.  A
         request routes to an adapter by ``{"adapter": name}`` or by a
-        ``{"model": name}`` other than ``model_name``.  ``spec_k`` stays in
-        the signature as the JAX server's and acts, as there, only with a
-        ``draft_model``, which is not ported."""
-        for name, val in (("draft_model", draft_model),
-                          ("draft_params", draft_params),
-                          ("metrics_port", metrics_port),
-                          ("slo_rules", slo_rules),
-                          ("adapter_store_dir", adapter_store_dir)):
+        ``{"model": name}`` other than ``model_name``.
+        ``adapter_cache_slots`` > 0 (with ``batch_slots``, in place of
+        ``adapter_slots``) makes the bank an N-row cache over an adapter
+        store (``adapter_store_dir`` spills cold rows to disk), so more
+        adapters register than the bank holds.
+
+        ``draft_model`` and ``draft_params`` (needs ``model``; ``None``
+        params are the draft's own weights) turn on
+        speculative decode for greedy requests, ``spec_k`` tokens a
+        round: with ``batch_slots`` through the
+        :class:`~fedml_tpu_torch.serving.batching.SpeculativeBatchingEngine`
+        (sampled requests fall through to the single-request path), else
+        through :func:`~fedml_tpu_torch.serving.speculative
+        .speculative_generate` with the request's adapter.  Both models need
+        ``max_seq_len >= buf_len + spec_k + 1`` with the engine; a draft
+        refuses ``decode_horizon > 1`` and ``kv_page_tokens``."""
+        for name, val in (("metrics_port", metrics_port),
+                          ("slo_rules", slo_rules)):
             if val is not None:
                 raise _not_ported(name, _LEFT_OUT[name])
-        if adapter_cache_slots:
-            raise _not_ported("adapter_cache_slots",
-                              _LEFT_OUT["adapter_cache_slots"])
         _check_params(params)
+        if draft_model is not None and model is None:
+            raise ValueError("draft_model requires `model` (a KV-cached "
+                             "target): speculative decode is cache-based")
+        _check_params(draft_params)
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self.spec_k = int(spec_k)
         self.apply_fn = apply_fn
         self.params = params
         self.tokenizer = tokenizer or ByteTokenizer()
@@ -454,46 +481,86 @@ class OpenAICompatServer:
         self.adapters = None
         self._zero_lora = None
         self.registry = None
-        if kv_page_tokens and not batch_slots:
+        if (kv_page_tokens or adapter_cache_slots) and not batch_slots:
             raise ValueError(
-                "kv_page_tokens reshapes the batching engine's memory "
-                "plane — set batch_slots too")
-        if adapters is not None or adapter_slots:
+                "kv_page_tokens / adapter_cache_slots reshape the batching "
+                "engine's memory plane — set batch_slots too")
+        if kv_page_tokens and draft_model is not None:
+            from ..batching import PagedKVUnsupportedError
+            raise PagedKVUnsupportedError(
+                "kv_page_tokens with draft_model: the speculative engine "
+                "needs contiguous per-slot caches — drop one of the two")
+        if adapter_cache_slots and adapter_slots:
+            raise ValueError(
+                "adapter_cache_slots and adapter_slots are mutually "
+                "exclusive: the cache mode replaces the fixed bank")
+        if adapters is not None or adapter_slots or adapter_cache_slots:
             if model is None:
                 raise ValueError("adapters require `model` (KV-cached "
                                  "decode carries the adapters)")
             if getattr(getattr(model, "cfg", None), "lora_rank", 0) <= 0:
                 raise ValueError("adapters require a lora_rank>0 model "
                                  "config (LoRADense layers)")
-            if batch_slots:
+            if batch_slots and draft_model is not None:
+                raise ValueError(
+                    "adapters and the speculative batching engine are "
+                    "incompatible (it is single-tenant greedy) — drop "
+                    "draft_model or batch_slots")
+            if batch_slots and not adapter_cache_slots:
                 from ..adapters import AdapterRegistry
                 cap = int(adapter_slots) or len(adapters or {}) + 8
                 self.registry = AdapterRegistry(model, capacity=cap)
                 for name, tree in (adapters or {}).items():
                     self.registry.register(name, tree)
-            else:
+            elif not batch_slots:
                 self.adapters = dict(adapters or {})
                 dev = _model_device(model)
                 self._zero_lora = {
                     k: torch.zeros(shape, device=dev)
                     for k, shape in model.lora_shapes().items()}
         self._engine = None
+        self._engine_greedy_only = False
         if batch_slots:
             if model is None:
                 raise ValueError(
                     "batch_slots requires `model` (a module with a decode "
                     "path) — the batching engine is KV-cache based")
-            from ..batching import ContinuousBatchingEngine
-            self._engine = ContinuousBatchingEngine(
-                model, params, slots=int(batch_slots), buf_len=buf_len,
-                horizon=int(decode_horizon),
-                prefix_cache_slots=int(prefix_cache_slots),
-                prefix_max_tail=int(prefix_max_tail),
-                adapter_registry=self.registry,
-                kv_page_tokens=int(kv_page_tokens),
-                kv_pool_pages=int(kv_pool_pages),
-                prefill_chunk_tokens=int(prefill_chunk_tokens),
-                prefill_lanes=int(prefill_lanes))
+            if draft_model is not None:
+                # greedy traffic on the speculative engine; sampled
+                # requests fall through to the single-request path
+                if int(decode_horizon) > 1:
+                    raise ValueError(
+                        "decode_horizon and draft_model are mutually "
+                        "exclusive: the speculative engine advances up to "
+                        "spec_k+1 tokens per tick already")
+                from ..batching import SpeculativeBatchingEngine
+                self._engine = SpeculativeBatchingEngine(
+                    model, params, draft_model, draft_params,
+                    slots=int(batch_slots), buf_len=buf_len,
+                    k=int(spec_k),
+                    prefix_cache_slots=int(prefix_cache_slots),
+                    prefix_max_tail=int(prefix_max_tail))
+                self._engine_greedy_only = True
+            else:
+                from ..batching import ContinuousBatchingEngine
+                self._engine = ContinuousBatchingEngine(
+                    model, params, slots=int(batch_slots), buf_len=buf_len,
+                    horizon=int(decode_horizon),
+                    prefix_cache_slots=int(prefix_cache_slots),
+                    prefix_max_tail=int(prefix_max_tail),
+                    adapter_registry=self.registry,
+                    kv_page_tokens=int(kv_page_tokens),
+                    kv_pool_pages=int(kv_pool_pages),
+                    prefill_chunk_tokens=int(prefill_chunk_tokens),
+                    prefill_lanes=int(prefill_lanes),
+                    adapter_cache_slots=int(adapter_cache_slots),
+                    adapter_store_dir=adapter_store_dir)
+                if adapter_cache_slots:
+                    # the engine owns the store-backed registry; add_adapter
+                    # and the fall-through path route through the same one
+                    self.registry = self._engine.registry
+                    for name, tree in (adapters or {}).items():
+                        self.registry.register(name, tree)
             self.prefix_cache = self._engine.prefix_cache
         self._server: Optional[ThreadingHTTPServer] = None
 
@@ -526,6 +593,7 @@ class OpenAICompatServer:
                              or self.registry is not None)):
                     adapter_name = m
             params = self.params
+            draft_params = self.draft_params
             prefix_cache = self.prefix_cache
             lora = None
             if self.registry is not None:
@@ -549,7 +617,8 @@ class OpenAICompatServer:
                           else req.get("top_p"))
         wants_filters = (temp != 0.0
                          and (req_top_k > 0 or req_top_p < 1.0))
-        if self._engine is not None and not wants_filters:
+        if self._engine is not None and not wants_filters and not (
+                self._engine_greedy_only and temp != 0.0):
             try:
                 q = self._engine.submit(
                     tok.encode(prompt),
@@ -576,25 +645,47 @@ class OpenAICompatServer:
             release_row = None
             if self.registry is not None:
                 # the fall-through around the multi-tenant engine pins the
-                # bank row for the whole generation
-                try:
-                    release_row, _atok = self.registry.acquire(adapter_name)
-                except KeyError as e:
-                    raise RequestError(str(e.args[0] if e.args else e),
-                                       status=404)
+                # bank row for the whole generation; a cache-mode miss waits
+                # here for the row to page in
+                from ..adapters import AdapterMissError
+                deadline = time.monotonic() + 30.0
+                while True:
+                    try:
+                        release_row, _atok = self.registry.acquire(
+                            adapter_name)
+                        break
+                    except AdapterMissError:
+                        if time.monotonic() >= deadline:
+                            raise RequestError(
+                                f"adapter {adapter_name!r} did not page "
+                                "in within 30s", status=503)
+                        time.sleep(0.02)
+                    except KeyError as e:
+                        raise RequestError(str(e.args[0] if e.args else e),
+                                           status=404)
                 lora = self.registry.lora_for_row(release_row)
             try:
-                out = generate(
-                    self.apply_fn, params, tok.encode(prompt),
-                    max_new_tokens=int(req.get("max_tokens", 64)),
-                    temperature=temp, top_k=req_top_k,
-                    top_p=min(max(req_top_p, 0.0), 1.0),
-                    seed=int(req.get("seed", 0)), buf_len=self.buf_len,
-                    eos_id=getattr(tok, "eos_id", None),
-                    on_token=emit if on_text else None, model=self.model,
-                    prefix_cache=(prefix_cache if self._engine is None
-                                  else None),
-                    lora=lora)
+                if self.draft_model is not None and temp == 0.0:
+                    from ..speculative import speculative_generate
+                    out, _ = speculative_generate(
+                        self.model, params, self.draft_model, draft_params,
+                        tok.encode(prompt),
+                        max_new_tokens=int(req.get("max_tokens", 64)),
+                        buf_len=self.buf_len, k=self.spec_k,
+                        eos_id=getattr(tok, "eos_id", None),
+                        on_token=emit if on_text else None, lora=lora)
+                else:
+                    out = generate(
+                        self.apply_fn, params, tok.encode(prompt),
+                        max_new_tokens=int(req.get("max_tokens", 64)),
+                        temperature=temp, top_k=req_top_k,
+                        top_p=min(max(req_top_p, 0.0), 1.0),
+                        seed=int(req.get("seed", 0)), buf_len=self.buf_len,
+                        eos_id=getattr(tok, "eos_id", None),
+                        on_token=emit if on_text else None, model=self.model,
+                        prefix_cache=(prefix_cache if self._engine is None
+                                      else None),
+                        lora=lora)
             finally:
                 if release_row is not None:
                     self.registry.release(release_row)
@@ -728,14 +819,24 @@ class OpenAICompatServer:
         """Swap the serving weights (a federated round boundary).  With the
         engine the swap lands once its in-flight requests drain, and its
         prefix cache clears with it; on ``TimeoutError`` nothing has
-        changed.  Without it the prefix cache clears here."""
-        if draft_params is not None:
-            raise _not_ported("draft_params", _LEFT_OUT["draft_params"])
+        changed.  Without it the prefix cache clears here.
+        ``draft_params`` swaps the speculative draft too (optional: a stale
+        draft only lowers the acceptance rate)."""
+        if draft_params is not None and self.draft_model is None:
+            raise ValueError("draft_params given but the server was built "
+                             "without draft_model")
         _check_params(params)
+        _check_params(draft_params)
         if self._engine is not None:
-            self._engine.update_params(params, timeout=timeout)
+            if self._engine_greedy_only:
+                self._engine.update_params(params, draft_params=draft_params,
+                                           timeout=timeout)
+            else:
+                self._engine.update_params(params, timeout=timeout)
         with self._swap_lock:
             self.params = params
+            if draft_params is not None:
+                self.draft_params = draft_params
             if self._engine is None and self.prefix_cache is not None:
                 self.prefix_cache.clear()
 
@@ -761,10 +862,6 @@ class OpenAICompatServer:
 
 #: what each refused option of the JAX server belongs to
 _LEFT_OUT = {
-    "draft_model": "speculative decode (serving/speculative.py)",
-    "draft_params": "speculative decode (serving/speculative.py)",
     "metrics_port": "the serving metrics endpoint (observability)",
     "slo_rules": "the serving SLO rules (observability)",
-    "adapter_cache_slots": "the adapter cache mode (serving/adapter_store.py)",
-    "adapter_store_dir": "the adapter cache mode (serving/adapter_store.py)",
 }

@@ -294,6 +294,10 @@ class MeshFedAvgAPI(FedAvgAPI):
     ``args.async_staging`` (default True) builds round r+1's cohort on a
     worker thread while round r runs."""
 
+    #: the client store, data paging, a registered population and
+    #: checkpoints on the mesh are not ported yet (refused by name)
+    CLIENT_STATE_PLANE = False
+
     def __init__(self, args, device, dataset, model, mesh=None):
         if mesh is None:
             from ...device import get_device

@@ -1,14 +1,15 @@
 """Simulator facades (port of ``fedml_tpu.simulation.simulator``): the
 ``sp`` backend, dispatching by ``federated_optimizer`` to the hierarchical,
-async and decentralized engines, FedNAS, FedSeg, FedGKT and FedGAN, and to
-``FedAvgAPI`` for the synchronous algorithms of the zoo; and the ``mesh``
-backend (the reference's "MPI" and "NCCL" name it too), dispatching to
-the ring-gossip mesh engine for decentralized SGD and to
-``MeshFedAvgAPI`` otherwise.  The buffered-async engine and two-tier silo
-aggregation are not ported yet and raise by name."""
+async, buffered-async (``fedbuff``) and decentralized engines, FedNAS,
+FedSeg, FedGKT and FedGAN, and to ``FedAvgAPI`` for the synchronous
+algorithms of the zoo; and the ``mesh`` backend (the reference's "MPI" and
+"NCCL" name it too), dispatching to the ring-gossip mesh engine for
+decentralized SGD and to ``MeshFedAvgAPI`` otherwise.  Two-tier silo
+aggregation (``num_silos > 1``) is not ported yet and raises by name."""
 
 from __future__ import annotations
 
+from .async_engine import FedBuffAPI
 from .sp.async_fedavg import AsyncFedAvgAPI
 from .sp.decentralized import DecentralizedFedAPI
 from .sp.fedavg_api import FedAvgAPI
@@ -17,9 +18,6 @@ from .sp.fedgkt import FedGKTAPI
 from .sp.fednas import FedNASAPI
 from .sp.fedseg import FedSegAPI
 from .sp.hierarchical_fl import HierarchicalFedAvgAPI
-
-#: sp engines of the JAX package's dispatch that the port does not run yet
-_UNPORTED_SP_ENGINES = ("fedbuff",)
 
 
 class SimulatorSingleProcess:
@@ -50,9 +48,9 @@ class SimulatorSingleProcess:
             idxs = [dataset.client_idxs[c] for c in range(dataset.num_clients)]
             self.fl_trainer = FedGANAPI(args, dataset.train_x, idxs,
                                         device=device)
-        elif alg in _UNPORTED_SP_ENGINES:
-            raise NotImplementedError(
-                f"the {alg!r} sp engine is not ported yet")
+        elif alg in FedBuffAPI.NAMES:
+            self.fl_trainer = FedBuffAPI(args, device, dataset, model,
+                                         client_mode=mode)
         elif int(getattr(args, "num_silos", 0) or 0) > 1:
             raise NotImplementedError(
                 "num_silos > 1 (two-tier silo aggregation) is not ported yet")

@@ -28,9 +28,29 @@ Four options of the JAX engine's round program are ported:
   Not with bucketing (refused, as in the JAX package), a population or
   ``round_block`` (not ported; refused by name).
 
-The tracing, health, client-store, data-paging, checkpoint and
-registered-population options are not ported: each raises
-``NotImplementedError`` naming itself when set.
+The client-state plane (``store/``):
+
+- ``registered_clients`` N: cohorts sample from N registered ids; per-client
+  state is keyed by the id, data and weights come from dataset client
+  ``id % num_clients``;
+- ``client_store``: SCAFFOLD/FedDyn state in a sparse host store
+  (``store_page_size``, ``store_max_pages``, ``store_spill_dir``) in place
+  of the dense device table, paged in ahead of the round on the stager's
+  worker and written back asynchronously; a fused block runs on a device
+  mini-table of the block's rows;
+- ``data_paging``: the cohort's examples gathered from a paged host store
+  of the training set (``data_page_size``, ``data_max_pages``,
+  ``data_spill_dir``), the round fed host-staged batches.
+
+``checkpoint_dir`` saves the server state and the per-client state every
+``checkpoint_freq`` rounds (and at the last; a fused block at block
+granularity), keeping ``checkpoint_keep``, in ``core/checkpoint.py``'s
+format with a sparse sidecar for a client store, and ``train()`` resumes
+from the latest.
+
+Not ported, each raising ``NotImplementedError`` naming itself: the
+tracing, health and metrics options, and ``checkpoint_codec="wire"`` (the
+fedwire codec).
 """
 
 from __future__ import annotations
@@ -68,10 +88,9 @@ def _unported_options(args):
         ("trace", bool(g("trace", False))),
         ("health", bool(g("health", False))),
         ("metrics_port", g("metrics_port") is not None),
-        ("client_store", bool(g("client_store", False))),
-        ("data_paging", bool(g("data_paging", False))),
-        ("checkpoint_dir", bool(g("checkpoint_dir"))),
-        ("registered_clients", bool(int(g("registered_clients", 0) or 0))),
+        ("checkpoint_codec='wire' (the fedwire codec, core/wire.py)",
+         bool(g("checkpoint_dir")) and str(g("checkpoint_codec", "") or "")
+         .lower() == "wire"),
     )
     return [name for name, on in checks if on]
 
@@ -119,14 +138,20 @@ class FedAvgAPI:
     algorithm; the hierarchical and async engines pass "fedavg".
 
     ``client_table`` is the per-client state of SCAFFOLD/FedDyn: one row
-    per dataset client on the device, zero until the client is sampled
-    (``None`` for the other algorithms).  With a population every tensor of
+    per registered client on the device, zero until the client is sampled
+    (``None`` for the other algorithms, and with ``client_store``, where
+    ``_store`` holds the rows).  With a population every tensor of
     ``state`` and ``client_table`` gains a leading ``(P,)`` member axis."""
 
     #: whether this class's rounds run the quantized collective layer
     #: (``collective_precision`` bf16/int8); an engine with a round loop
     #: of its own that does not refuses it
     QUANTIZED_ROUNDS = True
+
+    #: whether this class runs the client-state plane and checkpoints
+    #: (``client_store``, ``data_paging``, ``registered_clients``,
+    #: ``checkpoint_dir``); an engine that does not refuses them by name
+    CLIENT_STATE_PLANE = True
 
     def __init__(self, args, device, dataset: FederatedDataset,
                  model: TorchModel, client_mode: str = "vmap",
@@ -136,6 +161,14 @@ class FedAvgAPI:
             raise NotImplementedError(
                 f"{', '.join(unported)}: not implemented by the port's sp "
                 "engine yet (unset to run)")
+        plane = [n for n in ("client_store", "data_paging",
+                             "registered_clients", "checkpoint_dir")
+                 if getattr(args, n, None)]
+        if plane and not self.CLIENT_STATE_PLANE:
+            raise NotImplementedError(
+                f"{', '.join(plane)}: not implemented by the port's "
+                f"{type(self).__name__} yet (the sp FedAvgAPI and FedBuffAPI "
+                "run it)")
         self.args = args
         self.device = get_device(args, device)
         self.dataset = dataset
@@ -228,10 +261,35 @@ class FedAvgAPI:
             self._hp = self.population.to(self.device).hparams
         self._root = rng_util.root_key(self.seed, self.device)
         self._test = None
+        # the registered id space may exceed the dataset's clients: cohorts
+        # sample registered ids, state is keyed by them, data comes from
+        # dataset client ``id % num_clients``
+        self.registered_clients = (
+            int(getattr(args, "registered_clients", 0) or 0)
+            or self.dataset.num_clients)
+        if self.registered_clients < self.dataset.num_clients:
+            raise ValueError(
+                f"registered_clients={self.registered_clients} < dataset "
+                f"client count {self.dataset.num_clients}")
+        self._table_rows = self.registered_clients
         self.round_fn = self._build_round_fn(client_mode)
         self.client_table = None
+        self._store = None
+        self._pager = None
         if self.server_opt.spec.client_state:
-            self.client_table = self._init_client_table()
+            if bool(getattr(args, "client_store", False)):
+                if self.population:
+                    raise ValueError(
+                        "incompatible flags: client_store pages ONE "
+                        "experiment's rows; population/population_axes "
+                        "needs the dense member-stacked table")
+                self._init_client_store()
+            else:
+                self.client_table = self._init_client_table()
+        self._data_store = None
+        self._data_pager = None
+        if bool(getattr(args, "data_paging", False)):
+            self._init_data_pager()
         self.metrics_history = []
 
     def _init_server_state(self, params):
@@ -248,7 +306,7 @@ class FedAvgAPI:
         gp = self.state.global_params
         if self.population:
             gp = federated.population_member(gp, 0)
-        table = tree_util.client_table_init(gp, self.dataset.num_clients)
+        table = tree_util.client_table_init(gp, self._table_rows)
         if self.population:
             table = federated.stack_member_states(table,
                                                   self.population.size)
@@ -285,7 +343,10 @@ class FedAvgAPI:
         return noise
 
     def _build_round_fn(self, client_mode: str):
-        if bool(getattr(self.args, "device_data", True)):
+        # data_paging forces the host-staged path: a paged training set is
+        # never uploaded whole
+        if bool(getattr(self.args, "device_data", True)) and \
+                not bool(getattr(self.args, "data_paging", False)):
             # the training set lives on the device once; rounds ship only
             # index tensors
             self._dev_x = torch.as_tensor(self.dataset.train_x,
@@ -311,15 +372,111 @@ class FedAvgAPI:
     # -- round pieces --------------------------------------------------------
     def _client_sampling(self, round_idx: int) -> np.ndarray:
         return rng_util.sample_clients(self.seed, round_idx,
-                                       self.dataset.num_clients,
+                                       self.registered_clients,
                                        self.clients_per_round)
+
+    def _data_ids(self, clients) -> np.ndarray:
+        """The dataset clients behind a cohort of registered ids: the ids
+        themselves, or folded modulo the dataset's client count when the
+        registered population is larger."""
+        clients = np.asarray(clients)
+        if self.registered_clients == self.dataset.num_clients:
+            return clients
+        return clients % self.dataset.num_clients
+
+    # -- the client-state plane ------------------------------------------------
+    def _init_client_store(self):
+        """The sparse host store in place of the dense table
+        (``store/``): host memory scales with the touched ids (LRU-capped
+        with spill), and the round gets the same cohort-stacked rows."""
+        from ...store import ClientStateStore, CohortStatePager
+        args = self.args
+        row_t = {k: np.zeros(tuple(v.shape),
+                             torch.empty(0, dtype=v.dtype).numpy().dtype)
+                 for k, v in self.state.global_params.items()}
+        self._store = ClientStateStore(
+            row_t, self.registered_clients,
+            page_size=int(getattr(args, "store_page_size", 256) or 256),
+            max_resident_pages=int(getattr(args, "store_max_pages", 0) or 0),
+            spill_dir=getattr(args, "store_spill_dir", None))
+        self._pager = CohortStatePager(
+            self._store, self._cohort_ids_for,
+            depth=int(getattr(args, "staging_depth", 1) or 1),
+            stride=self._round_block, limit=self.comm_rounds,
+            enabled=bool(getattr(args, "async_staging", True)))
+
+    def _cohort_ids_for(self, round_idx: int) -> np.ndarray:
+        """The state ids round (or the fused block starting at)
+        ``round_idx`` touches: pure in the round index, so the pager's
+        worker may page them in ahead."""
+        if self._round_block > 1:
+            k = min(self._round_block, self.comm_rounds - round_idx)
+            return np.unique(np.concatenate(
+                [self._client_sampling(r)
+                 for r in range(round_idx, round_idx + k)]))
+        return self._client_sampling(round_idx)
+
+    def _init_data_pager(self):
+        """The training set as a read-only paged store of single examples
+        (``{"x", "y"}`` rows keyed by train index), gathered per round by a
+        :class:`~fedml_tpu_torch.store.CohortStatePager` whose worker pages
+        the next round's examples in."""
+        from ...store import ClientStateStore, CohortStatePager
+        args = self.args
+        ds = self.dataset
+        row_t = {"x": np.zeros(ds.train_x.shape[1:], ds.train_x.dtype),
+                 "y": np.zeros(ds.train_y.shape[1:], ds.train_y.dtype)}
+        page = int(getattr(args, "data_page_size", 0) or 0) or \
+            int(getattr(args, "store_page_size", 256) or 256)
+        n = len(ds.train_x)
+        self._data_store = ClientStateStore(
+            row_t, n, page_size=page,
+            max_resident_pages=int(getattr(args, "data_max_pages", 0) or 0),
+            spill_dir=getattr(args, "data_spill_dir", None))
+        # filled a page at a time: with a resident cap the LRU spills as it
+        # goes, so no second dense copy is ever held
+        for lo in range(0, n, page):
+            ids = np.arange(lo, min(lo + page, n), dtype=np.int64)
+            self._data_store.scatter(
+                ids, {"x": ds.train_x[ids], "y": ds.train_y[ids]})
+        self._data_pager = CohortStatePager(
+            self._data_store, self._example_ids_for,
+            depth=int(getattr(args, "staging_depth", 1) or 1),
+            limit=self.comm_rounds,
+            enabled=bool(getattr(args, "async_staging", True)))
+
+    def _example_ids_for(self, round_idx: int) -> np.ndarray:
+        clients = self._client_sampling(round_idx)
+        idx, _m, _w = self.dataset.cohort_indices(
+            self._data_ids(clients), self.batch_size, self.seed, round_idx,
+            self.epochs)
+        return np.unique(idx.ravel())
+
+    def _paged_cohort_batches(self, clients, round_idx: int):
+        """``dataset.cohort_batches``'s values through the example pager:
+        the round's unique rows gathered once, then laid out ``(cohort,
+        steps, batch, ...)`` by position (padding steps carry row 0 under a
+        zero mask, as the index path does)."""
+        ds = self.dataset
+        idx, mask, w = ds.cohort_indices(
+            self._data_ids(clients), self.batch_size, self.seed, round_idx,
+            self.epochs)
+        uniq = np.unique(idx.ravel())
+        nxt = round_idx + 1
+        rows = self._data_pager.gather(
+            round_idx, uniq, prefetch=nxt if nxt < self.comm_rounds else None)
+        pos = np.searchsorted(uniq, idx.ravel())
+        x = rows["x"][pos].reshape(idx.shape + ds.train_x.shape[1:])
+        y = rows["y"][pos].reshape(idx.shape + ds.train_y.shape[1:])
+        return x, y, mask, w
 
     def _stage_round_arrays(self, round_idx: int):
         """The round's index tensor, step mask and client weights, with the
         steps padded to a power of two (a bounded set of shapes)."""
         clients = self._client_sampling(round_idx)
         idx, mask, w = self.dataset.cohort_indices(
-            clients, self.batch_size, self.seed, round_idx, self.epochs)
+            self._data_ids(clients), self.batch_size, self.seed, round_idx,
+            self.epochs)
         steps = next_pow2(idx.shape[1])
         if steps != idx.shape[1]:
             pad = steps - idx.shape[1]
@@ -333,16 +490,32 @@ class FedAvgAPI:
     def _table_axis(self) -> int:
         return 1 if self.population else 0
 
-    def _gather_c(self, cohort):
-        """The cohort's rows of the per-client state table, stacked, or
-        ``None`` for an algorithm without per-client state."""
+    def _gather_c(self, cohort, round_idx: int = 0):
+        """The cohort's rows of the per-client state, stacked on the
+        device: from the dense table, or paged in from the store (the pager
+        prefetches the next round's pages); ``None`` for an algorithm
+        without per-client state."""
+        if self._pager is not None:
+            nxt = round_idx + self._round_block
+            rows = self._pager.gather(
+                round_idx, cohort,
+                prefetch=nxt if nxt < self.comm_rounds else None)
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in rows.items()}
         if self.client_table is None:
             return None
         return tree_util.cohort_gather(self.client_table, cohort,
                                        self._table_axis())
 
-    def _scatter_c(self, cohort, new_rows):
-        if self.client_table is None or new_rows is None:
+    def _scatter_c(self, cohort, new_rows, round_idx: int = 0):
+        if new_rows is None:
+            return
+        if self._pager is not None:
+            # asynchronous: the copy to the host and the store scatter run
+            # on the pager's writer, the next gather drains it first
+            self._pager.write_back(round_idx, cohort, new_rows)
+            return
+        if self.client_table is None:
             return
         self.client_table = tree_util.cohort_scatter(
             self.client_table, cohort, new_rows, self._table_axis())
@@ -355,13 +528,17 @@ class FedAvgAPI:
         if hasattr(self, "_dev_x"):
             clients, idx, mask, w, steps = self._stage_round_arrays(round_idx)
             idx, mask, w = self._to_device(idx, mask, w)
-            c_stacked = self._gather_c(clients)
+            c_stacked = self._gather_c(clients, round_idx)
             self.state, metrics, new_c = self.round_fn(
                 self.state, idx, mask, w, gen, c_stacked, self._hp, noise)
         else:
             clients = self._client_sampling(round_idx)
-            x, y, mask, w = self.dataset.cohort_batches(
-                clients, self.batch_size, self.seed, round_idx, self.epochs)
+            if self._data_pager is not None:
+                x, y, mask, w = self._paged_cohort_batches(clients, round_idx)
+            else:
+                x, y, mask, w = self.dataset.cohort_batches(
+                    self._data_ids(clients), self.batch_size, self.seed,
+                    round_idx, self.epochs)
             steps = next_pow2(x.shape[1])
             if steps != x.shape[1]:
                 pad = [(0, 0), (0, steps - x.shape[1])]
@@ -369,10 +546,10 @@ class FedAvgAPI:
                 y = np.pad(y, pad + [(0, 0)] * (y.ndim - 2))
                 mask = np.pad(mask, pad)
             x, y, mask, w = self._to_device(x, y, mask, w)
-            c_stacked = self._gather_c(clients)
+            c_stacked = self._gather_c(clients, round_idx)
             self.state, metrics, new_c = self.round_fn(
                 self.state, x, y, mask, w, gen, c_stacked, None, noise)
-        self._scatter_c(clients, new_c)
+        self._scatter_c(clients, new_c, round_idx)
         metrics = dict(metrics)
         metrics["allocated_steps"] = len(clients) * steps
         return metrics
@@ -391,7 +568,7 @@ class FedAvgAPI:
                 self.trainer, self.server_opt, mode=self._client_mode,
                 train_x=self._dev_x if dev else None,
                 train_y=self._dev_y if dev else None)
-        clients = self._client_sampling(round_idx)
+        clients = self._data_ids(self._client_sampling(round_idx))
         per = [self.dataset.client_index_batches(
             int(c), self.batch_size, self.seed, round_idx, self.epochs)
             for c in clients]
@@ -468,7 +645,7 @@ class FedAvgAPI:
         dropped.  A pure function of ``start_round``, safe for the
         stager's worker thread."""
         k = min(self._round_block, self.comm_rounds - start_round)
-        rows = self.dataset.num_clients
+        rows = self._table_rows
         per = []
         for r in range(start_round, start_round + k):
             clients = self._client_sampling(r)
@@ -476,7 +653,8 @@ class FedAvgAPI:
                 raise ValueError(f"block at round {start_round}: cohort ids "
                                  f"outside the {rows} table rows")
             idx, mask, w = self.dataset.cohort_indices(
-                clients, self.batch_size, self.seed, r, self.epochs)
+                self._data_ids(clients), self.batch_size, self.seed, r,
+                self.epochs)
             per.append((clients, idx, mask, w))
         round_steps = [next_pow2(p[1].shape[1]) for p in per]
         steps = max(round_steps)
@@ -531,16 +709,94 @@ class FedAvgAPI:
         nxt = start_round + self._round_block
         k, round_steps, *staged = self._block_stager.get(
             start_round, prefetch=nxt if nxt < self.comm_rounds else None)
+        table = self.client_table
+        if self._pager is not None:
+            staged[3], table, ids = self._block_mini_table(start_round,
+                                                           staged[3])
         idx, mask, w, cohort = self._block_to_device(*staged)
         gens = [rng_util.round_key(self._root, r)
                 for r in range(start_round, start_round + k)]
-        self.state, metrics, self.client_table = self._block_fn(
-            self.state, idx, mask, w, gens, cohort, self.client_table,
-            self._hp, round_steps)
+        self.state, metrics, table = self._block_fn(
+            self.state, idx, mask, w, gens, cohort, table, self._hp,
+            round_steps)
+        if self._pager is not None:
+            self._pager.write_back(start_round, ids, table)
+        else:
+            self.client_table = table
         metrics = dict(metrics)
         metrics["allocated_steps"] = idx.shape[1] * np.asarray(round_steps,
                                                                np.int64)
         return k, metrics
+
+    def _block_mini_table(self, start_round: int, cohort_blk):
+        """A fused block against the store: the block's touched rows go to
+        a device mini-table of ``round_block x cohort`` rows (one size for
+        every block, so the captured graphs keep their buffers), the cohort
+        ids are remapped to its rows, and the whole mini-table writes back
+        after the block.  Returns ``(local cohort, mini-table, ids)``, the
+        ids padded with the out-of-range sentinel the write-back drops."""
+        real = np.unique(cohort_blk)
+        local = np.searchsorted(real, cohort_blk).astype(np.int64)
+        n_slots = self._round_block * cohort_blk.shape[1]
+        nxt = start_round + self._round_block
+        rows = self._pager.gather(
+            start_round, real,
+            prefetch=nxt if nxt < self.comm_rounds else None)
+        mini = {k: torch.as_tensor(np.concatenate(
+            [r, np.zeros((n_slots - len(real),) + r.shape[1:], r.dtype)]))
+            .to(self.device) for k, r in rows.items()}
+        ids = np.full(n_slots, self.registered_clients, np.int64)
+        ids[:len(real)] = real
+        return local, mini, ids
+
+    # -- checkpoints -----------------------------------------------------------
+    def _checkpointer(self):
+        """The run's :class:`~fedml_tpu_torch.core.checkpoint
+        .RoundCheckpointer` (``checkpoint_dir``, ``checkpoint_keep``), or
+        None."""
+        ckpt_dir = getattr(self.args, "checkpoint_dir", None)
+        if not ckpt_dir:
+            return None
+        if not hasattr(self, "_ckpt"):
+            from ...core.checkpoint import RoundCheckpointer
+            self._ckpt = RoundCheckpointer(
+                ckpt_dir, int(getattr(self.args, "checkpoint_keep", 3)))
+        return self._ckpt
+
+    def _client_state(self):
+        return self._store if self._store is not None else self.client_table
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint if there is one; returns the round
+        to start from."""
+        from ...core.checkpoint import state_from_flat, state_to_flat
+        ckpt = self._checkpointer()
+        if ckpt is None or ckpt.latest_round() is None:
+            return 0
+        flat, client = ckpt.restore(
+            template=(state_to_flat(self.state), self._client_state()))
+        self.state = state_from_flat(flat, self.state)
+        if self.client_table is not None:
+            self.client_table = client
+        return int(ckpt.latest_round()) + 1
+
+    def maybe_checkpoint(self, round_idx: int, window: int = 1):
+        """Save when any round of ``[round_idx - window + 1, round_idx]``
+        hits ``checkpoint_freq`` or ``round_idx`` is the last (a fused block
+        saves at block granularity: its state exists only at block ends)."""
+        from ...core.checkpoint import state_to_flat
+        ckpt = self._checkpointer()
+        if ckpt is None:
+            return
+        freq = int(getattr(self.args, "checkpoint_freq", 10))
+        due = (round_idx == self.comm_rounds - 1
+               or any((round_idx - j) % freq == 0 for j in range(window)))
+        if due:
+            if self._pager is not None:
+                # every completed round's rows are in the store first
+                self._pager.drain_writebacks()
+            ckpt.save(round_idx, state_to_flat(self.state),
+                      self._client_state())
 
     # -- evaluation and records ----------------------------------------------
     def evaluate(self):
@@ -626,12 +882,12 @@ class FedAvgAPI:
                 self._attach_eval(record)
             self.metrics_history.append(record)
 
-    def _train_fused(self):
+    def _train_fused(self, start_round: int = 0):
         """The fused round loop: ``round_block`` rounds a block, one host sync a
         block (the stacked losses), the next block staged on the worker
         thread while this one runs; one record a round, the evaluation on
         the last round of a block that holds a log round."""
-        r = 0
+        r = start_round
         while r < self.comm_rounds:
             t0 = time.time()
             k, ms = self.train_block(r)
@@ -643,23 +899,30 @@ class FedAvgAPI:
                 if j == k - 1 and eval_due:
                     self._attach_eval(record, f"block of {k}, ")
                 self.metrics_history.append(record)
+            self.maybe_checkpoint(r + k - 1, window=k)
             r += k
-        self._block_stager.close()
-        self._block_stager = None
+        if self._block_stager is not None:
+            self._block_stager.close()
+            self._block_stager = None
 
     def train(self):
         t_start = time.time()
+        start_round = self.maybe_resume()
         if self._round_block > 1:
-            self._train_fused()
+            self._train_fused(start_round)
         else:
             pending = []
-            for round_idx in range(self.comm_rounds):
+            for round_idx in range(start_round, self.comm_rounds):
                 t0 = time.time()
                 metrics = self.train_one_round(round_idx)
                 pending.append((round_idx, metrics, time.time() - t0))
                 if self._is_log_round(round_idx):
                     self._flush_round_records(pending)
+                self.maybe_checkpoint(round_idx)
             self._flush_round_records(pending)
+        if self._pager is not None:
+            # the store holds the final round's rows before anyone reads it
+            self._pager.drain_writebacks()
         total = time.time() - t_start
         log.info("finished %d rounds in %.1fs (%.3fs/round)",
                  self.comm_rounds, total, total / max(self.comm_rounds, 1))

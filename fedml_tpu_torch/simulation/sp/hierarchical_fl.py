@@ -23,6 +23,7 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
     #: its rounds run FedAvg inside an engine of its own: the quantized
     #: collective layer is not ported to it
     QUANTIZED_ROUNDS = False
+    CLIENT_STATE_PLANE = False
     #: ``federated_optimizer`` names that select this engine
     NAMES = ("hierarchicalfl", "hierarchical_fl")
 

@@ -530,17 +530,10 @@ def test_server_http_matches_jax_fields(lm):
 
 
 LEFT_OUT = [
-    ("draft_model", lambda m: t_oc.OpenAICompatServer(
-        None, None, model=m, batch_slots=2, draft_model=m)),
     ("metrics_port", lambda m: t_oc.OpenAICompatServer(
         None, None, model=m, metrics_port=0)),
     ("slo_rules", lambda m: t_oc.OpenAICompatServer(
         None, None, model=m, slo_rules=[])),
-    ("adapter_cache_slots", lambda m: t_oc.OpenAICompatServer(
-        None, None, model=m, batch_slots=2, adapter_cache_slots=4)),
-    ("int8 weight-only trees", lambda m: t_oc.generate(
-        None, {"lm_head.kernel": torch.zeros((2, 2), dtype=torch.int8)},
-        [1, 2], model=m)),
     ("export", lambda m: __import__(
         "fedml_tpu_torch.serving", fromlist=["x"]).save_model_artifact(
         "/nonexistent", m, None)),
@@ -548,9 +541,6 @@ LEFT_OUT = [
         "fedml_tpu_torch.serving", fromlist=["x"]).FedMLModelServingServer()),
     ("FedMLModelServingClient", lambda m: __import__(
         "fedml_tpu_torch.serving", fromlist=["x"]).FedMLModelServingClient()),
-    ("SpeculativeBatchingEngine", lambda m: __import__(
-        "fedml_tpu_torch.serving.batching",
-        fromlist=["x"]).SpeculativeBatchingEngine(m, None, m, None)),
 ]
 
 

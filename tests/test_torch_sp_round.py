@@ -253,9 +253,7 @@ def test_digits_cnn_learns_on_real_bytes():
 
 @pytest.mark.parametrize("flag,value", [
     ("trace", True), ("health", True), ("metrics_port", 0),
-    ("client_store", True), ("data_paging", True),
-    ("collective_precision", "bf16"), ("checkpoint_dir", "ckpt"),
-    ("registered_clients", 100)])
+    ("collective_precision", "bf16")])
 def test_unported_options_raise_by_name(flag, value):
     # the quantized collective layer runs on the sp engine; what stays
     # unported is its combination with round_block fusion
@@ -267,9 +265,7 @@ def test_unported_options_raise_by_name(flag, value):
 @pytest.mark.parametrize("over,what", [
     (dict(backend="mesh", mesh_shape="1,2"), "mesh"),
     (dict(backend="NCCL", mesh_shape="1,2"), "NCCL"),
-    (dict(federated_optimizer="FedBuff"), "fedbuff"),
     (dict(backend="MPI", mesh_shape="1,2"), "MPI"),
-    (dict(federated_optimizer="fedbuff"), "fedbuff"),
     (dict(num_silos=2), "num_silos"), (dict(model="pipe_mlp"), "pipe_mlp"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
     (dict(dataset="imagenet"), "imagenet")])
@@ -293,16 +289,15 @@ def test_run_simulation_refuses_what_is_not_ported(over, what):
 
 def test_only_the_fedavg_family_runs():
     """The port's allow-list: every registered algorithm of the zoo in any
-    case; ``fedbuff``, registered but driven by the unported buffered-async
-    engine, refused as unported; anything else as unknown."""
+    case, ``fedbuff`` (the buffered-async engine's name) included; anything
+    else refused as unknown."""
     zoo = ("fedavg", "fedavg_seq", "fedprox", "fedopt", "fedopt_seq",
            "scaffold", "feddyn", "fednova", "mime", "fedsgd", "qfedavg")
     for name in zoo:
         assert t_federated.check_algorithm(name.upper()) == name
         assert t_federated.has_spec(name)
     assert t_federated.check_algorithm("qFedAvg") == "qfedavg"
-    with pytest.raises(NotImplementedError, match="fedbuff"):
-        t_federated.check_algorithm("FedBuff")
+    assert t_federated.check_algorithm("FedBuff") == "fedbuff"
     with pytest.raises(ValueError, match="fedavgx"):
         t_federated.check_algorithm("fedavgx")
 
