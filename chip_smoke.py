@@ -78,9 +78,10 @@ Phases, each printing its own lines:
    within 2e-4); (d) a population of 4 client learning rates on the
    FEMNIST CNN, unfused and in blocks of 4 (fused ≡ unfused to 1e-6),
    seconds a member beside the single run, member 0 ≡ the single run on
-   ``cnn_web`` to 1e-6 (reported on FEMNIST); (e) the same FEMNIST rounds
-   twice with cuDNN free to pick its algorithms and under the policy
-   (bitwise equal, checked).  No flash-attention kernel launches (checked).
+   ``cnn_web`` to 1e-6 (reported on FEMNIST); (e) the same 4 FEMNIST
+   rounds twice with cuDNN free to pick its algorithms (reported), and 9
+   under the policy against (d)'s single run (bitwise equal, checked).  No
+   flash-attention kernel launches (checked).
 8. text — the FedNLP text transformer at its full default width (dim 256,
    4 layers, 8 heads, FFN 512, f32) on the committed real text shard
    (``data_shards/realtext``, the ``realtext_docs`` row of
@@ -190,9 +191,9 @@ Phases, each printing its own lines:
    beside its bound, peak GiB beside ``estimate_serving_memory``; (c) int8
    KV: one layer's attention output against native (≤ 5e-2 relative), the
    tokens beside native's; (d) the paged engine (16-token pages, 64-token
-   chunks) against the dense engine, prefix pages shared, every page free
-   after the drain, and a pool too small for the longest requests (they
-   park, then complete); (e) 8 saturated rank-8 adapters mixed with base
+   chunks) against the dense engine, prefix pages shared (16 new tokens),
+   every page free after the drain, and a pool too small for the longest
+   requests (they park, then complete 16 new tokens each); (e) 8 saturated rank-8 adapters mixed with base
    traffic in one batch, each request against ``generate`` with its
    adapter; (f) the server over loopback HTTP against the engine
    (completions, chat, an SSE stream joining to the chat reply, an adapter
@@ -237,6 +238,24 @@ Phases, each printing its own lines:
    ``checkpoint_dir`` run stopped after 2 rounds and resumed from its step
    and store sidecar ≡ the uninterrupted run bitwise.  Seconds a round of
    each beside the sync engine's.  K1–K3 launch 0 times (checked).
+17. tp — the 2-D ``client × model`` mesh at a model factor of 1 (one card:
+   ``make_mesh2d("1,1")``, its model group of one rank running every
+   collective): (a) ``FedLLMAPI(mesh=...)`` at phase 4's configuration
+   through the tensor-parallel model (column/row-parallel projections,
+   vocab-parallel embedding, row-parallel ``lm_head``, the adapters'
+   gradients summed over the model group): its adapters against phase
+   4's to ``MESH_LORA_TOL``, K1–K3 launched as the round needs (counts
+   set to 0 just before, read just after); (b) K1, K2 and K3 at the shard
+   shapes a model factor of 2 and 4 gives a Llama-2-7B layer (B 2, H = H_kv
+   16 and 8, S 1024, D 128, causal, bf16), each against its plain version
+   and timed as phase 3 times them (rows under ``"tp_shards"``: no path
+   runs these shapes on one card); (c) ``MeshFedAvgAPI`` with
+   ``mesh_shape="1,1"`` on phase 5 (b)'s FEMNIST CNN, FedAvg and SCAFFOLD
+   under both layouts, 2 rounds ≡ the sp engine's to ``MESH_TOL``; (d)
+   greedy decode over the tensor-parallel model (Llama-2-7B widths, 2
+   layers, dense and int8 KV) ≡ ``generate`` over the plain model from the
+   same weights, token for token.  Then the process group is torn down.
+   A model factor above 1 needs more cards: ``tools/torch_mesh_ranks.py``.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -247,9 +266,10 @@ under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
 under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 ``"llm"``, phase 13's under ``"mesh"``, phase 14's under ``"serving"``,
-phase 15's under ``"serving_spec"`` and phase 16's under ``"planes"``
-beside them; each kernel row adds phase 12's to 16's launches a path
-under ``launches_by_path``)
+phase 15's under ``"serving_spec"``, phase 16's under ``"planes"`` and
+phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) beside
+them; each kernel row adds phase 12's to 17's launches a path under
+``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -977,6 +997,8 @@ def fused_vs_unfused(torch, fedml_tpu_torch, phase, cfg, k, rounds, timed,
 #: fused ≡ unfused on the card (in practice bitwise: the device policy
 #: keeps cuDNN deterministic, and a graph replays the eager round's kernels)
 FUSED_TOL = 1e-6
+#: phase 7 (e): the rounds of the two runs with cuDNN free (reported)
+FREE_ROUNDS = 4
 #: phase 7 (d): the population's client learning rates; member 0 runs the
 #: static rate, so it is phase 7 (b)'s FedAvg run
 POP_CLIENT_LR = [0.06, 0.03, 0.1, 0.02]
@@ -1017,7 +1039,7 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
     check_policy(torch, "fusion")
     # (a) lr at bench.py --fused's shape: 256 clients a round, K 1 and 8
     out["lr_bench"] = fused_vs_unfused(
-        torch, fedml_tpu_torch, "(a) lr", SP_LR_BENCH, 8, 24, 16, smi)
+        torch, fedml_tpu_torch, "(a) lr", SP_LR_BENCH, 8, 17, 8, smi)
     # (b) the FEMNIST CNN, FedAvg and SCAFFOLD (its table in the graph):
     # a warm block, 8 timed rounds, a ragged tail of 1 (9 after the warm)
     for alg in ("fedavg", "scaffold"):
@@ -1144,24 +1166,25 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
              f"{err_fu:.2e}")
     out["population"] = rec
 
-    # (e) why the policy keeps cuDNN deterministic: the same 9 FEMNIST
-    # rounds twice with cuDNN free to pick its algorithms, then the policy
+    # (e) why the policy keeps cuDNN deterministic: the same 4 FEMNIST
+    # rounds twice with cuDNN free to pick its algorithms (reported), then
+    # the policy over (d)'s 9 rounds (held bitwise to (d)'s single run)
     runs = []
-    for det in (False, False, True):
+    for det, n in ((False, FREE_ROUNDS), (False, FREE_ROUNDS), (True, 9)):
         torch.backends.cudnn.deterministic = det
         api = build_sp(sp_args(fedml_tpu_torch, **dict(SP_FEMNIST_CNN,
-                                                       comm_round=9)))
+                                                       comm_round=n)))
         torch.backends.cudnn.deterministic = det   # get_device set it
-        run_unfused(api, 0, 9)
+        run_unfused(api, 0, n)
         runs.append(api.state.global_params)
     check_policy(torch, "fusion (e)")
     free = max(max_err(runs[0][k], v) for k, v in runs[1].items())
     pinned = max(max_err(runs[2][k], v) for k, v in single.state
                  .global_params.items())
-    say("fusion", f"(e) two runs of the same 9 FEMNIST rounds: "
+    say("fusion", f"(e) two runs of the same {FREE_ROUNDS} FEMNIST rounds: "
                   f"{free:.2e} apart with cuDNN free to pick its algorithms; "
-                  f"{pinned:.2e} apart under the policy (deterministic) "
-                  f"[{smi}]")
+                  f"9 rounds {pinned:.2e} apart under the policy "
+                  f"(deterministic) [{smi}]")
     if pinned != 0.0:
         fail(f"(e) deterministic cuDNN runs differ by {pinned:.2e}")
     out["reproducibility"] = {"cudnn_free_max_abs_err": free,
@@ -3055,6 +3078,9 @@ SERVE_CHUNK = 64
 SERVE_ADAPTERS = 8
 SERVE_LORA_RANK = 8
 SERVE_ADAPTER_NEW = 16
+#: (d): new tokens of the prefix-sharing and parked-pool checks (a check
+#: of pages, not of throughput: the 16-request run times the engine)
+SERVE_SHORT_NEW = 16
 SERVE_GEN_BUF = 256              # (a): the plain step re-runs this buffer
 SERVE_GEN_NEW = 32
 #: (b): requests whose engine stream is also held to ``generate``'s (the
@@ -3521,8 +3547,8 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     checks.append(("paged_engine", "(d) paged vs dense engine", prompts,
                    engines[1][0], got))
     shared0 = eng.kv_stats()["pages_shared"]
-    first_p = eng.generate(prompts[0], max_new_tokens=SERVE_NEW)
-    again = eng.generate(prompts[0], max_new_tokens=SERVE_NEW)
+    first_p = eng.generate(prompts[0], max_new_tokens=SERVE_SHORT_NEW)
+    again = eng.generate(prompts[0], max_new_tokens=SERVE_SHORT_NEW)
     kv = eng.kv_stats()
     checks.append(("paged_engine", "(d) prefix pages shared", [prompts[0]],
                    [first_p], [again]))
@@ -3551,16 +3577,18 @@ def serving_phase(torch, fedml_tpu_torch, att, smi, layers):
     torch.cuda.empty_cache()
     # a pool for about one and a half of the longest requests: the rest park
     long = sorted(prompts, key=len)[-3:]
-    need = -(-min(len(long[-1]) + SERVE_NEW, SERVE_BUF) // SERVE_PAGE)
+    need = -(-min(len(long[-1]) + SERVE_SHORT_NEW, SERVE_BUF) // SERVE_PAGE)
     eng = ContinuousBatchingEngine(model, None, slots=3, buf_len=SERVE_BUF,
                                    kv_page_tokens=SERVE_PAGE,
                                    kv_pool_pages=1 + need + need // 2,
                                    prefill_chunk_tokens=SERVE_CHUNK)
-    parked, _, _ = run_engine(torch, eng, long, SERVE_NEW)
+    parked, _, _ = run_engine(torch, eng, long, SERVE_SHORT_NEW)
     kv = eng.kv_stats()
     eng.stop()
     del eng
-    ref_long = [engines[1][0][prompts.index(p)] for p in long]
+    # the dense engine's streams, as far as the parked requests decode
+    ref_long = [engines[1][0][prompts.index(p)][:SERVE_SHORT_NEW]
+                for p in long]
     checks.append(("paged_engine", "(d) parked vs dense", long, ref_long,
                    parked))
     if not kv["pool"]["exhausted"] > 0:
@@ -4335,6 +4363,174 @@ def planes_phase(torch, fedml_tpu_torch, smi):
     return out
 
 
+# -- 17. tp: the 2-D client x model mesh at a model factor of 1 -----------
+#: phase 17 (b): the attention calls of a tensor-parallel Llama-2-7B layer
+#: at model factors 2 and 4 (each rank's own heads: B 2, S 1024, D 128,
+#: causal, bf16, H = H_kv = 32 / m)
+TP_SHAPES = [("tp_h16", 2, 16, 16, 1024, 128, True, "bfloat16"),
+             ("tp_h8", 2, 8, 8, 1024, 128, True, "bfloat16")]
+#: phase 17 (d): new tokens a decode stream is held for
+TP_DECODE_NEW = 24
+
+
+def tp_phase(torch, fedml_tpu_torch, att, smi, layers, slice_lora):
+    """Phase 17."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.core.mesh import make_mesh2d
+    from fedml_tpu_torch.llm.configurations import (
+        build_fedllm, llama2_7b_round_arguments)
+    from fedml_tpu_torch.llm.model import LLAMA2_7B, LlamaLM
+    from fedml_tpu_torch.serving.templates.openai_compat import generate
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+    import dataclasses
+
+    dev = torch.device("cuda", 0)
+    out = {"seconds": {}}
+    mesh = make_mesh2d("1,1")
+    if (mesh.shape["client"], mesh.shape["model"]) != (1, 1) or \
+            mesh.groups["model"] is None:
+        fail(f"tp: make_mesh2d('1,1') gave {mesh} without a model group")
+
+    # (a) the federated LoRA round, tensor-parallel over a model group of
+    # one rank, at phase 4's configuration
+    t1 = time.time()
+    api = build_fedllm(llama2_7b_round_arguments(layers), device="cuda",
+                       mesh=mesh)
+    tp = api.model.tp
+    if tp is None or tp.size != 1 or api.model.layer_0.attention.tp is None:
+        fail("tp: FedLLMAPI(mesh=...) did not build the tensor-parallel "
+             "model")
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    api.train()
+    torch.cuda.synchronize()
+    launches = launch_counts(att)
+    steps = sum(hr["steps"] for hr in api.history)
+    expect = {"flash_fwd": layers * 2 * steps, "flash_bwd_dq": layers * steps,
+              "flash_bwd_dkv": layers * steps}
+    err = params_err({k: v.cpu() for k, v in api.global_lora.items()},
+                     slice_lora)
+    out["lora"] = {"launches": launches, "expected": expect,
+                   "adapters_err_vs_phase4": err,
+                   "rounds": [{"loss": hr["train_loss"],
+                               "seconds": hr["seconds"]}
+                              for hr in api.history]}
+    say("tp", f"(a) FedLLMAPI(mesh=make_mesh2d('1,1')), Llama-2-7B widths, "
+              f"{layers} layers, TP path (model group of 1): adapters vs "
+              f"phase 4's {err:.2e} (tol {MESH_LORA_TOL:g}); launches "
+              f"{launches}, expected {expect}; rounds "
+              f"{[round(hr['seconds'], 2) for hr in api.history]} s [{smi}]")
+    if err > MESH_LORA_TOL or launches != expect or \
+            not all(launches.values()):
+        fail("tp: the tensor-parallel LoRA round disagrees with phase 4 or "
+             "launched K1-K3 other than expected")
+    del api
+    torch.cuda.empty_cache()
+    out["seconds"]["lora"] = time.time() - t1
+
+    # (b) K1-K3 at the tensor-parallel shard shapes
+    t1 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    rows = out["rows"] = {}
+    for tag, b, h, hkv, s, d, causal, dt in TP_SHAPES:
+        dtype = getattr(torch, dt)
+        mk = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                        dtype=torch.float32).to(dtype)
+        q, k, v, do = mk(b, h, s, d), mk(b, hkv, s, d), mk(b, hkv, s, d), \
+            mk(b, h, s, d)
+        o, lse = att.flash_attention_fwd(q, k, v, causal)
+        e_o, l_o = check_close(att, "K1 O", o, att.flash_attention_fwd_plain(
+            q, k, v, causal)[0])
+        dq, delta = att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        e_dq, l_dq = check_close(att, "K2 dQ", dq,
+                                 att.flash_attention_bwd_dq_plain(
+                                     q, k, v, o, lse, do, causal)[0])
+        dk, dv = att.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        pdk, pdv = att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta,
+                                                     do, causal)
+        e_dk, l_dk = check_close(att, "K3 dK", dk, pdk)
+        e_dv, l_dv = check_close(att, "K3 dV", dv, pdv)
+        say("tp", f"(b) {tag} B{b} H{h} Hkv{hkv} S{s} D{d} causal {dt}: ok")
+        for line in (l_o, l_dq, l_dk, l_dv):
+            say("tp", f"  {line}")
+        new_rows, _ = time_kernels(
+            torch, att, tag, (q, k, v, do, o, lse, delta),
+            (b, h, hkv, s, d, causal, dt),
+            {"flash_fwd": e_o, "flash_bwd_dq": e_dq,
+             "flash_bwd_dkv": max(e_dk, e_dv)}, smi)
+        rows.update(new_rows)
+        del q, k, v, do, o, lse, delta, dq, dk, dv, pdk, pdv
+    out["seconds"]["kernels"] = time.time() - t1
+
+    # (c) the sim engine at mesh_shape "1,1" against the sp engine
+    t1 = time.time()
+    args0 = sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN)
+    dataset, out_dim = data.load(args0)
+    cnn = model.create(args0, out_dim)
+    sim = out["sim"] = {}
+    for alg in ("FedAvg", "SCAFFOLD"):
+        cfg = dict(SP_FEMNIST_CNN, federated_optimizer=alg)
+        sp = FedAvgAPI(sp_args(fedml_tpu_torch, **cfg), dev, dataset, cnn)
+        sp_losses, sp_s, _ = two_rounds(torch, sp)
+        for lay in MESH_LAYOUTS:
+            api = MeshFedAvgAPI(sp_args(fedml_tpu_torch, backend="mesh",
+                                        mesh_shape="1,1",
+                                        update_sharding=lay, **cfg),
+                                dev, dataset, cnn)
+            if (api.n_shards, api.n_model_shards) != (1, 1):
+                fail(f"tp: mesh_shape '1,1' gave {api.n_shards} x "
+                     f"{api.n_model_shards}")
+            losses, s, _ = two_rounds(torch, api)
+            api._stager.close()
+            err = params_err(api.full_params(), sp.state.global_params)
+            loss_err = max(abs(a - b) for a, b in zip(losses, sp_losses))
+            sim[f"{alg}/{lay}"] = {"params_err": err, "loss_err": loss_err,
+                                   "s_per_round": s, "sp_s_per_round": sp_s}
+            say("tp", f"(c) MeshFedAvgAPI mesh_shape '1,1' FEMNIST CNN "
+                      f"{alg}/{lay}: 2 rounds vs sp params {err:.2e}, "
+                      f"losses {loss_err:.2e} (tol {MESH_TOL:g}); {s:.4f} s "
+                      f"a round, sp {sp_s:.4f} [{smi}]")
+            if err > MESH_TOL or loss_err > MESH_TOL:
+                fail(f"tp: the 2-D engine at '1,1' disagrees with sp "
+                     f"({alg}/{lay})")
+    out["seconds"]["sim"] = time.time() - t1
+
+    # (d) tensor-parallel decode at a model factor of 1 against generate
+    t1 = time.time()
+    dec = out["decode"] = {}
+    prompt = list(range(3, 40))
+    for kv in ("native", "int8"):
+        cfg = dataclasses.replace(LLAMA2_7B, n_layers=2, max_seq_len=256,
+                                  kv_cache_dtype=kv, attn_impl="blockwise")
+        streams = {}
+        for name, m in (("plain", None), ("tp", mesh)):
+            with torch.device("meta"):
+                lm = LlamaLM(cfg, mesh=m)
+            lm = lm.to_empty(device=dev)
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            lm.init_weights(g)
+            if name == "tp" and lm.init_cache(1).layers[0]["k"].shape[1] \
+                    != cfg.n_kv_heads:
+                fail("tp: the decode cache does not hold the rank's heads")
+            streams[name] = generate(None, None, prompt,
+                                     max_new_tokens=TP_DECODE_NEW,
+                                     buf_len=256, model=lm)
+            del lm
+        dec[kv] = {"tokens": streams["tp"],
+                   "equal": streams["tp"] == streams["plain"]}
+        say("tp", f"(d) TP decode (model group of 1, Llama-2-7B widths, 2 "
+                  f"layers, {kv} KV): {TP_DECODE_NEW} greedy tokens equal "
+                  f"generate's: {dec[kv]['equal']} [{smi}]")
+        if not dec[kv]["equal"]:
+            fail(f"tp: TP decode ({kv} KV) differs from generate")
+    torch.cuda.empty_cache()
+    out["seconds"]["decode"] = time.time() - t1
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4500,6 +4696,8 @@ def main():
     say("slice", f"base bitwise unchanged; {n_b}/{n_b} B adapters non-zero")
     for name, n in launches.items():
         rows[f"{name}@slice"]["launches"] = n
+    # phase 17 (a) holds its tensor-parallel round to these adapters
+    slice_lora = {k: t.detach().cpu() for k, t in api.global_lora.items()}
     del api
     torch.cuda.empty_cache()
 
@@ -4681,6 +4879,26 @@ def main():
     say("planes", f"phase 16 took {time.time() - t0:.1f} s "
                   f"({ {k: round(v, 1) for k, v in planes['seconds'].items()} }"
                   f"); K1-K3 launches {planes['launches']}")
+
+    # -- 17. tp: the client x model mesh, a model factor of 1 ---------------
+    t0 = time.time()
+    tp = tp_phase(torch, fedml_tpu_torch, att, smi, opts.layers, slice_lora)
+    for name, n in tp["lora"]["launches"].items():
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "tp_lora"] = n
+    t1 = time.time()
+    watchdog = threading.Timer(
+        TEARDOWN_LIMIT, lambda: (print(
+            "chip_smoke: FAILED: shutdown_world did not return within "
+            f"{TEARDOWN_LIMIT} s", file=sys.stderr, flush=True),
+            os._exit(1)))
+    watchdog.daemon = True
+    watchdog.start()
+    shutdown_world()
+    watchdog.cancel()
+    tp["seconds"]["teardown"] = time.time() - t1
+    say("tp", f"phase 17 took {time.time() - t0:.1f} s "
+              f"({ {k: round(v, 1) for k, v in tp['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -4689,7 +4907,9 @@ def main():
                       "fusion": fusion, "text": text, "resnet": resnet,
                       "models": models, "engines": engines, "llm": llm,
                       "mesh": mesh, "serving": serving,
-                      "serving_spec": spec, "planes": planes}))
+                      "serving_spec": spec, "planes": planes,
+                      "tp_shards": list(tp.pop("rows").values()),
+                      "tp": tp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

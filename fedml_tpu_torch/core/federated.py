@@ -41,20 +41,61 @@ def client_map(fn: Callable, mode: str = "vmap") -> Callable:
     """Map a pure per-client fn over cohort-stacked inputs (leading client
     axis; ``None`` arguments are shared).  ``vmap`` batches the clients
     through ``torch.func.vmap``; ``scan`` runs them one after another and
-    stacks their outputs."""
-    if mode not in ("vmap", "scan"):
-        raise ValueError(f"client_map mode must be 'vmap'|'scan', got {mode!r}")
+    stacks their outputs.  ``vmap:k`` batches them ``k`` at a time, in
+    order, the last group filled to ``k`` with copies of its last client
+    (their outputs dropped): every group runs at the width ``k``, as each
+    rank of a mesh of ``ceil(C / k)`` ranks runs its block of the padded
+    cohort, so the sp engine can run a mesh's client map on one device."""
+    width = None
+    if mode.startswith("vmap:"):
+        width = int(mode[len("vmap:"):])
+        if width < 1:
+            raise ValueError(f"client_map width must be >= 1, got {mode!r}")
+    elif mode not in ("vmap", "scan"):
+        raise ValueError(
+            f"client_map mode must be 'vmap'|'vmap:<k>'|'scan', got {mode!r}")
+
+    def vmapped(*args):
+        dims = tuple(None if a is None else 0 for a in args)
+        return torch.func.vmap(fn, in_dims=dims,
+                               randomness="different")(*args)
 
     def mapped(*args):
         if mode == "vmap":
-            dims = tuple(None if a is None else 0 for a in args)
-            return torch.func.vmap(fn, in_dims=dims,
-                                   randomness="different")(*args)
+            return vmapped(*args)
         n = _lead(next(a for a in args if a is not None))
+        if width is not None:
+            outs = []
+            for lo in range(0, n, width):
+                rows = torch.arange(lo, lo + width).clamp_max(n - 1)
+                got = vmapped(*(_take(a, rows) for a in args))
+                outs.append(_take(got, torch.arange(min(width, n - lo))))
+            return _cat(outs)
         outs = [fn(*(_index(a, i) for a in args)) for i in range(n)]
         return _stack(outs)
 
     return mapped
+
+
+def _take(a, rows):
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        return tuple(_take(x, rows) for x in a)
+    if isinstance(a, dict):
+        return {k: _take(v, rows) for k, v in a.items()}
+    return a[rows.to(a.device)]
+
+
+def _cat(outs):
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(_cat([o[j] for o in outs]) for j in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _cat([o[k] for o in outs]) for k in first}
+    return torch.cat(outs)
 
 
 def _lead(a) -> int:
@@ -132,15 +173,35 @@ class PsumReducer:
 
     def wavg(self, stacked, w):
         num = weighted_sums(stacked, w / self.mesh.psum(torch.sum(w)))
-        names = list(num)
-        summed = self.mesh.psum(torch.cat([num[k].reshape(-1)
-                                           for k in names]))
-        out, off = {}, 0
-        for k in names:
-            n = num[k].numel()
-            out[k] = summed[off:off + n].reshape(num[k].shape)
-            off += n
-        return out
+        return dict(zip(num, self.mesh.psum_many(list(num.values()))))
+
+    def wavg_scalar(self, vec, w):
+        p = w / self.mesh.psum(torch.sum(w))
+        return self.mesh.psum(torch.sum(p * vec))
+
+    def sum_scalar(self, vec):
+        return self.mesh.psum(torch.sum(vec))
+
+
+class Psum2DReducer:
+    """The replicated merge on a 2-D ``client × model`` mesh
+    (``layout``: a :class:`~fedml_tpu_torch.simulation.mesh.layout.
+    MeshLayout`): each leaf's weighted numerator over this rank's clients
+    is reduce-scattered over the model group (whole leaves all-reduced),
+    and that ``1/m`` shard all-reduced over the client group, so each rank
+    receives its model shard of the cohort's sum.  Weighted in the sp
+    engine's order, as :class:`PsumReducer`; scalars all-reduce over every
+    rank."""
+
+    def __init__(self, layout):
+        self.layout = layout
+        self.mesh = layout.mesh
+
+    def wavg(self, stacked, w):
+        num = self.layout.reduce_tree(
+            weighted_sums(stacked, w / self.mesh.psum(torch.sum(w))))
+        return dict(zip(num, self.mesh.psum_many(list(num.values()),
+                                                 axis="client")))
 
     def wavg_scalar(self, vec, w):
         p = w / self.mesh.psum(torch.sum(w))

@@ -33,23 +33,38 @@ from .quantization import Q8, QuantizedParams
 
 def from_flax(params_np: Mapping, lora_np: Optional[Mapping],
               cfg: LlamaConfig, device="cuda",
-              model: Optional[LlamaLM] = None
+              model: Optional[LlamaLM] = None, mesh=None
               ) -> Tuple[LlamaLM, Dict[str, torch.Tensor]]:
     """Load flax ``params``/``lora`` trees into ``model`` (a new
-    ``LlamaLM(cfg)`` on ``device`` if none is given).  Returns the model
-    and the flat f32 adapter dict.  Every parameter must be present with
-    its exact shape."""
+    ``LlamaLM(cfg)`` on ``device`` if none is given; with ``mesh`` this
+    rank's tensor-parallel ``LlamaLM(cfg, mesh=mesh)``, built on the meta
+    device).  A tensor-parallel model takes only its slice of each leaf
+    (``LlamaLM.tp_dims``), so no whole weight reaches the device.  Returns
+    the model and the flat f32 adapter dict (whole on every rank).  Every
+    parameter must be present with its exact (whole) shape."""
     if model is None:
-        model = LlamaLM(cfg).to(device)
+        if mesh is None:
+            model = LlamaLM(cfg).to(device)
+        else:
+            with torch.device("meta"):
+                model = LlamaLM(cfg, mesh=mesh)
+            model = model.to_empty(device=device)
     flat = flatten(params_np)
+    dims = model.tp_dims()
+    full = model.full_shapes()
     seen = set()
     with torch.no_grad():
         for name, p in model.named_parameters():
             key = name.replace(".", "/")
             arr = np.asarray(flat[key])
-            if tuple(arr.shape) != tuple(p.shape):
+            if tuple(arr.shape) != tuple(full[name]):
                 raise ValueError(f"{key}: flax shape {arr.shape} vs port "
-                                 f"{tuple(p.shape)}")
+                                 f"{tuple(full[name])}")
+            if name in dims:
+                d, n = dims[name], p.shape[dims[name]]
+                arr = np.take(arr, np.arange(model.tp.rank * n,
+                                             (model.tp.rank + 1) * n),
+                              axis=d)
             p.copy_(torch.tensor(np.asarray(arr, np.float32)).to(p.dtype))
             seen.add(key)
     extra = set(flat) - seen

@@ -17,14 +17,22 @@ cross-entropy of :mod:`..ops.xent` over the model's final hidden states
 (the chunk clamped to the vocabulary), which never holds the logits.  MoE
 models (``n_experts``) come through the config.
 
-``mesh=`` (a :class:`~fedml_tpu_torch.core.mesh.Mesh` whose only factor
-above 1 is ``client``) runs the round over the ranks of the process group:
-the cohort is padded on the host to a multiple of the shard count (zero
-weight, no rank components, every step masked), each rank trains its
-contiguous block of clients against its own copy of the frozen base, and
-the weighted adapter merge is one all-reduce of the numerators, the
-per-component weights and the loss.  The base and the adapters stay whole
-on every rank.
+``mesh=`` (a :class:`~fedml_tpu_torch.core.mesh.Mesh` of ``c × m``
+ranks, the counterpart of the JAX package's GSPMD mesh regime) runs the
+round over the ranks of the process group.  Each model group of ``m``
+ranks holds one tensor-parallel base (``LlamaLM(cfg, mesh=mesh)``: this
+rank's shards, materialized from the meta device, never whole on one
+card) and trains one client at a time, the attention through K1–K3 on the
+rank's own heads; the adapters stay whole on every rank, their gradients
+summed over the model group, so the group's ranks hold the same adapters.
+The cohort is padded on the host to a multiple of the client factor ``c``
+(zero weight, no rank components, every step masked) and each group
+trains its contiguous block of clients; the weighted adapter merge is one
+all-reduce over the client axis of the numerators, the per-component
+weights and the loss.  A mesh made with a model factor of 1
+(``make_mesh2d("c,1")``) runs the same code, its model-group collectives
+the identity; the 1-D client mesh (``make_mesh()``, no model group) keeps
+one whole base on every rank.
 """
 
 from __future__ import annotations
@@ -83,12 +91,11 @@ class FedLLMAPI:
                  mesh=None):
         if mesh is not None:
             bad = {a: n for a, n in mesh.shape.items()
-                   if a != "client" and n > 1}
+                   if a not in ("client", "model") and n > 1}
             if bad:
                 raise NotImplementedError(
-                    f"FedLLMAPI(mesh=...) with mesh axes {bad}: the 2-D "
-                    "client x model layout is not ported (the port runs "
-                    "the client axis)")
+                    f"FedLLMAPI(mesh=...) with mesh axes {bad}: only the "
+                    "client x model mesh is ported")
             device = mesh.device
         self.mesh = mesh
         self.args = args
@@ -112,6 +119,11 @@ class FedLLMAPI:
         # a chunk wider than the vocabulary would pad the head product
         self.xent_chunk = min(int(cfg.streaming_xent_chunk or 0),
                               cfg.vocab_size)
+        if self.xent_chunk and mesh is not None and mesh.model_size > 1:
+            raise NotImplementedError(
+                "streaming_xent_chunk with a model factor above 1: the "
+                "vocab-chunked loss over a row-parallel lm_head is not "
+                "ported")
 
         # heterogeneous adapter capacity (HetLoRA-style): device classes
         # train different ranks of the same global adapters
@@ -130,7 +142,16 @@ class FedLLMAPI:
             self.client_ranks = ranks
 
         key = rng_util.root_key(self.seed, self.device)
-        self.model = LlamaLM(cfg).to(self.device)
+        #: the mesh whose model group runs the tensor-parallel base
+        self._tp = mesh if mesh is not None and "model" in mesh.groups \
+            else None
+        if self._tp is None:
+            self.model = LlamaLM(cfg).to(self.device)
+        else:
+            # this rank's shards only, straight onto the device
+            with torch.device("meta"):
+                model = LlamaLM(cfg, mesh=mesh)
+            self.model = model.to_empty(device=self.device)
         self.model.init_weights(rng_util.purpose_key(key, "init"))
         self.global_lora = lora_init(rng_util.purpose_key(key, "lora"),
                                      self.model.lora_shapes(), self.device)
@@ -168,6 +189,9 @@ class FedLLMAPI:
             y = torch.as_tensor(yb[s], device=self.device)
             loss = self.loss(params, x, y)
             grads = torch.autograd.grad(loss, [params[k] for k in keys])
+            if self._tp is not None:
+                # each rank holds its heads' and columns' part
+                grads = self._tp.psum_many(grads, axis="model")
             count += 1
             bc1 = 1.0 - _B1 ** count
             bc2 = 1.0 - _B2 ** count
@@ -203,15 +227,17 @@ class FedLLMAPI:
             max_steps=self.max_steps)
         rows = slice(0, len(clients))
         if self.mesh is not None:
-            # host-pad to the shard count, then this rank's block
+            # host-pad to the client factor, then this model group's block
             from ..core.mesh import pad_to_multiple
-            pad = pad_to_multiple(len(clients), self.mesh.size) - len(clients)
+            groups = self.mesh.client_size
+            pad = pad_to_multiple(len(clients), groups) - len(clients)
             padc = lambda a: np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
             x, y, mask, w = padc(x), padc(y), padc(mask), padc(w)
             rank_masks = torch.cat([rank_masks, rank_masks.new_zeros(
                 (pad, rank_masks.shape[1]))])
-            per = len(w) // self.mesh.size
-            rows = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+            per = len(w) // groups
+            c = self.mesh.c_coord
+            rows = slice(c * per, (c + 1) * per)
         loras, losses = [], []
         for c in range(rows.start, rows.stop):
             lora_c, loss_c = self._local_train(self.global_lora, x[c], y[c],
@@ -228,8 +254,8 @@ class FedLLMAPI:
         """The merged adapters and the round's weighted loss.  Each rank
         component averages over the clients that hold it; a component
         nobody in the cohort holds keeps its global value.  On a mesh the
-        numerators, the component weights and the loss sums of this rank's
-        clients travel in one all-reduce."""
+        numerators, the component weights and the loss sums of this model
+        group's clients travel in one all-reduce over the client axis."""
         parts = {}
         for k, g in self.global_lora.items():
             stacked = torch.stack([l[k] for l in loras])
@@ -240,17 +266,11 @@ class FedLLMAPI:
         loss_sums = torch.stack([(losses * weights).sum(), weights.sum()])
         if self.mesh is not None:
             names = list(parts)
-            flat = torch.cat([t.reshape(-1) for k in names
-                              for t in parts[k]] + [loss_sums])
-            flat = self.mesh.psum(flat)
-            off = 0
-            for k in names:
-                shape = self.global_lora[k].shape
-                n = self.global_lora[k].numel()
-                parts[k] = (flat[off:off + n].reshape(shape),
-                            flat[off + n:off + 2 * n].reshape(shape))
-                off += 2 * n
-            loss_sums = flat[off:]
+            *summed, loss_sums = self.mesh.psum_many(
+                [t for k in names for t in parts[k]] + [loss_sums],
+                axis="client")
+            parts = {k: (summed[2 * i], summed[2 * i + 1])
+                     for i, k in enumerate(names)}
         merged = {}
         for k, (num, tot) in parts.items():
             avg = num / torch.clamp_min(tot, 1e-12)

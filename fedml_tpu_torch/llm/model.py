@@ -37,6 +37,25 @@ products of the bf16 (or int8) inputs, the probabilities times V a bf16
 product accumulated in f32 and cast once, as the JAX einsums with
 ``preferred_element_type=f32`` compute them.
 
+``LlamaLM(cfg, mesh=...)`` is the tensor-parallel model of one rank of a
+``client × model`` mesh (``core/mesh.py``): Megatron's column and row
+splits, PyTorch's idiom for what the JAX package's GSPMD ``model`` axis
+does with :func:`param_sharding_rules`' specs.  ``wq``/``wk``/``wv``/
+``w_gate``/``w_up`` keep their output columns of this rank, ``wo``/
+``w_down`` their input rows; the embedding keeps its vocabulary rows and
+``lm_head`` its input rows.  A column-parallel layer's input goes through
+:class:`_CopyToModel` (identity forward, all-reduce backward over the
+model group), a row-parallel layer's partial output through
+:class:`_ReduceFromModel` (all-reduce forward, identity backward), so the
+residual stream is whole and the same on every rank.  Attention runs
+``n_heads/m`` query heads and ``n_kv_heads/m`` KV heads a rank through
+the flash kernels (K1–K3) on those local heads; the KV cache holds the
+local KV heads.  LoRA adapters stay whole on every rank (their gradients
+summed over the model group by the caller); a column-parallel
+projection applies its B's columns, a row-parallel one its A's rows.
+MoE experts split over the model group (:mod:`.moe`).  With a model
+group of one rank the same code runs, its collectives the identity.
+
 Type promotion follows the flax model exactly: RMSNorm normalises in f32,
 casts to the input type, then multiplies by its f32 scale (so in the bf16
 config its output is f32, cast back to bf16 by the next projection); LoRA
@@ -61,6 +80,129 @@ from ..ops.attention import blockwise_attention, flash_attention
 from .moe import MoEMLP
 
 LoRA = Dict[str, torch.Tensor]
+
+
+class _TP:
+    """This rank's place in its model group: ``size`` ranks, index
+    ``rank``, collectives over ``mesh``'s ``model`` axis."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = int(mesh.model_size)
+        self.rank = int(mesh.m_coord)
+
+    def part(self, n: int) -> slice:
+        """This rank's contiguous ``1/size`` of ``n`` (divisible)."""
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward all-reduces the gradient over the model
+    group (the input of a column-parallel layer)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.mesh.psum(g.contiguous(), axis="model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the model group forward (the partial output of a
+    row-parallel layer); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.mesh.psum(x.contiguous(), axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x, tp: Optional[_TP]):
+    return x if tp is None else _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x, tp: Optional[_TP]):
+    return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+def _tp_rule(role: str, shape, cfg: "LlamaConfig", m: int):
+    """The port's sharded dim of a base leaf of full ``shape`` in flax's
+    layout over a model group of ``m`` (None: whole), by its role.  JAX's
+    rule (:func:`param_sharding_rules`) except where ``TP_DIVERGENCES``
+    says why not."""
+    if m <= 1 or len(shape) < 2:
+        return None
+    if role in ("wq", "wo"):
+        return 1 if role == "wq" else 0
+    if role in ("wk", "wv"):
+        return 1 if cfg.n_kv_heads % m == 0 else None
+    if role in ("w_gate", "w_up"):
+        return 1 if shape[1] % m == 0 else None
+    if role == "w_down":
+        return 0 if shape[0] % m == 0 else None
+    if role in ("tok_embed", "lm_head"):
+        return 0 if shape[0] % m == 0 else None
+    if role == "expert":
+        return 0 if shape[0] % m == 0 else None
+    return None                                   # the MoE router
+
+
+#: leaves whose port spec differs from the JAX package's
+#: ``param_sharding_rules``, and why (ROADMAP Queue 3)
+TP_DIVERGENCES = {
+    "wk/wv": "n_kv_heads % m != 0: replicated, each rank takes the KV "
+             "heads of its query heads (JAX splits the columns inside a "
+             "head, which the flash kernels cannot read)",
+    "tok_embed": "vocab % m != 0: replicated (JAX shards the hidden dim, "
+                 "which needs an all-gather a lookup)",
+    "lm_head": "dim % m != 0: replicated (JAX shards the vocabulary)",
+    "moe_mlp/router": "replicated: every rank routes every token (JAX "
+                      "shards its largest divisible dim, resharded at use)",
+    "moe_mlp/w_gate,w_up": "experts on dim 0, the expert-parallel split "
+                           "(JAX's rule shards dim 1 and _ep_constraint "
+                           "reshards to experts at use)",
+}
+
+
+def _role(parts) -> str:
+    for r in ("tok_embed", "lm_head"):
+        if r in parts:
+            return r
+    if "moe_mlp" in parts:
+        return "router" if "router" in parts else "expert"
+    for r in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        if r in parts:
+            return r
+    return "other"
+
+
+def param_sharding_rules(params, mesh, cfg: "LlamaConfig") -> Dict[str, tuple]:
+    """The model-axis spec of every base leaf (``params``: flat names with
+    ``/`` or ``.``, full shapes in flax's layout; tensors or shapes): a
+    tuple with ``"model"`` at the sharded dim, ``()`` for whole.  The
+    counterpart of ``fedml_tpu/llm/model.py::param_sharding_rules`` and
+    what ``LlamaLM(cfg, mesh=mesh)`` builds on each rank."""
+    m = int(mesh.shape["model"]) if hasattr(mesh, "shape") else int(mesh)
+    out = {}
+    for name, leaf in params.items():
+        shape = tuple(getattr(leaf, "shape", leaf))
+        parts = name.replace(".", "/").split("/")
+        d = _tp_rule(_role(parts), shape, cfg, m) if len(shape) >= 2 \
+            else None
+        if d is None:
+            out[name] = ()
+        else:
+            spec = [None] * len(shape)
+            spec[d] = "model"
+            out[name] = tuple(spec)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,14 +325,20 @@ class Dense(nn.Module):
 
     flax_kinds = {"kernel": "kernel"}
 
-    def __init__(self, in_features: int, features: int, dtype, param_dtype):
+    def __init__(self, in_features: int, features: int, dtype, param_dtype,
+                 take: Optional[slice] = None):
         super().__init__()
         self.dtype = dtype
+        #: the input columns this rank multiplies (a row-parallel layer
+        #: whose input is whole: ``lm_head``), or None
+        self.take = take
         self.kernel = nn.Parameter(
             torch.empty(in_features, features, dtype=param_dtype),
             requires_grad=False)
 
     def forward(self, x, lora: Optional[LoRA] = None):
+        if self.take is not None:
+            x = x[..., self.take]
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
@@ -202,17 +350,28 @@ class LoRADense(nn.Module):
     r, out)``) run as two batched products."""
 
     def __init__(self, in_features: int, features: int, rank: int,
-                 alpha: float, dtype, param_dtype):
+                 alpha: float, dtype, param_dtype,
+                 rows: Optional[slice] = None, cols: Optional[slice] = None):
         super().__init__()
+        # the adapters' (whole) shapes; the base keeps this rank's part
         self.in_features, self.features = in_features, features
         self.rank, self.alpha = rank, alpha
-        self.base = Dense(in_features, features, dtype, param_dtype)
+        #: tensor parallel: the input rows (row-parallel) or output
+        #: columns (column-parallel) this rank holds, else None
+        self.rows, self.cols = rows, cols
+        n_in = in_features if rows is None else rows.stop - rows.start
+        n_out = features if cols is None else cols.stop - cols.start
+        self.base = Dense(n_in, n_out, dtype, param_dtype)
         self.path = ""
 
     def forward(self, x, lora: Optional[LoRA] = None):
         y = self.base(x)
         if self.rank > 0 and lora is not None:
             a, b = lora[f"{self.path}/A"], lora[f"{self.path}/B"]
+            if self.rows is not None:
+                a = a[..., self.rows, :]
+            if self.cols is not None:
+                b = b[..., self.cols]
             xf = x.float()
             if a.dim() == 3:
                 delta = torch.einsum("b...i,bir->b...r", xf, a)
@@ -370,20 +529,56 @@ class _DecodeCtx:
                 cache.get("v_scale"), self.mask)
 
 
+def _kv_heads(cfg: LlamaConfig, tp: Optional[_TP]):
+    """``(local query heads, local KV heads, KV heads kept from a whole
+    wk/wv or None)`` of one rank.  A TP degree must divide ``n_heads``;
+    when it does not divide ``n_kv_heads``, wk/wv stay whole and a rank
+    keeps the one KV head its query heads share (``TP_DIVERGENCES``)."""
+    m = 1 if tp is None else tp.size
+    if cfg.n_heads % m:
+        raise NotImplementedError(
+            f"a tensor-parallel degree of {m} does not divide n_heads="
+            f"{cfg.n_heads}: each rank must hold whole query heads")
+    hq = cfg.n_heads // m
+    if cfg.n_kv_heads % m == 0:
+        return hq, cfg.n_kv_heads // m, None
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if rep % hq:
+        raise NotImplementedError(
+            f"a tensor-parallel degree of {m} with n_heads={cfg.n_heads}, "
+            f"n_kv_heads={cfg.n_kv_heads}: a rank's query heads would span "
+            "part of a KV group")
+    kv0 = tp.rank * hq // rep
+    return hq, 1, slice(kv0, kv0 + 1)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, tp: Optional[_TP] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         hd = cfg.dim // cfg.n_heads
+        self.hq, self.hkv, self.kv_keep = _kv_heads(cfg, tp)
+        q_part = None if tp is None else tp.part(cfg.n_heads * hd)
+        kv_part = None if tp is None or self.kv_keep is not None else \
+            tp.part(cfg.n_kv_heads * hd)
         if cfg.lora_rank > 0:
-            mk = lambda i, o: LoRADense(i, o, cfg.lora_rank, cfg.lora_alpha,
-                                        cfg.dtype, cfg.store_dtype)
+            mk = lambda i, o, rows=None, cols=None: LoRADense(
+                i, o, cfg.lora_rank, cfg.lora_alpha, cfg.dtype,
+                cfg.store_dtype, rows=rows, cols=cols)
         else:
-            mk = lambda i, o: Dense(i, o, cfg.dtype, cfg.store_dtype)
-        self.wq = mk(cfg.dim, cfg.n_heads * hd)
-        self.wk = mk(cfg.dim, cfg.n_kv_heads * hd)
-        self.wv = mk(cfg.dim, cfg.n_kv_heads * hd)
-        self.wo = mk(cfg.n_heads * hd, cfg.dim)
+            def mk(i, o, rows=None, cols=None):
+                n_in = i if rows is None else rows.stop - rows.start
+                n_out = o if cols is None else cols.stop - cols.start
+                return Dense(n_in, n_out, cfg.dtype, cfg.store_dtype)
+        self.wq = mk(cfg.dim, cfg.n_heads * hd, cols=q_part)
+        self.wk = mk(cfg.dim, cfg.n_kv_heads * hd, cols=kv_part)
+        self.wv = mk(cfg.dim, cfg.n_kv_heads * hd, cols=kv_part)
+        self.wo = mk(cfg.n_heads * hd, cfg.dim, rows=q_part)
+        if tp is not None:
+            self.tp_split = {"wq": 1, "wo": 0}
+            if kv_part is not None:
+                self.tp_split.update(wk=1, wv=1)
 
     def forward(self, x, positions, lora: Optional[LoRA] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -391,9 +586,13 @@ class Attention(nn.Module):
         cfg = self.cfg
         hd = cfg.dim // cfg.n_heads
         b, s, _ = x.shape
-        q = self.wq(x, lora).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-        k = self.wk(x, lora).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-        v = self.wv(x, lora).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+        x = copy_to_model(x, self.tp)
+        q = self.wq(x, lora).reshape(b, s, self.hq, hd).transpose(1, 2)
+        k = self.wk(x, lora).reshape(b, s, -1, hd)
+        v = self.wv(x, lora).reshape(b, s, -1, hd)
+        if self.kv_keep is not None:
+            k, v = k[:, :, self.kv_keep], v[:, :, self.kv_keep]
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
         if cache is not None:
             q = _apply_rope(q, ctx.cos, ctx.sin)
             k = _apply_rope(k, ctx.cos, ctx.sin)
@@ -405,8 +604,8 @@ class Attention(nn.Module):
                 out = blockwise_attention(q, k, v, causal=True)
             else:
                 out = flash_attention(q, k, v, True, None)
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-        return self.wo(out, lora)
+        out = out.transpose(1, 2).reshape(b, s, self.hq * hd)
+        return reduce_from_model(self.wo(out, lora), self.tp)
 
     def _rows_to_store(self, k, v):
         """The new rows in the cache's storage: ``(k, v, k_scale, v_scale)``
@@ -444,29 +643,42 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """SwiGLU FFN; tensor-parallel (gate/up by columns, down by rows) when
+    the model group divides ``ffn_dim``, else whole on every rank, as the
+    JAX rule replicates it."""
+
+    def __init__(self, cfg: LlamaConfig, tp: Optional[_TP] = None):
         super().__init__()
+        if tp is not None and cfg.ffn_dim % tp.size:
+            tp = None
+        self.tp = tp
+        ffn = cfg.ffn_dim if tp is None else cfg.ffn_dim // tp.size
         mk = lambda i, o: Dense(i, o, cfg.dtype, cfg.store_dtype)
-        self.w_gate = mk(cfg.dim, cfg.ffn_dim)
-        self.w_up = mk(cfg.dim, cfg.ffn_dim)
-        self.w_down = mk(cfg.ffn_dim, cfg.dim)
+        self.w_gate = mk(cfg.dim, ffn)
+        self.w_up = mk(cfg.dim, ffn)
+        self.w_down = mk(ffn, cfg.dim)
+        if tp is not None:
+            self.tp_split = {"w_gate": 1, "w_up": 1, "w_down": 0}
 
     def forward(self, x):
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        x = copy_to_model(x, self.tp)
+        return reduce_from_model(
+            self.w_down(F.silu(self.w_gate(x)) * self.w_up(x)), self.tp)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, tp: Optional[_TP] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
-        self.attention = Attention(cfg)
+        self.attention = Attention(cfg, tp)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         if cfg.n_experts > 0:
             self.moe_mlp = MoEMLP(cfg.dim, cfg.ffn_dim, cfg.n_experts,
                                   cfg.moe_top_k, dtype=cfg.dtype,
-                                  param_dtype=cfg.store_dtype)
+                                  param_dtype=cfg.store_dtype,
+                                  mesh=None if tp is None else tp.mesh)
         else:
-            self.mlp = MLP(cfg)
+            self.mlp = MLP(cfg, tp)
 
     def forward(self, x, positions, lora: Optional[LoRA] = None,
                 cache=None, ctx=None):
@@ -477,16 +689,36 @@ class Block(nn.Module):
 
 
 class Embed(nn.Module):
+    """Token embedding; over a model group that divides the vocabulary
+    each rank holds its rows (a token outside them reads zeros) and the
+    group sums the lookups."""
+
     flax_kinds = {"embedding": "embedding"}
 
-    def __init__(self, vocab: int, dim: int, dtype, param_dtype):
+    def __init__(self, vocab: int, dim: int, dtype, param_dtype,
+                 tp: Optional[_TP] = None):
         super().__init__()
+        if tp is not None and vocab % tp.size:
+            tp = None
+        self.tp = tp
         self.dtype = dtype
+        self.rows = None if tp is None else tp.part(vocab)
+        n = vocab if tp is None else vocab // tp.size
         self.embedding = nn.Parameter(
-            torch.empty(vocab, dim, dtype=param_dtype), requires_grad=False)
+            torch.empty(n, dim, dtype=param_dtype), requires_grad=False)
+        if tp is not None:
+            self.tp_split = {"embedding": 0}
 
     def forward(self, tokens):
-        return F.embedding(tokens, self.embedding).to(self.dtype)
+        if self.tp is None:
+            return F.embedding(tokens, self.embedding).to(self.dtype)
+        local = tokens - self.rows.start
+        n = self.embedding.shape[0]
+        own = (local >= 0) & (local < n)
+        e = F.embedding(local.clamp(0, n - 1), self.embedding)
+        e = torch.where(own[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                       device=e.device))
+        return reduce_from_model(e, self.tp).to(self.dtype)
 
 
 def _save_mm_outputs(ctx, op, *args, **kwargs):
@@ -504,23 +736,64 @@ def _dots_context():
 class LlamaLM(nn.Module):
     """Submodules carry the flax names: ``tok_embed``, ``layer_{i}``,
     ``final_norm``, ``lm_head``.  The parameters are frozen (gradients flow
-    only to the adapter tensors passed in ``lora``) unless ``trainable``."""
+    only to the adapter tensors passed in ``lora``) unless ``trainable``.
+    ``mesh`` (a ``core.mesh.Mesh``): this rank's tensor-parallel part over
+    the mesh's model group (module docstring); its parameters are local
+    shards, :meth:`tp_dims` says which dim of each."""
 
-    def __init__(self, cfg: LlamaConfig, trainable: bool = False):
+    def __init__(self, cfg: LlamaConfig, trainable: bool = False,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
+        tp = None if mesh is None else _TP(mesh)
+        self.tp = tp
         self.tok_embed = Embed(cfg.vocab_size, cfg.dim, cfg.dtype,
-                               cfg.store_dtype)
+                               cfg.store_dtype, tp)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg))
+            self.add_module(f"layer_{i}", Block(cfg, tp))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps)
-        # kernel in the storage type, compute in f32 (logit precision)
-        self.lm_head = Dense(cfg.dim, cfg.vocab_size, torch.float32,
-                             cfg.store_dtype)
+        # kernel in the storage type, compute in f32 (logit precision);
+        # tensor-parallel: this rank's input rows, the logits summed
+        head_tp = tp if tp is not None and cfg.dim % tp.size == 0 else None
+        self._head_tp = head_tp
+        take = None if head_tp is None else head_tp.part(cfg.dim)
+        self.lm_head = Dense(cfg.dim if take is None else
+                             cfg.dim // head_tp.size, cfg.vocab_size,
+                             torch.float32, cfg.store_dtype, take=take)
+        if head_tp is not None:
+            self.lm_head.tp_split = {"kernel": 0}
         for name, mod in self.named_modules():
             if isinstance(mod, LoRADense):
                 mod.path = name.replace(".", "/")
         self.requires_grad_(trainable)
+
+    def tp_dims(self) -> Dict[str, int]:
+        """``{parameter name: dim}`` of every parameter held as this
+        rank's model shard (the others are whole); empty without a
+        mesh."""
+        out = {}
+        for mname, mod in self.named_modules():
+            for pname, d in getattr(mod, "tp_split", {}).items():
+                sub = getattr(mod, pname)
+                if isinstance(sub, LoRADense):     # a projection: its kernel
+                    pname += ".base.kernel"
+                elif isinstance(sub, nn.Module):
+                    pname += ".kernel"
+                out[f"{mname}.{pname}"] = d
+        return out
+
+    def full_shapes(self) -> Dict[str, tuple]:
+        """Each parameter's whole shape (its local shape on a mesh, the
+        sharded dim times the model group)."""
+        dims = self.tp_dims()
+        m = 1 if self.tp is None else self.tp.size
+        out = {}
+        for n, p in self.named_parameters():
+            shape = list(p.shape)
+            if n in dims:
+                shape[dims[n]] *= m
+            out[n] = tuple(shape)
+        return out
 
     def lora_shapes(self) -> Dict[str, tuple]:
         """Flat adapter paths → shapes: A ``(in, r)``, B ``(r, out)``."""
@@ -537,19 +810,27 @@ class LlamaLM(nn.Module):
         """Random base weights from ``generator`` (on the weights' device):
         kernels N(0, 1/fan_in), embeddings N(0, 1/dim), norm scales 1; the
         MoE router and experts lecun-normal as flax draws them (fan_in the
-        product of all but the last axis)."""
+        product of all but the last axis).  On a mesh each leaf is drawn
+        whole, one at a time, and this rank keeps its shard, so the
+        weights are the unsharded model's."""
+        dims = self.tp_dims()
+        full = self.full_shapes()
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
                 continue
+            shape = full[name]
             if ".moe_mlp." in name:
-                p.copy_(lecun_normal(p.shape, math.prod(p.shape[:-1]),
-                                     generator))
-                continue
-            fan = p.shape[0] if name.endswith("kernel") else p.shape[1]
-            w = torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32)
-            p.copy_(w.mul_(fan ** -0.5))
+                w = lecun_normal(shape, math.prod(shape[:-1]), generator)
+            else:
+                fan = shape[0] if name.endswith("kernel") else shape[1]
+                w = torch.randn(shape, generator=generator, device=p.device,
+                                dtype=torch.float32).mul_(fan ** -0.5)
+            if name in dims:
+                d = dims[name]
+                w = w.narrow(d, self.tp.rank * p.shape[d], p.shape[d])
+            p.copy_(w)
+            del w
 
     def init_cache(self, batch: int, device=None, *,
                    page_tokens: Optional[int] = None,
@@ -564,8 +845,9 @@ class LlamaLM(nn.Module):
         ptok = cfg.kv_page_tokens if page_tokens is None else page_tokens
         pages = cfg.kv_pool_pages if pool_pages is None else pool_pages
         hd = cfg.dim // cfg.n_heads
-        lead = (pages, cfg.n_kv_heads, ptok) if ptok > 0 else \
-            (batch, cfg.n_kv_heads, cfg.max_seq_len)
+        hkv = self.layer_0.attention.hkv if cfg.n_layers else cfg.n_kv_heads
+        lead = (pages, hkv, ptok) if ptok > 0 else \
+            (batch, hkv, cfg.max_seq_len)
         int8 = cfg.kv_cache_dtype == "int8"
         store = torch.int8 if int8 else cfg.dtype
         layers = []
@@ -621,7 +903,9 @@ class LlamaLM(nn.Module):
         x = self.final_norm(x)
         if return_hidden:
             return x
-        return self.lm_head(x)
+        head_tp = self._head_tp
+        return reduce_from_model(self.lm_head(copy_to_model(x, head_tp)),
+                                 head_tp)
 
 
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

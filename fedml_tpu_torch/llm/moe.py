@@ -16,7 +16,12 @@ loss ``E²·Σ mean-prob · token-fraction``) is returned by
 
 Every one-hot is a comparison with ``arange`` (no ``F.one_hot``, whose
 range check reads the data), so the module runs under ``torch.func.vmap``.
-Expert parallelism over a mesh is not ported: a ``mesh`` argument raises.
+
+``mesh`` (a ``core.mesh.Mesh``) is expert parallelism over its model group,
+the counterpart of the JAX module's ``_ep_constraint``: each rank holds
+``E/m`` experts, routes every token exactly as without a mesh (the router
+is whole on every rank), computes its experts' slots of the dispatch and
+their share of the combine, and the group sums the shares.
 """
 
 from __future__ import annotations
@@ -47,20 +52,27 @@ class MoEMLP(nn.Module):
                  param_dtype: Any = torch.float32,
                  mesh: Optional[Any] = None):
         super().__init__()
-        if mesh is not None:
+        from .model import Dense, _TP
+        self.tp = None if mesh is None else _TP(mesh)
+        if self.tp is not None and n_experts % self.tp.size:
             raise NotImplementedError(
-                "MoEMLP(mesh=...): expert parallelism over the mesh is not "
-                "ported yet")
-        from .model import Dense
+                f"MoEMLP(mesh=...): a model factor of {self.tp.size} does "
+                f"not divide n_experts={n_experts}")
         self.n_experts, self.top_k = n_experts, top_k
         self.capacity_factor = capacity_factor
         self.dtype = dtype
         self.router = Dense(dim, n_experts, torch.float32, torch.float32)
         mk = lambda *shape: nn.Parameter(
             torch.empty(shape, dtype=param_dtype), requires_grad=False)
-        self.w_gate = mk(n_experts, dim, ffn_dim)
-        self.w_up = mk(n_experts, dim, ffn_dim)
-        self.w_down = mk(n_experts, ffn_dim, dim)
+        #: this rank's experts
+        self.experts = slice(0, n_experts) if self.tp is None else \
+            self.tp.part(n_experts)
+        e_local = self.experts.stop - self.experts.start
+        self.w_gate = mk(e_local, dim, ffn_dim)
+        self.w_up = mk(e_local, dim, ffn_dim)
+        self.w_down = mk(e_local, ffn_dim, dim)
+        if self.tp is not None:
+            self.tp_split = {"w_gate": 0, "w_up": 0, "w_down": 0}
 
     def capacity(self, n_tok: int) -> int:
         """Slots an expert takes: ``max(1, int(capacity_factor·k·N/E))``,
@@ -74,12 +86,13 @@ class MoEMLP(nn.Module):
     def forward_with_aux(self, x):
         """``(out, aux)``: the FFN output in ``x.dtype`` and the f32
         load-balancing value."""
+        from .model import copy_to_model, reduce_from_model
         b, s, dim = x.shape
         n_tok = b * s
         e, k = self.n_experts, self.top_k
         cap = self.capacity(n_tok)
 
-        xt = x.reshape(n_tok, dim).float()
+        xt = copy_to_model(x, self.tp).reshape(n_tok, dim).float()
         probs = torch.softmax(self.router(xt), dim=-1)          # (N, E)
         gate_vals, gate_idx = torch.topk(probs, k, dim=-1)      # (N, k)
         gate_vals = gate_vals / torch.clamp_min(
@@ -103,12 +116,15 @@ class MoEMLP(nn.Module):
             comb = comb + contrib * gate_vals[:, j][:, None, None]
             base = base + onehot.sum(0)
 
+        if self.tp is not None:
+            disp, comb = disp[:, self.experts], comb[:, self.experts]
         expert_in = torch.einsum("nec,nd->ecd", disp, xt).to(self.dtype)
         h = torch.einsum("ecd,edf->ecf", expert_in, self.w_gate.to(self.dtype))
         u = torch.einsum("ecd,edf->ecf", expert_in, self.w_up.to(self.dtype))
         y = torch.einsum("ecf,efd->ecd", F.silu(h) * u,
                          self.w_down.to(self.dtype))
-        out = torch.einsum("nec,ecd->nd", comb, y.float())
+        out = reduce_from_model(torch.einsum("nec,ecd->nd", comb, y.float()),
+                                self.tp)
         return out.reshape(b, s, dim).to(x.dtype), aux
 
 

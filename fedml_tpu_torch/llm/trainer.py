@@ -81,16 +81,16 @@ def make_lr_schedule(lr: float, kind: str, warmup_steps: int,
 class CausalLMTrainer:
     """``train()`` → ``{"history": [{"epoch", "loss"}, ...]}``; the loss of
     every micro-step is kept in ``step_losses``.  ``device`` is the card
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU.  ``mesh`` is accepted as the JAX
+    trainer accepts it and never read, but for its device: the trainer
+    runs on ``mesh.device``."""
 
     def __init__(self, args, dataset, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "CausalLMTrainer(mesh=...): the mesh regime of the "
-                "centralized trainer is not ported yet")
         self.args = args
         self.dataset = dataset
-        self.device = get_device(args, device)
+        self.mesh = mesh
+        self.device = get_device(args, mesh.device if mesh is not None
+                                 else device)
         self.seed = int(getattr(args, "random_seed", 0))
         self.batch_size = int(getattr(args, "batch_size", 4))
         self.epochs = int(getattr(args, "epochs", 1))

@@ -134,6 +134,12 @@ class ContinuousBatchingEngine:
         if hist_labels != 8:
             raise _not_ported("hist_labels",
                               "the serving histograms (observability)")
+        tp = getattr(model, "tp", None)
+        if tp is not None and tp.size > 1:
+            raise NotImplementedError(
+                f"a tensor-parallel model over {tp.size} ranks: the "
+                "batching engine runs on one card, as in the JAX package "
+                "(tensor-parallel decode is generate's)")
         _check_params(params)
         self.model = model
         self.device = next(model.parameters()).device

@@ -1,9 +1,12 @@
 """Mesh collectives: the wire dtype of the federated round's quantized
-payloads (port of ``fedml_tpu.simulation.mesh.collectives``).
+payloads and the modeled interconnect bytes per mesh axis (port of
+``fedml_tpu.simulation.mesh.collectives``).
 
 :func:`wire_cast` gives the payload dtype of a quantized collective: bf16
 values move and are summed at bf16; int8 payloads are dequantized before
-the reduction, so it runs in f32.
+the reduction, so it runs in f32.  :func:`client_axis_bytes` and
+:func:`model_axis_bytes` are the JAX package's byte model, line for line
+(``MeshFedAvgAPI.collective_bytes`` applies it).
 
 The rest of the JAX module lives where the port's callers are: its
 ``psum_wavg`` is ``core/federated.py::PsumReducer``; its per-shard keys
@@ -25,9 +28,36 @@ from __future__ import annotations
 
 import torch
 
+from ...core.compression import blockscale
+
 
 def wire_cast(v: torch.Tensor, precision: str) -> torch.Tensor:
     """Payload dtype of a quantized collective: bf16 moves and sums at
     bf16; int8 payloads are dequantized before the collective (there is
     no mixed int8 x scale reduction), so they reduce in f32."""
     return v.to(torch.bfloat16) if precision == "bf16" else v
+
+
+def client_axis_bytes(n_flat: int, n_client_shards: int, precision: str,
+                      quant_block: int, mode: str) -> float:
+    """Payload bytes a round of the ``client``-axis merge (and the scatter
+    layout's broadcast) at this precision
+    (``blockscale.modeled_collective_bytes``)."""
+    return float(blockscale.modeled_collective_bytes(
+        n_flat, n_client_shards, precision, quant_block, mode))
+
+
+def model_axis_bytes(n_flat: int, n_model_shards: int,
+                     param_bytes: int = 4, mode: str = "scatter") -> float:
+    """Payload bytes a round crossing the ``model`` axis on the 2-D
+    layout.  ``scatter``: two flat-view moves a round (the model-sharded
+    params gathered into the flat numerator's view, and the new params'
+    flat chunks back into each rank's leaf shards), each ``(m-1)/m`` of
+    the flat length.  ``replicated``: zero (each leaf's shard reduces over
+    ``client`` and the params rest sharded).  A lower bound: the
+    activations' all-reduces inside a tensor-parallel step are not
+    priced.  Zero on the 1-D layout."""
+    if n_model_shards <= 1 or mode != "scatter":
+        return 0.0
+    return 2.0 * float(n_flat) * (n_model_shards - 1) / n_model_shards \
+        * float(param_bytes)

@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from ...core import rng as rng_util
 from ...core.mesh import make_mesh
+from .layout import refuse_model_factor
 from ..round_engine import next_pow2
 from ..sp.decentralized import DecentralizedFedAPI
 
@@ -33,6 +34,7 @@ class MeshDecentralizedAPI(DecentralizedFedAPI):
     holds this rank's block of clients."""
 
     def __init__(self, args, device, dataset, model, mesh=None):
+        refuse_model_factor(args, mesh, "MeshDecentralizedAPI")
         topo = str(getattr(args, "topology", "symmetric")).lower()
         nbrs = int(getattr(args, "topology_neighbors", 2))
         if topo != "symmetric" or nbrs != 2:

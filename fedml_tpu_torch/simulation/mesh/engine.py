@@ -31,9 +31,25 @@ from a generator of its own (``round_engine.noise_source``).  So a mesh of
 any size runs the sp engine's rounds, up to the order of the f32 sums.
 
 The per-client state table (SCAFFOLD/FedDyn) is sharded by rows over the
-ranks, plus one scratch row; a round gathers its cohort's rows by one
-all-reduce (each rank contributes the rows it holds) and writes them back
-after one all-gather, both on the device, so a captured block holds them.
+client shards, plus one scratch row; a round gathers its cohort's rows by
+one all-reduce (each rank contributes the rows it holds) and writes them
+back after one all-gather, both on the device, so a captured block holds
+them.
+
+On a 2-D ``client × model`` mesh (``mesh_shape="c,m"``, :mod:`.layout`)
+the params, the table's rows and (replicated layout) the server's
+param-shaped trees rest sharded over the model group, the flat server
+state in ``c·m`` chunks.  A round gathers the params over the model group,
+every rank runs its block of the cohort padded to ``c·m`` rows (the FSDP
+form of the JAX package's GSPMD train phase: no client runs twice, no rank
+idles), and the sums come back into the resting layout: the scatter
+merge reduce-scatters the flat numerator over every rank (chunk = rank,
+the JAX package's ``P(("client", "model"))`` order); the replicated merge
+reduce-scatters each leaf over its model group and all-reduces that
+``1/m`` shard over the client group, and the server update runs on the
+shards (every transition is elementwise).  A quantized merge sums the
+model group's contributions in f32 first and quantizes once a client
+shard, against that shard's EF row (its columns over the model group).
 
 ``round_block`` K > 1 replays each round of a block as a CUDA graph on the
 card (``round_engine.BlockRoundFn``) with the merge's NCCL collectives
@@ -57,7 +73,7 @@ from ..round_engine import BlockRoundFn, draw_dropout, ef_numerator, \
     next_pow2, payload_noise
 from ..sp.fedavg_api import FedAvgAPI
 from ..staging import AsyncCohortStager
-from .collectives import wire_cast
+from .collectives import client_axis_bytes, model_axis_bytes, wire_cast
 from .layout import MeshLayout
 
 log = logging.getLogger(__name__)
@@ -67,19 +83,20 @@ def _bcast_mask(own: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return own.reshape(own.shape + (1,) * (like.dim() - own.dim()))
 
 
-def sharded_take(table, ids: torch.Tensor, lo: int, mesh):
-    """Rows ``ids`` of a table sharded by rows over the ranks (this rank
-    holds rows ``lo .. lo + len``): each rank fills the rows it holds,
-    zeros elsewhere, and one all-reduce per leaf assembles them.  An id
-    no rank holds reads as zeros.  ``table``: a tensor or a dict of them;
-    ``ids``: any shape of int64."""
+def sharded_take(table, ids: torch.Tensor, lo: int, mesh, axis=None):
+    """Rows ``ids`` of a table sharded by rows over the ranks of ``axis``
+    (default: every rank; this rank holds rows ``lo .. lo + len``): each
+    rank fills the rows it holds, zeros elsewhere, and one all-reduce per
+    leaf assembles them.  An id no rank holds reads as zeros.  ``table``:
+    a tensor or a dict of them; ``ids``: any shape of int64."""
     def take(t):
         local = ids - lo
         own = (local >= 0) & (local < t.shape[0])
         rows = t[torch.where(own, local, 0)]
         return mesh.psum(torch.where(_bcast_mask(own, rows), rows,
                                      torch.zeros((), dtype=t.dtype,
-                                                 device=t.device)))
+                                                 device=t.device)),
+                         axis=axis)
     if isinstance(table, torch.Tensor):
         return take(table)
     return {k: take(t) for k, t in table.items()}
@@ -106,7 +123,9 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
     shape)`` is this shard's rounding noise.  ``flat`` is the params'
     unpadded flat view, ``flat_pad`` the scatter layout's padded one.
     ``inplace`` writes the table rows into ``table`` (the graph's static
-    buffers)."""
+    buffers).  On a 2-D mesh ``state``'s params (and in the replicated
+    layout its param-shaped trees) and the table's rows are this rank's
+    model shards; ``flat_pad`` is then the padded view in both layouts."""
     mesh = layout.mesh
     spec = server_opt.spec
     scatter = update_sharding == "scatter"
@@ -117,11 +136,13 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             f"collective_precision={precision!r} quantizes the avg_params "
             f"merge numerator, which the {server_opt.algorithm!r} spec "
             "does not use")
-    if scatter and flat_pad is None:
-        raise ValueError("the scatter layout needs the padded flat view")
+    two_d = layout.two_d
+    if (scatter or two_d) and flat_pad is None:
+        raise ValueError("the scatter layout and a 2-D mesh need the padded "
+                         "flat view")
     program = federated.RoundProgram(spec, trainer.make_local_train(),
                                      server_opt, "vmap")
-    n, rank = layout.n_client_shards, layout.rank
+    n, rank = layout.n_ranks, layout.rank
 
     def cohort_data(data, rows):
         if train_x is None:
@@ -137,19 +158,24 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
                 sharded_take(train_y, idx, data_lo, mesh)[rows])
 
     def table_gather(table, cohort, rows):
-        """This rank's clients' rows of the row-sharded table."""
+        """This rank's clients' rows of the row-sharded table (on 2-D its
+        block's rows gathered over the model group first)."""
         held = next(iter(table.values())).shape[0] - 1
-        got = sharded_take({k: t[:held] for k, t in table.items()}, cohort,
-                           rank * held, mesh)
+        block = layout.gather_tree({k: t[:held] for k, t in table.items()},
+                                   off=1)
+        got = sharded_take(block, cohort, layout.c_coord * held, mesh,
+                           axis="client" if two_d else None)
         return {k: v[rows] for k, v in got.items()}
 
     def table_scatter(table, cohort, new_rows, inplace):
         """The cohort's new rows (every rank's, all-gathered) written into
-        the rows this rank holds; the others go to the scratch row."""
+        the rows this rank holds (on 2-D their model shards); the others
+        go to the scratch row."""
         held = next(iter(table.values())).shape[0] - 1
-        local = cohort - rank * held
+        local = cohort - layout.c_coord * held
         local = torch.where((local >= 0) & (local < held), local, held)
-        new_rows = {k: mesh.all_gather(v) for k, v in new_rows.items()}
+        new_rows = layout.shard_tree(
+            {k: mesh.all_gather(v) for k, v in new_rows.items()}, off=1)
         if inplace:
             for k, t in table.items():
                 t.index_copy_(0, local, new_rows[k].to(t.dtype))
@@ -157,8 +183,28 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         return {k: t.index_copy(0, local, new_rows[k].to(t.dtype))
                 for k, t in table.items()}
 
-    def merge_replicated(state: ServerState, outs, w, noise):
-        red = federated.PsumReducer(mesh)
+    def ef_2d(state: ServerState, outs, w, den, noise):
+        """The 2-D EF-quantized numerator: the model group's
+        contributions summed in f32, plus this client shard's EF row
+        (gathered from its column chunks), quantized with the shard's
+        slot-0 noise.  Returns ``(deq, new_ef_cols)``: the whole
+        dequantized payload (the same on every rank of the group) and
+        this rank's chunk of the new residual row."""
+        part = flat_pad.flatten(federated.weighted_sums(outs.params, w)) / den
+        v = mesh.psum(part, axis="model") + \
+            mesh.all_gather(state.ef_num[0], axis="model")
+        deq, _ = blockscale.collective_quantize(
+            v, precision, payload_noise(noise, 0, precision, v.shape[0],
+                                        quant_block), quant_block)
+        per = v.shape[0] // layout.n_model_shards
+        lo = layout.m_coord * per
+        return deq, (v - deq)[None, lo:lo + per]
+
+    def merge_replicated(state: ServerState, full, outs, w, noise):
+        if two_d:
+            red = federated.Psum2DReducer(layout)
+        else:
+            red = federated.PsumReducer(mesh)
         if not quantized:
             agg = federated.build_aggregates(spec, red, server_opt, state,
                                              outs, w)
@@ -168,33 +214,45 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         # wire precision; auxiliary aggregates stay fp32
         agg = federated.build_aggregates(spec, red, server_opt, state, outs,
                                          w, include_avg=False)
-        deq, new_ef = ef_numerator(state, flat, outs, w,
-                                   mesh.psum(torch.sum(w)), noise, precision,
-                                   quant_block)
-        agg["avg_params"] = flat.unflatten(
-            mesh.psum(wire_cast(deq, precision)).to(torch.float32))
+        den = mesh.psum(torch.sum(w))
+        if two_d:
+            deq, new_ef = ef_2d(state, outs, w, den, noise)
+            agg["avg_params"] = layout.shard_tree(flat_pad.unflatten(
+                mesh.psum(wire_cast(deq, precision),
+                          axis="client").to(torch.float32)))
+        else:
+            deq, new_ef = ef_numerator(state, flat, outs, w, den, noise,
+                                       precision, quant_block)
+            agg["avg_params"] = flat.unflatten(
+                mesh.psum(wire_cast(deq, precision)).to(torch.float32))
         new_state = server_opt.update_from_aggregates(state, agg)
         return new_state.replace(ef_num=new_ef)
 
-    def merge_scatter(state: ServerState, outs, w, noise):
+    def merge_scatter(state: ServerState, full, outs, w, noise):
         red = federated.ScatterReducer(flat_pad, mesh)
         fields = {}
         if quantized:
             agg = federated.build_aggregates(spec, red, server_opt, state,
                                              outs, w, include_avg=False)
-            deq, fields["ef_num"] = ef_numerator(
-                state, flat_pad, outs, w, mesh.psum(torch.sum(w)), noise,
-                precision, quant_block)
-            agg["avg_params"] = mesh.psum_scatter(
-                wire_cast(deq, precision)).to(torch.float32)
+            den = mesh.psum(torch.sum(w))
+            if two_d:
+                deq, fields["ef_num"] = ef_2d(state, outs, w, den, noise)
+                summed = mesh.psum(wire_cast(deq, precision), axis="client")
+                agg["avg_params"] = flat_pad.chunk(summed, rank, n).to(
+                    torch.float32)
+            else:
+                deq, fields["ef_num"] = ef_numerator(
+                    state, flat_pad, outs, w, den, noise, precision,
+                    quant_block)
+                agg["avg_params"] = mesh.psum_scatter(
+                    wire_cast(deq, precision)).to(torch.float32)
             # the chunk transitions from the shard-resident fp32 master:
             # global_params is the quantized copy the clients trained from
             gshard = state.master_flat
         else:
             agg = federated.build_aggregates(spec, red, server_opt, state,
                                              outs, w)
-            gshard = flat_pad.chunk(flat_pad.flatten(state.global_params),
-                                    rank, n)
+            gshard = flat_pad.chunk(flat_pad.flatten(full), rank, n)
         new_gshard, new_fields = server_opt.update_shard(state, gshard, agg)
         fields.update(new_fields)
         out_chunk = new_gshard
@@ -207,8 +265,8 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             if state.ef_bcast is not None:
                 fields["ef_bcast"] = new_ef_bcast
             out_chunk = wire_cast(send, precision)
-        new_params = flat_pad.unflatten(
-            mesh.all_gather(out_chunk).to(torch.float32))
+        new_params = layout.shard_tree(flat_pad.unflatten(
+            mesh.all_gather(out_chunk).to(torch.float32)))
         return state.replace(round_idx=state.round_idx + 1,
                              global_params=new_params, **fields)
 
@@ -218,7 +276,10 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         x, y = cohort_data(data, rows)
         mask, w = mask[rows], w[rows]
         c = None if table is None else table_gather(table, cohort, rows)
-        ctx_state = state
+        # on 2-D the params rest sharded over the model group: whole for
+        # the train phase
+        full = layout.gather_tree(state.global_params)
+        ctx_state = state.replace(global_params=full) if two_d else state
         if scatter:
             # client-visible server state (SCAFFOLD's c_server in the
             # corrected gradient, Mime's momentum in the client step) is
@@ -226,10 +287,15 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             gathered = {f: flat_pad.unflatten(mesh.all_gather(
                 getattr(state, f))) for f in ("c_server", "momentum")
                 if getattr(state, f) is not None}
-            ctx_state = state.replace(**gathered)
+            ctx_state = ctx_state.replace(**gathered)
+        elif two_d:
+            gathered = {f: layout.gather_tree(getattr(state, f))
+                        for f in ("c_server", "momentum")
+                        if getattr(state, f) is not None}
+            ctx_state = ctx_state.replace(**gathered)
         outs = program.run_clients(ctx_state, x, y, mask, drop, c)
         merge = merge_scatter if scatter else merge_replicated
-        new_state = merge(state, outs, w, noise)
+        new_state = merge(state, full, outs, w, noise)
         if table is not None:
             table = table_scatter(table, cohort, outs.new_client_state,
                                   inplace)
@@ -285,8 +351,12 @@ class MeshFedAvgAPI(FedAvgAPI):
     """The sp engine's driver surface; rounds run over the mesh.
 
     ``mesh``: a :class:`~fedml_tpu_torch.core.mesh.Mesh`, else the one
-    ``args`` names (``mesh_shape``, ``mesh_client``) over the process
-    group, made as a world of 1 when there is none.  ``device`` is the
+    ``args`` names (``mesh_shape`` ``"c,m"``, else the ``mesh_client``/
+    ``mesh_model`` knobs) over the process group, made as a world of 1
+    when there is none.  ``n_shards`` is the client factor,
+    ``n_model_shards`` the model factor; on 2-D ``state.global_params``
+    holds this rank's model shards (``full_params()``/``full_state()``
+    gather them).  ``device`` is the
     mesh's.  ``args.update_sharding``: "replicated" | "scatter" | "auto"
     (scatter above one shard).  ``args.device_data``: True/"replicated"
     (the dataset on every rank), "sharded" (rows split over the ranks) or
@@ -299,16 +369,19 @@ class MeshFedAvgAPI(FedAvgAPI):
     CLIENT_STATE_PLANE = False
 
     def __init__(self, args, device, dataset, model, mesh=None):
+        # refused before any process group is made
+        self._refuse_client_state_plane(args)
         if mesh is None:
             from ...device import get_device
             device = get_device(args, device)
         self.layout = MeshLayout.from_args(args, mesh, device)
         self.mesh = self.layout.mesh
         self.n_shards = self.layout.n_client_shards
+        self.n_model_shards = self.layout.n_model_shards
         self.rank = self.layout.rank
         mode = str(getattr(args, "update_sharding", "auto") or "auto").lower()
         if mode == "auto":
-            mode = "scatter" if self.n_shards > 1 else "replicated"
+            mode = "scatter" if self.layout.n_ranks > 1 else "replicated"
         if mode not in ("replicated", "scatter"):
             raise ValueError(
                 f"update_sharding must be 'replicated', 'scatter' or "
@@ -332,26 +405,32 @@ class MeshFedAvgAPI(FedAvgAPI):
         the chunks of the flat aux vectors (``init_sharded``), in the
         replicated one the whole aux trees; with quantized collectives its
         EF row (the replicated merge quantizes only the numerator, so its
-        params stay fp32 and it keeps no master)."""
-        if self.scatter:
+        params stay fp32 and it keeps no master).  On 2-D the params and
+        trees are this rank's model shards, the EF row its column chunk
+        (over the padded flat view)."""
+        self.layout.bind(FlatSpec.of(params, 1, self.model.flat_layout()))
+        self.flat_pad = None
+        if self.scatter or self.layout.two_d:
             self.flat_pad = self.layout.flat_spec_of(
                 params, self.model.flat_layout())
+        if self.scatter:
             whole = self.server_opt.init_sharded(
                 params, self.n_shards, self.flat_pad,
                 collective_precision=self.collective_precision)
         else:
-            self.flat_pad = None
             whole = self.server_opt.init(
                 params, collective_precision=self.collective_precision,
                 ef_shards=self.n_shards, quantized_broadcast=False,
-                flat=self.flat)
+                flat=self.flat_pad if self.layout.two_d else self.flat)
         return self.layout.shard_state(whole, self.scatter)
 
     def _init_client_table(self):
         """This rank's block of the per-client state table (rows padded to
-        a multiple of the shard count) plus one scratch row; pad rows of
-        a cohort carry the sentinel id ``_table_rows``."""
-        self._table_rows = self.layout.pad_rows(self.dataset.num_clients)
+        a multiple of the client shards; on 2-D each row this rank's model
+        shard) plus one scratch row; pad rows of a cohort carry the
+        sentinel id ``_table_rows``."""
+        self._table_rows = self.layout.pad_table_rows(
+            self.dataset.num_clients)
         from ...core import tree as tree_util
         return tree_util.client_table_init(
             self.state.global_params,
@@ -368,8 +447,61 @@ class MeshFedAvgAPI(FedAvgAPI):
         if self.client_table is None:
             return None
         n = self.dataset.num_clients
-        return {k: self.mesh.all_gather(t[:-1])[:n]
-                for k, t in self.client_table.items()}
+        block = self.layout.gather_tree(
+            {k: t[:-1] for k, t in self.client_table.items()}, off=1)
+        axis = "client" if self.layout.two_d else None
+        return {k: self.mesh.all_gather(t, axis=axis)[:n]
+                for k, t in block.items()}
+
+    def collective_bytes(self) -> dict:
+        """Modeled interconnect payload bytes a round, per mesh axis (the
+        JAX engine's byte model): the client axis prices the merge (the
+        replicated merge's payload is a rank's ``1/m`` shard), the model
+        axis the scatter layout's two flat-view moves."""
+        mode = self.update_sharding
+        m = self.n_model_shards
+        n_flat = self.flat_pad.padded_size if self.scatter \
+            else self.flat.n_params
+        n_payload = n_flat if self.scatter else -(-n_flat // m)
+        client = client_axis_bytes(n_payload, self.n_shards,
+                                   self.collective_precision,
+                                   self.quant_block, mode)
+        model = model_axis_bytes(n_flat, m, mode=mode)
+        return {"client": client, "model": model, "total": client + model}
+
+    def full_params(self):
+        """The whole global params (on 2-D gathered over the model group:
+        a collective)."""
+        return self.layout.gather_tree(self.state.global_params)
+
+    def load_full_state(self, state: ServerState, table=None) -> None:
+        """Restart from a whole state (``full_state()``'s form, e.g. read
+        back with ``core/checkpoint.py::state_from_flat``) and the whole
+        table (``full_client_table()``'s form): this rank keeps its part
+        of each."""
+        dev = self.device
+
+        def to(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(dev)
+            if isinstance(v, dict):
+                return {k: t.to(dev) for k, t in v.items()}
+            return v
+
+        state = state.replace(**{f: to(getattr(state, f)) for f in (
+            "global_params", "opt_state", "c_server", "h", "momentum",
+            "ef_num", "master_flat", "ef_bcast")})
+        self.layout.bind(FlatSpec.of(state.global_params, 1,
+                                     self.model.flat_layout()))
+        self.state = self.layout.shard_state(state, self.scatter)
+        if table is not None and self.client_table is not None:
+            held = next(iter(self.client_table.values())).shape[0] - 1
+            lo = self.layout.c_coord * held
+            for k, t in self.client_table.items():
+                rows = self.layout.shard_tree(
+                    {k: table[k][lo:lo + held].to(dev)}, off=1)[k]
+                t[:rows.shape[0]] = rows.to(t.dtype)
+
 
     # -- the round -----------------------------------------------------------
     def _build_round_fn(self, client_mode: str):
@@ -443,12 +575,44 @@ class MeshFedAvgAPI(FedAvgAPI):
         mask, w, cohort = self._to_device(mask, w, cohort)
         self.state, metrics, self.client_table = self.round_fn(
             self.state, data, mask, w, drop, cohort, self.client_table,
-            self._noise(round_idx, gen, shard=self.rank))
+            self._mesh_noise(round_idx, gen))
         metrics = dict(metrics)
         metrics["allocated_steps"] = c_pad * steps
         return metrics
 
+    def _mesh_noise(self, round_idx: int, gen):
+        """The round's rounding noise: the merge's (slot 0) from this
+        rank's client shard, the broadcast's (slot 1) from its rank (the
+        same shard on the 1-D mesh)."""
+        merge = self._noise(round_idx, gen, shard=self.layout.c_coord)
+        if not self.layout.two_d:
+            return merge
+        bcast = self._noise(round_idx, gen, shard=self.rank)
+        return lambda slot, kind, shape: (merge if slot == 0 else bcast)(
+            slot, kind, shape)
+
+    # -- evaluation of the whole params ---------------------------------------
+    def _with_full_params(self, fn, *args):
+        if not self.layout.two_d:
+            return fn(*args)
+        sharded = self.state
+        self.state = sharded.replace(global_params=self.full_params())
+        try:
+            return fn(*args)
+        finally:
+            self.state = sharded
+
+    def evaluate(self):
+        """The sp engine's evaluation of the whole params (on 2-D a
+        collective: every rank calls it)."""
+        return self._with_full_params(super().evaluate)
+
+    def evaluate_per_client(self, split: str = "train", batch_size: int = 64):
+        return self._with_full_params(super().evaluate_per_client, split,
+                                      batch_size)
+
     # -- fused round blocks --------------------------------------------------
+
     def _build_block_fn(self):
         if not self._gather:
             raise ValueError(
@@ -483,7 +647,8 @@ class MeshFedAvgAPI(FedAvgAPI):
 
     def train(self):
         try:
-            return super().train()
+            super().train()
+            return self.full_params()
         finally:
             self._stager.close()
             # the block's graphs hold the NCCL communicator: release them,

@@ -17,6 +17,7 @@ import torch
 
 from ...core import rng as rng_util
 from ...core.mesh import make_mesh
+from .layout import refuse_model_factor
 from ..sp.hierarchical_fl import HierarchicalFedAvgAPI
 
 
@@ -25,6 +26,7 @@ class MeshHierarchicalAPI(HierarchicalFedAvgAPI):
     must equal the mesh's client-axis size."""
 
     def __init__(self, args, device, dataset, model, mesh=None):
+        refuse_model_factor(args, mesh, "MeshHierarchicalAPI")
         if str(getattr(args, "federated_optimizer", "FedAvg")).lower() not in \
                 ("fedavg", "fedprox"):
             raise ValueError(

@@ -130,8 +130,10 @@ def _host(x) -> np.ndarray:
 class FedAvgAPI:
     """Runs one algorithm of the zoo on one device.
 
-    ``client_mode``: "scan" (clients one after another) or "vmap" (clients
-    batched by ``torch.func.vmap``).  ``device`` goes through
+    ``client_mode``: "scan" (clients one after another), "vmap" (clients
+    batched by ``torch.func.vmap``) or "vmap:k" (k clients a batch, as a
+    mesh of ``ceil(C / k)`` ranks maps them; ``core/federated.py``).
+    ``device`` goes through
     :func:`~fedml_tpu_torch.device.get_device` (None: the card unless
     ``args.device`` is "cpu"), which also sets the card's f32 policy.
     ``algorithm`` (default: ``args.federated_optimizer``) names the
@@ -153,14 +155,9 @@ class FedAvgAPI:
     #: ``checkpoint_dir``); an engine that does not refuses them by name
     CLIENT_STATE_PLANE = True
 
-    def __init__(self, args, device, dataset: FederatedDataset,
-                 model: TorchModel, client_mode: str = "vmap",
-                 algorithm=None):
-        unported = _unported_options(args)
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not implemented by the port's sp "
-                "engine yet (unset to run)")
+    def _refuse_client_state_plane(self, args) -> None:
+        """The client-state options raise by name on an engine that does
+        not run them."""
         plane = [n for n in ("client_store", "data_paging",
                              "registered_clients", "checkpoint_dir")
                  if getattr(args, n, None)]
@@ -169,6 +166,16 @@ class FedAvgAPI:
                 f"{', '.join(plane)}: not implemented by the port's "
                 f"{type(self).__name__} yet (the sp FedAvgAPI and FedBuffAPI "
                 "run it)")
+
+    def __init__(self, args, device, dataset: FederatedDataset,
+                 model: TorchModel, client_mode: str = "vmap",
+                 algorithm=None):
+        unported = _unported_options(args)
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)}: not implemented by the port's sp "
+                "engine yet (unset to run)")
+        self._refuse_client_state_plane(args)
         self.args = args
         self.device = get_device(args, device)
         self.dataset = dataset

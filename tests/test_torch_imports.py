@@ -204,3 +204,40 @@ def test_mesh_modules_import_with_jax_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules} <= walked
+
+
+def test_mesh2d_and_tp_modules_import_with_jax_unimportable():
+    """The 2-D client x model mesh, the layout, the tensor-parallel model,
+    expert-parallel MoE and the memory estimators import and build where
+    ``jax`` and ``fedml_tpu`` cannot be imported at all."""
+    import subprocess
+    import sys
+
+    modules = ("core.mesh", "core.memory_estimate", "core.federated",
+               "simulation.mesh.layout", "simulation.mesh.engine",
+               "simulation.mesh.hierarchical_mesh",
+               "simulation.mesh.decentralized_mesh", "llm.model", "llm.moe",
+               "llm.convert", "llm.fedllm", "llm.trainer")
+    code = (
+        "import sys, importlib, types, torch\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.core.mesh import Mesh\n"
+        "from fedml_tpu_torch.llm.model import LlamaLM, TINY\n"
+        "from fedml_tpu_torch.simulation.mesh.layout import MeshLayout\n"
+        "from fedml_tpu_torch.core import memory_estimate as me\n"
+        "with torch.device('meta'):\n"
+        "    lm = LlamaLM(TINY, mesh=Mesh(2, 1, 'cpu', model=2))\n"
+        "assert lm.tp_dims()\n"
+        "assert MeshLayout(Mesh(4, 3, 'cpu', model=2)).param_spec((8, 6))\n"
+        "me.estimate_fedllm_memory(me.FedLLMLayout(1e9, 1e6, 8, 4, 2))\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules} <= walked

@@ -199,13 +199,14 @@ def test_streaming_chunk_clamps_to_the_vocabulary():
 
 
 def test_fedllm_refuses_the_mesh_regime_by_name():
-    # the client axis runs now (tests/test_torch_mesh_quant.py); a model
-    # factor, the 2-D layout, is what stays refused
+    # the client and model axes run now (tests/test_torch_mesh_quant.py,
+    # tests/test_torch_tp.py); a stage factor, the 3-D pipeline, is what
+    # stays refused
     from fedml_tpu_torch.core.mesh import Mesh
     ta = _llm_args(fedml_tpu_torch)
     td, _ = t_data.load(ta)
     mesh = Mesh(1, 0, "cpu")
-    mesh.shape["model"] = 2
+    mesh.shape["stage"] = 2
     with pytest.raises(NotImplementedError, match="mesh"):
         TFedLLM(ta, td, device="cpu", mesh=mesh)
 

@@ -210,7 +210,14 @@ def test_round_checkpointer_contract(tmp_path):
 
 
 def test_mesh_regime_is_refused_by_name():
+    """The mesh regime runs since the client x model slice: the trainer
+    takes the mesh, as the JAX trainer does, and runs on its device (its
+    history is pinned bitwise in ``tests/test_torch_tp.py``); a mesh
+    without a device is refused."""
+    from fedml_tpu_torch.core.mesh import Mesh
     args = _args(fedml_tpu_torch)
     ds, _ = t_data.load(args)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    tt = TTrainer(args, ds, device="cuda", mesh=Mesh(1, 0, "cpu"))
+    assert tt.device == torch.device("cpu") and tt.mesh is not None
+    with pytest.raises(AttributeError, match="device"):
         TTrainer(args, ds, device="cpu", mesh=object())

@@ -17,6 +17,8 @@ The ranks run in processes spawned by
 of the file (``_port_runs``), so the file pays for the ranks' start once.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -144,42 +146,46 @@ def test_run_simulation_mesh_backends_on_2_ranks():
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(mesh_shape="2,2"), "2-D client x model"),
+    (dict(mesh_shape="2,2,2"), "3-D pipeline"),
     (dict(mesh_shape="1,2,1"), "3-D pipeline"),
-    (dict(mesh_model=2), "mesh_model"),
+    (dict(mesh_data=2), "mesh_data"),
     (dict(mesh_stage=2), "mesh_stage"),
     (dict(mesh_seq=2), "mesh_seq")])
 def test_unported_mesh_factors_raise_by_name(over, what):
     """The layouts the port does not run raise before any process group is
-    made, naming themselves and the backend."""
+    made, naming themselves and the backend (the 2-D client x model
+    layout runs since its slice: ``tests/test_torch_mesh2d.py``)."""
     from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
     cfg = dict(mesh_cfg(**over), backend="NCCL")
     with pytest.raises(NotImplementedError, match=what) as err:
         _build(MeshFedAvgAPI, cfg)
     assert "NCCL" in str(err.value)
-    for axis in ("stage", "data", "model", "seq"):
+    for axis in ("stage", "data", "seq"):
         with pytest.raises(NotImplementedError, match=axis):
             t_mesh.make_mesh(**{axis: 2}, device="cpu")
 
 
 def test_unported_mesh_regimes_raise_by_name():
-    """Refused by name until their slices: a model factor in
-    ``FedLLMAPI(mesh=...)``, ``CausalLMTrainer(mesh=...)``, MoE expert
-    parallelism, push-sum on the ring."""
+    """Still refused by name: another axis than client and model in
+    ``FedLLMAPI(mesh=...)``, the streaming loss over a row-parallel
+    ``lm_head``, a model factor that does not divide the MoE experts,
+    push-sum on the ring (the model factor itself runs since its slice:
+    ``tests/test_torch_tp.py``)."""
     from fedml_tpu_torch.arguments import load_arguments
     from fedml_tpu_torch.llm.fedllm import FedLLMAPI
     from fedml_tpu_torch.llm.moe import MoEMLP
-    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
     from fedml_tpu_torch.simulation.mesh.decentralized_mesh import \
         MeshDecentralizedAPI
     mesh = t_mesh.Mesh(1, 0, "cpu")
-    mesh.shape["model"] = 2
+    mesh.shape["stage"] = 2
     with pytest.raises(NotImplementedError, match="client x model"):
         FedLLMAPI(load_arguments(), None, mesh=mesh)
+    args = load_arguments().update(streaming_xent_chunk=64)
+    ds = types.SimpleNamespace(num_classes=256)
+    with pytest.raises(NotImplementedError, match="streaming_xent_chunk"):
+        FedLLMAPI(args, ds, mesh=t_mesh.Mesh(2, 0, "cpu", model=2))
     with pytest.raises(NotImplementedError, match="mesh"):
-        CausalLMTrainer(load_arguments(), None, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        MoEMLP(8, 16, 2, mesh=mesh)
+        MoEMLP(8, 16, 2, mesh=t_mesh.Mesh(3, 0, "cpu", model=3))
     with pytest.raises(ValueError, match="ring"):
         _build(MeshDecentralizedAPI, mesh_cfg(federated_optimizer="push_sum",
                                               topology="asymmetric"))

@@ -91,8 +91,13 @@ def test_moe_runs_under_vmap_as_a_loop():
 
 
 def test_moe_refuses_a_mesh_by_name():
+    """Expert parallelism runs over a model group that divides the experts
+    (``tests/test_torch_tp.py``); another model factor raises by name."""
+    from fedml_tpu_torch.core.mesh import Mesh
     with pytest.raises(NotImplementedError, match="mesh"):
-        MoEMLP(DIM, FFN, E, K, mesh=object())
+        MoEMLP(DIM, FFN, E, K, mesh=Mesh(3, 0, "cpu", model=3))
+    assert MoEMLP(DIM, FFN, E, K, mesh=Mesh(2, 1, "cpu", model=2)
+                  ).w_gate.shape[0] == E // 2
 
 
 def test_llama_with_moe_blocks_matches_flax():

@@ -154,3 +154,199 @@ def several(calls):
     from fedml_tpu_torch.simulation.mesh.launch import _resolve
     out = [_resolve(target)(*args) for target, args in calls]
     return _rank0(out)
+
+
+# -- the 2-D client x model mesh ------------------------------------------
+
+def mesh2d_cases(cases):
+    """Each case ``(cfg, rounds, init)`` on the world's 2-D mesh
+    (``cfg["mesh_shape"]``): losses, the whole state, params and table,
+    and this rank's resting sizes (flat state chunks, EF columns, param
+    shards).  Every rank returns its own."""
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    out = []
+    for cfg, rounds, init in cases:
+        api = _build(MeshFedAvgAPI, cfg)
+        if init is not None:
+            api.reset_params({k: torch.as_tensor(v) for k, v in
+                              init.items()})
+        ms = [api.train_one_round(r) for r in range(rounds)]
+        st = api.state
+        rest = {f: int(getattr(st, f).numel()) for f in
+                ("master_flat", "ef_bcast", "c_server", "h", "momentum")
+                if isinstance(getattr(st, f), torch.Tensor)}
+        rest.update({f"opt_state/{k}": int(v.numel()) for k, v in
+                     (st.opt_state or {}).items() if v.dim() >= 1})
+        res = dict(losses=[float(m["train_loss"]) for m in ms],
+                   steps=[float(m["total_steps"]) for m in ms],
+                   state=to_np(api.full_state()),
+                   params=to_np(api.full_params()),
+                   table=to_np(api.full_client_table()),
+                   rest=rest,
+                   ef=None if st.ef_num is None else tuple(st.ef_num.shape),
+                   padded=api.flat_pad.padded_size,
+                   local={k: tuple(v.shape) for k, v in
+                          st.global_params.items()},
+                   shards=(api.n_shards, api.n_model_shards),
+                   layout=api.update_sharding, eval=api.evaluate(),
+                   bytes=api.collective_bytes(), n_params=api.flat.n_params,
+                   precision=api.collective_precision)
+        api._stager.close()
+        out.append(res)
+    return out
+
+
+def _state_diff(a, b):
+    from fedml_tpu_torch.core.checkpoint import state_to_flat
+    a, b = state_to_flat(a), state_to_flat(b)
+    assert set(a) == set(b)
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def mesh2d_block(cfg):
+    """``round_block`` 2 over 4 rounds on the world's 2-D mesh against
+    the unfused rounds: the largest difference of the whole states."""
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    u = _build(MeshFedAvgAPI, cfg)
+    for r in range(4):
+        u.train_one_round(r)
+    f = _build(MeshFedAvgAPI, dict(cfg, round_block=2))
+    f._train_fused()
+    out = _state_diff(f.full_state(), u.full_state())
+    u._stager.close()
+    f._stager.close()
+    return _rank0(out)
+
+
+def mesh2d_checkpoint(cfg, tmpdir):
+    """A checkpoint round trip on the world's 2-D mesh: the whole state
+    and table after 2 rounds through ``core/checkpoint.py``'s flat form
+    and ``torch.save``, restored into a fresh engine, then one more round
+    against the uninterrupted run.  Returns the largest differences."""
+    import os
+    from fedml_tpu_torch.core.checkpoint import state_from_flat, \
+        state_to_flat
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    a = _build(MeshFedAvgAPI, cfg)
+    for r in range(2):
+        a.train_one_round(r)
+    path = os.path.join(tmpdir, f"ck_{dist.get_rank()}.pt")
+    torch.save({"state": state_to_flat(a.full_state()),
+                "table": a.full_client_table()}, path)
+    b = _build(MeshFedAvgAPI, cfg)
+    saved = torch.load(path)
+    b.load_full_state(state_from_flat(saved["state"], b.full_state()),
+                      saved["table"])
+    restored = _state_diff(b.full_state(), a.full_state())
+    table = 0.0
+    if saved["table"] is not None:
+        tb, ta = b.full_client_table(), a.full_client_table()
+        table = max(float((tb[k] - ta[k]).abs().max()) for k in ta)
+    a.train_one_round(2)
+    b.train_one_round(2)
+    resumed = _state_diff(b.full_state(), a.full_state())
+    for api in (a, b):
+        api._stager.close()
+    return _rank0(dict(restored=restored, table=table, resumed=resumed))
+
+
+def mesh2d_forms():
+    """``make_mesh2d``'s forms on the world, each rank's coordinates and
+    the sums of its rank over each axis's group."""
+    from fedml_tpu_torch.core.mesh import make_mesh2d
+    out = {}
+    for form in ("2,2", "2x2", (-1, 2), [1, 4], "4,1"):
+        mesh = make_mesh2d(form, device="cpu")
+        r = torch.tensor([float(mesh.rank)])
+        out[str(form)] = dict(
+            shape=(mesh.shape["client"], mesh.shape["model"]),
+            coords=(mesh.c_coord, mesh.m_coord),
+            client_sum=float(mesh.psum(r, axis="client")),
+            model_sum=float(mesh.psum(r, axis="model")),
+            world_sum=float(mesh.psum(r)))
+    errors = []
+    for bad in ("3,2", "1,3"):
+        try:
+            make_mesh2d(bad, device="cpu")
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    return out
+
+
+# -- tensor parallelism ------------------------------------------------------
+
+def tp_fedllm(cfg, shape, params, lora0, rounds):
+    """``FedLLMAPI(mesh=make_mesh2d(shape))`` from the JAX weights: its
+    round losses, merged adapters and eval NLL, and right after init this
+    rank's base: its parameters' local and whole shapes, the bytes it
+    holds, and any live tensor as large as the smallest sharded weight
+    that is not a parameter."""
+    import gc
+    from fedml_tpu_torch.core.mesh import make_mesh2d
+    from fedml_tpu_torch.llm.convert import from_flax
+    from fedml_tpu_torch.llm.fedllm import FedLLMAPI
+    args = load_arguments().update(**cfg)
+    ds, _ = t_data.load(args)
+    api = FedLLMAPI(args, ds, device="cpu", mesh=make_mesh2d(shape,
+                                                             device="cpu"))
+    gc.collect()
+    full = api.model.full_shapes()
+    local = {n: tuple(p.shape) for n, p in api.model.named_parameters()}
+    dims = api.model.tp_dims()
+    smallest = min(int(np.prod(full[n])) for n in dims)
+    ids = {id(p) for p in api.model.parameters()} | \
+        {id(v) for v in api.global_lora.values()}
+    stray = [tuple(t.shape) for t in gc.get_objects()
+             if isinstance(t, torch.Tensor) and id(t) not in ids
+             and t.numel() >= smallest]
+    held = sum(p.numel() * p.element_size()
+               for p in api.model.parameters())
+    _, api.global_lora = from_flax(params, lora0, api.cfg, device="cpu",
+                                   model=api.model)
+    ms = [api.train_one_round(r) for r in range(rounds)]
+    return dict(losses=[m["train_loss"] for m in ms],
+                lora=to_np(api.global_lora), eval=api.evaluate(),
+                per_client=api.evaluate_per_client()["per_client_nll"],
+                full=full, local=local, dims=dims, stray=stray, held=held,
+                kv_heads=api.model.layer_0.attention.hkv)
+
+
+def tp_decode(params, cfg_kw, shape, prompt, n_new):
+    """Greedy tokens of ``generate`` over this rank's tensor-parallel
+    model (the JAX weights sliced by ``from_flax``) and its cache's KV
+    heads."""
+    import dataclasses
+    from fedml_tpu_torch.core.mesh import make_mesh2d
+    from fedml_tpu_torch.llm.convert import from_flax
+    from fedml_tpu_torch.llm.model import TINY
+    from fedml_tpu_torch.serving.templates.openai_compat import generate
+    cfg = dataclasses.replace(TINY, **cfg_kw)
+    model, _ = from_flax(params, None, cfg, device="cpu",
+                         mesh=make_mesh2d(shape, device="cpu"))
+    toks = generate(None, None, prompt, max_new_tokens=n_new,
+                    buf_len=cfg.max_seq_len, model=model)
+    return dict(tokens=toks,
+                cache_heads=model.init_cache(1).layers[0]["k"].shape[1])
+
+
+def tp_moe(params, x, dims, shape):
+    """``MoEMLP(mesh=...)`` over the model group, its experts sliced from
+    the JAX params: the output and this rank's expert count."""
+    from fedml_tpu_torch.core.mesh import make_mesh2d
+    from fedml_tpu_torch.llm.moe import MoEMLP
+    dim, ffn, e, k = dims
+    moe = MoEMLP(dim, ffn, e, k, mesh=make_mesh2d(shape, device="cpu"))
+    with torch.no_grad():
+        moe.router.kernel.copy_(torch.tensor(params["router"]["kernel"]))
+        for name in ("w_gate", "w_up", "w_down"):
+            getattr(moe, name).copy_(torch.tensor(
+                params[name][moe.experts]))
+        out = moe(torch.tensor(x))
+    return dict(out=out.numpy(), experts=moe.w_gate.shape[0])
+
+
+def several_each(calls):
+    """As :func:`several`, every rank returning its own results."""
+    from fedml_tpu_torch.simulation.mesh.launch import _resolve
+    return [_resolve(target)(*args) for target, args in calls]

@@ -31,14 +31,32 @@ Each rank runs, through the port's public classes:
 - FedAvg on the FEMNIST CNN at ``chip_smoke.py``'s widths (100 clients,
   10 a round) under both layouts, seconds a round beside the sp engine's
   on one card: the lr checks above time a host-bound round, this one a
-  round whose clients fill the card.  Round 0's loss is held to the sp
-  engine's within ``CNN_LOSS_TOL``, and the params are reported, not
-  held: each rank runs its clients at another vmap width (3 against 10),
-  and 30 local steps of ReLU and max-pool amplify any last-bit
-  difference, the merge's summation order included.  As a control the
-  sp engine also runs round 0 with its clients one after another (a
-  client map of width 1), which reads what the width alone does on the
-  device (``--cnn-only`` runs this section alone);
+  round whose clients fill the card.  Round 0's loss is held within
+  ``CNN_LOSS_TOL`` to the sp engine's run at the mesh's client-map width
+  (``client_mode="vmap:k"``, k = ceil(10 / N) clients a group, in the
+  mesh's order): round 0's loss is the clients' own, before any merge,
+  and the device's convolutions read differently at another batch width
+  (10 against 3 a rank), which 30 local steps of ReLU and max-pool
+  amplify.  The gap to the full-width sp run and the params are
+  reported, not held; the merge's summation order moves the params too.
+  As a control the sp engine also runs round 0 with its clients one
+  after another (a client map of width 1) (``--cnn-only`` runs this
+  section alone);
+- the 2-D ``client × model`` mesh (``--mesh2d-only`` runs this section
+  alone), on each factorization of the world into ``c × m`` with ``m`` in
+  (2, 4): ``MeshFedAvgAPI`` with ``mesh_shape="c,m"`` on the ``lr``
+  config for FedAvg, FedOpt, SCAFFOLD, FedDyn and Mime under both layouts
+  against the sp engine (the lr checks' limits); ``FedLLMAPI(mesh=
+  make_mesh2d("c,m"))`` at Llama-2-7B widths cut to 2 layers, f32 (TF32
+  off), against the single-card API from the same weights: one batch's
+  adapter gradients (summed over the model group) within 1e-4 relative
+  and both rounds' losses within 1e-5, K1–K3 launched on each rank's
+  heads; the adapters after 2 rounds, each rank's base bytes and the
+  second round's seconds beside the single card's are reported (Adam's
+  normalised step turns rounding-level gradient differences on near-zero
+  entries into adapter differences of order lr); the same in bf16,
+  reported; greedy decode over the tensor-parallel f32 model (2 layers)
+  against ``generate`` on one card, token for token;
 - the teardown: every graph released, then ``core.mesh.shutdown_world``
   on every rank, which must return within ``--teardown-limit`` seconds.
 
@@ -123,6 +141,11 @@ def main():
     ap.add_argument("--teardown-limit", type=float, default=60.0)
     ap.add_argument("--cnn-only", action="store_true",
                     help="run only the FEMNIST CNN section")
+    ap.add_argument("--mesh2d-only", action="store_true",
+                    help="run only the 2-D client x model section")
+    ap.add_argument("--llm-width", default="7b", choices=("7b", "tiny"),
+                    help="the 2-D section's LLM: Llama-2-7B widths, or the "
+                         "tiny config (a quick check over gloo on the CPU)")
     opts = ap.parse_args()
 
     import numpy as np
@@ -167,6 +190,10 @@ def main():
         args = fedml_tpu_torch.load_arguments().update(**cfg)
         ds, od = data.load(args)
         return cls(args, dev, ds, model.create(args, od), **kw)
+
+    def sync():
+        if opts.device == "cuda":
+            torch.cuda.synchronize()
 
     def rounds(api, n):
         losses, secs = [], []
@@ -213,40 +240,199 @@ def main():
 
     def femnist_cnn():
         """FedAvg on the FEMNIST CNN: seconds a round where the clients
-        fill the card."""
+        fill the card, and round 0's loss against the sp engine run at
+        the mesh's client-map width."""
         args = fedml_tpu_torch.load_arguments().update(**FEMNIST_CNN)
         ds, od = data.load(args)
         cnn = model.create(args, od)
         sp = FedAvgAPI(args, dev, ds, cnn)
         sp_losses, sp_secs = rounds(sp, 3)
+        # the mesh pads the cohort to a multiple of the ranks and runs
+        # ceil(C / world) clients a rank: the sp engine at that width, in
+        # the same order, is the like-for-like reference of round 0
+        width = -(-int(FEMNIST_CNN["client_num_per_round"]) // world)
+        wide = FedAvgAPI(args, dev, ds, cnn, client_mode=f"vmap:{width}")
+        wide_loss0 = float(wide.train_one_round(0)["train_loss"])
+        del wide
         # control: the sp engine with its clients one after another (a
-        # client map of width 1, the mesh's is 3 a rank): what the width
-        # alone does to round 0's loss on this device
+        # client map of width 1): what the width alone does to round 0's
+        # loss on this device
         scan = FedAvgAPI(args, dev, ds, cnn, client_mode="scan")
         width_gap = abs(float(scan.train_one_round(0)["train_loss"])
                         - sp_losses[0])
         say(f"FEMNIST CNN round 0 loss, sp clients one by one vs vmapped: "
             f"{width_gap:.3e} (control) [{smi}]")
         out["checks"]["femnist_width_control"] = {"value": width_gap}
+        say(f"FEMNIST CNN round 0 loss, sp at width {width} vs width "
+            f"{FEMNIST_CNN['client_num_per_round']}: "
+            f"{abs(wide_loss0 - sp_losses[0]):.3e} [{smi}]")
+        out["checks"]["femnist_width_matched_sp"] = {
+            "value": abs(wide_loss0 - sp_losses[0]), "width": width,
+            "loss0": wide_loss0}
         del scan
         for lay in ("replicated", "scatter"):
             api = MeshFedAvgAPI(fedml_tpu_torch.load_arguments().update(
                 update_sharding=lay, **FEMNIST_CNN), dev, ds, cnn)
             losses, secs = rounds(api, 3)
             api._stager.close()
-            le = abs(losses[0] - sp_losses[0])
+            le = abs(losses[0] - wide_loss0)
+            full = abs(losses[0] - sp_losses[0])
             pe = err(api.state.global_params, sp.state.global_params)[0]
             finite = all(np.isfinite(losses))
-            check(f"FEMNIST CNN FedAvg/{lay}: round 0 loss vs sp", le,
-                  le <= CNN_LOSS_TOL and finite,
+            check(f"FEMNIST CNN FedAvg/{lay}: round 0 loss vs sp at width "
+                  f"{width}", le, le <= CNN_LOSS_TOL and finite,
                   {"losses": losses, "sp_losses": sp_losses,
+                   "loss0_vs_full_width_sp": full,
                    "params_vs_sp_after_3_rounds": pe,
                    "s_per_round": secs[1:], "sp_s_per_round": sp_secs[1:]})
-            say(f"FEMNIST CNN FedAvg/{lay}: {secs[1]:.4f} {secs[2]:.4f} s a "
+            say(f"FEMNIST CNN FedAvg/{lay}: round 0 loss vs the full-width "
+                f"sp {full:.3e} (reported); {secs[1]:.4f} {secs[2]:.4f} s a "
                 f"round, sp alone {sp_secs[1]:.4f} {sp_secs[2]:.4f}; "
                 f"params vs sp after 3 rounds {pe:.2e} (reported) [{smi}]")
             del api
         del sp
+
+    def mesh2d():
+        """The 2-D client x model mesh: the sim engine, the
+        tensor-parallel LoRA round and decode at Llama-2-7B widths."""
+        import dataclasses
+        from fedml_tpu_torch.core.mesh import make_mesh2d
+        from fedml_tpu_torch.llm.configurations import \
+            llama2_7b_round_arguments
+        from fedml_tpu_torch.llm.model import LLAMA2_7B, LlamaLM
+        from fedml_tpu_torch.ops import attention as att
+        from fedml_tpu_torch.serving.templates.openai_compat import \
+            generate
+        shapes = [f"{world // m},{m}" for m in (2, 4) if world % m == 0]
+        for shape in shapes:
+            for alg in ("FedAvg", "FedOpt", "SCAFFOLD", "FedDyn", "Mime"):
+                cfg = lr_cfg(federated_optimizer=alg)
+                sp = build(FedAvgAPI, cfg)
+                sp_losses, _ = rounds(sp, 3)
+                for lay in ("replicated", "scatter"):
+                    api = build(MeshFedAvgAPI, dict(
+                        cfg, update_sharding=lay, mesh_shape=shape))
+                    losses, secs = rounds(api, 3)
+                    api._stager.close()
+                    e, ok = err(api.full_params(), sp.state.global_params)
+                    le = float(np.max(np.abs(np.subtract(losses,
+                                                         sp_losses))))
+                    check(f"2-D {shape} {alg}/{lay} vs sp", max(e, le),
+                          ok and le <= ATOL, {"s_per_round": secs[1:]})
+            mesh2 = make_mesh2d(shape, device=dev)
+            m = mesh2.shape["model"]
+            for dtype in ("float32", "bfloat16"):
+                args = llama2_7b_round_arguments(2).update(
+                    comm_round=2, model_dtype=dtype)
+                if opts.llm_width == "tiny":
+                    args.update(model="tiny_llama", seq_len=32,
+                                llm_n_kv_heads=4, train_size=32)
+                ds, _ = data.load(args)
+                xb, yb, _ = ds.test_batches(batch_size=2)
+                runs = {}
+                for name, msh in (("single", None), ("tp", mesh2)):
+                    api = FedLLMAPI(args, ds, device=dev, mesh=msh)
+                    held = sum(p.numel() * p.element_size()
+                               for p in api.model.parameters())
+                    # one batch's adapter gradients at adapters off zero
+                    # (B = 0 zeroes A's gradient): on a mesh each rank's
+                    # part, summed over the model group as the round does
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(5)
+                    lora = {k: (v + 0.01 * torch.randn(
+                        v.shape, generator=g, device=dev)).requires_grad_()
+                        for k, v in api.global_lora.items()}
+                    x = torch.as_tensor(xb[0], device=dev)
+                    y = torch.as_tensor(yb[0], device=dev)
+                    grads = torch.autograd.grad(api.loss(lora, x, y),
+                                                list(lora.values()))
+                    if msh is not None:
+                        grads = msh.psum_many(list(grads), axis="model")
+                    grads = dict(zip(lora, (t.cpu() for t in grads)))
+                    att.reset_launch_counts()
+                    warm = api.train_one_round(0)["train_loss"]
+                    sync()
+                    t0 = time.time()
+                    loss = api.train_one_round(1)["train_loss"]
+                    sync()
+                    runs[name] = dict(
+                        losses=[warm, loss], seconds=time.time() - t0,
+                        held=held, grads=grads,
+                        lora={k: v.cpu() for k, v in api.global_lora.items()},
+                        launches={f.__name__: f.launches
+                                  for f in att.KERNELS})
+                    del api
+                    if opts.device == "cuda":
+                        torch.cuda.empty_cache()
+                one, tp = runs["single"], runs["tp"]
+                e = err(tp["lora"], one["lora"])[0]
+                grad_rel = max(float((tp["grads"][k] - v).abs().max())
+                               / max(float(v.abs().max()), 1e-30)
+                               for k, v in one["grads"].items())
+                loss_gap = max(abs(a - b) for a, b in zip(tp["losses"],
+                                                          one["losses"]))
+                rec = {"losses": tp["losses"], "single_losses": one["losses"],
+                       "grad_max_rel_err": grad_rel,
+                       "adapters_max_abs_err": e,
+                       "s_per_round": tp["seconds"],
+                       "single_s_per_round": one["seconds"],
+                       "base_bytes": tp["held"],
+                       "single_base_bytes": one["held"],
+                       "launches": tp["launches"]}
+                # on the CPU the attention runs the kernels' plain versions
+                launched = all(tp["launches"].values()) or \
+                    opts.device == "cpu"
+                name = f"TP {shape} FedLLMAPI Llama-2-7B widths 2 layers " \
+                    f"{dtype}"
+                if dtype == "float32":
+                    # the gradients and losses are held; Adam's normalised
+                    # step turns rounding-level gradient differences on
+                    # near-zero entries into adapter differences of order
+                    # lr, so the adapters are reported
+                    check(f"{name}: one batch's adapter gradients vs one "
+                          "card (max relative)", grad_rel,
+                          grad_rel <= 1e-4 and loss_gap <= 1e-5 and launched,
+                          rec)
+                else:
+                    out["checks"][name] = dict(rec, value=grad_rel,
+                                               reported=True)
+                    if not (launched and all(np.isfinite(tp["losses"]))):
+                        bad.append(name)
+                say(f"{name}: losses {tp['losses']} vs {one['losses']} on "
+                    f"one card; gradients {grad_rel:.2e} relative, adapters "
+                    f"after 2 rounds {e:.2e} (reported); round 1 "
+                    f"{tp['seconds']:.3f} s vs {one['seconds']:.3f} on one "
+                    f"card; base {tp['held'] / 2**30:.2f} GiB a rank vs "
+                    f"{one['held'] / 2**30:.2f}; K1-K3 {tp['launches']} "
+                    f"[{smi}]")
+            cfg = dataclasses.replace(LLAMA2_7B, n_layers=2, max_seq_len=256,
+                                      dtype=torch.float32,
+                                      attn_impl="blockwise")
+            if opts.llm_width == "tiny":
+                cfg = dataclasses.replace(cfg, dim=64, n_heads=4,
+                                          n_kv_heads=4, ffn_dim=128,
+                                          vocab_size=256)
+            toks = {}
+            for name, msh in (("single", None), ("tp", mesh2)):
+                with torch.device("meta"):
+                    lm = LlamaLM(cfg, mesh=msh)
+                lm = lm.to_empty(device=dev)
+                g = torch.Generator(device=dev)
+                g.manual_seed(0)
+                lm.init_weights(g)
+                toks[name] = generate(None, None, list(range(3, 40)),
+                                      max_new_tokens=16, buf_len=256,
+                                      model=lm)
+                del lm
+            same = toks["tp"] == toks["single"]
+            check(f"TP {shape} greedy decode (f32, 2 layers, model factor "
+                  f"{m}) vs one card", 0.0 if same else 1.0, same,
+                  {"tokens": toks["tp"]})
+
+    if opts.mesh2d_only:
+        mesh2d()
+        finish()
+        return
 
     if opts.teardown_check:
         api = build(MeshFedAvgAPI, lr_cfg(
@@ -360,6 +546,7 @@ def main():
     del one, many
 
     femnist_cnn()
+    mesh2d()
 
     finish()
 
