@@ -256,6 +256,29 @@ Phases, each printing its own lines:
    layers, dense and int8 KV) ≡ ``generate`` over the plain model from the
    same weights, token for token.  Then the process group is torn down.
    A model factor above 1 needs more cards: ``tools/torch_mesh_ranks.py``.
+18. mesh3d — the mesh's remainder on one card: (a) the 3-D pipeline
+   trainer (``mesh_shape="1,1,1"``, ``microbatches`` 4) on ``pipe_mlp`` at
+   hidden 4096 and depth 16 (268 M params, f32), 2 rounds against the sp
+   engine's from the same weights running its clients one by one, as the
+   pipeline does (``PIPE_TOL``), seconds a round beside the sp round's;
+   the sp engine's vmapped client map is a reported control (why it
+   parts from the one-by-one map: ``tools/torch_client_map_gap.py``); (b) ``mesh_shape="1,1,1"`` on phase 5 (b)'s FEMNIST
+   CNN with ``client_store``, ``data_paging``, ``registered_clients``
+   10^6 and a ``checkpoint_dir`` resume, each bitwise phase 16's sp run
+   (state and every row); (c) ring attention's schedule on one card, the
+   exchange replaced by slicing: Llama-2-7B attention (B 1, H 32, D 128,
+   causal, bf16) at S 4096 in 4 blocks of 1024, K1 launched 10 times
+   forward (4 diagonal, 6 full, 6 blocks skipped) and K2 and K3 10 times
+   each backward (counts set to 0 just before each, read just after), the
+   output and gradients held to one K1/K2/K3 call over S and to the ring
+   of the kernels' plain versions (``KERNEL_TOL``), the output to the
+   plain ring (the JAX recurrence) and its gradients within one limit of
+   what the one call reads against the plain ring's autograd (which keeps
+   dS in f32), the ring's forward+backward device time beside the one
+   call's, and each kernel timed at the two block shapes in the f32-output
+   mode the ring launches (rows under ``"ring_blocks"``).  K1–K3 launch 0 times in (a) and (b)
+   (checked).  Then the process group is torn down.  A stage or seq factor
+   above 1 needs more cards: ``tools/torch_mesh_ranks.py``.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -266,10 +289,11 @@ under ``"sp"``, phase 6's under ``"zoo"``, phase 7's under ``"fusion"``,
 phase 8's under ``"text"``, phase 9's under ``"resnet"``, phase 10's
 under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 ``"llm"``, phase 13's under ``"mesh"``, phase 14's under ``"serving"``,
-phase 15's under ``"serving_spec"``, phase 16's under ``"planes"`` and
-phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) beside
-them; each kernel row adds phase 12's to 17's launches a path under
-``launches_by_path``)
+phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
+phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
+phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``)
+beside them; each kernel row adds phase 12's to 18's launches a path
+under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -421,28 +445,31 @@ def library_ms(torch, fn, stream=None):
     return ms, method, time_ms(torch, fn, 20)
 
 
-def work(kernel, b, h, hkv, s, d, causal, dtype):
+def work(kernel, b, h, hkv, s, d, causal, dtype, out_f32=False):
     """(operations, bytes) of one call: the products' flops over the
     unmasked (q, k) pairs (counted exactly for causal attention), and the
     bytes the function must move (each input read once, each output
-    written once)."""
+    written once; ``out_f32``: O, dQ, dK and dV written at 4 bytes an
+    element, the f32-output mode of a bf16 build)."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     esz = 2 if dtype == "bfloat16" else 4
+    osz = 4 if out_f32 else esz
     qb, kvb, row = b * h * s * d * esz, b * hkv * s * d * esz, b * h * s * 4
+    qo, kvo = qb // esz * osz, kvb // esz * osz
     if kernel == "flash_fwd":
-        return 4 * pairs * d, qb + 2 * kvb + qb + row
+        return 4 * pairs * d, qb + 2 * kvb + qo + row
     if kernel == "flash_bwd_dq":     # S, dP, dQ products + Δ; q k v o dO lse
         return (6 * pairs * d + 2 * b * h * s * d,
-                3 * qb + 2 * kvb + row + qb + row)
+                3 * qb + 2 * kvb + row + qo + row)
     # S, dP, dV, dK; q k v dO lse Δ → dK dV
-    return 8 * pairs * d, 2 * qb + 2 * kvb + 2 * row + 2 * kvb
+    return 8 * pairs * d, 2 * qb + 2 * kvb + 2 * row + 2 * kvo
 
 
-def bound(kernel, b, h, hkv, s, d, causal, dtype):
+def bound(kernel, b, h, hkv, s, d, causal, dtype, out_f32=False):
     """(ms, "bytes"|"operations"): the larger of the bytes the function
     must move over the memory rate and its operations over the peak rate
     for its type (:func:`work`)."""
-    flops, nbytes = work(kernel, b, h, hkv, s, d, causal, dtype)
+    flops, nbytes = work(kernel, b, h, hkv, s, d, causal, dtype, out_f32)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -462,7 +489,7 @@ KERNEL_SHAPES = [("slice", 2, 32, 32, 1024, 128, True, "bfloat16"),
 TIMED_SHAPES = ("slice", "text", "text_bf16")
 
 
-def time_kernels(torch, att, tag, inputs, shape, errs, smi):
+def time_kernels(torch, att, tag, inputs, shape, errs, smi, out_f32=False):
     """Phase 3's timings at one shape: each kernel's device time (``ms``:
     20 calls replayed as one CUDA graph, :func:`graph_ms`) beside its eager
     time (``eager_ms``: 20 calls from Python, what an unfused round pays),
@@ -475,22 +502,26 @@ def time_kernels(torch, att, tag, inputs, shape, errs, smi):
     forward, one ``autograd.grad``).  Also K1+K2+K3 forward+backward
     through autograd beside SDPA's, by both readings.  ``tflops`` and
     ``bound_share`` are taken from the device time.  Returns (rows keyed
-    ``"<kernel>@<tag>"``, forward+backward times)."""
+    ``"<kernel>@<tag>"``, forward+backward times).  ``out_f32``: each
+    kernel and plain version in its f32-output mode (the ring's), the
+    bound counting its f32 outputs; the library calls as they are."""
     q, k, v, do, o, lse, delta = inputs
+    f32 = dict(out_f32=True) if out_f32 else {}
     b, h, hkv, s, d, causal, dt = shape
     calls = {
-        "flash_fwd": (lambda: att.flash_attention_fwd(q, k, v, causal),
-                      lambda: att.flash_attention_fwd_plain(q, k, v,
-                                                            causal)),
+        "flash_fwd": (
+            lambda: att.flash_attention_fwd(q, k, v, causal, **f32),
+            lambda: att.flash_attention_fwd_plain(q, k, v, causal, **f32)),
         "flash_bwd_dq": (
-            lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
+            lambda: att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                               **f32),
             lambda: att.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
-                                                     causal)),
+                                                     causal, **f32)),
         "flash_bwd_dkv": (
             lambda: att.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
-                                                causal),
+                                                causal, **f32),
             lambda: att.flash_attention_bwd_dkv_plain(q, k, v, lse, delta,
-                                                      do, causal)),
+                                                      do, causal, **f32)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_fwd = library_ms(torch, lambda: sdpa(q, k, v, is_causal=causal))
@@ -518,7 +549,7 @@ def time_kernels(torch, att, tag, inputs, shape, errs, smi):
                "flash_bwd_dkv": lib_bwd}
     rows = {}
     for name, (kern, plain) in calls.items():
-        b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt)
+        b_ms, b_by = bound(name, b, h, hkv, s, d, causal, dt, out_f32)
         ms = graph_ms(torch, kern)
         lib_ms, lib_method, lib_eager = library[name]
         rows[f"{name}@{tag}"] = r = {
@@ -531,9 +562,11 @@ def time_kernels(torch, att, tag, inputs, shape, errs, smi):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "library_method": lib_method,
             "library_eager_ms": lib_eager, "shape": tag, "dtype": dt,
+            "out_f32": out_f32,
             "tflops": work(name, b, h, hkv, s, d, causal, dt)[0] / ms / 1e9,
             "bound_share": b_ms / ms}
-        say("kernels", f"{name} @{tag}: {ms:.4f} ms device (graph; eager "
+        say("kernels", f"{name} @{tag}{' (f32 out)' if out_f32 else ''}: "
+                       f"{ms:.4f} ms device (graph; eager "
                        f"{r['eager_ms']:.4f}) ({r['tflops']:.1f} TFLOP/s, "
                        f"{100 * r['bound_share']:.1f}% of bound), "
                        f"{r['plain_ms']:.3f} ms plain, bound "
@@ -4208,6 +4241,13 @@ def _state_equal(torch, a, b):
     return set(fa) == set(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
 
 
+def _snapshot(api):
+    """The whole server state as a flat dict of host tensors."""
+    from fedml_tpu_torch.core.checkpoint import state_to_flat
+    st = api.full_state() if hasattr(api, "full_state") else api.state
+    return {k: v.detach().cpu().clone() for k, v in state_to_flat(st).items()}
+
+
 def _rows(api):
     import numpy as np
     if api._store is not None:
@@ -4329,6 +4369,10 @@ def planes_phase(torch, fedml_tpu_torch, smi):
                   f"table, {s_reg:.4f} s/round [{smi}]")
     if not (same and same_paged and rst["touched_rows"] == sampled):
         fail(f"planes (b): {rec}")
+    # phase 18 (b) holds the mesh's client-state plane to these runs
+    carry = out["_carry"] = {
+        "store": (_snapshot(store), rs), "paged": (_snapshot(paged), None),
+        "registered": (_snapshot(reg), reg._store.to_checkpoint())}
     del dense, store, host, paged, reg
     out["seconds"]["b"] = time.time() - t0
 
@@ -4350,6 +4394,7 @@ def planes_phase(torch, fedml_tpu_torch, smi):
     ra, rb = _rows(full), _rows(resumed)
     same = _state_equal(torch, full, resumed) and all(
         np.array_equal(ra[k], rb[k]) for k in ra)
+    carry["checkpoint"] = (_snapshot(full), ra)
     shutil.rmtree(ckpt, ignore_errors=True)
     out["checkpoint"] = {"resumed_bitwise": same,
                          "resumed_rounds": len(resumed.metrics_history)}
@@ -4529,6 +4574,313 @@ def tp_phase(torch, fedml_tpu_torch, att, smi, layers, slice_lora):
     torch.cuda.empty_cache()
     out["seconds"]["decode"] = time.time() - t1
     return out
+
+
+# -- 18. mesh3d: the pipeline, the mesh's client-state plane, the ring ----
+#: phase 18 (a): ``pipe_mlp`` at hidden 4096 and depth 16 (268 M params,
+#: f32) through the pipeline trainer at a stage factor of 1
+PIPE_CFG = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+                train_size=256, test_size=64, model="pipe_mlp",
+                model_dim=4096, model_layers=16, client_num_in_total=8,
+                client_num_per_round=2, batch_size=16, learning_rate=0.05,
+                partition_method="homo", comm_round=2)
+PIPE_MICRO = 4
+#: its params against the sp engine's: bitwise or within this
+PIPE_TOL = 1e-6
+#: phase 18 (c): Llama-2-7B attention (B, H, H_kv, S, D), causal bf16, in
+#: this many ring blocks (each block the slice's S 1024)
+RING_SHAPE = (1, 32, 32, 4096, 128)
+RING_BLOCKS = 4
+#: the kernels' rows at the ring's two block shapes
+RING_BLOCK_SHAPES = [
+    ("ring_diag", 1, 32, 32, 1024, 128, True, "bfloat16"),
+    ("ring_full", 1, 32, 32, 1024, 128, False, "bfloat16")]
+
+
+def mesh3d_phase(torch, fedml_tpu_torch, att, smi, planes):
+    """Phase 18: (a), (b) and (c) in turn."""
+    out = {"seconds": {}}
+    t1 = time.time()
+    out["pipeline"] = pipeline_part(torch, fedml_tpu_torch, att, smi)
+    out["seconds"]["pipeline"] = time.time() - t1
+    t1 = time.time()
+    out["mesh_state"] = mesh_state_part(torch, fedml_tpu_torch, att, smi,
+                                        planes)
+    out["seconds"]["mesh_state"] = time.time() - t1
+    t1 = time.time()
+    out["ring"], out["rows"] = ring_part(torch, att, smi)
+    out["seconds"]["ring"] = time.time() - t1
+    return out
+
+
+def _engine(torch, fedml_tpu_torch, cfg, ds=None, n_out=None):
+    """The engine a user script builds for ``cfg``: the sp engine, or with
+    ``backend="mesh"`` the mesh engine over a world of 1."""
+    from fedml_tpu_torch import data, device, model
+    from fedml_tpu_torch.runner import FedMLRunner
+    args = sp_args(fedml_tpu_torch, **cfg)
+    if ds is None:
+        ds, n_out = data.load(args)
+    args.training_type = "simulation"
+    return FedMLRunner(args, device.get_device(args), ds,
+                       model.create(args, n_out)).runner.fl_trainer
+
+
+def pipeline_part(torch, fedml_tpu_torch, att, smi):
+    """Phase 18 (a): the pipeline trainer at a stage factor of 1 against
+    the sp engine."""
+    from fedml_tpu_torch import data
+    build = lambda cfg, ds, n_out: _engine(torch, fedml_tpu_torch, cfg, ds,
+                                           n_out)
+    att.reset_launch_counts()
+    args0 = sp_args(fedml_tpu_torch, **PIPE_CFG)
+    ds, n_out = data.load(args0)
+    # the reference runs its clients one after another, as the pipeline
+    # does; the sp engine's vmapped client map (its default) is a control
+    sp = build(dict(PIPE_CFG, sp_client_mode="scan"), ds, n_out)
+    init = {k: v.clone() for k, v in sp.state.global_params.items()}
+    n_params = sum(v.numel() for v in init.values())
+    sp_losses, sp_s, _ = two_rounds(torch, sp)
+    wide = build(PIPE_CFG, ds, n_out)
+    wide.reset_params(init)
+    wide_losses, wide_s, _ = two_rounds(torch, wide)
+    wide_err = params_err(wide.state.global_params, sp.state.global_params)
+    del wide
+    api = build(dict(PIPE_CFG, backend="mesh", mesh_shape="1,1,1",
+                     microbatches=PIPE_MICRO), ds, n_out)
+    if type(api.trainer).__name__ != "PipelineTrainer" or \
+            not api.layout.pipeline:
+        fail("mesh3d (a): mesh_shape '1,1,1' on pipe_mlp did not build the "
+             "pipeline trainer")
+    api.reset_params(init)
+    del init
+    losses, s, _ = two_rounds(torch, api)
+    api._stager.close()
+    err = params_err(api.full_params(), sp.state.global_params)
+    loss_err = max(abs(a - b) for a, b in zip(losses, sp_losses))
+    launches = launch_counts(att)
+    rec = {"n_params": n_params, "params_err": err,
+           "loss_err": loss_err, "losses": losses,
+           "s_per_round": s, "sp_s_per_round": sp_s,
+           "sp_vmap_s_per_round": wide_s,
+           "sp_vmap_vs_scan_params_err": wide_err,
+           "microbatches": PIPE_MICRO, "launches": launches}
+    say("mesh3d", f"(a) pipeline trainer, mesh_shape '1,1,1', pipe_mlp "
+                  f"hidden {PIPE_CFG['model_dim']} depth "
+                  f"{PIPE_CFG['model_layers']} ({n_params / 1e6:.1f} M "
+                  f"params, f32), {PIPE_MICRO} microbatches: params vs the "
+                  f"sp engine with its clients one by one {err:.2e}, losses "
+                  f"{loss_err:.2e} (tol {PIPE_TOL:g}); {s:.3f} s a round vs "
+                  f"sp {sp_s:.3f} s; control: the sp engine's vmapped "
+                  f"client map vs one by one {wide_err:.2e} ({wide_s:.3f} s "
+                  f"a round: the ReLU masks of near-zero pre-activations "
+                  f"follow the GEMMs' summation order); K1-K3 launches "
+                  f"{launches} [{smi}]")
+    if err > PIPE_TOL or loss_err > PIPE_TOL or not finite(*losses) or \
+            any(launches.values()):
+        fail(f"mesh3d (a): {rec}")
+    del sp, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_state_part(torch, fedml_tpu_torch, att, smi, planes):
+    """Phase 18 (b): the mesh's client-state plane at mesh_shape "1,1,1"
+    against phase 16's sp-engine runs, bitwise."""
+    import shutil
+
+    import numpy as np
+
+    from fedml_tpu_torch import data
+    att.reset_launch_counts()
+    ds, n_out = data.load(sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN))
+    base = dict(SP_FEMNIST_CNN, comm_round=PLANES_ROUNDS + 1,
+                backend="mesh", mesh_shape="1,1,1")
+
+    def mesh(**over):
+        return _engine(torch, fedml_tpu_torch, dict(base, **over), ds, n_out)
+
+    def equal_state(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    def equal_rows(a, b):
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+    res = {}
+    api = mesh(federated_optimizer="SCAFFOLD", client_store=True,
+               store_page_size=16)
+    dt, _ = sync_time(torch, lambda: [api.train_one_round(r)
+                                      for r in range(PLANES_ROUNDS)])
+    state, rows = planes["store"]
+    res["store"] = equal_state(_snapshot(api), state) and \
+        equal_rows(_rows(api), rows)
+    res["s_per_round_store"] = dt / PLANES_ROUNDS
+    api = mesh(data_paging=True, data_page_size=256)
+    dt, _ = sync_time(torch, lambda: [api.train_one_round(r)
+                                      for r in range(2)])
+    res["paged"] = equal_state(_snapshot(api), planes["paged"][0])
+    res["s_per_round_paged"] = dt / 2
+    api = mesh(federated_optimizer="SCAFFOLD", client_store=True,
+               registered_clients=PLANES_REGISTERED, store_page_size=64)
+    dt, _ = sync_time(torch, lambda: [api.train_one_round(r)
+                                      for r in range(2)])
+    api._pager.drain_writebacks()
+    state, payload = planes["registered"]
+    res["registered"] = equal_state(_snapshot(api), state) and \
+        equal_rows(api._store.to_checkpoint(), payload)
+    res["s_per_round_registered"] = dt / 2
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".phase18_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    over = dict(federated_optimizer="SCAFFOLD", client_store=True,
+                store_page_size=16, checkpoint_dir=ckpt, checkpoint_freq=1)
+    mesh(**dict(over, comm_round=2)).train()
+    resumed = mesh(**over)
+    resumed.train()
+    state, rows = planes["checkpoint"]
+    res["checkpoint"] = equal_state(_snapshot(resumed), state) and \
+        equal_rows(_rows(resumed), rows) and \
+        len(resumed.metrics_history) == PLANES_ROUNDS - 1
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del api, resumed
+    res["launches"] = launch_counts(att)
+    say("mesh3d", f"(b) MeshFedAvgAPI mesh_shape '1,1,1', FEMNIST CNN, "
+                  f"bitwise phase 16's sp runs: client store (SCAFFOLD) "
+                  f"{res['store']}, data paging {res['paged']}, 10^6 "
+                  f"registered {res['registered']}, checkpoint_dir resume "
+                  f"{res['checkpoint']}; s/round store "
+                  f"{res['s_per_round_store']:.4f}, paged "
+                  f"{res['s_per_round_paged']:.4f}, registered "
+                  f"{res['s_per_round_registered']:.4f}; K1-K3 launches "
+                  f"{res['launches']} [{smi}]")
+    if not all(res[k] for k in ("store", "paged", "registered",
+                                "checkpoint")) or \
+            any(res["launches"].values()):
+        fail(f"mesh3d (b): {res}")
+    return res
+
+
+def ring_part(torch, att, smi):
+    """Phase 18 (c): the ring schedule on one card, the exchange replaced
+    by slicing.  Returns its record and the kernels' rows at the two block
+    shapes."""
+    from fedml_tpu_torch.ops import ring_attention as ring
+    dev = torch.device("cuda", 0)
+    b, h, hkv, s_len, d = RING_SHAPE
+    n = RING_BLOCKS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float32).to(torch.bfloat16)
+    q, k, v, do = mk(b, h, s_len, d), mk(b, hkv, s_len, d), \
+        mk(b, hkv, s_len, d), mk(b, h, s_len, d)
+    (o, lse), fwd_l = counted(torch, att,
+                              lambda: ring.ring_schedule_fwd(q, k, v, n))
+    (dq, dk, dv), bwd_l = counted(
+        torch, att, lambda: ring.ring_schedule_bwd(q, k, v, o, lse, do, n))
+    steps = n * (n + 1) // 2
+    want_f = {"flash_fwd": steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want_b = {"flash_fwd": 0, "flash_bwd_dq": steps, "flash_bwd_dkv": steps}
+    # the references: one K1/K2/K3 call over S, the same ring with each
+    # kernel's plain version, and the plain ring, the JAX recurrence.  Its
+    # autograd gradients keep dS in f32 where K2 and K3 round it to bf16
+    # before their products (as the TPU kernels and their plain versions
+    # do): the ring's gradients are held to it within one limit of what
+    # the one call over S reads against it
+    so, slse = att.flash_attention_fwd(q, k, v, True)
+    sdq, sdelta = att.flash_attention_bwd_dq(q, k, v, so, slse, do, True)
+    sdk, sdv = att.flash_attention_bwd_dkv(q, k, v, slse, sdelta, do, True)
+    vo, vlse = ring.ring_schedule_fwd(q, k, v, n, plain=True)
+    vdq, vdk, vdv = ring.ring_schedule_bwd(q, k, v, o, lse, do, n,
+                                           plain=True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    po = ring.ring_schedule_plain(*leaves, n)
+    pdq, pdk, pdv = torch.autograd.grad(po, leaves, do)
+    del leaves
+    errs, vs_plain = {}, {}
+    for what, got, one, vers, plain in (
+            ("O", o, so, vo, po), ("lse", lse, slse, vlse, None),
+            ("dQ", dq, sdq, vdq, pdq), ("dK", dk, sdk, vdk, pdk),
+            ("dV", dv, sdv, vdv, pdv)):
+        errs[what], line = check_close(att, f"ring {what} vs one call",
+                                       got, one)
+        say("mesh3d", f"  {line}")
+        errs[f"{what}_plain_versions"], line = check_close(
+            att, f"ring {what} vs the ring of plain versions", got, vers)
+        say("mesh3d", f"  {line}")
+        if plain is None:
+            continue
+        if what == "O":
+            errs["O_plain_ring"], line = check_close(
+                att, "ring O vs the plain ring", got, plain)
+            say("mesh3d", f"  {line}")
+            continue
+        st, st1 = (att.compare_with_plain(t, plain) for t in (got, one))
+        vs_plain[what] = {"ring": st, "one_call": st1}
+        line = (f"ring {what} vs the plain ring's autograd (dS in f32 "
+                f"there): worst element {st['elem']:.2f}, block "
+                f"{st['block']:.2f} of KERNEL_TOL; one call over S "
+                f"{st1['elem']:.2f}, {st1['block']:.2f} (held: the ring "
+                f"within one limit of the one call)")
+        say("mesh3d", f"  {line}")
+        if st["elem"] > st1["elem"] + 1 or st["block"] > st1["block"] + 1:
+            fail(line)
+    del vo, vlse, vdq, vdk, vdv, po, pdq, pdk, pdv
+
+    def ring_fb():
+        o_, lse_ = ring.ring_schedule_fwd(q, k, v, n)
+        ring.ring_schedule_bwd(q, k, v, o_, lse_, do, n)
+
+    def one_fb():
+        o_, lse_ = att.flash_attention_fwd(q, k, v, True)
+        _, delta_ = att.flash_attention_bwd_dq(q, k, v, o_, lse_, do, True)
+        att.flash_attention_bwd_dkv(q, k, v, lse_, delta_, do, True)
+
+    ring_ms, one_ms = graph_ms(torch, ring_fb, reps=5), \
+        graph_ms(torch, one_fb, reps=5)
+    blocks = {}
+    for tag, *shape in RING_BLOCK_SHAPES:
+        new_rows, _ = time_kernels(
+            torch, att, tag, _kernel_inputs(torch, att, gen, *shape),
+            tuple(shape), {"flash_fwd": errs["O"], "flash_bwd_dq": errs["dQ"],
+                           "flash_bwd_dkv": max(errs["dK"], errs["dV"])},
+            smi, out_f32=True)
+        per = n if tag == "ring_diag" else steps - n
+        for r in new_rows.values():
+            r["launches"] = per
+        blocks.update(new_rows)
+    bound_ms = sum(r["bound_ms"] * r["launches"] for r in blocks.values())
+    launches = {name: fwd_l[name] + bwd_l[name] for name in fwd_l}
+    rec = {"shape": list(RING_SHAPE), "blocks": n,
+           "launches_fwd": fwd_l, "launches_bwd": bwd_l,
+           "launches": launches, "errs": errs,
+           "grads_vs_plain_ring_autograd": vs_plain,
+           "fwd_bwd_ms": ring_ms, "one_call_fwd_bwd_ms": one_ms,
+           "bound_ms": bound_ms, "method": "graph"}
+    say("mesh3d", f"(c) ring schedule, Llama-2-7B attention B{b} H{h} "
+                  f"S{s_len} D{d} causal bf16 in {n} blocks of "
+                  f"{s_len // n}: launches forward {fwd_l}, backward "
+                  f"{bwd_l}; forward+backward {ring_ms:.3f} ms device "
+                  f"(graph) vs one K1+K2+K3 call over S {one_ms:.3f} ms; "
+                  f"the ring's blocks' bound {bound_ms:.3f} ms [{smi}]")
+    if fwd_l != want_f or bwd_l != want_b:
+        fail(f"mesh3d (c): launches forward {fwd_l} (want {want_f}), "
+             f"backward {bwd_l} (want {want_b})")
+    return rec, blocks
+
+
+def _kernel_inputs(torch, att, gen, b, h, hkv, s, d, causal, dt):
+    """K1-K3's inputs at one shape, drawn from ``gen`` (the order
+    ``time_kernels`` takes)."""
+    dtype = getattr(torch, dt)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
+                                    dtype=torch.float32).to(dtype)
+    q, k, v, do = mk(b, h, s, d), mk(b, hkv, s, d), mk(b, hkv, s, d), \
+        mk(b, h, s, d)
+    o, lse = att.flash_attention_fwd(q, k, v, causal)
+    _, delta = att.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    return q, k, v, do, o, lse, delta
 
 
 def main():
@@ -4868,6 +5220,7 @@ def main():
     t0 = time.time()
     att.reset_launch_counts()
     planes = planes_phase(torch, fedml_tpu_torch, smi)
+    planes_carry = planes.pop("_carry")
     planes["launches"] = launch_counts(att)
     for name, n in planes["launches"].items():
         for shape in ("slice", "text"):
@@ -4899,6 +5252,31 @@ def main():
     tp["seconds"]["teardown"] = time.time() - t1
     say("tp", f"phase 17 took {time.time() - t0:.1f} s "
               f"({ {k: round(v, 1) for k, v in tp['seconds'].items()} })")
+
+    # -- 18. mesh3d: the pipeline, the mesh's state plane, the ring ---------
+    t0 = time.time()
+    mesh3d = mesh3d_phase(torch, fedml_tpu_torch, att, smi, planes_carry)
+    del planes_carry
+    for name in mesh3d["ring"]["launches"]:
+        for shape in ("slice", "text"):
+            by = rows[f"{name}@{shape}"].setdefault("launches_by_path", {})
+            by["pipeline"] = mesh3d["pipeline"]["launches"][name]
+            by["mesh_state"] = mesh3d["mesh_state"]["launches"][name]
+            by["ring"] = mesh3d["ring"]["launches"][name] \
+                if shape == "slice" else 0
+    t1 = time.time()
+    watchdog = threading.Timer(
+        TEARDOWN_LIMIT, lambda: (print(
+            "chip_smoke: FAILED: shutdown_world did not return within "
+            f"{TEARDOWN_LIMIT} s", file=sys.stderr, flush=True),
+            os._exit(1)))
+    watchdog.daemon = True
+    watchdog.start()
+    shutdown_world()
+    watchdog.cancel()
+    mesh3d["seconds"]["teardown"] = time.time() - t1
+    say("mesh3d", f"phase 18 took {time.time() - t0:.1f} s "
+                  f"({ {k: round(v, 1) for k, v in mesh3d['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -4909,7 +5287,9 @@ def main():
                       "mesh": mesh, "serving": serving,
                       "serving_spec": spec, "planes": planes,
                       "tp_shards": list(tp.pop("rows").values()),
-                      "tp": tp}))
+                      "tp": tp,
+                      "ring_blocks": list(mesh3d.pop("rows").values()),
+                      "mesh3d": mesh3d}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,10 +8,12 @@ counterpart is found at the same path.  Ported so far:
   args=...)``: ``FedAvgAPI`` and the algorithm zoo on the sp model zoo,
   the hierarchical, async and decentralized engines, and FedNAS, FedSeg,
   FedGKT and FedGAN (``simulation/sp/``);
-- the 1-D mesh engine, ``run_simulation(backend="mesh")`` ("MPI" and
+- the mesh engine, ``run_simulation(backend="mesh")`` ("MPI" and
   "NCCL" too): clients sharded over the ranks of a ``torch.distributed``
   process group, NCCL on the card and gloo on the CPU (``simulation/
-  mesh/``), a world of 1 unless the caller starts more ranks;
+  mesh/``), a world of 1 unless the caller starts more ranks; the 2-D
+  ``client × model`` and 3-D ``client × stage × model`` (pipeline)
+  layouts, and the client-state plane;
 - split learning, vertical FL, TurboAggregate and the centralized
   trainer, built as classes (``simulation/sp/{split_nn,vertical_fl,
   turboaggregate}.py``, ``simulation/centralized_trainer.py``);
@@ -41,12 +43,17 @@ from .arguments import Arguments, load_arguments  # noqa: E402
 
 def init(args: Optional[Arguments] = None,
          should_init_logs: bool = True) -> Arguments:
-    """Load default args if none are given and seed the host RNGs.  Device
-    randomness uses explicit seeded generators (core/rng.py)."""
+    """Load default args if none are given, check them
+    (``arguments.validate_args``: the flags that cannot run together
+    raise ``ValueError`` here) and seed the host RNGs.  Device randomness
+    uses explicit seeded generators (core/rng.py)."""
     import torch
+
+    from .arguments import validate_args
 
     if args is None:
         args = load_arguments()
+    validate_args(args)
     seed = int(getattr(args, "random_seed", 0))
     random.seed(seed)
     np.random.seed(seed)

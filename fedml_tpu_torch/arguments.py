@@ -68,7 +68,9 @@ _DEFAULTS: Dict[str, Any] = dict(
     sp_client_mode="vmap",
     device_data=True,
     # the mesh engine (backend "mesh"): the client axis spans the process
-    # group (-1); a factor above 1 on another axis is refused by name.
+    # group (-1); mesh_shape "c,m" is the 2-D layout, "c,s,m" the 3-D
+    # pipeline layout (mesh_stage the knob); a data factor above 1, and a
+    # seq factor on the simulation engine, are refused by name.
     # update_sharding: replicated | scatter | auto (scatter above one
     # shard); async_staging builds the next round's cohort on a worker
     # thread, staging_depth rounds ahead
@@ -78,6 +80,11 @@ _DEFAULTS: Dict[str, Any] = dict(
     mesh_model=1,
     mesh_seq=1,
     mesh_shape=None,
+    # microbatches per local SGD step on the 3-D pipeline layout: the batch
+    # splits into this many equal microbatches flowing through the stage
+    # ring (bubble fraction (s-1)/(microbatches+s-1)); must divide
+    # batch_size
+    microbatches=1,
     update_sharding="auto",
     async_staging=True,
     staging_depth=1,
@@ -91,3 +98,12 @@ _DEFAULTS: Dict[str, Any] = dict(
 def load_arguments() -> Arguments:
     """Arguments holding the defaults."""
     return Arguments().update(**_DEFAULTS)
+
+
+def validate_args(args) -> Arguments:
+    """The JAX package's ``validate_args`` for what the port runs: the
+    pipeline layout's gate (``simulation/mesh/pipeline.py``).  Raises
+    ``ValueError`` naming the flag; returns ``args``."""
+    from .simulation.mesh.pipeline import validate_pipeline_args
+    validate_pipeline_args(args)
+    return args

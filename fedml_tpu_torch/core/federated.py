@@ -168,19 +168,25 @@ class PsumReducer:
     A tree's leaves travel as one flat vector: one collective for the
     weight, one for the numerators."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, axis=None):
         self.mesh = mesh
+        #: the ranks the cohort spreads over (None: every rank; the
+        #: client groups on the 3-D pipeline layout, whose leaves are
+        #: each rank's shards)
+        self.axis = axis
 
     def wavg(self, stacked, w):
-        num = weighted_sums(stacked, w / self.mesh.psum(torch.sum(w)))
-        return dict(zip(num, self.mesh.psum_many(list(num.values()))))
+        num = weighted_sums(stacked, w / self.mesh.psum(torch.sum(w),
+                                                        self.axis))
+        return dict(zip(num, self.mesh.psum_many(list(num.values()),
+                                                 self.axis)))
 
     def wavg_scalar(self, vec, w):
-        p = w / self.mesh.psum(torch.sum(w))
-        return self.mesh.psum(torch.sum(p * vec))
+        p = w / self.mesh.psum(torch.sum(w), self.axis)
+        return self.mesh.psum(torch.sum(p * vec), self.axis)
 
     def sum_scalar(self, vec):
-        return self.mesh.psum(torch.sum(vec))
+        return self.mesh.psum(torch.sum(vec), self.axis)
 
 
 class Psum2DReducer:
@@ -215,23 +221,29 @@ class ScatterReducer:
     """Mesh scatter merge (arXiv:2004.13336): a tree aggregate flattens
     into one padded vector (``flat_spec``) and reduce-scatters, so each
     shard receives only its contiguous chunk; scalars still all-reduce.
-    Weighted in the sp engine's order, as :class:`PsumReducer`."""
+    Weighted in the sp engine's order, as :class:`PsumReducer`.  On the
+    3-D pipeline layout the weights and scalars reduce over ``axis`` (the
+    client groups) and ``place`` turns this rank's leaf shards into whole
+    leaves, zero off its shard, so the reduce-scatter over every rank sums
+    each entry once per client shard."""
 
-    def __init__(self, flat_spec, mesh):
+    def __init__(self, flat_spec, mesh, axis=None, place=None):
         self.flat = flat_spec
         self.mesh = mesh
+        self.axis = axis
+        self.place = place or (lambda tree: tree)
 
     def wavg(self, stacked, w):
-        p = w / self.mesh.psum(torch.sum(w))
+        p = w / self.mesh.psum(torch.sum(w), self.axis)
         return self.mesh.psum_scatter(
-            self.flat.flatten(weighted_sums(stacked, p)))
+            self.flat.flatten(self.place(weighted_sums(stacked, p))))
 
     def wavg_scalar(self, vec, w):
-        p = w / self.mesh.psum(torch.sum(w))
-        return self.mesh.psum(torch.sum(p * vec))
+        p = w / self.mesh.psum(torch.sum(w), self.axis)
+        return self.mesh.psum(torch.sum(p * vec), self.axis)
 
     def sum_scalar(self, vec):
-        return self.mesh.psum(torch.sum(vec))
+        return self.mesh.psum(torch.sum(vec), self.axis)
 
 
 # --------------------------------------------------------------------------

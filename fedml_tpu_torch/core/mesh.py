@@ -3,24 +3,30 @@
 
 The JAX package names five mesh axes (``client``, ``stage``, ``data``,
 ``model``, ``seq``) over the devices of one controller.  Here one process
-runs per rank and the mesh is the process group: a world of ``c·m`` ranks
-is laid out as the JAX package lays out its devices, the flat id (the
-rank) being ``c_coord·m + m_coord`` with ``stage``, ``data`` and ``seq``
-pinned to 1.  The ``client`` axis groups the ranks with the same
-``m_coord``, the ``model`` axis the ranks with the same ``c_coord`` (one
-client's model, tensor-parallel); each group is made once with
-``dist.new_group``.  A factor above 1 on ``stage``, ``data`` or ``seq``
-raises ``NotImplementedError`` naming it.
+runs per rank and the mesh is the process group: a world of ``c·s·m·q``
+ranks is laid out as the JAX package lays out its devices
+(``reshape(client, stage, data, model, seq)`` with ``data`` pinned to 1),
+the flat id (the rank) being ``((c_coord·s + s_coord)·m + m_coord)·q +
+q_coord``.  Each axis groups the ranks that differ only in its
+coordinate: ``client`` the client shards of one model slice, ``stage``
+the pipeline stages of one client shard (``simulation/mesh/
+pipeline.py``), ``model`` one stage's tensor-parallel slices, ``seq`` the
+sequence shards of ring attention (``ops/ring_attention.py``); the pair
+``(stage, model)`` groups every rank of one client shard.  Each group is
+made once with ``dist.new_group``.  A ``data`` factor above 1 raises
+``NotImplementedError`` naming it.
 
-:class:`Mesh` carries the rank, the world size, the groups and the device,
-and the three collectives the engines use (an all-reduce, a reduce-scatter
-and an all-gather), each over an ``axis`` (default: every rank), written
-to run on both torch builds the port meets (``reduce_scatter_single``/
-``all_gather_single`` where they exist, the older ``*_tensor`` names
-otherwise).  On the card the group is NCCL; on the CPU it is gloo.  A
-world of 1 still runs every collective (a copy), so the card's
-single-rank run goes through NCCL, and a ``model`` group of one rank runs
-its collectives too.
+:class:`Mesh` carries the rank, the axis sizes and coordinates, the
+groups and the device, and the collectives the engines use (an
+all-reduce, a reduce-scatter, an all-gather and the ring shift
+:meth:`Mesh.ppermute`), each over an ``axis`` (default: every rank),
+written to run on both torch builds the port meets
+(``reduce_scatter_single``/``all_gather_single`` where they exist, the
+older ``*_tensor`` names otherwise).  On the card the group is NCCL; on
+the CPU it is gloo.  A world of 1 still runs every collective (a copy),
+so the card's single-rank run goes through NCCL, and a ``model`` group of
+one rank runs its collectives too; a ring shift over one rank is the
+identity, as JAX's ``ppermute`` over an axis of size 1.
 
 :func:`init_world` makes the process group when none exists: from the
 ``torchrun`` environment when it names a world above 1, else a world of 1
@@ -45,16 +51,15 @@ SEQ_AXIS = "seq"
 
 ALL_AXES = (CLIENT_AXIS, STAGE_AXIS, DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
 
-#: what each unported axis belongs to, for the refusal's message
-_UNPORTED_AXES = {
-    STAGE_AXIS: "the 3-D pipeline layout",
-    DATA_AXIS: "intra-silo data parallelism",
-    SEQ_AXIS: "sequence parallelism (ring attention)",
-}
+#: the axes a rank's coordinates run over, outermost first (``data`` is
+#: pinned to 1: intra-silo data parallelism is not ported)
+GRID_AXES = (CLIENT_AXIS, STAGE_AXIS, MODEL_AXIS, SEQ_AXIS)
 
-#: the client and model groups of a (world, c, m) layout, made once per
-#: process group (``dist.new_group`` is collective: every rank makes every
-#: group, in one order)
+#: the pair of axes that spans one client shard's ranks
+SHARD_AXES = (STAGE_AXIS, MODEL_AXIS)
+
+#: the groups of a layout, made once per process group (``dist.new_group``
+#: is collective: every rank makes every group, in one order)
 _GROUPS = {}
 
 
@@ -115,71 +120,139 @@ def shutdown_world() -> None:
     dist.destroy_process_group()
 
 
-def _axis_groups(world: int, c: int, m: int):
-    """``(client_groups, model_groups)`` of the layout: the client group of
-    ``m_coord`` j holds the ranks ``c·m + j``, the model group of
-    ``c_coord`` i the ranks ``i·m .. i·m + m - 1``.  With ``m == 1`` the
-    client axis is the whole world (the default group, ``None``)."""
-    key = (id(dist.distributed_c10d._get_default_group()), world, c, m)
+def _coords(rank: int, dims: dict) -> dict:
+    """A rank's coordinate on each of :data:`GRID_AXES` (row-major, the
+    last axis fastest)."""
+    out = {}
+    for axis in reversed(GRID_AXES):
+        out[axis] = rank % dims[axis]
+        rank //= dims[axis]
+    return out
+
+
+def _rank_of(coords: dict, dims: dict) -> int:
+    r = 0
+    for axis in GRID_AXES:
+        r = r * dims[axis] + coords[axis]
+    return r
+
+
+def _members(coords: dict, dims: dict, axes) -> list:
+    """The ranks that share every coordinate of ``coords`` off ``axes``,
+    ordered by their coordinates along ``axes`` (row-major)."""
+    out = [dict(coords)]
+    for axis in axes:
+        out = [dict(c, **{axis: i}) for c in out for i in range(dims[axis])]
+    return [_rank_of(c, dims) for c in out]
+
+
+def _axis_groups(dims: dict, kinds) -> dict:
+    """``{kind: {members: group}}`` for each kind of group (a tuple of
+    axes): every group of the kind, made on every rank in one order.  A
+    group of the whole world is the default group (``None``), but a model
+    group is always a group of its own: the tensor-parallel code runs its
+    collectives there, on one rank too."""
+    world = math.prod(dims.values())
+    key = (id(dist.distributed_c10d._get_default_group()),
+           tuple(dims[a] for a in GRID_AXES), tuple(kinds))
     if key not in _GROUPS:
-        model = [dist.new_group([i * m + j for j in range(m)])
-                 for i in range(c)]
-        client = [None] if m == 1 else [
-            dist.new_group([i * m + j for i in range(c)]) for j in range(m)]
-        _GROUPS[key] = (client, model)
+        made = {}
+        for kind in kinds:
+            seen = {}
+            for r in range(world):
+                ranks = tuple(_members(_coords(r, dims), dims, kind))
+                if ranks in seen:
+                    continue
+                seen[ranks] = None if kind != (MODEL_AXIS,) and \
+                    len(ranks) == world else dist.new_group(list(ranks))
+            made[kind] = seen
+        _GROUPS[key] = made
     return _GROUPS[key]
 
 
 class Mesh:
     """The federated mesh over the process group: ``size`` ranks (the
     world), this process being rank ``rank``, its tensors on ``device``.
-    ``model`` ranks a client group (1: every rank a client shard);
-    ``groups`` maps ``client``/``model`` to this rank's process groups
-    (``None``: the default group).  Without a ``model`` group (the
-    default) the mesh is the 1-D client mesh over ``group``."""
+    ``model``, ``stage`` and ``seq`` are the axis factors (the client
+    factor takes the ranks they leave); ``groups`` maps an axis name (or
+    a tuple of axes) to this rank's process group along it (``None``: the
+    default group).  Without groups (the default) the mesh is the 1-D
+    client mesh over ``group``."""
 
     def __init__(self, size: int, rank: int, device, group=None,
-                 model: int = 1, groups: Optional[dict] = None):
+                 model: int = 1, groups: Optional[dict] = None,
+                 stage: int = 1, seq: int = 1):
         self.size = int(size)
         self.rank = int(rank)
         self.device = torch.device(device)
         self.group = group
         self.model_size = int(model)
-        self.client_size = self.size // self.model_size
-        #: this rank's coordinates: rank = c_coord * model_size + m_coord
-        self.c_coord = self.rank // self.model_size
-        self.m_coord = self.rank % self.model_size
+        self.stage_size = int(stage)
+        self.seq_size = int(seq)
+        self.client_size = self.size // (self.model_size * self.stage_size
+                                          * self.seq_size)
+        self.dims = {CLIENT_AXIS: self.client_size,
+                     STAGE_AXIS: self.stage_size,
+                     MODEL_AXIS: self.model_size, SEQ_AXIS: self.seq_size}
+        self.coords = _coords(self.rank, self.dims)
+        #: this rank's coordinates: rank = ((c·s + s)·m + m)·q + q
+        self.c_coord = self.coords[CLIENT_AXIS]
+        self.s_coord = self.coords[STAGE_AXIS]
+        self.m_coord = self.coords[MODEL_AXIS]
+        self.q_coord = self.coords[SEQ_AXIS]
         self.groups = dict(groups or {CLIENT_AXIS: group})
         #: axis sizes, as ``jax.sharding.Mesh.shape`` reads
         self.shape = {a: 1 for a in ALL_AXES}
-        self.shape[CLIENT_AXIS] = self.client_size
-        self.shape[MODEL_AXIS] = self.model_size
+        self.shape.update(self.dims)
 
     def __repr__(self):
-        return (f"Mesh(client={self.client_size}, model={self.model_size}, "
+        return (f"Mesh(client={self.client_size}, stage={self.stage_size}, "
+                f"model={self.model_size}, seq={self.seq_size}, "
                 f"rank={self.rank}, device={self.device})")
 
+    @staticmethod
+    def _axes(axis):
+        """``axis`` as a tuple of axis names (None: every axis)."""
+        if axis is None:
+            return GRID_AXES
+        return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
     def _group(self, axis):
-        """The process group of ``axis``: None or both axes name every
-        rank; ``client`` or ``model`` this rank's group along it."""
-        if axis is None or (isinstance(axis, (tuple, list))
-                            and set(axis) == {CLIENT_AXIS, MODEL_AXIS}):
+        """The process group of ``axis`` (a name or a tuple of names):
+        this rank's group along it, None for the default group (every
+        rank)."""
+        if axis is None:
             return self.group
-        if axis not in (CLIENT_AXIS, MODEL_AXIS):
-            raise ValueError(f"mesh axis {axis!r}: the port's mesh has "
-                             f"{CLIENT_AXIS!r} and {MODEL_AXIS!r}")
-        if axis not in self.groups:
-            raise ValueError(
-                f"this mesh has no {axis!r} group (make it with "
-                "make_mesh(model=...) or make_mesh2d)")
-        return self.groups[axis]
+        axes = self._axes(axis)
+        for a in axes:
+            if a not in self.dims:
+                raise ValueError(f"mesh axis {a!r}: the port's mesh has "
+                                 f"{', '.join(map(repr, GRID_AXES))}")
+        key = axes[0] if len(axes) == 1 else axes
+        if key in self.groups:
+            return self.groups[key]
+        if self.axis_size(axes) == self.size:
+            return self.group
+        names = axis if isinstance(axis, str) else tuple(axis)
+        raise ValueError(
+            f"this mesh has no {names!r} group (make it with "
+            "make_mesh(model=..., stage=..., seq=...) or make_mesh2d)")
 
     def axis_size(self, axis=None) -> int:
-        if axis == CLIENT_AXIS:
-            return self.client_size
-        if axis == MODEL_AXIS:
-            return self.model_size
-        return self.size
+        return math.prod(self.dims[a] for a in self._axes(axis))
+
+    def coord(self, axis) -> int:
+        """This rank's coordinate along ``axis`` (row-major over a
+        tuple)."""
+        c = 0
+        for a in self._axes(axis):
+            c = c * self.dims[a] + self.coords[a]
+        return c
+
+    def _peer(self, axis, coord: int) -> int:
+        """The global rank at coordinate ``coord`` of this rank's group
+        along ``axis``."""
+        return _members(self.coords, self.dims, self._axes(axis))[coord]
 
     # -- collectives ---------------------------------------------------------
     def psum(self, t: torch.Tensor, axis=None) -> torch.Tensor:
@@ -222,25 +295,52 @@ class Mesh:
         fn(out, chunk.contiguous(), group=self._group(axis))
         return out
 
+    def ppermute(self, t: torch.Tensor, axis, shift: int = 1
+                 ) -> torch.Tensor:
+        """The ring shift along ``axis`` (JAX's ``ppermute`` with the perm
+        ``i -> (i + shift) % n``): this rank sends ``t`` to the rank
+        ``shift`` places on and returns what the rank ``shift`` places
+        back sent, by one ``batch_isend_irecv``.  The identity over one
+        rank."""
+        n = self.axis_size(axis)
+        if n == 1 or shift % n == 0:
+            return t.clone()
+        me = self.coord(axis)
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        group = self._group(axis)
+        ops = [dist.P2POp(dist.isend, t, self._peer(axis, (me + shift) % n),
+                          group),
+               dist.P2POp(dist.irecv, out,
+                          self._peer(axis, (me - shift) % n), group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
 
 def make_mesh(client: int = -1, stage: int = 1, data: int = 1,
               model: Optional[int] = None, seq: int = 1,
               device=None) -> Mesh:
     """The canonical federated mesh over the process group (made by
-    :func:`init_world` when there is none): ``client × model`` ranks,
-    rank = ``c_coord·model + m_coord``.  ``client=-1`` absorbs the ranks
-    the model factor leaves; any other value must fill the world with it.
-    ``device`` defaults to the card (``cuda:LOCAL_RANK``).  A ``model``
-    factor given (1 too) makes both axes' groups, so the tensor-parallel
-    code runs over a model group, of one rank at ``model=1``; without one
-    the mesh is the 1-D client mesh over the world, with no model group."""
-    for axis, n in ((STAGE_AXIS, stage), (DATA_AXIS, data),
-                    (SEQ_AXIS, seq)):
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {n}: {_UNPORTED_AXES[axis]} "
-                "is not ported (the port runs the client x model mesh)")
-    two_axes = model is not None
+    :func:`init_world` when there is none): ``client × stage × model ×
+    seq`` ranks in the JAX package's order.  ``client=-1`` absorbs the
+    ranks the other factors leave; any other value must fill the world
+    with them.  ``device`` defaults to the card (``cuda:LOCAL_RANK``).  A
+    ``model`` factor given (1 too), or a ``stage`` or ``seq`` factor above
+    1, makes every axis's groups, so the tensor-parallel code runs over a
+    model group, of one rank at ``model=1``; without them the mesh is the
+    1-D client mesh over the world, with no groups.  A ``data`` factor
+    above 1 raises by name (intra-silo data parallelism is not ported)."""
+    if int(data) > 1:
+        raise NotImplementedError(
+            f"mesh axis {DATA_AXIS!r} of size {data}: intra-silo data "
+            "parallelism is not ported (the port runs the client x stage x "
+            "model x seq mesh)")
+    stage, seq = int(stage), int(seq)
+    if stage < 1 or seq < 1:
+        raise ValueError(f"stage and seq factors must be >= 1, got "
+                         f"{stage} and {seq}")
+    grid = model is not None or stage > 1 or seq > 1
     model = 1 if model is None else int(model)
     if model < 1:
         raise ValueError(f"model factor must be >= 1, got {model}")
@@ -249,28 +349,37 @@ def make_mesh(client: int = -1, stage: int = 1, data: int = 1,
         device = card_device()
     init_world(device)
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % model:
+    fixed = model * stage * seq
+    if world % fixed:
         raise ValueError(
-            f"a model factor of {model} does not divide the {world} ranks "
-            "of the process group")
-    if int(client) not in (-1, world // model):
+            f"stage x model x seq = {stage} x {model} x {seq} does not "
+            f"divide the {world} ranks of the process group")
+    if int(client) not in (-1, world // fixed):
+        factors = [client] + [f for f in (stage, model, seq) if f > 1] \
+            if stage > 1 or seq > 1 else [client, model]
         raise ValueError(
-            f"mesh wants {client} x {model} ranks, and the process group "
-            f"has {world} (start them with torchrun or "
+            f"mesh wants {' x '.join(map(str, factors))} ranks, and the "
+            f"process group has {world} (start them with torchrun or "
             "simulation.mesh.launch.spawn)")
-    if not two_axes:
+    if not grid:
         return Mesh(world, rank, device)
-    client_groups, model_groups = _axis_groups(world, world // model, model)
-    groups = {CLIENT_AXIS: client_groups[rank % model],
-              MODEL_AXIS: model_groups[rank // model]}
-    return Mesh(world, rank, device, model=model, groups=groups)
+    dims = {CLIENT_AXIS: world // fixed, STAGE_AXIS: stage,
+            MODEL_AXIS: model, SEQ_AXIS: seq}
+    kinds = [(a,) for a in GRID_AXES] + [SHARD_AXES]
+    made = _axis_groups(dims, kinds)
+    coords = _coords(rank, dims)
+    groups = {kind[0] if len(kind) == 1 else kind:
+              made[kind][tuple(_members(coords, dims, kind))]
+              for kind in kinds}
+    return Mesh(world, rank, device, model=model, groups=groups,
+                stage=stage, seq=seq)
 
 
 def make_mesh2d(mesh_shape, device=None) -> Mesh:
-    """The 2-D ``(client, model)`` mesh of ``mesh_shape`` (``"c,m"``,
-    ``"cxm"`` or a pair; ``-1`` in the client slot takes the ranks the
-    model factor leaves).  A 3-D shape with a stage factor above 1 raises
-    by name (the pipeline layout is not ported)."""
+    """The 2-D ``(client, model)`` or 3-D ``(client, stage, model)`` mesh
+    of ``mesh_shape`` (``"c,m"``, ``"cxm"``, ``"c,s,m"`` or a pair or
+    triple; ``-1`` in the client slot takes the ranks the other factors
+    leave)."""
     shape = parse_mesh_shape(mesh_shape)
     if shape is None:
         raise ValueError("make_mesh2d needs a mesh shape, got None")

@@ -81,7 +81,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int H, int Hkv, int Sq,
+                          bf16* __restrict__ dv, float* __restrict__ dk32,
+                          float* __restrict__ dv32, int H, int Hkv, int Sq,
                           int Sk, float scale, float scale_log2, int causal) {
   using namespace sm90;
   constexpr int BK = DKV_BK, BQ = DKV_BQ, NT = BK * 2, DP = padded_dim(D);
@@ -198,6 +199,25 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   cp_async_wait<0>();   // with no q tile at all, K/V copies may still be pending
   __syncthreads();
 
+  if (dk32 != nullptr) {
+    // dK, dV in f32 (ring attention's partial gradients), each thread its
+    // fragment's pairs of columns
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h;
+        if (k0 + r < Sk) {
+          const size_t off = koff + (size_t)(k0 + r) * D + 8 * nt + 2 * t;
+          *reinterpret_cast<float2*>(dk32 + off) =
+              make_float2(dka[nt][2 * h], dka[nt][2 * h + 1]);
+          *reinterpret_cast<float2*>(dv32 + off) =
+              make_float2(dva[nt][2 * h], dva[nt][2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
   // dK, dV in bf16, staged through this warp's own rows of the K and V
   // tiles (every read of them is done) so that the global stores are whole
   // rows
@@ -227,11 +247,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// out_f32: dK and dV written in f32 (float buffers), not bf16
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* lse,
                 const void* delta, const void* dout, void* dk, void* dv, int B,
                 int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                cudaStream_t stream) {
+                bool out_f32, cudaStream_t stream) {
   constexpr size_t smem = dkv_bf16_smem<padded_dim(D)>();
   auto kern = flash_bwd_dkv_bf16_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -242,7 +263,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* lse,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      out_f32 ? static_cast<float*>(dk) : nullptr,
+      out_f32 ? static_cast<float*>(dv) : nullptr, H, Hkv, Sq, Sk, scale,
       scale * sm90::LOG2E, causal);
   return (int)cudaGetLastError();
 }
@@ -433,8 +456,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* lse,
 
 }  // namespace fa
 
-// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16;
-// D a multiple of 16 up to 128.
+// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16,
+// 2 = bf16 inputs with dK and dV written in f32; D a multiple of 16 up to
+// 128.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* lse, const void* delta,
                              const void* dout, void* dk, void* dv, int B,
@@ -457,7 +481,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
     return fa::launch_bf16<d>(q, k, v, lse, delta, dout, dk, dv, B, H, Hkv, \
-                              Sq, Sk, scale, causal, s);
+                              Sq, Sk, scale, causal, dtype == 2, s);
     FA_BF16_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
   }

@@ -91,9 +91,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ o,
                          const float* __restrict__ lse,
                          const bf16* __restrict__ dout,
-                         bf16* __restrict__ dq, float* __restrict__ delta,
-                         int H, int Hkv, int Sq, int Sk, float scale,
-                         float scale_log2, int causal) {
+                         bf16* __restrict__ dq, float* __restrict__ dq32,
+                         float* __restrict__ delta, int H, int Hkv, int Sq,
+                         int Sk, float scale, float scale_log2, int causal) {
   using namespace sm90;
   constexpr int BQ = DQ_BQ, BK = DQ_BK, NT = BQ * 2, DP = padded_dim(D);
   constexpr int QBYTES = BQ * DP * 2, KBYTES = BK * DP * 2;
@@ -202,6 +202,22 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();   // the stage is refilled by the next iteration
   }
 
+  if (dq32 != nullptr) {
+    // dQ in f32 (ring attention's partial gradients), each thread its
+    // fragment's pairs of columns
+    float* dqb = dq32 + qoff + (size_t)q0 * D;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + g + 8 * i;
+        if (q0 + r < Sq)
+          *reinterpret_cast<float2*>(dqb + (size_t)r * D + 8 * nt + 2 * t) =
+              make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+      }
+    }
+    return;
+  }
   // dQ in bf16, staged through this warp's own rows of the Q tile (every
   // read of it is done: the loop ends on a barrier after the last
   // products) so that the global stores are whole rows
@@ -227,11 +243,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// out_f32: dQ written in f32 (``dq`` a float buffer), not bf16
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* lse, const void* dout, void* dq, void* delta,
                 int B, int H, int Hkv, int Sq, int Sk, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, bool out_f32, cudaStream_t stream) {
   constexpr size_t smem = dq_bf16_smem<padded_dim(D)>();
   auto kern = flash_bwd_dq_bf16_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -242,8 +259,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), static_cast<float*>(delta), H, Hkv, Sq, Sk,
-      scale, scale * sm90::LOG2E, causal);
+      static_cast<bf16*>(dq), out_f32 ? static_cast<float*>(dq) : nullptr,
+      static_cast<float*>(delta), H, Hkv, Sq, Sk, scale,
+      scale * sm90::LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -423,8 +441,8 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace fa
 
-// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16;
-// D a multiple of 16 up to 128.
+// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16,
+// 2 = bf16 inputs with dQ written in f32; D a multiple of 16 up to 128.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* o, const void* lse, const void* dout,
                             void* dq, void* delta, int B, int H, int Hkv,
@@ -446,7 +464,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
     return fa::launch_bf16<d>(q, k, v, o, lse, dout, dq, delta, B, H, Hkv,  \
-                              Sq, Sk, scale, causal, s);
+                              Sq, Sk, scale, causal, dtype == 2, s);
     FA_BF16_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
   }

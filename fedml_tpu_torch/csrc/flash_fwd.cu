@@ -130,8 +130,9 @@ template <int D>
 __global__ void __launch_bounds__(FWD_BQ * 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                      float scale_log2, int causal) {
+                      float* __restrict__ o32, float* __restrict__ lse,
+                      int H, int Hkv, int Sq, int Sk, float scale_log2,
+                      int causal) {
   using namespace sm90;
   constexpr int BQ = FWD_BQ, BK = FWD_BK, NT = BQ * 2, DP = padded_dim(D);
   constexpr int QBYTES = BQ * DP * 2, KBYTES = BK * DP * 2;
@@ -202,29 +203,46 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();   // the stage is refilled by the next iteration
   }
 
-  // O = acc / l in bf16, staged through this warp's own rows of the Q tile
-  // (every read of it is done) so that the global stores are whole rows
 #pragma unroll
   for (int i = 0; i < 2; ++i) l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
-  unsigned char* sQp = smem;
+  if (o32 != nullptr) {
+    // O = acc / l in f32 (ring attention's partial outputs), each thread
+    // its fragment's pairs of columns
+    float* ob = o32 + ((size_t)bh * Sq + q0) * D;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < D / 8; ++nt) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + g + 8 * i;
-      *reinterpret_cast<uint32_t*>(sQp + swz<BQ>(r, nt) + 4 * t) =
-          pack_bf16(acc[nt][2 * i] / l[i], acc[nt][2 * i + 1] / l[i]);
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + g + 8 * i;
+        if (q0 + r < Sq)
+          *reinterpret_cast<float2*>(ob + (size_t)r * D + 8 * nt + 2 * t) =
+              make_float2(acc[nt][2 * i] / l[i], acc[nt][2 * i + 1] / l[i]);
+      }
     }
-  }
-  __syncwarp();
-  bf16* ob = o + ((size_t)bh * Sq + q0) * D;
+  } else {
+    // O = acc / l in bf16, staged through this warp's own rows of the Q
+    // tile (every read of it is done) so that the global stores are whole
+    // rows
+    unsigned char* sQp = smem;
 #pragma unroll
-  for (int it = 0; it < 16 * (D / 8) / 32; ++it) {
-    const int idx = it * 32 + lane;
-    const int r = r0 + idx / (D / 8), c = idx % (D / 8);
-    if (q0 + r < Sq)
-      *reinterpret_cast<uint4*>(ob + (size_t)r * D + c * 8) =
-          *reinterpret_cast<const uint4*>(sQp + swz<BQ>(r, c));
+    for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + g + 8 * i;
+        *reinterpret_cast<uint32_t*>(sQp + swz<BQ>(r, nt) + 4 * t) =
+            pack_bf16(acc[nt][2 * i] / l[i], acc[nt][2 * i + 1] / l[i]);
+      }
+    }
+    __syncwarp();
+    bf16* ob = o + ((size_t)bh * Sq + q0) * D;
+#pragma unroll
+    for (int it = 0; it < 16 * (D / 8) / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int r = r0 + idx / (D / 8), c = idx % (D / 8);
+      if (q0 + r < Sq)
+        *reinterpret_cast<uint4*>(ob + (size_t)r * D + c * 8) =
+            *reinterpret_cast<const uint4*>(sQp + swz<BQ>(r, c));
+    }
   }
   if (t == 0) {
 #pragma unroll
@@ -235,10 +253,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// out_f32: O written in f32 (``o`` a float buffer), not bf16
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, bool out_f32, cudaStream_t stream) {
   constexpr size_t smem = fwd_bf16_smem<padded_dim(D)>();
   auto kern = flash_fwd_bf16_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -248,7 +267,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, FWD_BQ * 2, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Sk, scale * sm90::LOG2E, causal);
+      out_f32 ? static_cast<float*>(o) : nullptr, static_cast<float*>(lse),
+      H, Hkv, Sq, Sk, scale * sm90::LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -388,7 +408,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace fa
 
-// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16;
+// Returns a cudaError_t code (0 = cudaSuccess).  dtype: 0 = f32, 1 = bf16,
+// 2 = bf16 inputs with O written in f32;
 // D a multiple of 16 up to 128.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int Hkv, int Sq, int Sk,
@@ -410,7 +431,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
 #define FA_CASE(d)                                                          \
   case d:                                                                   \
     return fa::launch_bf16<d>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale,    \
-                              causal, s);
+                              causal, dtype == 2, s);
     FA_BF16_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
   }

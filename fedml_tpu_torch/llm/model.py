@@ -44,10 +44,11 @@ does with :func:`param_sharding_rules`' specs.  ``wq``/``wk``/``wv``/
 ``w_gate``/``w_up`` keep their output columns of this rank, ``wo``/
 ``w_down`` their input rows; the embedding keeps its vocabulary rows and
 ``lm_head`` its input rows.  A column-parallel layer's input goes through
-:class:`_CopyToModel` (identity forward, all-reduce backward over the
+:func:`copy_to_model` (identity forward, all-reduce backward over the
 model group), a row-parallel layer's partial output through
-:class:`_ReduceFromModel` (all-reduce forward, identity backward), so the
-residual stream is whole and the same on every rank.  Attention runs
+:func:`reduce_from_model` (all-reduce forward, identity backward): the
+f/g pair of ``ops/pipeline.py``, so the residual stream is whole and the
+same on every rank.  Attention runs
 ``n_heads/m`` query heads and ``n_kv_heads/m`` KV heads a rank through
 the flash kernels (K1–K3) on those local heads; the KV cache holds the
 local KV heads.  LoRA adapters stay whole on every rank (their gradients
@@ -55,6 +56,13 @@ summed over the model group by the caller); a column-parallel
 projection applies its B's columns, a row-parallel one its A's rows.
 MoE experts split over the model group (:mod:`.moe`).  With a model
 group of one rank the same code runs, its collectives the identity.
+
+``attn_impl="ring"`` with a mesh that has a ``seq`` group
+(``make_mesh(seq=n)``) is sequence parallelism: each rank feeds its
+``S/n`` token shard and attention runs as ring attention over the group
+(``ops/ring_attention.py``, K1–K3 per ring block).  As in the JAX model
+inside a ``seq`` shard, positions are ``arange(S_local)`` on every shard:
+each shard's RoPE restarts at 0 (a reference quirk, reproduced).
 
 Type promotion follows the flax model exactly: RMSNorm normalises in f32,
 casts to the input type, then multiplies by its f32 scale (so in the bf16
@@ -77,6 +85,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..models.base import lecun_normal
 from ..ops.attention import blockwise_attention, flash_attention
+from ..ops.pipeline import psum_keepgrad, sumgrad
+from ..ops.ring_attention import ring_attention
 from .moe import MoEMLP
 
 LoRA = Dict[str, torch.Tensor]
@@ -97,39 +107,17 @@ class _TP:
         return slice(self.rank * k, (self.rank + 1) * k)
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward; backward all-reduces the gradient over the model
-    group (the input of a column-parallel layer)."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.tp.mesh.psum(g.contiguous(), axis="model"), None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """All-reduce over the model group forward (the partial output of a
-    row-parallel layer); identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        return tp.mesh.psum(x.contiguous(), axis="model")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def copy_to_model(x, tp: Optional[_TP]):
-    return x if tp is None else _CopyToModel.apply(x, tp)
+    """Identity forward; the gradient all-reduced over the model group
+    (the input of a column-parallel layer): ``ops/pipeline.py::sumgrad``."""
+    return x if tp is None else sumgrad(x, tp.mesh, "model")
 
 
 def reduce_from_model(x, tp: Optional[_TP]):
-    return x if tp is None else _ReduceFromModel.apply(x, tp)
+    """All-reduce over the model group forward (the partial output of a
+    row-parallel layer), identity backward:
+    ``ops/pipeline.py::psum_keepgrad``."""
+    return x if tp is None else psum_keepgrad(x, tp.mesh, "model")
 
 
 def _tp_rule(role: str, shape, cfg: "LlamaConfig", m: int):
@@ -221,7 +209,9 @@ class LlamaConfig:
     #: RMSNorm scales stay f32.
     param_dtype: Any = None
     #: auto | flash: the flash kernels; blockwise: the plain streaming
-    #: softmax (autograd); ring: over the mesh (not ported, refused)
+    #: softmax (autograd); ring: the kernels as ring attention over the
+    #: mesh's ``seq`` group (``ops/ring_attention.py``; one diagonal K1
+    #: call without one)
     attn_impl: str = "auto"
     remat: str = "full"         # full | dots | none
     lora_rank: int = 0
@@ -248,10 +238,6 @@ class LlamaConfig:
         if self.attn_impl not in ("auto", "blockwise", "flash", "ring"):
             raise ValueError(f"attn_impl={self.attn_impl!r}: must be "
                              "'auto', 'blockwise', 'flash', or 'ring'")
-        if self.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring': ring attention over the mesh is not "
-                "ported yet")
         if self.kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: "
                              "must be 'native' or 'int8'")
@@ -602,6 +588,10 @@ class Attention(nn.Module):
             k = _rope(k, positions, cfg.rope_theta)
             if cfg.attn_impl == "blockwise":
                 out = blockwise_attention(q, k, v, causal=True)
+            elif cfg.attn_impl == "ring":
+                out = ring_attention(q, k, v,
+                                     None if self.tp is None else
+                                     self.tp.mesh, causal=True)
             else:
                 out = flash_attention(q, k, v, True, None)
         out = out.transpose(1, 2).reshape(b, s, self.hq * hd)

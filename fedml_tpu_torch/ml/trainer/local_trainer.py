@@ -155,10 +155,17 @@ class LocalTrainer:
         return loss
 
     # -- one step (pure) -----------------------------------------------------
+    def grad_and_loss(self, params, x, y, dropout_masks=None, ctx=None,
+                      client_state=None):
+        """``(grads, loss)`` of one batch; the pipeline trainer
+        (``simulation/mesh/pipeline.py``) computes its own."""
+        return torch.func.grad_and_value(self.loss_fn)(
+            params, x, y, dropout_masks, ctx, client_state)
+
     def train_step(self, carry, x, y, mask, dropout_masks=None, ctx=None):
         params, opt_state, c_client, gsum, nsteps, loss_acc = carry
-        grads, loss = torch.func.grad_and_value(self.loss_fn)(
-            params, x, y, dropout_masks, ctx, c_client)
+        grads, loss = self.grad_and_loss(params, x, y, dropout_masks, ctx,
+                                         c_client)
         if self.algorithm == "scaffold" and ctx.c_server is not None:
             grads = {k: g + ctx.c_server[k] - c_client[k]
                      for k, g in grads.items()}

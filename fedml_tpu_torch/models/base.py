@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -113,6 +113,30 @@ def orthogonal(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class PipelineDef:
+    """Layer-indexed stage assignment of a staged model (port of
+    ``fedml_tpu.models.base.PipelineDef``).  The named ``stage_leaves``
+    are parameters stacked on a leading layer axis (dim 0), which the
+    pipeline layout splits over ``stage`` in contiguous chunks (and, for
+    ndim >= 3, dim 1 over ``model``, row-parallel).  The three functions
+    are the model's forward split at the stage boundaries, over a
+    ``{name: tensor}`` dict holding this rank's shards of the staged
+    leaves and the others whole."""
+
+    #: parameter names stacked ``(depth, ...)`` on dim 0
+    stage_leaves: Tuple[str, ...]
+    #: activation width crossing stage boundaries
+    hidden: int
+    #: ``(params, x) -> h``: the stage-0 input transform
+    embed: Callable[[Any, Any], Any]
+    #: ``(params, h, mesh) -> h``: this rank's layer chunk in order,
+    #: row-parallel over ``mesh``'s model group (plain with ``None``)
+    blocks: Callable[..., Any]
+    #: ``(params, h) -> logits``: the last stage's output head
+    head: Callable[[Any, Any], Any]
+
+
+@dataclasses.dataclass
 class TorchModel:
     module: nn.Module
     #: shape of ONE example (no batch dim), in the dataset's HWC layout
@@ -125,6 +149,9 @@ class TorchModel:
     has_dropout: bool = False
     #: dtype of the inputs (int32 token ids for the text and LSTM models)
     input_dtype: torch.dtype = torch.float32
+    #: staged-execution record of a model the 3-D ``client × stage ×
+    #: model`` pipeline layout can run (``simulation/mesh/pipeline.py``)
+    pipeline: Optional[PipelineDef] = None
 
     def init(self, generator: torch.Generator) -> TensorDict:
         """flax's default initialisers, per parameter (:func:`param_kinds`):

@@ -11,7 +11,8 @@ language models (``rnn``/``rnn_fedavg``/``rnn_shakespeare`` and
 transformer (``text_transformer``, ``transformer_cls``, ``distilbert``,
 ``bert``), the DARTS supernet of FedNAS (``darts``, ``darts_search``) and
 the segmentation UNet of FedSeg (``unet``, ``unet_small``, ``deeplab``,
-task ``"segmentation"``) and the causal LM (``transformer``, ``gpt``,
+task ``"segmentation"``), the layer-stacked ``pipe_mlp`` of the pipeline
+layout (``model_dim`` 64, ``model_layers`` 4 by default) and the causal LM (``transformer``, ``gpt``,
 ``llama``, ``tiny_llama``: ``llm/model.py::build_causal_lm``, task
 ``"lm"``).  Returns a :class:`TorchModel` whose module lives
 on the ``meta`` device (shapes only; parameters are passed at apply time).
@@ -50,7 +51,7 @@ CAUSAL_LM_NAMES = ("transformer", "gpt", "llama", "tiny_llama")
 PORTED = ("lr", "logistic_regression", "mlp", "cnn", "cnn_web", "cnn_cifar",
           "resnet18", "resnet18_gn", "resnet18_gn_w<k>", "resnet56",
           "resnet20", "resnet20_mnn", "mobilenet", "mobilenet_v3",
-          "efficientnet", "gcn", "graph", "fedgraphnn") + tuple(
+          "efficientnet", "gcn", "graph", "fedgraphnn", "pipe_mlp") + tuple(
               VGG_DEPTHS) + RNN_NAMES + RNN_NWP_NAMES + TEXT_NAMES + \
     DARTS_NAMES + UNET_NAMES + CAUSAL_LM_NAMES
 
@@ -75,6 +76,11 @@ def create(args, output_dim: int = 10) -> TorchModel:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (the port creates "
             f"{', '.join(PORTED)})")
+    if name == "pipe_mlp":
+        from .pipe_mlp import pipe_mlp
+        return pipe_mlp(hidden=int(getattr(args, "model_dim", 64) or 64),
+                        depth=int(getattr(args, "model_layers", 4) or 4),
+                        output_dim=output_dim, input_shape=_img_shape(args))
     if name in CAUSAL_LM_NAMES:
         from ..llm.model import build_causal_lm
         return build_causal_lm(args, output_dim)

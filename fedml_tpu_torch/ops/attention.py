@@ -18,6 +18,8 @@ Each kernel has a wrapper (:func:`flash_attention_fwd`,
 :func:`flash_attention_bwd_dq`, :func:`flash_attention_bwd_dkv`) that
 launches it for CUDA tensors — or raises — and takes the kernel's plain
 PyTorch version (the ``*_plain`` functions below) only for CPU tensors.
+``out_f32`` has a bf16 build write its outputs in f32 (rounded, they are
+its bf16 outputs): ring attention sums them over its blocks.
 Each wrapper counts its launches in its ``launches`` attribute (inside a
 CUDA graph it counts the capture, not the replays).  :func:`flash_attention`
 composes with ``torch.func.grad``/``grad_and_value`` and ``vmap``: under a
@@ -46,15 +48,17 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
     return float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
 
 
-def _blockwise(q, k, v, causal: bool, sm_scale: float, block_k: int):
-    """(out, lse) by the streaming-softmax recurrence over KV blocks."""
+def _blockwise(q, k, v, causal: bool, sm_scale: float, block_k: int,
+               out_f32: bool = False):
+    """(out, lse) by the streaming-softmax recurrence over KV blocks (out
+    in f32 with ``out_f32``, else in q's type)."""
     if q.dim() == 4 and k.dim() == 4 and k.shape[1] != q.shape[1]:
         b, h, s_q, d = q.shape
         h_kv = k.shape[1]
         assert h % h_kv == 0, (h, h_kv)
         qg = q.reshape(b, h_kv, h // h_kv, s_q, d)
         out, lse = _blockwise(qg, k[:, :, None], v[:, :, None], causal,
-                              sm_scale, block_k)
+                              sm_scale, block_k, out_f32)
         return out.reshape(b, h, s_q, d), lse.reshape(b, h, s_q)
     s_q, s_k = q.shape[-2], k.shape[-2]
     block_k = min(block_k, s_k)
@@ -79,7 +83,8 @@ def _blockwise(q, k, v, causal: bool, sm_scale: float, block_k: int):
         acc = acc * alpha[..., None] + p.to(v.dtype).float() @ vblk.float()
         m = m_new
     l_safe = torch.clamp_min(l, 1e-30)
-    return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+    out = acc / l_safe[..., None]
+    return out if out_f32 else out.to(q.dtype), m + torch.log(l_safe)
 
 
 def blockwise_attention(q, k, v, causal: bool = True,
@@ -92,10 +97,11 @@ def blockwise_attention(q, k, v, causal: bool = True,
 
 # -- plain versions of the three kernels ---------------------------------
 def flash_attention_fwd_plain(q, k, v, causal: bool = True,
-                              sm_scale: Optional[float] = None
+                              sm_scale: Optional[float] = None,
+                              out_f32: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: (O, lse)."""
-    return _blockwise(q, k, v, causal, _scale(q, sm_scale), 256)
+    return _blockwise(q, k, v, causal, _scale(q, sm_scale), 256, out_f32)
 
 
 def _bwd_plain_common(q, k, v, lse, delta, do, causal, sm_scale):
@@ -116,17 +122,20 @@ def _bwd_plain_common(q, k, v, lse, delta, do, causal, sm_scale):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
-                                 sm_scale: Optional[float] = None):
+                                 sm_scale: Optional[float] = None,
+                                 out_f32: bool = False):
     """Plain version of K2: (dQ, Δ) with Δ = rowsum(dO∘O) in f32."""
     sm_scale = _scale(q, sm_scale)
     delta = (do.float() * o.float()).sum(-1)
     kf, _, ds = _bwd_plain_common(q, k, v, lse, delta, do, causal, sm_scale)
-    return (ds.to(k.dtype).float() @ kf).to(q.dtype), delta
+    dq = ds.to(k.dtype).float() @ kf
+    return (dq if out_f32 else dq.to(q.dtype)), delta
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
                                   causal: bool = True,
-                                  sm_scale: Optional[float] = None):
+                                  sm_scale: Optional[float] = None,
+                                  out_f32: bool = False):
     """Plain version of K3: (dK, dV), group-summed over each KV head's q
     heads in f32."""
     sm_scale = _scale(q, sm_scale)
@@ -136,6 +145,8 @@ def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
     b, h_kv, s_k, d = k.shape
     dk = dk.reshape(b, h_kv, -1, s_k, d).sum(2)
     dv = dv.reshape(b, h_kv, -1, s_k, d).sum(2)
+    if out_f32:
+        return dk, dv
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -197,60 +208,74 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name: str, tensors, q, k, causal: bool,
-            sm_scale: Optional[float]) -> None:
+            sm_scale: Optional[float], out_f32: bool = False) -> None:
     """Call ``csrc/<name>.cu`` on ``tensors`` (pointers in the C order) on
-    the current stream of q's device; raise unless it returned cudaSuccess."""
+    the current stream of q's device; raise unless it returned cudaSuccess.
+    ``out_f32`` with bf16 inputs: the outputs are f32 buffers (the C
+    ``dtype`` 2)."""
     b, h, s_q, d = q.shape
+    dtype = 2 if out_f32 and q.dtype == torch.bfloat16 else _DTYPES[q.dtype]
     lib = cuda_build.library(name)
     with torch.cuda.device(q.device):
         rc = getattr(lib, name)(
             *(t.data_ptr() for t in tensors), b, h, k.shape[1], s_q,
-            k.shape[2], d, _scale(q, sm_scale), int(causal), _DTYPES[q.dtype],
+            k.shape[2], d, _scale(q, sm_scale), int(causal), dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, name, rc)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
-                        sm_scale: Optional[float] = None):
-    """K1: (O, lse).  CPU tensors take :func:`flash_attention_fwd_plain`."""
+                        sm_scale: Optional[float] = None,
+                        out_f32: bool = False):
+    """K1: (O, lse); O in f32 with ``out_f32`` (ring attention's partial
+    outputs), else in q's type.  CPU tensors take
+    :func:`flash_attention_fwd_plain`."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
+        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, out_f32)
     _check("flash_fwd", q, k, v)
     q, k, v = map(_aligned, (q, k, v))
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype,
+                    device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v, o, lse), q, k, causal, sm_scale)
+    _launch("flash_fwd", (q, k, v, o, lse), q, k, causal, sm_scale, out_f32)
     flash_attention_fwd.launches += 1
     return o, lse
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
-                           sm_scale: Optional[float] = None):
-    """K2: (dQ, Δ).  CPU tensors take :func:`flash_attention_bwd_dq_plain`."""
+                           sm_scale: Optional[float] = None,
+                           out_f32: bool = False):
+    """K2: (dQ, Δ); dQ in f32 with ``out_f32``.  CPU tensors take
+    :func:`flash_attention_bwd_dq_plain`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal,
-                                            sm_scale)
+                                            sm_scale, out_f32)
     _check("flash_bwd_dq", q, k, v, o=o, lse=lse, do=do)
     q, k, v, o, do = map(_aligned, (q, k, v, o, do))
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype,
+                     device=q.device)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dq", (q, k, v, o, lse, do, dq, delta), q, k, causal,
-            sm_scale)
+            sm_scale, out_f32)
     flash_attention_bwd_dq.launches += 1
     return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
-                            sm_scale: Optional[float] = None):
-    """K3: (dK, dV).  CPU tensors take :func:`flash_attention_bwd_dkv_plain`."""
+                            sm_scale: Optional[float] = None,
+                            out_f32: bool = False):
+    """K3: (dK, dV); in f32 with ``out_f32``.  CPU tensors take
+    :func:`flash_attention_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal,
-                                             sm_scale)
+                                             sm_scale, out_f32)
     _check("flash_bwd_dkv", q, k, v, lse=lse, delta=delta, do=do)
     q, k, v, do = map(_aligned, (q, k, v, do))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    odt = torch.float32 if out_f32 else k.dtype
+    dk = torch.empty(k.shape, dtype=odt, device=k.device)
+    dv = torch.empty(v.shape, dtype=odt, device=v.device)
     _launch("flash_bwd_dkv", (q, k, v, lse, delta, do, dk, dv), q, k, causal,
-            sm_scale)
+            sm_scale, out_f32)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

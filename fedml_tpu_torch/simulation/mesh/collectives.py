@@ -4,9 +4,10 @@ payloads and the modeled interconnect bytes per mesh axis (port of
 
 :func:`wire_cast` gives the payload dtype of a quantized collective: bf16
 values move and are summed at bf16; int8 payloads are dequantized before
-the reduction, so it runs in f32.  :func:`client_axis_bytes` and
-:func:`model_axis_bytes` are the JAX package's byte model, line for line
-(``MeshFedAvgAPI.collective_bytes`` applies it).
+the reduction, so it runs in f32.  :func:`client_axis_bytes`,
+:func:`stage_axis_bytes` and :func:`model_axis_bytes` are the JAX
+package's byte model, line for line (``MeshFedAvgAPI.collective_bytes``
+applies it).
 
 The rest of the JAX module lives where the port's callers are: its
 ``psum_wavg`` is ``core/federated.py::PsumReducer``; its per-shard keys
@@ -45,6 +46,28 @@ def client_axis_bytes(n_flat: int, n_client_shards: int, precision: str,
     (``blockscale.modeled_collective_bytes``)."""
     return float(blockscale.modeled_collective_bytes(
         n_flat, n_client_shards, precision, quant_block, mode))
+
+
+def stage_axis_bytes(n_flat: int, n_stage_shards: int,
+                     param_bytes: int = 4, mode: str = "scatter",
+                     hidden: int = 0, microbatch: int = 0,
+                     n_micro: int = 0, steps: int = 0) -> float:
+    """Payload bytes a round crossing the ``stage`` axis on the 3-D
+    pipeline layout.  The merge plane: in the scatter layout two flat-view
+    moves of ``(s-1)/s`` of the flat length each (zero replicated: the
+    params rest stage-sharded).  The train plane: every schedule tick
+    moves one ``(microbatch, hidden)`` f32 activation a rank around the
+    stage ring, ``n_micro + s - 1`` ticks a local step, and the backward
+    moves the gradients back (the 2), ``steps`` local steps a round; the
+    bubble ticks move full payloads too.  Zero when ``s == 1``."""
+    if n_stage_shards <= 1:
+        return 0.0
+    merge = (2.0 * float(n_flat) * (n_stage_shards - 1) / n_stage_shards
+             * float(param_bytes)) if mode == "scatter" else 0.0
+    ticks = n_micro + n_stage_shards - 1
+    train = (2.0 * float(ticks) * float(microbatch) * float(hidden)
+             * float(param_bytes) * float(steps))
+    return merge + train
 
 
 def model_axis_bytes(n_flat: int, n_model_shards: int,

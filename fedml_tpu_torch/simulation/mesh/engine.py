@@ -51,14 +51,33 @@ shards (every transition is elementwise).  A quantized merge sums the
 model group's contributions in f32 first and quantizes once a client
 shard, against that shard's EF row (its columns over the model group).
 
+On the 3-D ``client × stage × model`` pipeline layout (``mesh_shape=
+"c,s,m"`` on a staged model, :mod:`.layout`, :mod:`.pipeline`) the cohort
+spreads over the client shards only: the ``s·m`` ranks of a shard train
+its clients one after another, each step a microbatched pipeline over the
+stage ring on the rank's own layer chunk (no gather), and every
+reduction over the cohort runs over the client group.  The replicated
+merge all-reduces each rank's shards over the client group; the scatter
+merge places each rank's shards into whole leaves (zero elsewhere,
+``layout.place``) and reduce-scatters the flat vector over every rank,
+chunk = rank; the EF rows' columns chunk over ``(stage, model)``.
+
+The client-state plane: ``registered_clients``, ``client_store`` (each
+rank's host store holds its client shard's ids and its shard of each row,
+and a round runs on a device mini-table of the cohort's rows),
+``data_paging`` and ``checkpoint_dir`` (the whole state and client state,
+saved by rank 0; :meth:`MeshFedAvgAPI.maybe_resume`).
+
 ``round_block`` K > 1 replays each round of a block as a CUDA graph on the
 card (``round_engine.BlockRoundFn``) with the merge's NCCL collectives
-captured inside the graph.
+captured inside the graph, and on the pipeline layout the stage ring's
+send/recv too.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -73,7 +92,8 @@ from ..round_engine import BlockRoundFn, draw_dropout, ef_numerator, \
     next_pow2, payload_noise
 from ..sp.fedavg_api import FedAvgAPI
 from ..staging import AsyncCohortStager
-from .collectives import client_axis_bytes, model_axis_bytes, wire_cast
+from .collectives import (client_axis_bytes, model_axis_bytes,
+                          stage_axis_bytes, wire_cast)
 from .layout import MeshLayout
 
 log = logging.getLogger(__name__)
@@ -136,13 +156,19 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             f"collective_precision={precision!r} quantizes the avg_params "
             f"merge numerator, which the {server_opt.algorithm!r} spec "
             "does not use")
-    two_d = layout.two_d
-    if (scatter or two_d) and flat_pad is None:
-        raise ValueError("the scatter layout and a 2-D mesh need the padded "
-                         "flat view")
-    program = federated.RoundProgram(spec, trainer.make_local_train(),
-                                     server_opt, "vmap")
+    two_d, pipe = layout.two_d, layout.pipeline
+    if (scatter or layout.sharded) and flat_pad is None:
+        raise ValueError("the scatter layout and a 2-D or 3-D mesh need the "
+                         "padded flat view")
+    if pipe:
+        from .pipeline import make_pipeline_cohort
+        program = make_pipeline_cohort(trainer, spec, server_opt)
+    else:
+        program = federated.RoundProgram(spec, trainer.make_local_train(),
+                                         server_opt, "vmap")
     n, rank = layout.n_ranks, layout.rank
+    #: the ranks the cohort's clients spread over (None: every rank)
+    cohort = layout.cohort_axis
 
     def cohort_data(data, rows):
         if train_x is None:
@@ -152,30 +178,34 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         if data_lo is None:
             idx = idx[rows]
             return train_x[idx], train_y[idx]
-        # dataset rows sharded over the ranks: one all-reduce assembles
-        # the cohort's examples on every rank
-        return (sharded_take(train_x, idx, data_lo, mesh)[rows],
-                sharded_take(train_y, idx, data_lo, mesh)[rows])
+        # dataset rows sharded over the row shards: one all-reduce
+        # assembles the cohort's examples on every rank
+        return (sharded_take(train_x, idx, data_lo, mesh, cohort)[rows],
+                sharded_take(train_y, idx, data_lo, mesh, cohort)[rows])
 
-    def table_gather(table, cohort, rows):
+    def table_gather(table, cohort_ids, rows):
         """This rank's clients' rows of the row-sharded table (on 2-D its
-        block's rows gathered over the model group first)."""
+        block's rows gathered over the model group first; on 3-D the rows
+        stay this rank's shards, as the pipeline trains on them)."""
         held = next(iter(table.values())).shape[0] - 1
-        block = layout.gather_tree({k: t[:held] for k, t in table.items()},
-                                   off=1)
-        got = sharded_take(block, cohort, layout.c_coord * held, mesh,
-                           axis="client" if two_d else None)
+        block = {k: t[:held] for k, t in table.items()}
+        if two_d:
+            block = layout.gather_tree(block, off=1)
+        got = sharded_take(block, cohort_ids, layout.c_coord * held, mesh,
+                           axis="client" if layout.sharded else None)
         return {k: v[rows] for k, v in got.items()}
 
-    def table_scatter(table, cohort, new_rows, inplace):
-        """The cohort's new rows (every rank's, all-gathered) written into
-        the rows this rank holds (on 2-D their model shards); the others
-        go to the scratch row."""
+    def table_scatter(table, cohort_ids, new_rows, inplace):
+        """The cohort's new rows (every row shard's, all-gathered) written
+        into the rows this rank holds (on 2-D their model shards); the
+        others go to the scratch row."""
         held = next(iter(table.values())).shape[0] - 1
-        local = cohort - layout.c_coord * held
+        local = cohort_ids - layout.c_coord * held
         local = torch.where((local >= 0) & (local < held), local, held)
-        new_rows = layout.shard_tree(
-            {k: mesh.all_gather(v) for k, v in new_rows.items()}, off=1)
+        new_rows = {k: mesh.all_gather(v, axis=cohort)
+                    for k, v in new_rows.items()}
+        if two_d:
+            new_rows = layout.shard_tree(new_rows, off=1)
         if inplace:
             for k, t in table.items():
                 t.index_copy_(0, local, new_rows[k].to(t.dtype))
@@ -183,28 +213,30 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         return {k: t.index_copy(0, local, new_rows[k].to(t.dtype))
                 for k, t in table.items()}
 
-    def ef_2d(state: ServerState, outs, w, den, noise):
-        """The 2-D EF-quantized numerator: the model group's
-        contributions summed in f32, plus this client shard's EF row
-        (gathered from its column chunks), quantized with the shard's
-        slot-0 noise.  Returns ``(deq, new_ef_cols)``: the whole
-        dequantized payload (the same on every rank of the group) and
-        this rank's chunk of the new residual row."""
-        part = flat_pad.flatten(federated.weighted_sums(outs.params, w)) / den
-        v = mesh.psum(part, axis="model") + \
-            mesh.all_gather(state.ef_num[0], axis="model")
+    def ef_sharded(state: ServerState, outs, w, den, noise):
+        """The EF-quantized numerator on 2-D and 3-D: the client shard's
+        contributions summed in f32 over its ranks (2-D: its model group's
+        clients; 3-D: the shards of its clients, placed whole), plus the
+        shard's EF row (gathered from its column chunks), quantized with
+        the shard's slot-0 noise.  Returns ``(deq, new_ef_cols)``: the
+        whole dequantized payload (the same on every rank of the client
+        shard) and this rank's chunk of the new residual row."""
+        part = flat_pad.flatten(layout.place(
+            federated.weighted_sums(outs.params, w))) / den
+        v = mesh.psum(part, axis=layout.shard_axis) + \
+            mesh.all_gather(state.ef_num[0], axis=layout.shard_axis)
         deq, _ = blockscale.collective_quantize(
             v, precision, payload_noise(noise, 0, precision, v.shape[0],
                                         quant_block), quant_block)
-        per = v.shape[0] // layout.n_model_shards
-        lo = layout.m_coord * per
+        per = v.shape[0] // layout.n_shard_ranks
+        lo = layout.shard_coord * per
         return deq, (v - deq)[None, lo:lo + per]
 
     def merge_replicated(state: ServerState, full, outs, w, noise):
         if two_d:
             red = federated.Psum2DReducer(layout)
         else:
-            red = federated.PsumReducer(mesh)
+            red = federated.PsumReducer(mesh, cohort)
         if not quantized:
             agg = federated.build_aggregates(spec, red, server_opt, state,
                                              outs, w)
@@ -214,9 +246,9 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         # wire precision; auxiliary aggregates stay fp32
         agg = federated.build_aggregates(spec, red, server_opt, state, outs,
                                          w, include_avg=False)
-        den = mesh.psum(torch.sum(w))
-        if two_d:
-            deq, new_ef = ef_2d(state, outs, w, den, noise)
+        den = mesh.psum(torch.sum(w), cohort)
+        if layout.sharded:
+            deq, new_ef = ef_sharded(state, outs, w, den, noise)
             agg["avg_params"] = layout.shard_tree(flat_pad.unflatten(
                 mesh.psum(wire_cast(deq, precision),
                           axis="client").to(torch.float32)))
@@ -229,14 +261,14 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         return new_state.replace(ef_num=new_ef)
 
     def merge_scatter(state: ServerState, full, outs, w, noise):
-        red = federated.ScatterReducer(flat_pad, mesh)
+        red = federated.ScatterReducer(flat_pad, mesh, cohort, layout.place)
         fields = {}
         if quantized:
             agg = federated.build_aggregates(spec, red, server_opt, state,
                                              outs, w, include_avg=False)
-            den = mesh.psum(torch.sum(w))
-            if two_d:
-                deq, fields["ef_num"] = ef_2d(state, outs, w, den, noise)
+            den = mesh.psum(torch.sum(w), cohort)
+            if layout.sharded:
+                deq, fields["ef_num"] = ef_sharded(state, outs, w, den, noise)
                 summed = mesh.psum(wire_cast(deq, precision), axis="client")
                 agg["avg_params"] = flat_pad.chunk(summed, rank, n).to(
                     torch.float32)
@@ -270,23 +302,30 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         return state.replace(round_idx=state.round_idx + 1,
                              global_params=new_params, **fields)
 
-    def core(state: ServerState, data, mask, w, drop, cohort, table,
+    def core(state: ServerState, data, mask, w, drop, cohort_ids, table,
              noise=None, inplace: bool = False):
         rows = layout.local_rows(mask.shape[0])
         x, y = cohort_data(data, rows)
         mask, w = mask[rows], w[rows]
-        c = None if table is None else table_gather(table, cohort, rows)
+        c = None if table is None else table_gather(table, cohort_ids, rows)
         # on 2-D the params rest sharded over the model group: whole for
-        # the train phase
-        full = layout.gather_tree(state.global_params)
+        # the train phase; on 3-D the pipeline trains on the shards, and
+        # only the scatter merge reads the whole params
+        full = state.global_params
+        if two_d or (pipe and scatter and not quantized):
+            full = layout.gather_tree(state.global_params)
         ctx_state = state.replace(global_params=full) if two_d else state
         if scatter:
             # client-visible server state (SCAFFOLD's c_server in the
             # corrected gradient, Mime's momentum in the client step) is
-            # shard-resident: gather it whole for the train phase
+            # shard-resident: gather it whole for the train phase (this
+            # rank's shards of it on 3-D)
             gathered = {f: flat_pad.unflatten(mesh.all_gather(
                 getattr(state, f))) for f in ("c_server", "momentum")
                 if getattr(state, f) is not None}
+            if pipe:
+                gathered = {f: layout.shard_tree(v)
+                            for f, v in gathered.items()}
             ctx_state = ctx_state.replace(**gathered)
         elif two_d:
             gathered = {f: layout.gather_tree(getattr(state, f))
@@ -297,11 +336,11 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         merge = merge_scatter if scatter else merge_replicated
         new_state = merge(state, full, outs, w, noise)
         if table is not None:
-            table = table_scatter(table, cohort, outs.new_client_state,
+            table = table_scatter(table, cohort_ids, outs.new_client_state,
                                   inplace)
         sums = mesh.psum(torch.stack([
             torch.sum(outs.loss * w), torch.sum(w),
-            torch.sum(outs.num_steps).to(torch.float32)]))
+            torch.sum(outs.num_steps).to(torch.float32)]), cohort)
         metrics = {"train_loss": sums[0] / sums[1], "total_steps": sums[2]}
         return new_state, metrics, table
 
@@ -347,36 +386,76 @@ class MeshBlockRoundFn(BlockRoundFn):
                          inplace)
 
 
+class _MeshStoreView:
+    """A mesh engine's client store as ``core/checkpoint.py`` sees a
+    store: ``to_checkpoint`` gives the whole rows gathered from every
+    rank, ``load_checkpoint``/``load_dense`` give each rank its part."""
+
+    def __init__(self, api, payload=None):
+        self.api = api
+        self.payload = payload
+
+    def to_checkpoint(self):
+        return self.payload
+
+    def load_checkpoint(self, payload):
+        self.api._load_store_payload(payload)
+
+    def load_dense(self, table):
+        rows = next(iter(table.values())).shape[0]
+        payload = {"ids": np.arange(rows, dtype=np.int64)}
+        for i, name in enumerate(sorted(table)):
+            payload[f"leaf_{i}"] = table[name].detach().cpu().numpy()
+        self.api._load_store_payload(payload)
+
+
 class MeshFedAvgAPI(FedAvgAPI):
     """The sp engine's driver surface; rounds run over the mesh.
 
     ``mesh``: a :class:`~fedml_tpu_torch.core.mesh.Mesh`, else the one
-    ``args`` names (``mesh_shape`` ``"c,m"``, else the ``mesh_client``/
-    ``mesh_model`` knobs) over the process group, made as a world of 1
-    when there is none.  ``n_shards`` is the client factor,
-    ``n_model_shards`` the model factor; on 2-D ``state.global_params``
-    holds this rank's model shards (``full_params()``/``full_state()``
-    gather them).  ``device`` is the
+    ``args`` names (``mesh_shape`` ``"c,m"`` or ``"c,s,m"``, else the
+    ``mesh_*`` knobs) over the process group, made as a world of 1 when
+    there is none.  ``n_shards`` is the client factor,
+    ``n_stage_shards`` the stage factor, ``n_model_shards`` the model
+    factor; on 2-D and 3-D ``state.global_params`` holds this rank's
+    shards (``full_params()``/``full_state()`` gather them); on 3-D
+    ``microbatches`` splits each batch of the pipeline.  ``device`` is the
     mesh's.  ``args.update_sharding``: "replicated" | "scatter" | "auto"
     (scatter above one shard).  ``args.device_data``: True/"replicated"
     (the dataset on every rank), "sharded" (rows split over the ranks) or
     False/"host" (cohort batches staged on the host).
     ``args.async_staging`` (default True) builds round r+1's cohort on a
-    worker thread while round r runs."""
+    worker thread while round r runs.
+
+    The client-state plane: ``registered_clients`` widens the sampled id
+    space (the table's rows are registered ids); ``client_store`` keeps
+    the per-client rows in a sparse host store on each rank, holding the
+    ids of its client shard (``id // held == c_coord``) and its shard of
+    each row, paged in ahead of the round and written back after it; the
+    round runs on a device mini-table of the cohort's rows (one block of
+    slots a client shard, the same shape every round, so a fused block
+    keeps its buffers); ``data_paging`` stages the cohort's examples from
+    the sp engine's paged store; ``checkpoint_dir`` saves the whole state
+    (``full_state()``) and the whole client state from rank 0 and restores
+    them into any mesh whose flat padding and client factor match
+    (``load_full_state``)."""
 
     #: the client store, data paging, a registered population and
-    #: checkpoints on the mesh are not ported yet (refused by name)
-    CLIENT_STATE_PLANE = False
+    #: checkpoints run on the mesh (the class docstring)
+    CLIENT_STATE_PLANE = True
 
     def __init__(self, args, device, dataset, model, mesh=None):
+        from .pipeline import validate_pipeline_args
         # refused before any process group is made
-        self._refuse_client_state_plane(args)
+        self._refuse_options(args)
+        validate_pipeline_args(args)
         if mesh is None:
             from ...device import get_device
             device = get_device(args, device)
-        self.layout = MeshLayout.from_args(args, mesh, device)
+        self.layout = MeshLayout.from_args(args, mesh, device, model)
         self.mesh = self.layout.mesh
         self.n_shards = self.layout.n_client_shards
+        self.n_stage_shards = self.layout.n_stage_shards
         self.n_model_shards = self.layout.n_model_shards
         self.rank = self.layout.rank
         mode = str(getattr(args, "update_sharding", "auto") or "auto").lower()
@@ -399,6 +478,18 @@ class MeshFedAvgAPI(FedAvgAPI):
     def scatter(self) -> bool:
         return self.update_sharding == "scatter"
 
+    def _make_trainer(self, model, args, algorithm):
+        """On the pipeline layout the microbatched pipeline trainer (its
+        gradient replaced, every optimizer and SCAFFOLD step
+        :class:`LocalTrainer`'s)."""
+        if not self.layout.pipeline:
+            return super()._make_trainer(model, args, algorithm)
+        from .pipeline import PipelineTrainer, check_pipeline_shapes
+        micro = int(getattr(args, "microbatches", 1) or 1)
+        check_pipeline_shapes(model, self.layout,
+                              int(getattr(args, "batch_size", 10)), micro)
+        return PipelineTrainer(model, args, self.layout, micro, algorithm)
+
     # -- state and tables ----------------------------------------------------
     def _init_server_state(self, params):
         """This rank's part of the initial state: in the scatter layout
@@ -410,7 +501,7 @@ class MeshFedAvgAPI(FedAvgAPI):
         (over the padded flat view)."""
         self.layout.bind(FlatSpec.of(params, 1, self.model.flat_layout()))
         self.flat_pad = None
-        if self.scatter or self.layout.two_d:
+        if self.scatter or self.layout.sharded:
             self.flat_pad = self.layout.flat_spec_of(
                 params, self.model.flat_layout())
         if self.scatter:
@@ -421,20 +512,65 @@ class MeshFedAvgAPI(FedAvgAPI):
             whole = self.server_opt.init(
                 params, collective_precision=self.collective_precision,
                 ef_shards=self.n_shards, quantized_broadcast=False,
-                flat=self.flat_pad if self.layout.two_d else self.flat)
+                flat=self.flat_pad if self.layout.sharded else self.flat)
         return self.layout.shard_state(whole, self.scatter)
 
     def _init_client_table(self):
-        """This rank's block of the per-client state table (rows padded to
-        a multiple of the client shards; on 2-D each row this rank's model
-        shard) plus one scratch row; pad rows of a cohort carry the
-        sentinel id ``_table_rows``."""
-        self._table_rows = self.layout.pad_table_rows(
-            self.dataset.num_clients)
+        """This rank's block of the per-client state table (one row per
+        registered id, padded to a multiple of the client shards; on 2-D
+        and 3-D each row this rank's shard) plus one scratch row; pad rows
+        of a cohort carry the sentinel id (:meth:`_sentinel`)."""
         from ...core import tree as tree_util
         return tree_util.client_table_init(
-            self.state.global_params,
-            self._table_rows // self.n_shards + 1)
+            self.state.global_params, self._held() + 1)
+
+    def _held(self) -> int:
+        """Rows of the per-client state a client shard holds."""
+        return self._sentinel() // self.n_shards
+
+    def _spill_dir(self, path):
+        if path and self.layout.n_ranks > 1:
+            return os.path.join(path, f"rank{self.rank}")
+        return path
+
+    def _cohort_ids_for(self, round_idx: int) -> np.ndarray:
+        """The ids round (or block) ``round_idx`` touches that this rank's
+        client shard holds: what its store pages in."""
+        ids = np.asarray(super()._cohort_ids_for(round_idx))
+        return ids[ids // self._held() == self.layout.c_coord]
+
+    def _mini_table(self, round_idx: int, cohort, stride: int):
+        """The round's (or block's) rows from the store as a device
+        mini-table: ``n_slots`` rows a client shard (the cohort's size
+        times the block's rounds) plus the scratch row, this rank holding
+        its client shard's; each id of ``cohort`` mapped to its slot
+        ``owner · n_slots + rank among the owner's ids`` (the sentinel
+        past every slot).  Returns ``(slots, mini-table, ids)``, the ids
+        this rank writes back, padded with an id the store drops."""
+        held = self._held()
+        flat = np.asarray(cohort, np.int64).reshape(-1)
+        n_slots = flat.shape[0]
+        real = np.unique(flat[flat < self._sentinel()])
+        owner = real // held
+        slots = np.full(flat.shape, self.n_shards * n_slots, np.int64)
+        for j in range(self.n_shards):
+            ids_j = real[owner == j]
+            hit = np.isin(flat, ids_j)
+            slots[hit] = j * n_slots + np.searchsorted(ids_j, flat[hit])
+        mine = real[owner == self.layout.c_coord]
+        nxt = round_idx + stride
+        rows = self._pager.gather(
+            round_idx, mine, prefetch=nxt if nxt < self.comm_rounds else None)
+        mini = {k: torch.as_tensor(np.concatenate(
+            [r, np.zeros((n_slots + 1 - len(mine),) + r.shape[1:],
+                         r.dtype)])).to(self.device)
+                for k, r in rows.items()}
+        ids = np.full(n_slots + 1, self.registered_clients, np.int64)
+        ids[:len(mine)] = mine
+        return slots.reshape(np.shape(cohort)), mini, ids
+
+    def _block_mini_table(self, start_round: int, cohort_blk):
+        return self._mini_table(start_round, cohort_blk, self._round_block)
 
     def full_state(self) -> ServerState:
         """The whole server state, as one controller would hold it: the
@@ -446,28 +582,39 @@ class MeshFedAvgAPI(FedAvgAPI):
         gathered from every rank (a collective), or ``None``."""
         if self.client_table is None:
             return None
-        n = self.dataset.num_clients
+        n = self.registered_clients
         block = self.layout.gather_tree(
             {k: t[:-1] for k, t in self.client_table.items()}, off=1)
-        axis = "client" if self.layout.two_d else None
+        axis = "client" if self.layout.sharded else None
         return {k: self.mesh.all_gather(t, axis=axis)[:n]
                 for k, t in block.items()}
 
-    def collective_bytes(self) -> dict:
+    def collective_bytes(self, steps=None) -> dict:
         """Modeled interconnect payload bytes a round, per mesh axis (the
         JAX engine's byte model): the client axis prices the merge (the
-        replicated merge's payload is a rank's ``1/m`` shard), the model
-        axis the scatter layout's two flat-view moves."""
+        replicated merge's payload is a rank's ``1/(s·m)`` shard), the
+        model and stage axes the scatter layout's two flat-view moves,
+        and on the pipeline layout the stage axis also the activation
+        shifts of ``steps`` local steps (default: the last round's)."""
         mode = self.update_sharding
-        m = self.n_model_shards
+        m, s = self.n_model_shards, self.n_stage_shards
         n_flat = self.flat_pad.padded_size if self.scatter \
             else self.flat.n_params
-        n_payload = n_flat if self.scatter else -(-n_flat // m)
+        n_payload = n_flat if self.scatter else -(-n_flat // (m * s))
         client = client_axis_bytes(n_payload, self.n_shards,
                                    self.collective_precision,
                                    self.quant_block, mode)
         model = model_axis_bytes(n_flat, m, mode=mode)
-        return {"client": client, "model": model, "total": client + model}
+        stage = 0.0
+        if self.layout.pipeline:
+            micro = self.trainer.n_micro
+            stage = stage_axis_bytes(
+                n_flat, s, mode=mode, hidden=self.trainer.pipe.hidden,
+                microbatch=self.batch_size // micro, n_micro=micro,
+                steps=getattr(self, "_last_steps", 0) if steps is None
+                else steps)
+        return {"client": client, "stage": stage, "model": model,
+                "total": client + stage + model}
 
     def full_params(self):
         """The whole global params (on 2-D gathered over the model group:
@@ -502,13 +649,106 @@ class MeshFedAvgAPI(FedAvgAPI):
                     {k: table[k][lo:lo + held].to(dev)}, off=1)[k]
                 t[:rows.shape[0]] = rows.to(t.dtype)
 
+    # -- checkpoints ---------------------------------------------------------
+    def _store_payload(self) -> dict:
+        """The client store's written rows, whole, in the store's
+        checkpoint form (a collective): every rank's rows all-gathered as
+        objects, each client shard's row shards joined."""
+        import torch.distributed as dist
+        local = self._store.to_checkpoint()
+        every = [None] * self.layout.n_ranks
+        dist.all_gather_object(every, local)
+        per = self.layout.n_shard_ranks
+        names = sorted(self.state.global_params)
+        ids, leaves = [], [[] for _ in names]
+        for c in range(self.n_shards):
+            got = every[c * per:(c + 1) * per]
+            ids.append(got[0]["ids"])
+            for i, name in enumerate(names):
+                leaves[i].append(self._join_rows(
+                    name, [g[f"leaf_{i}"] for g in got]))
+        out = {"ids": np.concatenate(ids), "registered": local["registered"]}
+        out.update({f"leaf_{i}": np.concatenate(rows)
+                    for i, rows in enumerate(leaves)})
+        return out
+
+    def _join_rows(self, name: str, parts) -> np.ndarray:
+        """Whole rows of leaf ``name`` from its shards on a client shard's
+        ranks (``parts`` in their order: stage-major, then model)."""
+        axes = {axis: d + 1 for d, axis in self.layout._splits(name)}
+        n_model = self.n_model_shards
+        per_stage = []
+        for st in range(self.n_stage_shards if "stage" in axes else 1):
+            row = [parts[st * n_model + m] for m in range(
+                n_model if "model" in axes else 1)]
+            per_stage.append(np.concatenate(row, axes["model"])
+                             if "model" in axes else row[0])
+        return np.concatenate(per_stage, axes["stage"]) \
+            if "stage" in axes else per_stage[0]
+
+    def _load_store_payload(self, payload) -> None:
+        """This rank's part of a whole store checkpoint: the ids its client
+        shard holds, its shard of each row."""
+        ids = np.asarray(payload["ids"], np.int64)
+        keep = ids // self._held() == self.layout.c_coord
+        rows = {}
+        for i, name in enumerate(sorted(self.state.global_params)):
+            t = torch.as_tensor(np.asarray(payload[f"leaf_{i}"])[keep])
+            rows[name] = self.layout._slice(
+                t, self.layout._splits(name), off=1).numpy()
+        self._store.scatter(ids[keep], rows)
+
+    def _barrier(self) -> None:
+        self.mesh.psum(torch.zeros(1, device=self.device))
+
+    def maybe_checkpoint(self, round_idx: int, window: int = 1):
+        """The sp engine's schedule; the whole state and client state
+        gathered on every rank (collectives) and saved by rank 0."""
+        from ...core.checkpoint import state_to_flat
+        ckpt = self._checkpointer()
+        if ckpt is None or not self._checkpoint_due(round_idx, window):
+            return
+        client = None
+        if self._pager is not None:
+            self._pager.drain_writebacks()
+            client = _MeshStoreView(self, self._store_payload())
+        elif self.client_table is not None:
+            client = self.full_client_table()
+        flat = state_to_flat(self.full_state())
+        if self.rank == 0:
+            ckpt.save(round_idx, flat, client)
+        self._barrier()
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint into this mesh (any mesh whose
+        flat padding and client factor match the saver's): every rank
+        reads the whole state and keeps its part.  Returns the round to
+        start from."""
+        from ...core.checkpoint import state_from_flat, state_to_flat
+        ckpt = self._checkpointer()
+        if ckpt is None or ckpt.latest_round() is None:
+            return 0
+        like = self.full_state()
+        template = None
+        if self._store is not None:
+            template = _MeshStoreView(self)
+        elif self.client_table is not None:
+            template = self.full_client_table()
+        flat, client = ckpt.restore(template=(state_to_flat(like), template))
+        self.load_full_state(state_from_flat(flat, like),
+                             client if self.client_table is not None
+                             else None)
+        return int(ckpt.latest_round()) + 1
+
 
     # -- the round -----------------------------------------------------------
     def _build_round_fn(self, client_mode: str):
         mode = getattr(self.args, "device_data", True)
         if isinstance(mode, str):
             mode = mode.lower()
-        self._gather = mode not in (False, "host", "off")
+        # a paged training set is never uploaded whole: host-staged
+        self._gather = mode not in (False, "host", "off") and \
+            not bool(getattr(self.args, "data_paging", False))
         self._sharded_data = mode == "sharded"
         train_x = train_y = data_lo = None
         if self._gather:
@@ -542,11 +782,16 @@ class MeshFedAvgAPI(FedAvgAPI):
         pad_c = self.layout.pad_rows(n) - n
         if self._gather:
             idx, mask, w = self.dataset.cohort_indices(
-                clients, self.batch_size, self.seed, round_idx, self.epochs)
+                self._data_ids(clients), self.batch_size, self.seed,
+                round_idx, self.epochs)
             arrays = [idx]
+        elif self._data_pager is not None:
+            x, y, mask, w = self._paged_cohort_batches(clients, round_idx)
+            arrays = [x, y]
         else:
             x, y, mask, w = self.dataset.cohort_batches(
-                clients, self.batch_size, self.seed, round_idx, self.epochs)
+                self._data_ids(clients), self.batch_size, self.seed,
+                round_idx, self.epochs)
             arrays = [x, y]
         steps = next_pow2(mask.shape[1])
         pad_s = steps - mask.shape[1]
@@ -560,7 +805,10 @@ class MeshFedAvgAPI(FedAvgAPI):
         return arrays, mask, w, cohort
 
     def _sentinel(self) -> int:
-        return getattr(self, "_table_rows", self.dataset.num_clients)
+        """The id past every table row (the registered ids padded to a
+        multiple of the client shards): a pad row's id, read as zeros and
+        written nowhere."""
+        return self.layout.pad_table_rows(self.registered_clients)
 
     def train_one_round(self, round_idx: int):
         nxt = round_idx + 1 if round_idx + 1 < self.comm_rounds else None
@@ -572,12 +820,20 @@ class MeshFedAvgAPI(FedAvgAPI):
                              self.layout.local_rows(c_pad))
         arrays = self._to_device(*arrays)
         data = arrays[0] if self._gather else tuple(arrays)
+        table = self.client_table
+        if self._pager is not None:
+            cohort, table, ids = self._mini_table(round_idx, cohort, 1)
         mask, w, cohort = self._to_device(mask, w, cohort)
-        self.state, metrics, self.client_table = self.round_fn(
-            self.state, data, mask, w, drop, cohort, self.client_table,
+        self.state, metrics, table = self.round_fn(
+            self.state, data, mask, w, drop, cohort, table,
             self._mesh_noise(round_idx, gen))
+        if self._pager is not None:
+            self._pager.write_back(round_idx, ids, table)
+        else:
+            self.client_table = table
         metrics = dict(metrics)
         metrics["allocated_steps"] = c_pad * steps
+        self._last_steps = steps
         return metrics
 
     def _mesh_noise(self, round_idx: int, gen):
@@ -585,7 +841,7 @@ class MeshFedAvgAPI(FedAvgAPI):
         rank's client shard, the broadcast's (slot 1) from its rank (the
         same shard on the 1-D mesh)."""
         merge = self._noise(round_idx, gen, shard=self.layout.c_coord)
-        if not self.layout.two_d:
+        if not self.layout.sharded:
             return merge
         bcast = self._noise(round_idx, gen, shard=self.rank)
         return lambda slot, kind, shape: (merge if slot == 0 else bcast)(
@@ -593,7 +849,7 @@ class MeshFedAvgAPI(FedAvgAPI):
 
     # -- evaluation of the whole params ---------------------------------------
     def _with_full_params(self, fn, *args):
-        if not self.layout.two_d:
+        if not self.layout.sharded:
             return fn(*args)
         sharded = self.state
         self.state = sharded.replace(global_params=self.full_params())

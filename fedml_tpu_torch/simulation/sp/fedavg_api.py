@@ -155,27 +155,27 @@ class FedAvgAPI:
     #: ``checkpoint_dir``); an engine that does not refuses them by name
     CLIENT_STATE_PLANE = True
 
-    def _refuse_client_state_plane(self, args) -> None:
-        """The client-state options raise by name on an engine that does
-        not run them."""
+    def _refuse_options(self, args) -> None:
+        """The unported options raise by name, and the client-state
+        options on an engine that does not run them."""
+        unported = _unported_options(args)
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)}: not implemented by the port's sp "
+                "engine yet (unset to run)")
         plane = [n for n in ("client_store", "data_paging",
                              "registered_clients", "checkpoint_dir")
                  if getattr(args, n, None)]
         if plane and not self.CLIENT_STATE_PLANE:
             raise NotImplementedError(
                 f"{', '.join(plane)}: not implemented by the port's "
-                f"{type(self).__name__} yet (the sp FedAvgAPI and FedBuffAPI "
-                "run it)")
+                f"{type(self).__name__} yet (the sp FedAvgAPI, FedBuffAPI "
+                "and the mesh's MeshFedAvgAPI run it)")
 
     def __init__(self, args, device, dataset: FederatedDataset,
                  model: TorchModel, client_mode: str = "vmap",
                  algorithm=None):
-        unported = _unported_options(args)
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not implemented by the port's sp "
-                "engine yet (unset to run)")
-        self._refuse_client_state_plane(args)
+        self._refuse_options(args)
         self.args = args
         self.device = get_device(args, device)
         self.dataset = dataset
@@ -187,7 +187,7 @@ class FedAvgAPI:
         self.clients_per_round = int(getattr(args, "client_num_per_round", 10))
         self.eval_freq = int(getattr(args, "frequency_of_the_test", 5))
 
-        self.trainer = LocalTrainer(model, args, algorithm)
+        self.trainer = self._make_trainer(model, args, algorithm)
         self.server_opt = ServerOptimizer(args, algorithm)
         # a subclass with its own round loop would silently mis-handle the
         # round-program options: each is refused there by name
@@ -299,6 +299,11 @@ class FedAvgAPI:
             self._init_data_pager()
         self.metrics_history = []
 
+    def _make_trainer(self, model, args, algorithm):
+        """The client trainer (the mesh engine's pipeline layout makes its
+        own)."""
+        return LocalTrainer(model, args, algorithm)
+
     def _init_server_state(self, params):
         """The initial server state; with quantized collectives it also
         holds the EF row, the fp32 flat master and at int8 the broadcast
@@ -405,12 +410,18 @@ class FedAvgAPI:
             row_t, self.registered_clients,
             page_size=int(getattr(args, "store_page_size", 256) or 256),
             max_resident_pages=int(getattr(args, "store_max_pages", 0) or 0),
-            spill_dir=getattr(args, "store_spill_dir", None))
+            spill_dir=self._spill_dir(getattr(args, "store_spill_dir",
+                                              None)))
         self._pager = CohortStatePager(
             self._store, self._cohort_ids_for,
             depth=int(getattr(args, "staging_depth", 1) or 1),
             stride=self._round_block, limit=self.comm_rounds,
             enabled=bool(getattr(args, "async_staging", True)))
+
+    def _spill_dir(self, path):
+        """Where this process's store spills (the mesh engine gives each
+        rank a directory of its own)."""
+        return path
 
     def _cohort_ids_for(self, round_idx: int) -> np.ndarray:
         """The state ids round (or the fused block starting at)
@@ -439,7 +450,8 @@ class FedAvgAPI:
         self._data_store = ClientStateStore(
             row_t, n, page_size=page,
             max_resident_pages=int(getattr(args, "data_max_pages", 0) or 0),
-            spill_dir=getattr(args, "data_spill_dir", None))
+            spill_dir=self._spill_dir(getattr(args, "data_spill_dir",
+                                              None)))
         # filled a page at a time: with a resident cap the LRU spills as it
         # goes, so no second dense copy is ever held
         for lo in range(0, n, page):
@@ -787,6 +799,11 @@ class FedAvgAPI:
             self.client_table = client
         return int(ckpt.latest_round()) + 1
 
+    def _checkpoint_due(self, round_idx: int, window: int) -> bool:
+        freq = int(getattr(self.args, "checkpoint_freq", 10))
+        return (round_idx == self.comm_rounds - 1
+                or any((round_idx - j) % freq == 0 for j in range(window)))
+
     def maybe_checkpoint(self, round_idx: int, window: int = 1):
         """Save when any round of ``[round_idx - window + 1, round_idx]``
         hits ``checkpoint_freq`` or ``round_idx`` is the last (a fused block
@@ -795,10 +812,7 @@ class FedAvgAPI:
         ckpt = self._checkpointer()
         if ckpt is None:
             return
-        freq = int(getattr(self.args, "checkpoint_freq", 10))
-        due = (round_idx == self.comm_rounds - 1
-               or any((round_idx - j) % freq == 0 for j in range(window)))
-        if due:
+        if self._checkpoint_due(round_idx, window):
             if self._pager is not None:
                 # every completed round's rows are in the store first
                 self._pager.drain_writebacks()

@@ -1176,3 +1176,95 @@ def test_engine_on_card_matches_generate(cuda_device, kw):
             assert got == want, temp
     finally:
         eng.stop()
+
+
+# -- ring attention's kernel schedule (phase 18 (c)) -------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s_local,d,dt", [
+    (1, 4, 4, 200, 64, "bfloat16"),     # S_local not a tile multiple
+    (2, 4, 4, 129, 128, "bfloat16"),    # one row past a tile
+    (1, 8, 2, 256, 128, "bfloat16"),    # grouped-query heads
+    (1, 8, 2, 100, 64, "float32")])
+def test_kernel_ring_matches_plain_ring(cuda_device, b, h, hkv, s_local, d,
+                                        dt):
+    """The ring's schedule over 4 blocks on one card (each rank's steps by
+    slicing): K1 once a visible block forward, K2 and K3 once a visible
+    block backward (10 each); the output and gradients held to
+    ``KERNEL_TOL`` against the same ring run with each kernel's plain
+    version, and the output against the plain ring (the JAX recurrence),
+    at block lengths the kernels' tiles do not divide and with
+    grouped-query heads.  The gradients against the plain ring's: in f32
+    to ``KERNEL_TOL``; in bf16, where its autograd keeps dS in f32 and K2
+    and K3 round it to bf16, within one limit of what one call over the
+    whole sequence reads against them."""
+    from fedml_tpu_torch.ops import ring_attention as ring
+    n = 4
+    dtype = getattr(torch, dt)
+    q, k, v, do = _inputs(b, h, hkv, n * s_local, d, dtype, cuda_device,
+                          seed=18)
+    tatt.reset_launch_counts()
+    o, lse = ring.ring_schedule_fwd(q, k, v, n)
+    dq, dk, dv = ring.ring_schedule_bwd(q, k, v, o, lse, do, n)
+    torch.cuda.synchronize()
+    assert [f.launches for f in tatt.KERNELS] == [10, 10, 10]
+    vo, vlse = ring.ring_schedule_fwd(q, k, v, n, plain=True)
+    vgrads = ring.ring_schedule_bwd(q, k, v, o, lse, do, n, plain=True)
+    for got, ref in zip((o, lse, dq, dk, dv), (vo, vlse) + tuple(vgrads)):
+        _close(got, ref)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    po = ring.ring_schedule_plain(*leaves, n)
+    _close(o, po)
+    pgrads = torch.autograd.grad(po, leaves, do)
+    if dtype == torch.float32:
+        for got, ref in zip((dq, dk, dv), pgrads):
+            _close(got, ref)
+        return
+    one = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ograds = torch.autograd.grad(tatt.flash_attention(*one), one, do)
+    for got, one_g, ref in zip((dq, dk, dv), ograds, pgrads):
+        st, st1 = (tatt.compare_with_plain(t, ref) for t in (got, one_g))
+        assert st["elem"] <= st1["elem"] + 1 and \
+            st["block"] <= st1["block"] + 1, (st, st1)
+
+
+@pytest.mark.gpu
+def test_ring_of_one_rank_is_one_kernel_call(cuda_device):
+    """Without a seq group the ring is one diagonal K1 call forward and
+    one K2 and K3 call backward: bitwise ``flash_attention``."""
+    from fedml_tpu_torch.ops.ring_attention import ring_attention
+    q, k, v, do = _inputs(1, 8, 2, 300, 128, torch.bfloat16, cuda_device,
+                          seed=7)
+    outs = []
+    for fn in (ring_attention, tatt.flash_attention):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves)
+        outs.append((o,) + torch.autograd.grad(o, leaves, do))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d,hkv", [(200, 64, 4), (1024, 128, 2)])
+def test_f32_outputs_of_bf16_kernels_round_to_their_bf16_outputs(
+        cuda_device, causal, s, d, hkv):
+    """K1, K2 and K3 on bf16 inputs with ``out_f32`` (the ring's partial
+    results): the f32 outputs, rounded to bf16, are bitwise the bf16
+    outputs, and lse and Δ are the same."""
+    q, k, v, do = _inputs(1, 4, hkv, s, d, torch.bfloat16, cuda_device,
+                          seed=3)
+    o, lse = tatt.flash_attention_fwd(q, k, v, causal)
+    o32, lse32 = tatt.flash_attention_fwd(q, k, v, causal, out_f32=True)
+    assert o32.dtype == torch.float32
+    assert torch.equal(o32.to(torch.bfloat16), o) and torch.equal(lse32, lse)
+    dq, delta = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dq32, delta32 = tatt.flash_attention_bwd_dq(q, k, v, o, lse, do, causal,
+                                                out_f32=True)
+    assert torch.equal(dq32.to(torch.bfloat16), dq)
+    assert torch.equal(delta32, delta)
+    dk, dv = tatt.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+    dk32, dv32 = tatt.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                              causal, out_f32=True)
+    assert torch.equal(dk32.to(torch.bfloat16), dk)
+    assert torch.equal(dv32.to(torch.bfloat16), dv)

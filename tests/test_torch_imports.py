@@ -174,9 +174,10 @@ def test_causal_lm_modules_import_without_jax_or_transformers():
 
 def test_mesh_modules_import_with_jax_unimportable():
     """The mesh engine, its layout, collectives, launcher, the
-    hierarchical and ring-gossip engines, the flat model view and the
-    quantizer import in a process where ``jax`` and ``fedml_tpu`` cannot
-    be imported at all, and the quantizer runs there."""
+    hierarchical and ring-gossip engines, the pipeline trainer, the
+    pipeline and ring-attention ops, ``pipe_mlp``, the flat model view and
+    the quantizer import in a process where ``jax`` and ``fedml_tpu``
+    cannot be imported at all, and the quantizer runs there."""
     import subprocess
     import sys
 
@@ -185,7 +186,9 @@ def test_mesh_modules_import_with_jax_unimportable():
                "simulation.mesh.engine", "simulation.mesh.launch",
                "simulation.mesh.mesh_simulator",
                "simulation.mesh.hierarchical_mesh",
-               "simulation.mesh.decentralized_mesh", "simulation.simulator")
+               "simulation.mesh.decentralized_mesh", "simulation.simulator",
+               "simulation.mesh.pipeline", "ops.pipeline",
+               "ops.ring_attention", "models.pipe_mlp")
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"

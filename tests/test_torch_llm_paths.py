@@ -78,13 +78,18 @@ def test_config_from_args_reads_what_the_jax_one_reads():
     ("kv_page_tokens", {"kv_page_tokens": 16, "kv_pool_pages": 4}),
     ("ring", {"attn_impl": "ring"})])
 def test_jax_fields_the_port_does_not_run_raise_by_name(field, over):
-    """``attn_impl="ring"`` still raises by name; the decode-cache fields,
-    ported with serving, are taken as the JAX config takes them and refused
-    where the JAX config refuses them."""
+    """``attn_impl="ring"`` (ported with the seq group: tests/
+    test_torch_ring.py) and the decode-cache fields (ported with serving)
+    are taken as the JAX config takes them and refused where the JAX
+    config refuses them."""
     dataclasses.replace(jmodel.TINY, **over)      # the JAX config takes it
     if field == "ring":
-        with pytest.raises(NotImplementedError, match=field):
-            dataclasses.replace(tmodel.TINY, **over)
+        assert dataclasses.replace(tmodel.TINY, **over).attn_impl == "ring"
+        for bad in ({"attn_impl": "rings"},):
+            with pytest.raises(ValueError):
+                dataclasses.replace(jmodel.TINY, **bad)
+            with pytest.raises(ValueError, match="attn_impl"):
+                dataclasses.replace(tmodel.TINY, **bad)
         return
     got = dataclasses.replace(tmodel.TINY, **over)
     assert all(getattr(got, k) == v for k, v in over.items())

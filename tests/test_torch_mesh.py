@@ -146,23 +146,25 @@ def test_run_simulation_mesh_backends_on_2_ranks():
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(mesh_shape="2,2,2"), "3-D pipeline"),
-    (dict(mesh_shape="1,2,1"), "3-D pipeline"),
+    (dict(mesh_shape="2,2,2", mesh_data=2), "mesh_data"),
+    (dict(mesh_shape="2,2", mesh_data=2), "mesh_data"),
     (dict(mesh_data=2), "mesh_data"),
-    (dict(mesh_stage=2), "mesh_stage"),
+    (dict(mesh_shape="1,2,2", mesh_seq=2), "mesh_seq"),
     (dict(mesh_seq=2), "mesh_seq")])
 def test_unported_mesh_factors_raise_by_name(over, what):
-    """The layouts the port does not run raise before any process group is
-    made, naming themselves and the backend (the 2-D client x model
-    layout runs since its slice: ``tests/test_torch_mesh2d.py``)."""
+    """The factors the simulation engine does not run raise before any
+    process group is made, naming themselves and the backend, whatever
+    the layout (the 2-D and 3-D layouts run since their slices:
+    ``tests/test_torch_mesh2d.py``, ``tests/test_torch_pipeline.py``; a
+    seq group serves ring attention in the causal LM); ``make_mesh``
+    refuses a data factor."""
     from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
     cfg = dict(mesh_cfg(**over), backend="NCCL")
     with pytest.raises(NotImplementedError, match=what) as err:
         _build(MeshFedAvgAPI, cfg)
     assert "NCCL" in str(err.value)
-    for axis in ("stage", "data", "seq"):
-        with pytest.raises(NotImplementedError, match=axis):
-            t_mesh.make_mesh(**{axis: 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="data"):
+        t_mesh.make_mesh(data=2, device="cpu")
 
 
 def test_unported_mesh_regimes_raise_by_name():

@@ -17,7 +17,9 @@ Also pinned: each rank rests on ``1/(c·m)`` of the padded flat state and
 ``1/m`` of every sharded matrix; the port's ``param_spec`` is the JAX
 ``MeshLayout.param_spec``; ``round_block`` on 2-D is bitwise the unfused
 rounds; a checkpoint round trip resumes bitwise; ``make_mesh2d``'s forms;
-and the refusals that stay, by name.  One spawn of 4 ranks runs every
+and the refusals that stay, by name (the 3-D layout, ring attention and
+the mesh's client-state plane run since their slice:
+``tests/test_torch_{pipeline,ring,mesh_state}.py``).  One spawn of 4 ranks runs every
 multi-rank case of the file."""
 
 import types
@@ -231,8 +233,10 @@ def test_collective_bytes_are_the_jax_byte_model(key):
     want_c = j_coll.client_axis_bytes(n_payload, c, res["precision"], 256,
                                       mode)
     want_m = j_coll.model_axis_bytes(n_flat, m, mode=mode)
-    assert res["bytes"] == {"client": want_c, "model": want_m,
-                            "total": want_c + want_m}
+    # the stage axis (the 3-D layout's) moves nothing on 2-D
+    want_s = j_coll.stage_axis_bytes(n_flat, 1, mode=mode)
+    assert res["bytes"] == {"client": want_c, "stage": want_s,
+                            "model": want_m, "total": want_c + want_m}
     assert (want_m > 0) == (scatter and m > 1)
     for args in ((7850, 4, "int8", 256, "scatter"),
                  (7850, 2, "bf16", 64, "replicated"),
@@ -319,53 +323,51 @@ def test_param_spec_is_the_jax_layouts():
 
 
 @pytest.mark.parametrize("engine,over,what", [
-    ("mesh", dict(mesh_shape="1,2,2"), "3-D pipeline"),
+    ("mesh", dict(trace=True), "trace"),
     ("mesh", dict(mesh_data=2), "mesh_data"),
     ("mesh", dict(mesh_seq=2), "mesh_seq"),
-    ("mesh", dict(mesh_stage=2), "mesh_stage"),
-    ("mesh", dict(client_store=True), "client_store"),
-    ("mesh", dict(data_paging=True), "data_paging"),
-    ("mesh", dict(registered_clients=64), "registered_clients"),
-    ("mesh", dict(checkpoint_dir="/nonexistent"), "checkpoint_dir"),
+    ("mesh", dict(checkpoint_dir="/nonexistent", checkpoint_codec="wire"),
+     "checkpoint_codec"),
+    ("hierarchical", dict(client_store=True), "client_store"),
+    ("hierarchical", dict(data_paging=True), "data_paging"),
+    ("async", dict(registered_clients=64), "registered_clients"),
+    ("async", dict(checkpoint_dir="/nonexistent"), "checkpoint_dir"),
     ("hierarchical", dict(mesh_shape="1,2"), "MeshHierarchicalAPI"),
     ("decentralized", dict(mesh_model=2), "MeshDecentralizedAPI"),
-    ("llama", dict(attn_impl="ring"), "ring"),
+    ("mesh", dict(health=True), "health"),
     ("tp_heads", {}, "does not divide n_heads"),
-    ("make_mesh", {}, "stage|data|seq")])
+    ("make_mesh", {}, "data")])
 def test_refusals_that_stay(engine, over, what):
-    """Each still raises by name: the stage, data and seq factors; ring
-    attention; the client-state options and checkpoint_dir on the mesh
-    engine; a model factor on the hierarchical and decentralized mesh
-    engines; a TP degree that does not divide n_heads."""
-    import dataclasses
+    """Each still raises by name: the data factor, and a seq factor on
+    the simulation engine (ring attention runs in the causal LM); the
+    tracing, health and wire-codec options; the client-state options
+    and checkpoint_dir on the hierarchical and async_fedavg engines (the
+    sp and mesh FedAvg engines run them); a model factor on the
+    hierarchical and decentralized mesh engines; a TP degree that does
+    not divide n_heads."""
     from fedml_tpu_torch.llm.model import TINY, LlamaLM
     from fedml_tpu_torch.simulation.mesh.decentralized_mesh import \
         MeshDecentralizedAPI
     from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
     from fedml_tpu_torch.simulation.mesh.hierarchical_mesh import \
         MeshHierarchicalAPI
+    from fedml_tpu_torch.simulation.sp.async_fedavg import AsyncFedAvgAPI
     with pytest.raises(NotImplementedError, match=what):
         if engine == "mesh":
             # refused before any process group is made
             _build(MeshFedAvgAPI, dict(mesh_cfg(**over), backend="NCCL"))
         elif engine == "hierarchical":
             _build(MeshHierarchicalAPI, dict(mesh_cfg(**over), group_num=1))
+        elif engine == "async":
+            _build(AsyncFedAvgAPI, dict(mesh_cfg(**over),
+                                        federated_optimizer="async_fedavg"))
         elif engine == "decentralized":
             _build(MeshDecentralizedAPI, dict(
                 mesh_cfg(**over), federated_optimizer="dsgd",
                 topology="symmetric", topology_neighbors=2))
-        elif engine == "llama":
-            dataclasses.replace(TINY, **over)
         elif engine == "tp_heads":
             mesh = t_mesh.Mesh(3, 0, "cpu", model=3)
             with __import__("torch").device("meta"):
                 LlamaLM(TINY, mesh=mesh)
         else:
-            for axis in ("stage", "data", "seq"):
-                try:
-                    t_mesh.make_mesh(**{axis: 2}, device="cpu")
-                except NotImplementedError as e:
-                    assert axis in str(e)
-                else:
-                    raise AssertionError(axis)
-            raise NotImplementedError("stage data seq")
+            t_mesh.make_mesh(data=2, device="cpu")

@@ -199,7 +199,7 @@ def test_model_hub_every_name_creates_and_forwards(name, out_dim, extra):
 
 
 def test_unknown_and_unported_names_raise():
-    for name in ("pipe_mlp", "vit", "gan", "resnet34"):
+    for name in ("vit", "gan", "resnet34"):
         with pytest.raises(NotImplementedError, match=name):
             t_hub.create(t_arguments().update(model=name), 10)
 

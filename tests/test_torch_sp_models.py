@@ -183,7 +183,7 @@ def test_dropout_masks_follow_the_generator():
 
 
 def test_unported_models_raise_by_name():
-    for name in ("pipe_mlp", "resnet34", "gan", "vit"):
+    for name in ("resnet34", "gan", "vit"):
         with pytest.raises(NotImplementedError, match=name):
             t_hub.create(t_arguments().update(model=name), 10)
     with pytest.raises(NotImplementedError, match="large image"):

@@ -263,18 +263,18 @@ def test_unported_options_raise_by_name(flag, value):
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(backend="mesh", mesh_shape="1,2,1"), "mesh"),
-    (dict(backend="NCCL", mesh_shape="1,2,1"), "NCCL"),
-    (dict(backend="MPI", mesh_shape="1,2,1"), "MPI"),
-    (dict(num_silos=2), "num_silos"), (dict(model="pipe_mlp"), "pipe_mlp"),
+    (dict(backend="mesh", mesh_data=2), "mesh"),
+    (dict(backend="NCCL", mesh_data=2), "NCCL"),
+    (dict(backend="MPI", mesh_data=2), "MPI"),
+    (dict(num_silos=2), "num_silos"), (dict(model="vit"), "vit"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
     (dict(dataset="imagenet"), "imagenet")])
 def test_run_simulation_refuses_what_is_not_ported(over, what):
     """Unported backends, algorithms, models and datasets raise naming
     themselves; an absent cache directory falls back to synthetic data as
     in the JAX package (the cifar case runs).  The mesh backends run the
-    ``client x model`` mesh; their 3-D pipeline layout is refused, naming
-    the backend."""
+    2-D and 3-D layouts; a ``data`` factor is refused, naming the
+    backend."""
     args = t_arguments().update(**tiny(comm_round=1, **over))
     backend = over.get("backend", "sp")
     if what is None:

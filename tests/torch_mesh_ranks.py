@@ -350,3 +350,141 @@ def several_each(calls):
     """As :func:`several`, every rank returning its own results."""
     from fedml_tpu_torch.simulation.mesh.launch import _resolve
     return [_resolve(target)(*args) for target, args in calls]
+
+
+# -- the 3-D pipeline, ring attention and the mesh's client-state plane -----
+
+def pipeline_apply_case(ws, bs, micro, tgt):
+    """``ops.pipeline.pipeline_apply`` over a stage group of the whole
+    world (``tanh(x W_s + b_s)`` stages): the output, and this rank's
+    stage's gradients of ``sum((out - tgt)^2)``."""
+    from fedml_tpu_torch.core.mesh import make_mesh
+    from fedml_tpu_torch.ops.pipeline import pipeline_apply
+    mesh = make_mesh(client=1, stage=dist.get_world_size(), device="cpu")
+    me = mesh.s_coord
+    w = torch.tensor(ws[me], requires_grad=True)
+    b = torch.tensor(bs[me], requires_grad=True)
+    out = pipeline_apply(lambda p, x: torch.tanh(x @ p[0] + p[1]), (w, b),
+                         torch.tensor(micro), mesh)
+    torch.sum((out - torch.tensor(tgt)) ** 2).backward()
+    return dict(out=to_np(out), gw=to_np(w.grad), gb=to_np(b.grad))
+
+
+def mesh_block_ragged(cfg):
+    """``round_block`` over ``comm_round`` rounds (a ragged last block)
+    on the world's mesh against the unfused rounds: the largest
+    difference of the whole states."""
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    u = _build(MeshFedAvgAPI, dict(cfg, round_block=1))
+    for r in range(cfg["comm_round"]):
+        u.train_one_round(r)
+    f = _build(MeshFedAvgAPI, cfg)
+    f._train_fused()
+    out = _state_diff(f.full_state(), u.full_state())
+    u._stager.close()
+    f._stager.close()
+    return _rank0(out)
+
+
+def ring_case(q, k, v, do, causal=True):
+    """Ring attention over a seq group of the whole world, this rank's
+    shard of the sequence: the kernel ring's and the plain ring's output
+    and gradients (under ``sum(out * do)``), as this rank's shards."""
+    from fedml_tpu_torch.core.mesh import make_mesh
+    from fedml_tpu_torch.ops.ring_attention import (ring_attention,
+                                                    ring_attention_plain)
+    n = dist.get_world_size()
+    mesh = make_mesh(client=1, seq=n, device="cpu")
+    me = mesh.q_coord
+
+    def part(a):
+        s = a.shape[2] // n
+        return torch.tensor(a[:, :, me * s:(me + 1) * s])
+
+    out = {}
+    for name, fn in (("kernel", ring_attention),
+                     ("plain", ring_attention_plain)):
+        qq, kk, vv = (part(a).requires_grad_() for a in (q, k, v))
+        o = fn(qq, kk, vv, mesh, causal=causal)
+        torch.sum(o * part(do)).backward()
+        out[name] = dict(o=to_np(o), dq=to_np(qq.grad), dk=to_np(kk.grad),
+                         dv=to_np(vv.grad))
+    return out
+
+
+def llama_ring(params, cfg_kw, tokens):
+    """``LlamaLM(attn_impl="ring")`` over a seq group of the whole world
+    from the JAX weights: this rank's logits of its token shard."""
+    import dataclasses
+    from fedml_tpu_torch.core.mesh import make_mesh
+    from fedml_tpu_torch.llm.convert import from_flax
+    from fedml_tpu_torch.llm.model import TINY
+    n = dist.get_world_size()
+    mesh = make_mesh(client=1, seq=n, device="cpu")
+    cfg = dataclasses.replace(TINY, **cfg_kw)
+    model, _ = from_flax(params, None, cfg, device="cpu", mesh=mesh)
+    s = tokens.shape[1] // n
+    me = mesh.q_coord
+    with torch.no_grad():
+        return to_np(model(torch.tensor(tokens[:, me * s:(me + 1) * s])))
+
+
+def mesh_state(cases, rounds):
+    """Each ``(cfg, init)`` on the world's mesh, restarted from ``init``
+    (a port params dict of numpy), ``rounds`` rounds: losses, whole
+    params and the client store's written rows (whole, gathered from
+    every rank), or the dense table."""
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    out = []
+    for cfg, init in cases:
+        api = _build(MeshFedAvgAPI, cfg)
+        api.reset_params({k: torch.as_tensor(v) for k, v in init.items()})
+        ms = [api.train_one_round(r) for r in range(rounds)]
+        rows = None
+        if api._pager is not None:
+            api._pager.drain_writebacks()
+            pay = api._store_payload()
+            names = sorted(api.state.global_params)
+            rows = dict(ids=pay["ids"], **{
+                name: pay[f"leaf_{i}"] for i, name in enumerate(names)})
+        out.append(dict(losses=[float(m["train_loss"]) for m in ms],
+                        params=to_np(api.full_params()), rows=rows,
+                        table=to_np(api.full_client_table()),
+                        paged=api._data_pager is not None,
+                        sampled=int(np.max(api._client_sampling(0))),
+                        shards=(api.n_shards, api.n_stage_shards,
+                                api.n_model_shards),
+                        pipeline=type(api.trainer).__name__
+                        == "PipelineTrainer"))
+        api._stager.close()
+        if api._pager is not None:
+            api._pager.close()
+    return _rank0(out)
+
+
+def mesh3d_checkpoint(cfg, cfg_b, tmpdir):
+    """A checkpoint of a 3-D run after 2 rounds (``checkpoint_dir``,
+    saved by rank 0), restored by ``maybe_resume`` into a fresh engine of
+    ``cfg_b`` (the same mesh, or another of the same ranks), then round 2
+    there against round 2 of the run that saved it (the uninterrupted 3-D
+    run).  Returns the restored state's largest difference from the saved
+    one (same mesh) and the params' after round 2."""
+    from fedml_tpu_torch.simulation.mesh.engine import MeshFedAvgAPI
+    ck = dict(checkpoint_dir=tmpdir, checkpoint_freq=1)
+    a = _build(MeshFedAvgAPI, dict(cfg, **ck))
+    for r in range(2):
+        a.train_one_round(r)
+    a.maybe_checkpoint(1)
+    b = _build(MeshFedAvgAPI, dict(cfg_b, **ck))
+    start = b.maybe_resume()
+    restored = _state_diff(b.full_state(), a.full_state()) \
+        if cfg_b.get("mesh_shape") == cfg.get("mesh_shape") else None
+    a.train_one_round(2)
+    b.train_one_round(2)
+    pa, pb = a.full_params(), b.full_params()
+    resumed = max(float((pb[k] - pa[k]).abs().max()) for k in pa)
+    for api in (a, b):
+        api._stager.close()
+    return _rank0(dict(start=start, restored=restored, resumed=resumed,
+                       shards=(b.n_shards, b.n_stage_shards,
+                               b.n_model_shards)))

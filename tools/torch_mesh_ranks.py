@@ -57,6 +57,26 @@ Each rank runs, through the port's public classes:
   entries into adapter differences of order lr); the same in bf16,
   reported; greedy decode over the tensor-parallel f32 model (2 layers)
   against ``generate`` on one card, token for token;
+- the 3-D ``client × stage × model`` pipeline (``--mesh3d-only`` runs this
+  section alone), at ``(1, 4, 1)`` and ``(1, 2, 2)``: ``MeshFedAvgAPI``
+  with ``mesh_shape="c,s,m"`` on ``pipe_mlp`` at hidden ``--pipe-hidden``
+  (4096) and depth ``--pipe-depth`` (64: 1.07 B params, f32),
+  ``microbatches`` 4, FedAvg, 2 rounds, against the sp engine on one card
+  from the same weights (losses within 1e-5 relative); seconds a round
+  beside the sp engine's, the parameter bytes a rank holds and the
+  modeled collective bytes a round by axis, and the measured bubble (one
+  minus ``k`` ticks of this stage's work over a pipelined step, both
+  timed on the card) beside ``(s-1)/(k+s-1)``; ``round_block`` 2 over 3
+  rounds (a ragged tail) on both shapes (``pipe_mlp`` 256 wide, SCAFFOLD,
+  scatter) against the unfused rounds, each round on the card a CUDA
+  graph holding the stage ring's send/recv; and a probe: one NCCL ring
+  shift over the stage group captured in a CUDA graph and replayed;
+- ring attention over a ``seq`` group of the whole world (``--ring-only``
+  runs this section alone): Llama-2-7B attention (B 1, H 32, D 128,
+  causal, bf16) at S 4096, one layer, each rank its ``S/N`` shard: the
+  output and dQ, dK, dV against one K1/K2/K3 call over S on one card
+  (``KERNEL_TOL``), K1–K3 launched ``n (n + 1) / 2`` times across the
+  ranks, the ring's forward+backward seconds beside the one call's;
 - the teardown: every graph released, then ``core.mesh.shutdown_world``
   on every rank, which must return within ``--teardown-limit`` seconds.
 
@@ -143,6 +163,15 @@ def main():
                     help="run only the FEMNIST CNN section")
     ap.add_argument("--mesh2d-only", action="store_true",
                     help="run only the 2-D client x model section")
+    ap.add_argument("--mesh3d-only", action="store_true",
+                    help="run only the 3-D pipeline section")
+    ap.add_argument("--ring-only", action="store_true",
+                    help="run only the ring attention section")
+    ap.add_argument("--pipe-hidden", type=int, default=4096)
+    ap.add_argument("--pipe-depth", type=int, default=64)
+    ap.add_argument("--ring-seq", type=int, default=4096,
+                    help="the ring section's sequence length (4096: "
+                         "Llama-2-7B attention; smaller over gloo)")
     ap.add_argument("--llm-width", default="7b", choices=("7b", "tiny"),
                     help="the 2-D section's LLM: Llama-2-7B widths, or the "
                          "tiny config (a quick check over gloo on the CPU)")
@@ -429,6 +458,203 @@ def main():
                   f"{m}) vs one card", 0.0 if same else 1.0, same,
                   {"tokens": toks["tp"]})
 
+    def mesh3d():
+        """The 3-D pipeline: the sim engine on pipe_mlp against the sp
+        engine on one card, the bubble, and the NCCL capture probe."""
+        from fedml_tpu_torch.core.mesh import STAGE_AXIS, make_mesh2d
+        cfg = dict(dataset="synthetic", num_classes=10,
+                   input_shape=(28, 28, 1), train_size=512, test_size=64,
+                   model="pipe_mlp", model_dim=opts.pipe_hidden,
+                   model_layers=opts.pipe_depth, client_num_in_total=8,
+                   client_num_per_round=2, comm_round=2, epochs=1,
+                   batch_size=16, learning_rate=0.05, random_seed=7,
+                   partition_method="homo", frequency_of_the_test=10 ** 9)
+        micro = 4
+        sp = build(FedAvgAPI, cfg)
+        init = {k: v.clone() for k, v in sp.state.global_params.items()}
+        n_params = sum(v.numel() for v in init.values())
+        sp_losses, sp_secs = rounds(sp, 2)
+        sp_params = {k: v.cpu() for k, v in sp.state.global_params.items()}
+        del sp
+        if opts.device == "cuda":
+            torch.cuda.empty_cache()
+        for shape in ((1, world, 1), (1, world // 2, 2)):
+            c, s, m = shape
+            api = build(MeshFedAvgAPI, dict(
+                cfg, mesh_shape=",".join(map(str, shape)),
+                microbatches=micro))
+            api.reset_params(init)
+            losses, secs = rounds(api, 2)
+            api._stager.close()
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, sp_losses))
+            held = sum(v.numel() * v.element_size()
+                       for v in api.state.global_params.values())
+            pe = err(api.full_params(), sp_params)[0]
+            # the bubble: a pipelined step against k ticks of this
+            # stage's own work (its layers, forward and backward, on one
+            # microbatch)
+            tr = api.trainer
+            x = torch.randn((cfg["batch_size"], 28, 28, 1), device=dev)
+            y = torch.randint(0, 10, (cfg["batch_size"],), device=dev)
+            params = api.state.global_params
+            t_step = timed(lambda: tr.grad_and_loss(params, x, y), 3)
+            h = torch.randn((cfg["batch_size"] // micro, opts.pipe_hidden),
+                            device=dev)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items() if k in tr.staged}
+
+            def tick():
+                out_ = tr.pipe.blocks(leaves, h, tr.tp_mesh)
+                torch.autograd.grad(out_.sum(), list(leaves.values()))
+
+            t_tick = timed(tick, 3)
+            bubble = 1.0 - micro * t_tick / t_step
+            ideal = (s - 1) / (micro + s - 1)
+            check(f"pipeline {shape} pipe_mlp {n_params / 1e9:.2f} B params "
+                  f"vs one card: losses relative", rel, rel <= 1e-5,
+                  {"losses": losses, "sp_losses": sp_losses,
+                   "params_err": pe, "s_per_round": secs,
+                   "sp_s_per_round": sp_secs, "param_bytes_a_rank": held,
+                   "bytes": api.collective_bytes(), "n_params": n_params,
+                   "t_step_s": t_step, "t_tick_s": t_tick,
+                   "bubble_measured": bubble, "bubble_ideal": ideal})
+            say(f"pipeline {shape}: {secs[1]:.3f} s a round vs one card "
+                f"{sp_secs[1]:.3f}; {held / 2**30:.2f} GiB of params a "
+                f"rank; bytes a round {api.collective_bytes()}; bubble "
+                f"{bubble:.3f} measured vs (s-1)/(k+s-1) = {ideal:.3f} "
+                f"(step {t_step * 1e3:.1f} ms, tick {t_tick * 1e3:.2f} ms); "
+                f"params vs one card {pe:.2e} [{smi}]")
+            del api, params, leaves
+            if opts.device == "cuda":
+                torch.cuda.empty_cache()
+        # round_block on the pipeline layout: on the card each round a
+        # CUDA graph holding the stage ring's send/recv
+        small = dict(cfg, model_dim=256, model_layers=2 * world,
+                     comm_round=3, federated_optimizer="SCAFFOLD",
+                     update_sharding="scatter", microbatches=micro)
+        for shape in ((1, world, 1), (1, world // 2, 2)):
+            sh = ",".join(map(str, shape))
+            u = build(MeshFedAvgAPI, dict(small, mesh_shape=sh))
+            rounds(u, 3)
+            f = build(MeshFedAvgAPI, dict(small, mesh_shape=sh,
+                                          round_block=2))
+            f._train_fused()
+            u._stager.close()
+            f._stager.close()
+            us, fs = u.full_state(), f.full_state()
+            e = max(err(fs.global_params, us.global_params)[0],
+                    float(torch.max(torch.abs(fs.c_server - us.c_server))))
+            graphs = f._block_fn.captures if opts.device == "cuda" else 0
+            check(f"round_block 2 over 3 rounds vs unfused, pipeline "
+                  f"{shape} (SCAFFOLD, scatter)", e, e <= 1e-6,
+                  {"graphs_captured": graphs})
+            f._block_fn.release()
+            del u, f, us, fs
+        # can one NCCL ring shift be captured in a CUDA graph?
+        if opts.device == "cuda":
+            pm = make_mesh2d(f"1,{world},1", device=dev)
+            src = torch.full((1024,), float(rank), device=dev)
+            pm.ppermute(src, STAGE_AXIS)
+            torch.cuda.synchronize()
+            note = "ok"
+            try:
+                g = torch.cuda.CUDAGraph()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.graph(g, stream=side):
+                    got = pm.ppermute(src, STAGE_AXIS)
+                g.replay()
+                torch.cuda.synchronize()
+                want = float((rank - 1) % world)
+                captured = bool((got == want).all())
+                del g
+            except Exception as e:   # the probe's outcome is its result
+                captured, note = False, f"{type(e).__name__}: {e}"[:200]
+            torch.cuda.synchronize()
+            out["checks"]["nccl_p2p_graph_capture"] = {
+                "value": float(captured), "note": note}
+            say(f"NCCL ring shift captured in a CUDA graph and replayed: "
+                f"{captured} ({note}) [{smi}]")
+
+    def ring_section():
+        """Ring attention over a seq group of the whole world against one
+        card's single K1-K3 call."""
+        from fedml_tpu_torch.ops import attention as att
+        from fedml_tpu_torch.ops.ring_attention import ring_attention
+        rm = make_mesh(client=1, seq=world, device=dev)
+        b, h, d, s_len = 1, 32, 128, opts.ring_seq
+        dt = torch.bfloat16 if opts.device == "cuda" else torch.float32
+        g = torch.Generator(device=dev)
+        g.manual_seed(4096)
+        mk = lambda: torch.randn((b, h, s_len, d), generator=g, device=dev,
+                                 dtype=torch.float32).to(dt)
+        q, k, v, do = mk(), mk(), mk(), mk()
+        part = slice(rank * s_len // world, (rank + 1) * s_len // world)
+        sh = [t[:, :, part].contiguous() for t in (q, k, v, do)]
+        leaves = [t.clone().requires_grad_(True) for t in sh[:3]]
+        att.reset_launch_counts()
+        o = ring_attention(*leaves, rm)
+        grads = torch.autograd.grad(o, leaves, sh[3])
+        sync()
+        mine = {f.__name__: f.launches for f in att.KERNELS}
+        total = rm.psum(torch.tensor([float(n) for n in mine.values()],
+                                     device=dev))
+        so, slse = att.flash_attention_fwd(q, k, v, True)
+        sdq, sdelta = att.flash_attention_bwd_dq(q, k, v, so, slse, do, True)
+        sdk, sdv = att.flash_attention_bwd_dkv(q, k, v, slse, sdelta, do,
+                                               True)
+        worst = 0.0
+        for name, got, ref in (("O", o, so), ("dQ", grads[0], sdq),
+                               ("dK", grads[1], sdk), ("dV", grads[2], sdv)):
+            st = att.compare_with_plain(got, ref[:, :, part].contiguous())
+            worst = max(worst, st["elem"], st["block"])
+            say(f"ring {name} vs one call: err {st['err']:.2e}, worst "
+                f"element {st['elem']:.2f} and block {st['block']:.2f} of "
+                f"their limits (rank 0's shard) [{smi}]")
+        worst_all = float(torch.max(rm.all_gather(torch.tensor(
+            [worst], device=dev))))
+        steps = world * (world + 1) // 2
+
+        def ring_fb():
+            ls = [t.clone().requires_grad_(True) for t in sh[:3]]
+            torch.autograd.grad(ring_attention(*ls, rm), ls, sh[3])
+
+        def one_fb():
+            o_, l_ = att.flash_attention_fwd(q, k, v, True)
+            _, d_ = att.flash_attention_bwd_dq(q, k, v, o_, l_, do, True)
+            att.flash_attention_bwd_dkv(q, k, v, l_, d_, do, True)
+
+        t_ring = timed(ring_fb, 5)
+        t_one = timed(one_fb, 5)
+        counts = dict(zip(mine, [int(x) for x in total.tolist()]))
+        ok = worst_all <= 1 and all(n == steps for n in counts.values()) \
+            if opts.device == "cuda" else worst_all <= 1
+        check(f"ring attention seq {world}, B{b} H{h} S{s_len} D{d} causal "
+              f"{str(dt)[6:]} vs one call (worst share of KERNEL_TOL)",
+              worst_all, ok, {"launches": counts, "ring_s": t_ring,
+                              "one_call_s": t_one})
+        say(f"ring: launches across ranks {counts} (want {steps} each on "
+            f"the card); forward+backward {t_ring * 1e3:.2f} ms on "
+            f"{world} cards vs one call {t_one * 1e3:.2f} ms [{smi}]")
+
+    def timed(fn, reps):
+        """Seconds a call of ``fn`` (one warm call, then ``reps``)."""
+        fn()
+        sync()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.time() - t0) / reps
+
+    if opts.mesh3d_only or opts.ring_only:
+        if opts.mesh3d_only:
+            mesh3d()
+        if opts.ring_only:
+            ring_section()
+        finish()
+        return
+
     if opts.mesh2d_only:
         mesh2d()
         finish()
@@ -547,6 +773,8 @@ def main():
 
     femnist_cnn()
     mesh2d()
+    mesh3d()
+    ring_section()
 
     finish()
 
