@@ -279,6 +279,37 @@ Phases, each printing its own lines:
    mode the ring launches (rows under ``"ring_blocks"``).  K1–K3 launch 0 times in (a) and (b)
    (checked).  Then the process group is torn down.  A stage or seq factor
    above 1 needs more cards: ``tools/torch_mesh_ranks.py``.
+19. cross_silo — the cross-silo federation (``cross_silo/``, the message
+   plane of ``core/distributed/``), server and silos each with its own
+   model.  (c)'s processes start first and run beside (a)–(b).  (a) phase
+   5 (b)'s FEMNIST CNN as a server and 2 silos in threads over ``local``
+   for 3 rounds on the card; each silo's round-0 pass is then traced step
+   by step on the card and on the CPU from the same weights (each silo
+   draws its dropout masks from its (round, client) generator on the
+   host, so both devices draw the same): every step before the first
+   whose forward flips a ReLU sign or a max-pool winner between the two
+   within ``XS_TOL``, the forwards' pre-activations within ``XS_ACT_TOL``
+   through that step, and the federation's round-0 upload of that silo
+   bitwise the traced card pass (all checked; the flip step recorded:
+   once one flips, the CNN amplifies the difference into 1e-2 within 3
+   rounds, PERF.md §6); K1–K3 launch 0 times (checked); (a') phase 5
+   (d)'s ``cnn_web`` and ``tests/test_cross_silo.py``'s ``lr`` federations
+   card ≡ CPU within ``XS_TOL``, and the ``lr`` one ≡ the sp engine from
+   the same weights (the dropout-free config on which the CPU tests show
+   the two engines agree; the CNN's per-silo dropout draws differ from
+   the sp engine's per-round draws by design); (b) phase 8's text
+   transformer at full width (realtext) as 2 silos for 2 rounds, clean
+   and under ``XS_FAULTS`` (seeded dup/delay chaos, reliable delivery, 4
+   MiB frames): the fault run bitwise the clean run, K1, K2 and K3
+   launched in each run exactly layers × (silo steps + eval batches ×
+   evals) and layers × silo steps times (counts set to 0 just before each
+   run and read just after), the server's eval accuracy printed; (c)
+   (a)'s federation as 3 OS processes started by ``CrossSiloLauncher``
+   (``tools/torch_cross_silo_entry.py``) over ``MQTT_S3`` through the
+   in-repo ``MiniMqttBroker`` on an ephemeral port, done within
+   ``XS_JOIN_S`` of their launch: the server's final params bitwise (a)'s
+   threads.  Each sub-phase prints its seconds, each round's silo local
+   pass and upload-to-next-sync seconds, and a model message's bytes.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -292,8 +323,8 @@ under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
 phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
 phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``)
-beside them; each kernel row adds phase 12's to 18's launches a path
-under ``launches_by_path``)
+and phase 19's under ``"cross_silo"`` beside them; each kernel row adds
+phase 12's to 19's launches a path under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -4870,6 +4901,509 @@ def ring_part(torch, att, smi):
     return rec, blocks
 
 
+#: phase 19: the cross-silo federation.  (a) the FEMNIST CNN as a server
+#: and 2 silos (client_id_list [1, 2]: two of the 100 FEMNIST clients a
+#: round) for 3 rounds; (a') tests/test_cross_silo.py's lr federation, the
+#: dropout-free config on which the CPU tests show the cross-silo and sp
+#: engines agree; (b) phase 8's text transformer at full width as 2 silos
+#: for 2 rounds, clean and under the fault stack; (c) (a) as 3 processes
+XS_FEMNIST = dict(SP_FEMNIST_CNN, client_id_list=[1, 2], comm_round=3)
+XS_LR = dict(dataset="synthetic", num_classes=10, input_shape=(14, 14, 1),
+             train_size=512, test_size=128, model="lr",
+             client_num_in_total=2, client_num_per_round=2, comm_round=3,
+             batch_size=16, learning_rate=0.1, random_seed=11,
+             client_id_list=[1, 2], partition_method="hetero")
+#: phase 5 (d)'s cnn_web config, as 2 silos for 2 rounds
+XS_CNN_WEB = dict(dataset="synthetic", num_classes=10,
+                  input_shape=(28, 28, 1), train_size=512, test_size=128,
+                  model="cnn_web", client_num_in_total=8,
+                  client_num_per_round=4, batch_size=16, learning_rate=0.05,
+                  partition_method="hetero", partition_alpha=0.3,
+                  momentum=0.9, random_seed=3, client_id_list=[1, 2],
+                  comm_round=2)
+XS_TEXT = dict(TEXT_REALTEXT, client_id_list=[1, 2], comm_round=2)
+#: tests/test_chaos.py's dup/delay chaos, acked and retransmitted by the
+#: reliability layer, every message above 4 MiB (a 17 MB text model: 5
+#: frames) split into frames
+XS_FAULTS = dict(chaos_seed=7, chaos_dup_prob=0.3, chaos_delay_prob=0.5,
+                 chaos_max_delay_s=0.03, reliable_delivery=True,
+                 reliable_types=[1, 2, 3, 5, 7], wire_chunk_bytes=4 << 20)
+#: card ≡ CPU, and cross-silo ≡ sp engine (f32, TF32 off)
+XS_TOL = 1e-6
+#: card vs CPU, a forward's ReLU pre-activations while the params agree
+#: within ``XS_TOL`` (f32 sums of up to 3,136 products in another order)
+XS_ACT_TOL = 1e-4
+#: each thread join waits at most this long, and (c)'s processes must be
+#: done within it of their launch
+XS_JOIN_S = 60
+
+
+def xs_args(fedml_tpu_torch, cfg, rank, run_id, **over):
+    return sp_args(fedml_tpu_torch, **cfg).update(
+        training_type="cross_silo", backend="local", rank=rank,
+        run_id=run_id, role="server" if rank == 0 else "client", **over)
+
+
+def xs_federation(torch, fedml_tpu_torch, cfg, device, run_id, ds, n_out,
+                  init=None, record=False, **over):
+    """A server and its silos as threads (one model each, the dataset
+    shared); returns the server, the silos and the seconds, and with
+    ``record`` each silo's first (round-0) upload as the server received
+    it, by silo index.  Each join has a deadline: a stalled federation
+    fails the run."""
+    from fedml_tpu_torch import model
+    from fedml_tpu_torch.cross_silo.client import Client
+    from fedml_tpu_torch.cross_silo.server import Server
+
+    out, errors = {"clients": {}}, []
+
+    def guard(fn, *a):
+        try:
+            fn(*a)
+        except BaseException as e:   # noqa: BLE001 — failed below
+            errors.append(repr(e))
+
+    def server():
+        a = xs_args(fedml_tpu_torch, cfg, 0, run_id, **over)
+        srv = Server(a, device, ds, model.create(a, n_out))
+        if init is not None:
+            srv.aggregator.set_global_model_params(init)
+        if record:
+            agg, first = srv.aggregator, out.setdefault("round0", {})
+            add = agg.add_local_trained_result
+
+            def add_recorded(index, params, n):
+                first.setdefault(index, {k: torch.as_tensor(v).detach().cpu()
+                                         .clone() for k, v in params.items()})
+                add(index, params, n)
+            agg.add_local_trained_result = add_recorded
+        out["init"] = {k: v.detach().clone() for k, v in
+                       srv.aggregator.get_global_model_params().items()}
+        out["server"] = srv
+        out["params"] = srv.run()
+
+    def client(rank):
+        a = xs_args(fedml_tpu_torch, cfg, rank, run_id, **over)
+        c = Client(a, device, ds, model.create(a, n_out))
+        out["clients"][rank] = c.client_manager
+        c.run()
+
+    t0 = time.time()
+    ranks = range(1, len(cfg["client_id_list"]) + 1)
+    threads = [threading.Thread(target=guard, args=(server,), daemon=True)]
+    threads += [threading.Thread(target=guard, args=(client, r), daemon=True)
+                for r in ranks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=XS_JOIN_S)
+    if errors:
+        fail(f"cross-silo {run_id}: {errors[0]}")
+    if any(t.is_alive() for t in threads):
+        fail(f"cross-silo {run_id}: the federation stalled past "
+             f"{XS_JOIN_S} s a join")
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def forward_signs(torch, F, p, x, keep):
+    """The FEMNIST CNN's forward (``models/cnn.py::CNNDropOut``) up to its
+    last ReLU: the ReLU pre-activations (after Conv_0, Conv_1, Dense_0)
+    and the max-pool winners (after each conv)."""
+    x = (x[..., None] if x.ndim == 3 else x).permute(0, 3, 1, 2)
+    z0 = F.conv2d(x, p["Conv_0.weight"], p["Conv_0.bias"], padding=2)
+    h0, i0 = F.max_pool2d(F.relu(z0), 2, 2, return_indices=True)
+    z1 = F.conv2d(h0, p["Conv_1.weight"], p["Conv_1.bias"], padding=2)
+    h1, i1 = F.max_pool2d(F.relu(z1), 2, 2, return_indices=True)
+    f = h1.permute(0, 2, 3, 1).reshape(h1.shape[0], -1)
+    if keep is not None:
+        f = torch.where(keep[0], f / 0.75, 0.0)
+    z2 = F.linear(f, p["Dense_0.weight"], p["Dense_0.bias"])
+    return {"relu_conv0": z0, "relu_conv1": z1, "relu_dense0": z2}, \
+        {"pool0": i0, "pool1": i1}
+
+
+def xs_silo_trace(torch, fedml_tpu_torch, cfg, ds, n_out, init, data_idx):
+    """Card vs CPU, step by step: one silo's round-0 local pass (client
+    ``data_idx``, its batches and dropout keep-masks fed as
+    ``TrainerDistAdapter`` feeds them) from ``init`` on each device.  A row
+    a step: before it, how many ReLU signs and max-pool winners differ
+    between the two runs' forwards on the step's batch and the forwards'
+    largest pre-activation difference; after it, the params' largest
+    difference.  Returns the rows and the card run's final params."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch import model
+    from fedml_tpu_torch.core import rng as rng_util
+    from fedml_tpu_torch.ml.trainer.local_trainer import LocalTrainer, \
+        ServerCtx
+
+    args = xs_args(fedml_tpu_torch, cfg, 1, "xs_trace")
+    m = model.create(args, n_out)
+    tr = LocalTrainer(m, args)
+    seed, bs = int(args.random_seed), int(args.batch_size)
+    xb, yb = ds.client_batches(data_idx, bs, seed, 0, int(args.epochs))
+    masks = m.dropout_masks(rng_util.client_key(
+        rng_util.root_key(seed), 0, data_idx), (len(xb), bs))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in init.items()}
+        zero = torch.zeros((), device=dev)
+        runs[dev] = {"carry": (p, tr.tx.init(p), None, None, zero, zero),
+                     "ctx": ServerCtx(p)}
+    rows = []
+    for s in range(len(xb)):
+        feed = {dev: (torch.as_tensor(xb[s], device=dev),
+                      torch.as_tensor(yb[s], device=dev),
+                      tuple(mk[s].to(dev) for mk in masks))
+                for dev in runs}
+        with torch.no_grad():
+            (za, pa), (zb, pb) = (forward_signs(
+                torch, F, runs[dev]["carry"][0], feed[dev][0], feed[dev][2])
+                for dev in ("cuda", "cpu"))
+        row = {"step": s + 1, "flips": 0, "act_diff": 0.0}
+        for k in za:
+            a = za[k].cpu()
+            row["flips"] += int(((a > 0) != (zb[k] > 0)).sum())
+            row["act_diff"] = max(row["act_diff"],
+                                  float((a - zb[k]).abs().max()))
+        row["flips"] += sum(int((pa[k].cpu() != pb[k]).sum()) for k in pa)
+        for dev, r in runs.items():
+            x, y, keep = feed[dev]
+            r["carry"] = tr.train_step(r["carry"], x, y,
+                                       torch.ones((), device=dev), keep,
+                                       r["ctx"])
+        row["params_gap"] = xs_err(runs["cuda"]["carry"][0],
+                                   runs["cpu"]["carry"][0])
+        rows.append(row)
+    return rows, {k: v.cpu() for k, v in runs["cuda"]["carry"][0].items()}
+
+
+def xs_hold_trace(rows):
+    """The steps a silo's card pass is held to its CPU pass through: every
+    step before the first whose forward flips a ReLU sign or a max-pool
+    winner between the two (all steps if none does) within ``XS_TOL``, and
+    the forwards' pre-activations within ``XS_ACT_TOL`` through that
+    step.  Returns the first flip step (None if none) and the failures."""
+    flip = next((r["step"] for r in rows if r["flips"]), None)
+    bad = [f"step {r['step']}: params {r['params_gap']:.2e}" for r in rows
+           if (flip is None or r["step"] < flip)
+           and not r["params_gap"] <= XS_TOL]
+    bad += [f"step {r['step']}: activations {r['act_diff']:.2e}"
+            for r in rows if (flip is None or r["step"] <= flip)
+            and not r["act_diff"] <= XS_ACT_TOL]
+    return flip, bad
+
+
+def xs_split(fed):
+    """Per round, the silos' mean local pass and mean upload-to-sync
+    seconds (the ClientMasterManager's timings)."""
+    rows = {}
+    for mgr in fed["clients"].values():
+        for t in mgr.timings:
+            r = rows.setdefault(t["round"], {"local_pass_s": [],
+                                             "upload_to_sync_s": []})
+            r["local_pass_s"].append(t["local_pass_s"])
+            r["upload_to_sync_s"].append(t["upload_to_sync_s"])
+    return [{"round": r, **{k: sum(v) / len(v) for k, v in d.items()}}
+            for r, d in sorted(rows.items())]
+
+
+def xs_message_bytes(params, round_idx=0):
+    """Bytes of one model upload as the codec writes it (the message a
+    filestore, MQTT blob or chunked frame carries)."""
+    from fedml_tpu_torch.core.distributed.communication.message import (
+        Message, encode_tree, to_host)
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+
+    msg = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, 1, 0)
+    msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, to_host(params))
+    msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, 1.0)
+    msg.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, round_idx)
+    return len(encode_tree(msg.get_params()))
+
+
+def xs_report(tag, fed, nbytes, smi, launches=None):
+    split = xs_split(fed)
+    ev = fed["server"].aggregator.last_eval
+    say("cross_silo", f"{tag}: {fed['seconds']:.2f} s; model message "
+                      f"{nbytes:,} bytes; eval round {ev['round']} loss "
+                      f"{ev['loss']:.4f} acc {ev['acc']:.4f}"
+                      + (f"; K1-K3 launches {launches}" if launches else "")
+                      + f" [{smi}]")
+    for r in split:
+        say("cross_silo", f"  round {r['round']}: silo local pass "
+                          f"{r['local_pass_s']:.4f} s, upload to next sync "
+                          f"{r['upload_to_sync_s']:.4f} s")
+    rec = {"seconds": fed["seconds"], "rounds": split,
+           "message_bytes": nbytes, "eval": ev}
+    if launches is not None:
+        rec["launches"] = launches
+    return rec
+
+
+def xs_err(a, b):
+    return max(max_err(a[k].detach().cpu(), b[k].detach().cpu()) for k in b)
+
+
+def xs_bitwise(torch, a, b):
+    return set(a) == set(b) and all(
+        torch.equal(a[k].detach().cpu(), b[k].detach().cpu()) for k in b)
+
+
+def cross_silo_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 19."""
+    import shutil
+
+    out, seconds = {}, {}
+    t_phase = time.time()
+    # (c)'s three processes start first: each imports torch and the port,
+    # loads FEMNIST and reaches the card while (a)–(b) run in this one
+    procs = xs_launch_processes(fedml_tpu_torch)
+    try:
+        threads_params = xs_in_process(torch, fedml_tpu_torch, att, smi, out,
+                                       seconds)
+        t0 = time.time()
+        out["processes"] = xs_join_processes(torch, procs, threads_params,
+                                             smi)
+        seconds["c_after_b"] = time.time() - t0
+    finally:
+        procs["launcher"].kill()
+        procs["broker"].stop()
+        shutil.rmtree(procs["work"], ignore_errors=True)
+    seconds["phase"] = time.time() - t_phase
+    out["seconds"] = seconds
+    return out
+
+
+def xs_in_process(torch, fedml_tpu_torch, att, smi, out, seconds):
+    """Phase 19 (a)–(b), in threads of this process; returns (a)'s final
+    params."""
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.core import rng as rng_util
+
+    # (a) the FEMNIST CNN on the card; each silo's round-0 pass traced
+    # card vs CPU from the same weights
+    t0 = time.time()
+    args = xs_args(fedml_tpu_torch, XS_FEMNIST, 0, "xs_a")
+    ds, n_out = data.load(args)
+    say("cross_silo", f"(a) CNNDropOut ({n_out} classes), femnist synthetic "
+                      f"{ds.train_data_num:,} / {ds.test_data_num:,}, 100 "
+                      f"clients (α 0.5), server + 2 silos in threads over "
+                      f"local, 3 rounds; data in {time.time() - t0:.1f} s")
+    card, launches_a = counted(torch, att, lambda: xs_federation(
+        torch, fedml_tpu_torch, XS_FEMNIST, "cuda", "xs_a_card", ds, n_out,
+        record=True))
+    if any(launches_a.values()):
+        fail(f"(a) launched a flash-attention kernel: {launches_a}")
+    nbytes = xs_message_bytes(card["params"])
+    out["femnist_card"] = xs_report("(a) card", card, nbytes, smi,
+                                    launches_a)
+    sampled = rng_util.sample_clients(int(args.random_seed), 0,
+                                      int(args.client_num_in_total), 2)
+    out["femnist_card_vs_cpu"] = {}
+    for index, data_idx in enumerate(int(c) for c in sampled):
+        rows, final = xs_silo_trace(torch, fedml_tpu_torch, XS_FEMNIST, ds,
+                                    n_out, card["init"], data_idx)
+        flip, bad = xs_hold_trace(rows)
+        fed = xs_bitwise(torch, final, card["round0"][index])
+        out["femnist_card_vs_cpu"][f"silo{index + 1}"] = {
+            "client": data_idx, "steps": rows, "first_flip_step": flip,
+            "upload_bitwise_trace": fed}
+        held = len(rows) if flip is None else flip - 1
+        say("cross_silo", f"(a) silo {index + 1}'s round-0 pass (client "
+                          f"{data_idx}, {len(rows)} steps), card vs CPU from "
+                          f"the same weights: params after each step "
+                          + " ".join(f"{r['params_gap']:.1e}" for r in rows)
+                          + f"; first forward flipping a ReLU sign or max-"
+                            f"pool winner: step {flip or 'none'} ({held} steps held "
+                            f"within {XS_TOL:g}, pre-activations through the "
+                            f"flip within {XS_ACT_TOL:g}: max "
+                          + f"{max(r['act_diff'] for r in rows[:held + 1]):.1e}"
+                          + f"); the federation's round-0 upload "
+                            f"{'bitwise' if fed else 'DIFFERENT from'} the "
+                            f"traced card pass")
+        if bad:
+            fail(f"(a) silo {index + 1}: card and CPU part before any "
+                 f"activation flips ({'; '.join(bad[:3])})")
+        if not fed:
+            fail(f"(a) silo {index + 1}'s round-0 upload is not the traced "
+                 f"card pass")
+    seconds["a"] = time.time() - t0
+
+    # (a') cnn_web and lr federations card ≡ CPU; lr cross-silo ≡ sp
+    t0 = time.time()
+    out["card_vs_cpu"] = {}
+    for name, cfg in (("cnn_web", XS_CNN_WEB), ("lr", XS_LR)):
+        cargs = xs_args(fedml_tpu_torch, cfg, 0, f"xs_{name}")
+        cds, c_out = data.load(cargs)
+        on_card = xs_federation(torch, fedml_tpu_torch, cfg, "cuda",
+                                f"xs_{name}_card", cds, c_out)
+        on_cpu = xs_federation(torch, fedml_tpu_torch, cfg, "cpu",
+                               f"xs_{name}_cpu", cds, c_out,
+                               init={k: v.cpu() for k, v in
+                                     on_card["init"].items()})
+        err = xs_err(on_card["params"], on_cpu["params"])
+        out["card_vs_cpu"][name] = err
+        say("cross_silo", f"(a') {name}, 2 silos, {cfg['comm_round']} rounds"
+                          f": card vs CPU from the same weights, params max "
+                          f"abs diff {err:.2e} (tol {XS_TOL:g})")
+        if not err <= XS_TOL:
+            fail(f"(a') {name}: card and CPU federations disagree "
+                 f"({err:.2e})")
+    api = build_sp(sp_args(fedml_tpu_torch, **XS_LR))
+    api.state = api.state.replace(global_params=on_card["init"])
+    for r in range(XS_LR["comm_round"]):
+        api.train_one_round(r)
+    err = xs_err(on_card["params"], api.state.global_params)
+    out["lr_vs_sp"] = err
+    say("cross_silo", f"(a') lr: cross-silo vs the sp engine on the card from "
+                      f"the same weights, params max abs diff {err:.2e} (tol "
+                      f"{XS_TOL:g})")
+    if not err <= XS_TOL:
+        fail(f"(a') cross-silo and sp engines disagree ({err:.2e})")
+    seconds["a_small"] = time.time() - t0
+
+    # (b) the text transformer at full width, clean and under the faults
+    t0 = time.time()
+    targs = xs_args(fedml_tpu_torch, XS_TEXT, 0, "xs_b")
+    tds, t_out = data.load(targs)
+    seed, bs = int(targs.random_seed), int(targs.batch_size)
+    steps = sum(tds.client_index_batches(int(c), bs, seed, r).shape[0]
+                for r in range(XS_TEXT["comm_round"])
+                for c in rng_util.sample_clients(
+                    seed, r, XS_TEXT["client_num_in_total"], 2))
+    n_eval = len(tds.test_batches()[0])
+    evals = sum(1 for r in range(XS_TEXT["comm_round"])
+                if r % int(targs.frequency_of_the_test) == 0
+                or r == XS_TEXT["comm_round"] - 1)
+    layers = 4
+    want = expect_launches(layers, steps + n_eval * evals, steps)
+    runs = {}
+    for name, over in (("clean", {}), ("faults", XS_FAULTS)):
+        fed, got = counted(torch, att, lambda: xs_federation(
+            torch, fedml_tpu_torch, XS_TEXT, "cuda", f"xs_b_{name}", tds,
+            t_out, **over))
+        mod = fed["server"].aggregator.model.module
+        if (mod.tok_embed.weight.shape, mod.n_layers, mod.layer_0.n_heads,
+                mod.layer_0.ff_up.weight.shape[0]) != ((8192, 256), 4, 8,
+                                                       512):
+            fail("(b) not the text model at its full width")
+        nbytes = xs_message_bytes(fed["params"])
+        out[f"text_{name}"] = xs_report(f"(b) text {name}", fed, nbytes, smi,
+                                        got)
+        say("cross_silo", f"  expected launches {want}: layers {layers} × "
+                          f"({steps} silo steps over 2 silos × 2 rounds + "
+                          f"{n_eval} eval batches × {evals} evals) for K1, "
+                          f"layers × steps for K2/K3")
+        if got != want or not all(got.values()):
+            fail(f"(b) {name}: launches {got} != expected {want}")
+        runs[name] = fed
+    com = runs["faults"]["server"].server_manager.com_manager
+    from fedml_tpu_torch.core.distributed.chunking import find_chunking
+    from fedml_tpu_torch.core.distributed.reliability import find_reliable
+    chunks = find_chunking(com).stats
+    rel = find_reliable(com).stats
+    chaos = runs["faults"]["clients"][1].com_manager
+    while type(chaos).__name__ != "FaultInjectingCommManager":
+        chaos = chaos.inner
+    same = xs_bitwise(torch, runs["faults"]["params"],
+                      runs["clean"]["params"])
+    say("cross_silo", f"(b) faults vs clean: params bitwise "
+                      f"{'equal' if same else 'DIFFERENT'}; server chunking "
+                      f"{chunks}; server reliability {rel}; silo 1's chaos "
+                      f"{chaos.stats}")
+    out["text_faults"].update(chunking=chunks, reliability=rel,
+                              chaos_silo1=chaos.stats)
+    if not same:
+        fail("(b) the federation under chaos and chunking is not bitwise "
+             "the clean run")
+    if chunks["chunked_sends"] == 0 or chaos.stats["duplicated"] == 0:
+        fail("(b) the fault stack did not engage")
+    out["text_launches"] = want
+    seconds["b"] = time.time() - t0
+
+    return card["params"]
+
+
+def xs_launch_processes(fedml_tpu_torch):
+    """(c): ``CrossSiloLauncher`` starts the server and 2 silos as OS
+    processes (``tools/torch_cross_silo_entry.py``) on the card, on (a)'s
+    config, over ``MQTT_S3`` through a ``MiniMqttBroker`` on an ephemeral
+    port of this host, the server's persistent session opened first.
+    Returns the launcher, the broker and the work directory, which the
+    caller stops and removes."""
+    import shutil
+
+    from fedml_tpu_torch.core.distributed.communication.mqtt.mini_broker \
+        import MiniMqttBroker
+    from fedml_tpu_torch.core.distributed.communication.mqtt \
+        .mqtt_s3_comm_manager import preregister_session
+    from fedml_tpu_torch.cross_silo.client.client_launcher import \
+        CrossSiloLauncher
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".phase19_xs")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    broker = MiniMqttBroker().start()
+    cfg = dict(XS_FEMNIST, epochs=1, frequency_of_the_test=10 ** 9,
+               random_seed=0, backend="MQTT_S3",
+               mqtt_config={"host": "127.0.0.1", "port": broker.port},
+               store_dir=os.path.join(work, "store"))
+    run_id = "xs_c"
+    preregister_session(fedml_tpu_torch.load_arguments().update(
+        run_id=run_id, **cfg), 0, 3)
+    out_path = os.path.join(work, "server_params.pt")
+    launcher = CrossSiloLauncher(
+        os.path.join(root, "tools", "torch_cross_silo_entry.py"),
+        run_id=run_id, client_ranks=[1, 2],
+        extra_env={"XS_CFG": json.dumps(cfg), "XS_OUT": out_path})
+    rec = {"launcher": launcher, "broker": broker, "work": work,
+           "out": out_path, "run_id": run_id}
+    try:
+        launcher.launch()
+    except BaseException:
+        launcher.kill()
+        broker.stop()
+        raise
+    rec["t0"] = time.time()
+    return rec
+
+
+def xs_join_processes(torch, procs, threads_params, smi):
+    """(c)'s end: the three processes exit 0 within ``XS_JOIN_S`` of their
+    launch, and the server's final params equal (a)'s thread run
+    bitwise."""
+    try:
+        codes = procs["launcher"].wait(
+            timeout_s=max(XS_JOIN_S - (time.time() - procs["t0"]), 0.1))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"(c) the three processes failed: {e}")
+    dt = time.time() - procs["t0"]
+    params = torch.load(procs["out"], map_location="cpu")
+    msgs = [m for m in procs["broker"].message_log
+            if m[0].startswith(f"fedml_{procs['run_id']}")]
+    same = xs_bitwise(torch, params, threads_params)
+    err = xs_err(params, threads_params)
+    say("cross_silo", f"(c) server + 2 silos as processes (CrossSiloLauncher"
+                      f", FEDML_TPU_RANK/ROLE/RUN_ID) over MQTT_S3 through "
+                      f"the in-repo broker: exit codes {codes}, {dt:.2f} s "
+                      f"from launch (3 interpreters, each importing torch and "
+                      f"the port, loading FEMNIST and reaching the card, "
+                      f"beside (a)–(b) in this process), {len(msgs)} control "
+                      f"messages on the broker; params vs (a)'s threads "
+                      f"{'bitwise equal' if same else 'DIFFERENT'} (max abs "
+                      f"diff {err:.2e}) [{smi}]")
+    if not same:
+        fail(f"(c) the processes' params differ from the threads' by "
+             f"{err:.2e}")
+    return {"seconds": dt, "exit_codes": codes, "bitwise": same,
+            "max_abs_diff": err, "control_messages": len(msgs)}
+
+
 def _kernel_inputs(torch, att, gen, b, h, hkv, s, d, causal, dt):
     """K1-K3's inputs at one shape, drawn from ``gen`` (the order
     ``time_kernels`` takes)."""
@@ -5277,6 +5811,17 @@ def main():
     mesh3d["seconds"]["teardown"] = time.time() - t1
     say("mesh3d", f"phase 18 took {time.time() - t0:.1f} s "
                   f"({ {k: round(v, 1) for k, v in mesh3d['seconds'].items()} })")
+
+    # -- 19. cross-silo: server and silos over the message plane ----------
+    t0 = time.time()
+    cross_silo = cross_silo_phase(torch, fedml_tpu_torch, att, smi)
+    for name, n in cross_silo["text_launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "cross_silo_text"] = n
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "cross_silo_text"] = 0
+    say("cross_silo", f"phase 19 took {time.time() - t0:.1f} s "
+                      f"({ {k: round(v, 1) for k, v in cross_silo['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -5289,7 +5834,7 @@ def main():
                       "tp_shards": list(tp.pop("rows").values()),
                       "tp": tp,
                       "ring_blocks": list(mesh3d.pop("rows").values()),
-                      "mesh3d": mesh3d}))
+                      "mesh3d": mesh3d, "cross_silo": cross_silo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -60,8 +60,13 @@ _DEFAULTS: Dict[str, Any] = dict(
     async_alpha=0.5,
     # validation_args
     frequency_of_the_test=5,
-    # comm_args
+    # comm_args (run_id, rank and role are the JAX package's command-line
+    # defaults; client_id_list "[]" is normalised by init() for cross-silo)
     backend="sp",
+    run_id="0",
+    rank=0,
+    role="client",
+    client_id_list="[]",
     # sp engine: clients batched by torch.func.vmap ("vmap") or one after
     # another ("scan"); the training set lives on the device once and rounds
     # ship index tensors (device_data)

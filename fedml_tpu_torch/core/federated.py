@@ -149,6 +149,49 @@ class StackedReducer:
         return torch.sum(vec)
 
 
+class PartialReducer:
+    """Silo tier of the two-tier aggregation: every weighted reduction
+    returns its unfinished ``{"num", "den"}`` pair, so the partials of
+    several silos combine exactly at the server
+    (:func:`combine_partial_aggregates`: ``sum(nums) / sum(dens)`` is the
+    cohort average up to float reassociation); ``sum``-kind aggregates are
+    associative and stay plain."""
+
+    def wavg(self, stacked, w):
+        w = torch.as_tensor(w, dtype=torch.float32)
+        return {"num": weighted_sums(stacked, w), "den": torch.sum(w)}
+
+    def wavg_scalar(self, vec, w):
+        return {"num": torch.sum(w * vec), "den": torch.sum(w)}
+
+    def sum_scalar(self, vec):
+        return torch.sum(vec)
+
+
+def combine_partial_aggregates(spec: "AlgorithmSpec", partials
+                               ) -> Dict[str, Any]:
+    """Server tier: combine the silos' partial-aggregate dicts (each built
+    by :func:`build_aggregates` with a :class:`PartialReducer`) into the
+    finished aggregate dict ``ServerOptimizer.update_from_aggregates``
+    reads."""
+
+    def finish(key):
+        den = sum(p[key]["den"] for p in partials)
+        num = _tmap(lambda *ls: sum(ls), *[p[key]["num"] for p in partials])
+        return _tmap(lambda l: l / den, num)
+
+    agg: Dict[str, Any] = {
+        "n_sampled": sum(p["n_sampled"] for p in partials)}
+    if spec.avg_params:
+        agg["avg_params"] = finish("avg_params")
+    for a in spec.aggregates:
+        if a.kind in ("wavg", "scalar"):
+            agg[a.name] = finish(a.name)
+        else:  # sum: already associative
+            agg[a.name] = sum(p[a.name] for p in partials)
+    return agg
+
+
 def weighted_sums(stacked, w):
     """Per-leaf f32 ``Σ_i w_i · leaf_i`` over the leading client axis."""
     w = w.to(torch.float32)

@@ -8,8 +8,10 @@ the replicated one (every aux field mirrors the params dict) and the
 scatter one (``init_sharded``: every aux field a flat f32 vector of the
 padded flat model, of which each client shard keeps one chunk, and
 ``update_shard`` transitioning that chunk).  The quantized collectives
-add three fields (``ef_num``, ``master_flat``, ``ef_bcast``).  Not
-ported: the silo partial reducer.
+add three fields (``ef_num``, ``master_flat``, ``ef_bcast``).  The silo
+tier of the two-tier aggregation (:meth:`ServerOptimizer.
+compute_partial_aggregates`, combined by ``federated.
+combine_partial_aggregates``) serves the cross-silo server.
 """
 
 from __future__ import annotations
@@ -163,6 +165,32 @@ class ServerOptimizer:
         return federated.build_aggregates(self.spec,
                                           federated.StackedReducer(), self,
                                           state, outs, weights)
+
+    def compute_partial_aggregates(self, state: ServerState,
+                                   client_params_stacked, weights,
+                                   aux: Optional[dict] = None) -> dict:
+        """Silo tier of the two-tier aggregation: the aggregates of
+        :meth:`compute_aggregates` reduced with a ``federated.
+        PartialReducer``, every weighted entry an unfinished ``{num, den}``
+        pair that ``federated.combine_partial_aggregates`` finishes across
+        silos before one :meth:`update_from_aggregates`."""
+        aux = aux or {}
+        outs = types.SimpleNamespace(
+            params=client_params_stacked, delta_c=aux.get("delta_c"),
+            tau=aux.get("tau"), grad_sum=aux.get("grad_sum"),
+            loss=aux.get("loss"))
+        return federated.build_aggregates(self.spec,
+                                          federated.PartialReducer(), self,
+                                          state, outs, weights)
+
+    def update(self, state: ServerState, client_params_stacked, weights,
+               aux: Optional[dict] = None) -> ServerState:
+        """One server step over stacked client outputs (the cross-silo
+        server's merge): :meth:`compute_aggregates` then
+        :meth:`update_from_aggregates`."""
+        agg = self.compute_aggregates(state, client_params_stacked, weights,
+                                      aux)
+        return self.update_from_aggregates(state, agg)
 
     def merge_aggregates(self, aggs, total_ws) -> dict:
         """Combine per-bucket aggregates (``round_engine.

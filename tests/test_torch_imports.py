@@ -244,3 +244,80 @@ def test_mesh2d_and_tp_modules_import_with_jax_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules} <= walked
+
+
+def test_cross_silo_modules_run_with_jax_flax_and_msgpack_unimportable():
+    """The message plane (codec, backends, chaos, reliability, chunking),
+    the alg frame, the tracer and the cross-silo server and client import
+    and run a federation (server and 2 silos as threads, 2 rounds over the
+    local backend with chunked frames and reliable delivery, then a codec
+    round trip) in a process where ``jax``, ``flax``, ``msgpack``, ``paho``,
+    ``grpc`` and ``fedml_tpu`` cannot be imported at all, as on the card's
+    machine."""
+    import subprocess
+    import sys
+
+    modules = ("obs", "obs.tracer", "obs.context",
+               "core.distributed.communication.message",
+               "core.distributed.communication.base_com_manager",
+               "core.distributed.communication.local.local_comm_manager",
+               "core.distributed.communication.filestore."
+               "filestore_comm_manager",
+               "core.distributed.communication.mqtt.mini_mqtt",
+               "core.distributed.communication.mqtt.mini_broker",
+               "core.distributed.communication.mqtt.mqtt_s3_comm_manager",
+               "core.distributed.communication.fault_injection",
+               "core.distributed.reliability", "core.distributed.chunking",
+               "core.distributed.fedml_comm_manager",
+               "core.alg_frame.client_trainer",
+               "core.alg_frame.server_aggregator", "core.alg_frame.context",
+               "core.alg_frame.params", "cross_silo.message_define",
+               "cross_silo.server.fedml_aggregator",
+               "cross_silo.server.fedml_server_manager",
+               "cross_silo.client.fedml_client_master_manager",
+               "cross_silo.client.client_launcher", "runner")
+    code = (
+        "import sys, importlib, threading\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'paho',\n"
+        "          'grpc', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "import fedml_tpu_torch\n"
+        "from fedml_tpu_torch import data, model\n"
+        "from fedml_tpu_torch.cross_silo.server import Server\n"
+        "from fedml_tpu_torch.cross_silo.client import Client\n"
+        "from fedml_tpu_torch.core.distributed.communication import message\n"
+        "def args(rank):\n"
+        "    return fedml_tpu_torch.load_arguments().update(\n"
+        "        training_type='cross_silo', backend='local', rank=rank,\n"
+        "        run_id='nojax', dataset='synthetic', num_classes=10,\n"
+        "        input_shape=(14, 14, 1), train_size=128, test_size=32,\n"
+        "        client_num_in_total=2, client_num_per_round=2,\n"
+        "        comm_round=2, batch_size=16, client_id_list=[1, 2],\n"
+        "        reliable_delivery=True, reliable_types=[1, 2, 3],\n"
+        "        wire_chunk_bytes=1024)\n"
+        "out = {}\n"
+        "def server():\n"
+        "    a = args(0); ds, n = data.load(a)\n"
+        "    out['p'] = Server(a, 'cpu', ds, model.create(a, n)).run()\n"
+        "def client(r):\n"
+        "    a = args(r); ds, n = data.load(a)\n"
+        "    Client(a, 'cpu', ds, model.create(a, n)).run()\n"
+        "ts = [threading.Thread(target=server, daemon=True)] + [\n"
+        "    threading.Thread(target=client, args=(r,), daemon=True)\n"
+        "    for r in (1, 2)]\n"
+        "[t.start() for t in ts]; [t.join(60) for t in ts]\n"
+        "assert not any(t.is_alive() for t in ts)\n"
+        "back = message.decode_tree(message.encode_tree(out['p']))\n"
+        "assert all(np.array_equal(back[k], v.numpy())\n"
+        "           for k, v in out['p'].items())\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules if m != "obs"} <= walked
