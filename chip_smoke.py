@@ -182,7 +182,8 @@ Phases, each printing its own lines:
 14. serving — Llama-2-7B widths (dim 4096, 32 heads and KV heads, ffn
    11008, vocab 32,000, bf16, ``max_seq_len`` 4096, LoRA rank 8 on the
    projections, blockwise attention for the full-buffer forwards), depth
-   ``--layers``, random weights from seed 0, byte-tokenized prompts: (a)
+   ``--layers`` up to ``SERVE_LAYERS`` (16; phase 15 serves the same
+   model), random weights from seed 0, byte-tokenized prompts: (a)
    ``generate`` with the KV cache against the plain full-buffer step over
    32 new tokens, ms a token of each; (b) the dense engine (8 slots,
    ``buf_len`` 1024, 16 requests of 32–900 tokens, 64 new each): the first
@@ -310,6 +311,28 @@ Phases, each printing its own lines:
    ``XS_JOIN_S`` of their launch: the server's final params bitwise (a)'s
    threads.  Each sub-phase prints its seconds, each round's silo local
    pass and upload-to-next-sync seconds, and a model message's bytes.
+20. wire — the wire codec (``core/wire.py``) and its users on phase 8's
+   text transformer at full width (realtext, 4 clients a round over 2
+   silos, 2 rounds unfused, SGD clients): (a) ``num_silos=2`` through
+   ``FedMLRunner`` (``HierarchicalSiloAPI``) beside the flat
+   ``FedAvgAPI`` from the same weights: losses and params within the JAX
+   package's reassociation bound (2e-5), K1–K3 counted in each (the silos
+   map their clients apart: a step launches each kernel once a layer a
+   silo; the same eval launches); (b) ``run_silo_federation`` with a
+   server and 2 silos in threads over ``local`` at ``wire_precision``
+   fp32, 4 MiB frames and reliable delivery: its losses and final params
+   bitwise (a)'s two-tier run; (c) as (b) at int8 with ``wire_overlap``,
+   traced: the loss gap to (b) (held to ``WIRE_INT8_TEXT_TOL``, printed
+   beside the JAX package's ``lr`` bound), each state sync's error as the
+   silos receive it, equal to the link's residual step
+   (``WireStateSyncs``), the silos holding the last sync bitwise, the
+   error feedback's norm, the wire's bytes equal to the codec's model,
+   and a text partial's bytes at fp32, bf16 and int8; (d) ``run_async_federation`` with a server and 2
+   workers over ``local`` on ``lr`` at int8: every apply's loss finite,
+   the final params within ``WIRE_ASYNC_REL`` of ``FedBuffAPI``'s move;
+   (e) ``checkpoint_codec="wire"`` on ``lr``: 2 rounds, a checkpoint, a
+   fresh API resumed bitwise, and a combine tier with ``checkpoint_dir``
+   whose WAL ``state_digest``s are the crc32 of the state it shipped.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -322,9 +345,10 @@ under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 ``"llm"``, phase 13's under ``"mesh"``, phase 14's under ``"serving"``,
 phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
 phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
-phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``)
-and phase 19's under ``"cross_silo"`` beside them; each kernel row adds
-phase 12's to 19's launches a path under ``launches_by_path``)
+phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``),
+phase 19's under ``"cross_silo"`` and phase 20's under ``"wire"`` beside
+them; each kernel row adds phase 12's to 20's launches a path under
+``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -3141,6 +3165,10 @@ SERVE_PAGE = 16
 SERVE_CHUNK = 64
 SERVE_ADAPTERS = 8
 SERVE_LORA_RANK = 8
+#: phases 14-15's depth cap: the run's 1200 s leave room for phase 20 only
+#: with serving cut from 32 layers to 16 (widths and checks unchanged;
+#: PERF.md §4)
+SERVE_LAYERS = 16
 SERVE_ADAPTER_NEW = 16
 #: (d): new tokens of the prefix-sharing and parked-pool checks (a check
 #: of pages, not of throughput: the 16-request run times the engine)
@@ -5404,6 +5432,455 @@ def xs_join_processes(torch, procs, threads_params, smi):
             "max_abs_diff": err, "control_messages": len(msgs)}
 
 
+# -- 20. wire: the codec and its drivers --------------------------------------
+#: phase 20: phase 8's text transformer at full width on the real text
+#: shard, 4 clients a round over 2 silos, 2 rounds unfused; the wire at its
+#: default block (every projection and the embedding far above 256
+#: elements).  Clients step with SGD at phase 8 (e)'s rate: Adam's
+#: normalised step turns the two-tier sums' rounding into steps of order
+#: its rate (7.7e-3 apart after 2 rounds on the card, PERF.md §6), so no
+#: reassociation bound holds under it
+WIRE_TEXT = dict(TEXT_REALTEXT, client_num_per_round=4, num_silos=2,
+                 comm_round=2, frequency_of_the_test=10 ** 9,
+                 client_optimizer="sgd", learning_rate=0.1)
+#: two-tier vs flat: the JAX package's reassociation bound; the int8 wire
+#: vs fp32: its int8 loss bound (tests/test_wire.py, on `lr`)
+WIRE_REASSOC_TOL = 2e-5
+WIRE_INT8_TOL = 1e-2
+#: the int8 wire vs fp32 on the text model.  The JAX package's driver
+#: parts from its fp32 run as far as the port's does on the same config
+#: at narrow widths on the CPU (JAX vs port within 2e-7), and the gap
+#: about doubles with each doubling of the width: 3.8e-3, 8.3e-3, 1.6e-2
+#: at widths 32, 64, 128 (tests/test_torch_wire_drivers.py run as a
+#: script); 6.7e-2 at 256 with 4 layers on the card, the same bits in
+#: two calls (PERF.md §6)
+WIRE_INT8_TEXT_TOL = 1e-1
+#: (c): the state the silos receive is the server's f32 state moved by
+#: the link's residuals, ``sent - state = ef_before - ef_after`` (exact
+#: in reals): the two sides' L2 norms and largest entries agree to f32
+#: rounding of ``state + ef_before``
+WIRE_EF_REL_TOL = 1e-3
+#: (b)-(c): the local backend, 4 MiB frames on reliable delivery
+WIRE_DIST = dict(backend="local", wire_chunk_bytes=4 << 20,
+                 reliable_delivery=True, comm_recv_timeout_s=120.0)
+#: (d): the JAX package's async-driver config (tests/test_wire.py), int8
+#: with the writer thread
+WIRE_ASYNC = dict(dataset="synthetic", num_classes=10,
+                  input_shape=(14, 14, 1), train_size=512, test_size=128,
+                  model="lr", client_num_in_total=12,
+                  client_num_per_round=8, comm_round=3, batch_size=16,
+                  learning_rate=0.1, random_seed=5,
+                  frequency_of_the_test=100, async_workers=2,
+                  async_buffer_k=2, wire_precision="int8", wire_block=16,
+                  wire_overlap=True, backend="local")
+#: (d): the final params' L2 distance from FedBuffAPI's (two generations a
+#: buffer) over the distance FedBuffAPI moved them from the initial
+#: weights (tests/test_torch_async_driver.py's bound)
+WIRE_ASYNC_REL = 0.5
+#: (e): tests/test_wire.py's two-tier config (lr), wire checkpoints
+WIRE_CKPT = dict(dataset="synthetic", num_classes=4, input_shape=(8,),
+                 train_size=96, test_size=32, model="lr",
+                 client_num_in_total=8, client_num_per_round=4,
+                 comm_round=2, batch_size=8, learning_rate=0.1,
+                 random_seed=7, partition_method="homo", num_silos=2,
+                 wire_precision="fp32", wire_block=16,
+                 checkpoint_codec="wire", checkpoint_freq=1,
+                 backend="local")
+
+
+def wire_threads(torch, ranks, run_id, run):
+    """``run(rank)`` for every rank in threads (the server last); each
+    join has a deadline.  Returns the seconds."""
+    from fedml_tpu_torch.core.distributed.communication.local import (
+        local_comm_manager)
+    errors = []
+
+    def guard(rank):
+        try:
+            run(rank)
+        except BaseException as e:   # noqa: BLE001 — failed below
+            errors.append(f"rank {rank}: {e!r}")
+
+    threads = [threading.Thread(target=guard, args=(r,), daemon=True)
+               for r in ranks]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=XS_JOIN_S)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    local_comm_manager.reset_run(run_id)
+    if errors:
+        fail(f"wire {run_id}: {errors[0]}")
+    if any(t.is_alive() for t in threads):
+        fail(f"wire {run_id}: the federation stalled past {XS_JOIN_S} s "
+             "a join")
+    return seconds
+
+
+def wire_silos(torch, fedml_tpu_torch, cfg, ds, n_out, run_id, **over):
+    """``run_silo_federation`` with a server and ``num_silos`` silos in
+    threads, each rank its own model and API (built first); returns the
+    server's history, every rank's API (by rank) and the seconds."""
+    from fedml_tpu_torch import model
+    from fedml_tpu_torch.store.hierarchy import (HierarchicalSiloAPI,
+                                                 run_silo_federation)
+    silos = int(cfg["num_silos"])
+    ranks = list(range(silos, -1, -1))
+    built, out = {}, {}
+    for r in ranks:
+        a = sp_args(fedml_tpu_torch, **dict(cfg, rank=r, run_id=run_id,
+                                            **over))
+        m = model.create(a, n_out)
+        built[r] = (a, m, HierarchicalSiloAPI(a, "cuda", ds, m))
+
+    def run(r):
+        a, m, api = built[r]
+        out[r] = run_silo_federation(a, "cuda", ds, m, api=api)
+
+    seconds = wire_threads(torch, ranks, run_id, run)
+    return out[0], {r: b[2] for r, b in built.items()}, seconds
+
+
+class WireStateSyncs:
+    """Within the block, records every state sync a combine tier's wire
+    link encodes: the server's params (host copies), the params a silo
+    decodes from the payload, and the link's residual before and after
+    the encode."""
+
+    def __init__(self, wire):
+        self.wire, self.syncs = wire, []
+
+    def __enter__(self):
+        wire, enc = self.wire, self.wire.WireLink.encode
+        self._enc = enc
+
+        def ef(wl, link):
+            e = wl.ef(link)
+            return None if e is None else e.copy()
+
+        def record(wl, sd, link=""):
+            before = ef(wl, link)
+            payload = enc(wl, sd, link)
+            if link == "state_sync":
+                self.syncs.append({
+                    "state": {k: v.detach().cpu().numpy().copy()
+                              for k, v in sd["global_params"].items()},
+                    "sent": wire.WireCodec.decode(
+                        payload, wl.codec.layout)["global_params"],
+                    "ef_before": before, "ef_after": ef(wl, link)})
+            return payload
+
+        wire.WireLink.encode = record
+        return self
+
+    def __exit__(self, *exc):
+        self.wire.WireLink.encode = self._enc
+
+    def check(self):
+        """Per sync: the largest distance of the sent params from the
+        state, and the L2 norms and largest entries of ``sent - state``
+        and of ``ef_before - ef_after`` (a residual not yet kept, or none
+        kept at fp32 and bf16, counts as zero)."""
+        import numpy as np
+        rows = []
+        for x in self.syncs:
+            diff = np.concatenate([(x["sent"][k] - v).reshape(-1)
+                                   for k, v in x["state"].items()])
+            step = np.subtract(*(np.zeros(1, np.float32) if e is None else e
+                                 for e in (x["ef_before"], x["ef_after"])))
+            rows.append({"max_err": float(np.max(np.abs(diff))),
+                         "norm": float(np.linalg.norm(diff)),
+                         "ef_step_max": float(np.max(np.abs(step))),
+                         "ef_step_norm": float(np.linalg.norm(step))})
+        return rows
+
+
+def wire_partial_bytes(layout, params):
+    """A FedAvg partial of ``params`` (``{num, den}`` and ``n_sampled``)
+    encoded at each precision: the payload's array bytes, the codec's
+    modeled bytes and the framed message bytes."""
+    import torch
+
+    from fedml_tpu_torch.core import wire
+    from fedml_tpu_torch.core.distributed.communication.message import (
+        encode_tree)
+    part = {"avg_params": {"num": params, "den": torch.tensor(1.0)},
+            "n_sampled": torch.tensor(4.0)}
+    rows = {}
+    for prec in ("fp32", "bf16", "int8"):
+        codec = wire.WireCodec(prec, layout=layout)
+        p, _ = codec.encode(part)
+        rows[prec] = {"payload": wire.payload_nbytes(p),
+                      "modeled": codec.modeled_nbytes(int(p["n"]),
+                                                      p["raw"]),
+                      "framed": len(encode_tree(p))}
+    return rows
+
+
+def wire_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 20."""
+    import tempfile
+    import zlib
+
+    from fedml_tpu_torch import data, model, obs
+    from fedml_tpu_torch.core import wire
+    from fedml_tpu_torch.core.checkpoint import WireCheckpointer
+    from fedml_tpu_torch.core.distributed.communication.message import (
+        encode_tree)
+    from fedml_tpu_torch.core.distributed.reliability import RoundWAL
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.simulation.async_driver import run_async_federation
+    from fedml_tpu_torch.simulation.async_engine import FedBuffAPI
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+    from fedml_tpu_torch.store.hierarchy import (HierarchicalSiloAPI,
+                                                 run_silo_federation)
+
+    rec, seconds = {}, {}
+    t0 = time.time()
+    args = sp_args(fedml_tpu_torch, **WIRE_TEXT)
+    ds, n_out = data.load(args)
+    seconds["data"] = time.time() - t0
+
+    # (a) the flat round beside the two-tier round, both built as a user
+    # builds them, from the same seed's weights
+    flat_args = sp_args(fedml_tpu_torch, **dict(WIRE_TEXT, num_silos=0))
+    flat = FedAvgAPI(flat_args, "cuda", ds, model.create(flat_args, n_out))
+    t0 = time.time()
+    _, l_flat = counted(torch, att, flat.train)
+    seconds["a_flat"] = time.time() - t0
+    runner = FedMLRunner(args, torch.device("cuda"), ds,
+                         model.create(args, n_out))
+    two = runner.runner.fl_trainer
+    if not isinstance(two, HierarchicalSiloAPI):
+        fail(f"num_silos=2 built {type(two).__name__}, not "
+             "HierarchicalSiloAPI")
+    t0 = time.time()
+    _, l_two = counted(torch, att, runner.run)
+    seconds["a_two_tier"] = time.time() - t0
+    loss_flat = [h["train_loss"] for h in flat.metrics_history]
+    loss_two = [h["train_loss"] for h in two.metrics_history]
+    gap_loss = max(abs(a - b) for a, b in zip(loss_flat, loss_two))
+    gap_params = xs_err(two.state.global_params, flat.state.global_params)
+    # each silo maps its own clients: a step launches each kernel once a
+    # layer a silo, where the flat round's launches once for the cohort;
+    # the evaluation (K1 only) is the same
+    silos = WIRE_TEXT["num_silos"]
+    steps_flat = l_flat["flash_bwd_dq"]
+    want = {"flash_fwd": silos * steps_flat
+            + l_flat["flash_fwd"] - steps_flat,
+            "flash_bwd_dq": silos * steps_flat,
+            "flash_bwd_dkv": silos * steps_flat}
+    say("wire", f"(a) text {WIRE_TEXT['comm_round']} rounds, "
+                f"{WIRE_TEXT['client_num_per_round']} clients: flat "
+                f"{seconds['a_flat']:.2f} s, two-tier "
+                f"{seconds['a_two_tier']:.2f} s; losses flat {loss_flat} "
+                f"two-tier {loss_two}; gaps loss {gap_loss:.3e} params "
+                f"{gap_params:.3e} (tol {WIRE_REASSOC_TOL}); K1-K3 "
+                f"launches flat {l_flat}, two-tier {l_two} (expected "
+                f"{want}); the codec runs on the host, no kernel of ours "
+                f"but K1-K3 exists [{smi}]")
+    if l_two != want or not all(l_flat.values()):
+        fail(f"(a) K1-K3 launches: flat {l_flat}, two-tier {l_two}, "
+             f"expected {want}")
+    if gap_loss > WIRE_REASSOC_TOL or gap_params > WIRE_REASSOC_TOL:
+        fail(f"(a) two-tier vs flat: loss {gap_loss:.3e}, params "
+             f"{gap_params:.3e} > {WIRE_REASSOC_TOL}")
+    rec["a"] = {"losses_flat": loss_flat, "losses_two_tier": loss_two,
+                "gap_loss": gap_loss, "gap_params": gap_params,
+                "launches_flat": l_flat, "launches_two_tier": l_two}
+
+    # (b) the multi-rank driver at fp32 over local: bitwise (a)'s rounds
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    hist_b, apis_b, seconds["b"] = wire_silos(
+        torch, fedml_tpu_torch, WIRE_TEXT, ds, n_out, "wire_b",
+        wire_precision="fp32", **WIRE_DIST)
+    l_b = launch_counts(att)
+    api_b = apis_b[0]
+    loss_b = [h["train_loss"] for h in hist_b]
+    bitwise_b = loss_b == loss_two and xs_bitwise(
+        torch, api_b.state.global_params, two.state.global_params)
+    say("wire", f"(b) run_silo_federation fp32, 4 MiB frames, reliable: "
+                f"{seconds['b']:.2f} s; losses {loss_b}; bitwise (a)'s "
+                f"two-tier run: {bitwise_b} (params gap "
+                f"{xs_err(api_b.state.global_params, two.state.global_params):.3e}"
+                f"); K1-K3 launches {l_b} [{smi}]")
+    if not bitwise_b:
+        fail("(b) the fp32 federation is not bitwise the in-process run")
+    if l_b != {k: silos * steps_flat for k in l_b}:
+        fail(f"(b) K1-K3 launches {l_b}, expected "
+             f"{silos * steps_flat} each (the silos' steps, no eval)")
+    rec["b"] = {"losses": loss_b, "bitwise": bitwise_b, "launches": l_b,
+                "rounds": hist_b}
+
+    # (c) int8 with the writer thread, traced for the codec's counters
+    obs.configure(enabled=True, reset=True)
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    try:
+        with WireStateSyncs(wire) as syncs:
+            hist_c, apis_c, seconds["c"] = wire_silos(
+                torch, fedml_tpu_torch, WIRE_TEXT, ds, n_out, "wire_c",
+                wire_precision="int8", wire_overlap=True, **WIRE_DIST)
+        counters = obs.get_tracer().summary()["counters"]
+    finally:
+        obs.configure(enabled=False, reset=True)
+    l_c = launch_counts(att)
+    loss_c = [h["train_loss"] for h in hist_c]
+    gap_c = max(abs(a - b) for a, b in zip(loss_c, loss_b))
+    ef = float(counters.get("wire.ef_norm", 0.0))
+    nbytes = wire_partial_bytes(two.layout, two.state.global_params)
+    # the state sync with its residual: the silos hold, bitwise, the last
+    # sync's params, and each sync's error is the link's residual step
+    sync_rows = syncs.check()
+    last_sent = syncs.syncs[-1]["sent"] if syncs.syncs else {}
+    silos_hold = bool(last_sent) and all(
+        all(torch.equal(api.state.global_params[k].cpu(),
+                        torch.as_tensor(v)) for k, v in last_sent.items())
+        for r, api in apis_c.items() if r)
+    ef_ok = len(sync_rows) == WIRE_TEXT["comm_round"] and all(
+        abs(x["norm"] - x["ef_step_norm"]) <= WIRE_EF_REL_TOL * x["norm"]
+        and abs(x["max_err"] - x["ef_step_max"])
+        <= WIRE_EF_REL_TOL * x["max_err"] for x in sync_rows)
+    say("wire", f"(c) int8 + wire_overlap: {seconds['c']:.2f} s; losses "
+                f"{loss_c}; gap to (b) {gap_c:.3e} (tol "
+                f"{WIRE_INT8_TEXT_TOL}; the JAX package's lr bound "
+                f"{WIRE_INT8_TOL}: "
+                f"{'within' if gap_c < WIRE_INT8_TOL else 'outside'}); "
+                f"EF norm (last) {ef:.4e}; wire bytes "
+                f"{counters.get('wire.bytes', 0):,.0f} vs modeled "
+                f"{counters.get('wire.modeled_bytes', 0):,.0f}; K1-K3 "
+                f"launches {l_c} [{smi}]")
+    for prec, r in nbytes.items():
+        say("wire", f"  a text partial at {prec}: payload {r['payload']:,}"
+                    f" B, modeled {r['modeled']:,} B, framed "
+                    f"{r['framed']:,} B")
+    for r, x in enumerate(sync_rows):
+        say("wire", f"  round {r}'s int8 state sync: the silos' params "
+                    f"{x['max_err']:.4e} at most from the server's (L2 "
+                    f"{x['norm']:.4e}); the link's residual step "
+                    f"{x['ef_step_max']:.4e} (L2 {x['ef_step_norm']:.4e})")
+    say("wire", f"  every silo holds the last sync's params bitwise: "
+                f"{silos_hold}")
+    if not ef_ok:
+        fail(f"(c) the state syncs' errors {sync_rows} are not the "
+             f"link's residual steps (rel {WIRE_EF_REL_TOL})")
+    if not silos_hold:
+        fail("(c) a silo does not hold the params of the last state sync")
+    if not (0 < gap_c < WIRE_INT8_TEXT_TOL) or not finite(*loss_c):
+        fail(f"(c) int8 vs fp32 loss gap {gap_c:.3e} outside "
+             f"(0, {WIRE_INT8_TEXT_TOL})")
+    if not ef > 0:
+        fail("(c) the int8 wire kept no error feedback")
+    if not counters.get("wire.bytes") or counters.get("wire.bytes") != \
+            counters.get("wire.modeled_bytes") or any(
+                r["payload"] != r["modeled"] for r in nbytes.values()):
+        fail("(c) the wire's payload bytes differ from the codec's model")
+    if l_c != l_b:
+        fail(f"(c) K1-K3 launches {l_c} != (b)'s {l_b}")
+    rec["c"] = {"losses": loss_c, "gap_to_b": gap_c, "ef_norm": ef,
+                "wire_bytes": counters.get("wire.bytes"),
+                "wire_modeled_bytes": counters.get("wire.modeled_bytes"),
+                "partial_bytes": nbytes, "launches": l_c,
+                "state_syncs": sync_rows}
+
+    # (d) the buffered-async driver on lr, beside the in-process engine
+    ds_l, n_l = data.load(sp_args(fedml_tpu_torch, **WIRE_ASYNC))
+    built, out = {}, {}
+    for r in (2, 1, 0):
+        a = sp_args(fedml_tpu_torch, **dict(WIRE_ASYNC, rank=r,
+                                            run_id="wire_d"))
+        m = model.create(a, n_l)
+        built[r] = (a, m, FedAvgAPI(a, "cuda", ds_l, m))
+
+    def run_d(r):
+        a, m, api = built[r]
+        out[r] = run_async_federation(a, "cuda", ds_l, m, api=api)
+
+    seconds["d"] = wire_threads(torch, (2, 1, 0), "wire_d", run_d)
+    hist_d = out[0]
+    ref_args = sp_args(fedml_tpu_torch, **dict(
+        WIRE_ASYNC, federated_optimizer="fedbuff",
+        async_buffer_k=2 * WIRE_ASYNC["client_num_per_round"]))
+    ref = FedBuffAPI(ref_args, "cuda", ds_l, model.create(ref_args, n_l))
+    init = {k: v.clone() for k, v in ref.state.global_params.items()}
+    for r in range(WIRE_ASYNC["comm_round"]):
+        ref.train_one_round(r)
+    dist = lambda a, b: float(torch.sqrt(sum(
+        torch.sum((a[k] - b[k]) ** 2) for k in b)))
+    got = built[0][2].state.global_params
+    rel = dist(got, ref.state.global_params) / dist(
+        ref.state.global_params, init)
+    loss_d = [h["train_loss"] for h in hist_d]
+    say("wire", f"(d) run_async_federation, 2 workers, int8: "
+                f"{seconds['d']:.2f} s; {len(hist_d)} applies, losses "
+                f"{loss_d}, staleness p50 "
+                f"{[h['staleness_p50'] for h in hist_d]}; params vs "
+                f"FedBuffAPI {rel:.4f} of its move (bound {WIRE_ASYNC_REL})"
+                f" [{smi}]")
+    if len(hist_d) != WIRE_ASYNC["comm_round"] or not finite(*loss_d):
+        fail(f"(d) applies {len(hist_d)}, losses {loss_d}")
+    if rel > WIRE_ASYNC_REL:
+        fail(f"(d) params {rel:.4f} of FedBuffAPI's move from theirs")
+    rec["d"] = {"losses": loss_d, "rel_to_fedbuff": rel, "rounds": hist_d}
+
+    # (e) wire checkpoints: resume bitwise; the WAL's digests
+    t0 = time.time()
+    ds_e, n_e = data.load(sp_args(fedml_tpu_torch, **WIRE_CKPT))
+    tmp = tempfile.mkdtemp(prefix="wire_ckpt_")
+    try:
+        def mk(cls, **o):
+            a = sp_args(fedml_tpu_torch, **dict(WIRE_CKPT, **o))
+            return cls(a, "cuda", ds_e, model.create(a, n_e))
+
+        first = mk(FedAvgAPI, checkpoint_dir=os.path.join(tmp, "sp"))
+        for r in range(2):
+            first.train_one_round(r)
+            first.maybe_checkpoint(r)
+        fresh = mk(FedAvgAPI, checkpoint_dir=os.path.join(tmp, "sp"))
+        start = fresh.maybe_resume()
+        resumed = start == 2 and xs_bitwise(
+            torch, fresh.state.global_params, first.state.global_params)
+        hist_e, _api, _s = wire_silos(
+            torch, fedml_tpu_torch, WIRE_CKPT, ds_e, n_e, "wire_e",
+            checkpoint_dir=os.path.join(tmp, "silo"))
+        ref_e = mk(HierarchicalSiloAPI)
+        codec = wire.WireCodec("fp32", WIRE_CKPT["wire_block"],
+                               ref_e.layout)
+        want = []
+        for r in range(WIRE_CKPT["comm_round"]):
+            p, _ = codec.encode(wire.state_tree(ref_e.state))
+            want.append(f"{zlib.crc32(encode_tree(p)):08x}")
+            ref_e.train_one_round(r)
+        digests = [e.get("state_digest")
+                   for e in RoundWAL(os.path.join(tmp, "silo")).entries()]
+        files = sorted(os.listdir(os.path.join(tmp, "silo")))
+        last = WireCheckpointer(os.path.join(tmp, "silo"),
+                                layout=ref_e.layout).restore_state()
+        ckpt_ok = all(torch.equal(last[f"global_params/{k}"], v.cpu())
+                      for k, v in ref_e.state.global_params.items())
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds["e"] = time.time() - t0
+    say("wire", f"(e) checkpoint_codec=wire: resumed at round {start}, "
+                f"bitwise {resumed}; combine tier WAL digests {digests} vs "
+                f"the shipped state's {want}; files {files}; its last "
+                f"checkpoint = the in-process state: {ckpt_ok}; "
+                f"{seconds['e']:.2f} s")
+    if not resumed:
+        fail("(e) the wire checkpoint did not resume bitwise")
+    if digests != want or not ckpt_ok:
+        fail("(e) the WAL's state digests or the last checkpoint differ "
+             "from the state shipped")
+    rec["e"] = {"resumed_at": start, "digests": digests}
+    rec["seconds"] = seconds
+    rec["text_launches"] = l_two
+    return rec
+
+
 def _kernel_inputs(torch, att, gen, b, h, hkv, s, d, causal, dt):
     """K1-K3's inputs at one shape, drawn from ``gen`` (the order
     ``time_kernels`` takes)."""
@@ -5714,7 +6191,8 @@ def main():
     # -- 14. serving: decode, the engines, the adapter bank, the server ----
     t0 = time.time()
     att.reset_launch_counts()
-    serving = serving_phase(torch, fedml_tpu_torch, att, smi, opts.layers)
+    serving = serving_phase(torch, fedml_tpu_torch, att, smi,
+                            min(opts.layers, SERVE_LAYERS))
     torch.cuda.synchronize()
     serving["launches"] = launch_counts(att)
     for name, n in serving["launches"].items():
@@ -5822,6 +6300,17 @@ def main():
             "cross_silo_text"] = 0
     say("cross_silo", f"phase 19 took {time.time() - t0:.1f} s "
                       f"({ {k: round(v, 1) for k, v in cross_silo['seconds'].items()} })")
+
+    # -- 20. wire: the codec, the two-tier and buffered-async drivers -----
+    t0 = time.time()
+    wire_rec = wire_phase(torch, fedml_tpu_torch, att, smi)
+    for name, n in wire_rec["text_launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "two_tier_text"] = n
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "two_tier_text"] = 0
+    say("wire", f"phase 20 took {time.time() - t0:.1f} s "
+                f"({ {k: round(v, 1) for k, v in wire_rec['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -5834,7 +6323,8 @@ def main():
                       "tp_shards": list(tp.pop("rows").values()),
                       "tp": tp,
                       "ring_blocks": list(mesh3d.pop("rows").values()),
-                      "mesh3d": mesh3d, "cross_silo": cross_silo}))
+                      "mesh3d": mesh3d, "cross_silo": cross_silo,
+                      "wire": wire_rec}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -97,6 +97,28 @@ _DEFAULTS: Dict[str, Any] = dict(
     # shard); quant_block is the int8 quantizer's per-scale chunk
     collective_precision="fp32",
     quant_block=256,
+    # two-tier silo -> server aggregation (store/hierarchy.py): num_silos
+    # > 1 selects HierarchicalSiloAPI; silo_slow_rank / silo_slow_s hold
+    # one silo's round open (straggler injection in run_silo_federation)
+    num_silos=0,
+    silo_slow_rank=0,
+    silo_slow_s=0.0,
+    # worker-pool size of the multi-process buffered-async driver
+    # (simulation/async_driver.py::run_async_federation)
+    async_workers=0,
+    # fedwire (core/wire.py): wire_precision off | fp32 | bf16 | int8 for
+    # silo partials, async worker updates and state syncs; wire_block the
+    # int8 scale chunk (0 = quant_block); wire_chunk_bytes > 0 streams
+    # large messages as bounded frames; wire_overlap moves a partial's
+    # encode and upload to a writer thread.  checkpoint_codec orbax |
+    # wire: "wire" writes round checkpoints as wire-fp32 msgpack files
+    # (the port's default format stands where the JAX package's orbax
+    # does)
+    wire_precision="off",
+    wire_block=0,
+    wire_chunk_bytes=0,
+    wire_overlap=False,
+    checkpoint_codec="orbax",
 )
 
 
@@ -107,8 +129,18 @@ def load_arguments() -> Arguments:
 
 def validate_args(args) -> Arguments:
     """The JAX package's ``validate_args`` for what the port runs: the
-    pipeline layout's gate (``simulation/mesh/pipeline.py``).  Raises
-    ``ValueError`` naming the flag; returns ``args``."""
+    pipeline layout's gate (``simulation/mesh/pipeline.py``) and the
+    fedwire flags.  Raises ``ValueError`` naming the flag; returns
+    ``args``."""
     from .simulation.mesh.pipeline import validate_pipeline_args
     validate_pipeline_args(args)
+    wp = str(getattr(args, "wire_precision", "off") or "off").lower()
+    if wp not in ("off", "fp32", "bf16", "int8"):
+        raise ValueError(
+            f"unknown wire_precision {wp!r} — expected off | fp32 | bf16 "
+            "| int8")
+    cc = str(getattr(args, "checkpoint_codec", "orbax") or "orbax").lower()
+    if cc not in ("orbax", "wire"):
+        raise ValueError(
+            f"unknown checkpoint_codec {cc!r} — expected orbax | wire")
     return args

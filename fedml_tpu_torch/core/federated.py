@@ -672,6 +672,28 @@ def scale_partial(spec: "AlgorithmSpec", partial: Dict[str, Any],
     return {k: scale_entry(v) for k, v in partial.items()}
 
 
+def zero_like_partial(partial: Dict[str, Any]) -> Dict[str, Any]:
+    """A partial aggregate that contributes nothing to
+    :func:`combine_partial_aggregates`: every numerator, denominator,
+    sum-kind entry and ``n_sampled`` zero, so the average over a padded
+    set equals the average over the real partials alone.  Quorum rounds
+    pad the arrived set to the full silo count with these."""
+    return _tmap(torch.zeros_like, partial)
+
+
+def wire_roundtrip_partial(partial: Dict[str, Any], wire_link,
+                           link: str) -> Dict[str, Any]:
+    """Quantize and dequantize one partial aggregate through the fedwire
+    codec with the link's error feedback: the transform the distributed
+    tier applies when it ships the partial, so the in-process
+    ``HierarchicalSiloAPI`` carries the same numerics (and the same EF
+    trajectory on each ``partial:<i>`` link).  The decoded tree comes back
+    in ``partial``'s structure, order, devices and dtypes."""
+    got = wire_link.decode(wire_link.encode(partial, link=link))
+    return _tmap(lambda ref, new: torch.as_tensor(np.asarray(new)).to(
+        device=ref.device, dtype=ref.dtype), partial, got)
+
+
 # --------------------------------------------------------------------------
 # spec-driven aggregates
 # --------------------------------------------------------------------------

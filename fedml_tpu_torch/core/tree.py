@@ -5,7 +5,7 @@ c_i / FedDyn ∇̂_i) with its cohort gather and scatter."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -201,3 +201,34 @@ def rows_scatter_np(pages_get, ids, new_rows: Mapping, n_rows: int,
         for leaf_page, leaf_new in zip(page, leaves):
             leaf_page[rows] = np.asarray(leaf_new)[pos].astype(
                 leaf_page.dtype)
+
+
+def host_copy_tree(tree: Any):
+    """Start copying a tree's card tensors to pinned host memory on the
+    current stream: ``(host_tree, event)``, the event recorded after the
+    copies (None when nothing lives on the card).  A writer thread waits
+    on the event before it reads the copies, so it never sees a tensor a
+    later launch overwrites."""
+    pending = []
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if x.is_cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                pending.append(h)
+                return h
+            return x.clone()
+        if isinstance(x, np.ndarray):
+            return np.array(x)
+        return x
+
+    out = copy(tree)
+    event = None
+    if pending:
+        event = torch.cuda.Event()
+        event.record()
+    return out, event

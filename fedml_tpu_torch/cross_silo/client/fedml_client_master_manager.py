@@ -29,9 +29,9 @@ import torch
 from ...core import rng as rng_util
 from ...core.distributed.communication.message import Message, to_host
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
+from ...core.wire import tensor_tree
 from ...ml.trainer.local_trainer import LocalTrainer, ServerCtx
 from ..message_define import MyMessage
-from ..server.fedml_aggregator import to_device
 
 log = logging.getLogger(__name__)
 
@@ -125,7 +125,7 @@ class TrainerDistAdapter:
         self.user_trainer = None
 
     def train(self, global_params, data_idx: int, round_idx: int):
-        global_params = to_device(global_params, self.device, self.order)
+        global_params = tensor_tree(global_params, self.device, self.order)
         xb, yb = self.dataset.client_batches(
             data_idx, self.batch_size, self.seed, round_idx, self.epochs)
         steps = xb.shape[0]

@@ -21,38 +21,17 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from ...core import federated
 from ...core import rng as rng_util
 from ...core import tree as tree_util
 from ...core.alg_frame.client_trainer import refuse_trust_stack
+from ...core.wire import tensor_tree
 from ...ml.aggregator.agg_operator import ServerOptimizer
 from ...ml.trainer.local_trainer import LocalTrainer
 
 log = logging.getLogger(__name__)
-
-
-def to_device(tree, device, order=None):
-    """A received ``{name: array or tensor}`` tree on ``device``: host
-    arrays (read-only ones from the codec too) copied into tensors,
-    tensors moved; nested dicts (partial aggregates) walked.  ``order``
-    (the model's parameter names) puts a params dict back in the model's
-    order: the codec writes dict keys sorted, as flax does, and the order
-    of a params dict is the summation order of a global norm (gradient
-    clipping), so a decoded dict would clip by a norm rounded differently
-    from the one the sent dict gives."""
-    if isinstance(tree, dict):
-        if order is not None and len(tree) == len(order) and \
-                set(tree) == set(order):
-            tree = {k: tree[k] for k in order}
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, (np.ndarray, np.generic)):
-        return torch.tensor(np.asarray(tree), device=device)
-    return tree
 
 
 class FedMLAggregator:
@@ -87,7 +66,7 @@ class FedMLAggregator:
 
     def set_global_model_params(self, params):
         self.state = self.state.replace(
-            global_params=to_device(params, self.device, self.order))
+            global_params=tensor_tree(params, self.device, self.order))
 
     def add_local_trained_result(self, index: int, model_params, sample_num):
         self.model_dict[index] = model_params
@@ -110,7 +89,7 @@ class FedMLAggregator:
         (``federated.combine_partial_aggregates``) and run the unchanged
         server transition."""
         idxs = sorted(self.partial_dict.keys())
-        partials = [to_device(self.partial_dict[i], self.device)
+        partials = [tensor_tree(self.partial_dict[i], self.device)
                     for i in idxs]
         agg = federated.combine_partial_aggregates(self.server_opt.spec,
                                                    partials)
@@ -142,7 +121,7 @@ class FedMLAggregator:
             return self.aggregate_partials()
         idxs = sorted(self.model_dict.keys())
         raw_list = [(self.sample_num_dict[i],
-                     to_device(self.model_dict[i], self.device, self.order))
+                     tensor_tree(self.model_dict[i], self.device, self.order))
                     for i in idxs]
         if self.user_aggregator is not None:
             return self._aggregate_via_user_hooks(idxs, raw_list)
@@ -164,7 +143,7 @@ class FedMLAggregator:
         new_params = ua.on_after_aggregation(new_params)
         self.state = self.state.replace(
             round_idx=self.state.round_idx + 1,
-            global_params=to_device(new_params, self.device, self.order))
+            global_params=tensor_tree(new_params, self.device, self.order))
         self.model_dict.clear()
         return self.state.global_params
 

@@ -29,23 +29,30 @@ from ..core.tree import flatten, unflatten
 from .base import TorchModel, param_kinds
 
 
-def _to_port(arr: np.ndarray, kind: str) -> np.ndarray:
+def _to_port(arr: np.ndarray, kind: str, lead: int = 0) -> np.ndarray:
+    """A leaf in flax's layout → the port's, over its trailing axes
+    (``lead`` leading axes kept, as a per-client table's rows)."""
+    ax = list(range(lead))
     if kind == "dense":
-        return arr.T
+        return np.swapaxes(arr, -1, -2)
     if kind == "conv":
-        return arr.transpose(3, 2, 0, 1)
+        return arr.transpose(ax + [lead + 3, lead + 2, lead, lead + 1])
     if kind == "conv_transpose":
-        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        return np.flip(arr, axis=(lead, lead + 1)).transpose(
+            ax + [lead + 2, lead + 3, lead, lead + 1])
     return arr
 
 
-def _to_flax(arr: np.ndarray, kind: str) -> np.ndarray:
+def _to_flax(arr: np.ndarray, kind: str, lead: int = 0) -> np.ndarray:
+    """Inverse of :func:`_to_port`."""
+    ax = list(range(lead))
     if kind == "dense":
-        return arr.T
+        return np.swapaxes(arr, -1, -2)
     if kind == "conv":
-        return arr.transpose(2, 3, 1, 0)
+        return arr.transpose(ax + [lead + 2, lead + 3, lead + 1, lead])
     if kind == "conv_transpose":
-        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return np.flip(arr.transpose(
+            ax + [lead + 2, lead + 3, lead, lead + 1]), axis=(lead, lead + 1))
     return arr
 
 

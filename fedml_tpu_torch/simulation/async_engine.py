@@ -29,8 +29,8 @@ package's events.  Per-client algorithm state (SCAFFOLD, FedDyn) is
 gathered at dispatch and written back at arrival, through the paged store
 with ``client_store``.
 
-``async_driver.py`` (the distributed driver over the wire codec) and the
-tracer counters are not ported.
+``async_driver.py`` is the multi-rank twin of this engine over the
+message plane and the wire codec.  The tracer counters are not ported.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ async, buffered-async (``fedbuff``) and decentralized engines, FedNAS,
 FedSeg, FedGKT and FedGAN, and to ``FedAvgAPI`` for the synchronous
 algorithms of the zoo; and the ``mesh`` backend (the reference's "MPI" and
 "NCCL" name it too), dispatching to the ring-gossip mesh engine for
-decentralized SGD and to ``MeshFedAvgAPI`` otherwise.  Two-tier silo
-aggregation (``num_silos > 1``) is not ported yet and raises by name."""
+decentralized SGD and to ``MeshFedAvgAPI`` otherwise.  ``num_silos > 1``
+on the ``sp`` backend selects the two-tier silo aggregation
+(``store/hierarchy.py::HierarchicalSiloAPI``) by topology, not by
+optimizer name."""
 
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ class SimulatorSingleProcess:
             self.fl_trainer = FedBuffAPI(args, device, dataset, model,
                                          client_mode=mode)
         elif int(getattr(args, "num_silos", 0) or 0) > 1:
-            raise NotImplementedError(
-                "num_silos > 1 (two-tier silo aggregation) is not ported yet")
+            from ..store.hierarchy import HierarchicalSiloAPI
+            self.fl_trainer = HierarchicalSiloAPI(args, device, dataset,
+                                                  model, client_mode=mode)
         else:
             self.fl_trainer = FedAvgAPI(args, device, dataset, model,
                                         client_mode=mode)

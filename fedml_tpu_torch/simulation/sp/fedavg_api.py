@@ -45,12 +45,12 @@ The client-state plane (``store/``):
 ``checkpoint_dir`` saves the server state and the per-client state every
 ``checkpoint_freq`` rounds (and at the last; a fused block at block
 granularity), keeping ``checkpoint_keep``, in ``core/checkpoint.py``'s
-format with a sparse sidecar for a client store, and ``train()`` resumes
-from the latest.
+format with a sparse sidecar for a client store (``checkpoint_codec=
+"wire"``: as wire-fp32 payloads, ``WireCheckpointer``), and ``train()``
+resumes from the latest.
 
 Not ported, each raising ``NotImplementedError`` naming itself: the
-tracing, health and metrics options, and ``checkpoint_codec="wire"`` (the
-fedwire codec).
+tracing, health and metrics options.
 """
 
 from __future__ import annotations
@@ -88,9 +88,6 @@ def _unported_options(args):
         ("trace", bool(g("trace", False))),
         ("health", bool(g("health", False))),
         ("metrics_port", g("metrics_port") is not None),
-        ("checkpoint_codec='wire' (the fedwire codec, core/wire.py)",
-         bool(g("checkpoint_dir")) and str(g("checkpoint_codec", "") or "")
-         .lower() == "wire"),
     )
     return [name for name, on in checks if on]
 
@@ -771,15 +768,22 @@ class FedAvgAPI:
     # -- checkpoints -----------------------------------------------------------
     def _checkpointer(self):
         """The run's :class:`~fedml_tpu_torch.core.checkpoint
-        .RoundCheckpointer` (``checkpoint_dir``, ``checkpoint_keep``), or
-        None."""
+        .RoundCheckpointer` (``checkpoint_dir``, ``checkpoint_keep``), a
+        :class:`~fedml_tpu_torch.core.checkpoint.WireCheckpointer` under
+        ``checkpoint_codec="wire"``, or None."""
         ckpt_dir = getattr(self.args, "checkpoint_dir", None)
         if not ckpt_dir:
             return None
         if not hasattr(self, "_ckpt"):
-            from ...core.checkpoint import RoundCheckpointer
-            self._ckpt = RoundCheckpointer(
-                ckpt_dir, int(getattr(self.args, "checkpoint_keep", 3)))
+            from ...core import checkpoint
+            keep = int(getattr(self.args, "checkpoint_keep", 3))
+            codec = str(getattr(self.args, "checkpoint_codec", "") or "")
+            if codec.lower() == "wire":
+                from ...core.wire import ParamLayout
+                self._ckpt = checkpoint.WireCheckpointer(
+                    ckpt_dir, keep, ParamLayout.of(self.model))
+            else:
+                self._ckpt = checkpoint.RoundCheckpointer(ckpt_dir, keep)
         return self._ckpt
 
     def _client_state(self):

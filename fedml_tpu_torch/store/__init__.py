@@ -10,11 +10,15 @@ cohort's rows reach the device.  Page-in runs on the cohort stager's
 worker thread and write-back is asynchronous; the round sees the same
 cohort-stacked rows the dense table gave it.
 
-The two-tier silo aggregation of the JAX package's ``store/hierarchy.py``
-(``num_silos > 1``) is not ported.
+``hierarchy.py`` holds the two-tier silo aggregation (``num_silos > 1``):
+the in-process :class:`HierarchicalSiloAPI` and the multi-rank
+``run_silo_federation``.
 """
 
 from .clientstore import ClientStateStore
+from .hierarchy import HierarchicalSiloAPI, run_silo_federation
 from .pager import AsyncRowFetcher, CohortStatePager
 
-__all__ = ["AsyncRowFetcher", "ClientStateStore", "CohortStatePager"]
+
+__all__ = ["AsyncRowFetcher", "ClientStateStore", "CohortStatePager",
+           "HierarchicalSiloAPI", "run_silo_federation"]

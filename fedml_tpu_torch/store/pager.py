@@ -33,29 +33,9 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..core.tree import host_copy_tree
 from ..simulation.staging import AsyncCohortStager
 from .clientstore import ClientStateStore
-
-
-def _host_copy(rows: Mapping):
-    """Start copying ``rows`` to the host: ``(host_rows, event)``, the
-    event recorded after the copies on the current stream (None when no
-    row lives on the card: the copy is then done)."""
-    out, event = {}, None
-    for k, v in rows.items():
-        if isinstance(v, torch.Tensor) and v.is_cuda:
-            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            h.copy_(v.detach(), non_blocking=True)
-            out[k] = h
-            if event is None:
-                event = torch.cuda.Event()
-        elif isinstance(v, torch.Tensor):
-            out[k] = v.detach().clone()
-        else:
-            out[k] = np.array(v)
-    if event is not None:
-        event.record()
-    return out, event
 
 
 class CohortStatePager:
@@ -98,7 +78,7 @@ class CohortStatePager:
         """Queue the round's updated rows (tensors on any device, or
         arrays) for asynchronous write-back (module docstring)."""
         ids = np.asarray(ids, np.int64)
-        staged, done = _host_copy(new_rows)
+        staged, done = host_copy_tree(dict(new_rows))
 
         def apply():
             if done is not None:

@@ -321,3 +321,51 @@ def test_cross_silo_modules_run_with_jax_flax_and_msgpack_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules if m != "obs"} <= walked
+
+
+def test_wire_modules_run_with_jax_flax_and_msgpack_unimportable():
+    """The wire codec, the wire checkpointer, the two-tier silo drivers
+    and the buffered-async driver import and run (a two-tier round with
+    the int8 wire, a codec round trip through the message bytes) in a
+    process where ``jax``, ``flax``, ``msgpack`` and ``fedml_tpu`` cannot
+    be imported at all."""
+    import subprocess
+    import sys
+
+    modules = ("core.wire", "core.checkpoint", "store.hierarchy",
+               "simulation.async_driver", "simulation.simulator")
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+        "          'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "import fedml_tpu_torch\n"
+        "from fedml_tpu_torch import data, model\n"
+        "from fedml_tpu_torch.core import wire\n"
+        "from fedml_tpu_torch.core.distributed.communication.message \\\n"
+        "    import decode_tree, encode_tree\n"
+        "from fedml_tpu_torch.store import HierarchicalSiloAPI\n"
+        "a = fedml_tpu_torch.load_arguments().update(\n"
+        "    dataset='synthetic', num_classes=4, input_shape=(8,),\n"
+        "    train_size=96, test_size=32, client_num_in_total=8,\n"
+        "    client_num_per_round=4, batch_size=8, num_silos=2,\n"
+        "    wire_precision='int8', wire_block=16)\n"
+        "ds, n = data.load(a)\n"
+        "api = HierarchicalSiloAPI(a, 'cpu', ds, model.create(a, n))\n"
+        "assert np.isfinite(float(api.train_one_round(0)['train_loss']))\n"
+        "p, _ = wire.WireCodec('int8', 16, api.layout).encode(\n"
+        "    wire.state_tree(api.state))\n"
+        "back = wire.WireCodec.decode(decode_tree(encode_tree(p)),\n"
+        "                             api.layout)\n"
+        "assert list(back['global_params']) == api.order\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
+            for m in modules} <= walked

@@ -4,8 +4,9 @@ uninterrupted run ends (server state, optimizer state and per-client
 state), for the dense table, the client store (its sparse sidecar), a
 fused block and FedBuff; ``checkpoint_keep`` prunes steps and sidecars; a
 dense checkpoint restores into a store-backed run; ``checkpoint_codec=
-"wire"`` is refused by name.  The JAX engines' checkpoints are orbax and
-not read by the port, so the contract is the port's own resume."""
+"wire"`` selects the wire-format checkpointer (its round trips are in
+``tests/test_torch_wire.py``).  The JAX engines' orbax checkpoints are not
+read by the port, so the contract is the port's own resume."""
 
 import os
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from fedml_tpu_torch.core.checkpoint import (RoundCheckpointer,
+                                             WireCheckpointer,
                                              state_from_flat, state_to_flat)
 from fedml_tpu_torch.simulation.async_engine import FedBuffAPI
 from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
@@ -116,9 +118,10 @@ def test_state_flattening_and_refusals(tmp_path):
     assert back.round_idx == api.state.round_idx
     for k, v in api.state.global_params.items():
         assert back.global_params[k] is flat[f"global_params/{k}"]
-    with pytest.raises(NotImplementedError, match="wire"):
-        port(FedAvgAPI, base_args(**CFG, checkpoint_dir=str(tmp_path),
-                                  checkpoint_codec="wire"))
+    # checkpoint_codec="wire" selects the fedwire checkpointer
+    wired = port(FedAvgAPI, base_args(**CFG, checkpoint_dir=str(tmp_path),
+                                      checkpoint_codec="wire"))
+    assert isinstance(wired._checkpointer(), WireCheckpointer)
     ck = RoundCheckpointer(str(tmp_path / "x"))
     with pytest.raises(NotImplementedError, match="client store"):
         ck.save(1, {"w": torch.zeros(1)}, client_state=[1, 2])

@@ -266,7 +266,8 @@ def test_unported_options_raise_by_name(flag, value):
     (dict(backend="mesh", mesh_data=2), "mesh"),
     (dict(backend="NCCL", mesh_data=2), "NCCL"),
     (dict(backend="MPI", mesh_data=2), "MPI"),
-    (dict(num_silos=2), "num_silos"), (dict(model="vit"), "vit"),
+    pytest.param(dict(num_silos=2), None, id="over3-num_silos"),
+    (dict(model="vit"), "vit"),
     (dict(dataset="cifar10", model="cnn_cifar", data_cache_dir="x"), None),
     (dict(dataset="imagenet"), "imagenet")])
 def test_run_simulation_refuses_what_is_not_ported(over, what):
@@ -274,7 +275,8 @@ def test_run_simulation_refuses_what_is_not_ported(over, what):
     themselves; an absent cache directory falls back to synthetic data as
     in the JAX package (the cifar case runs).  The mesh backends run the
     2-D and 3-D layouts; a ``data`` factor is refused, naming the
-    backend."""
+    backend.  ``num_silos > 1`` runs (the two-tier silo aggregation,
+    ``store/hierarchy.py``)."""
     args = t_arguments().update(**tiny(comm_round=1, **over))
     backend = over.get("backend", "sp")
     if what is None:
