@@ -333,6 +333,24 @@ Phases, each printing its own lines:
    (e) ``checkpoint_codec="wire"`` on ``lr``: 2 rounds, a checkpoint, a
    fresh API resumed bitwise, and a combine tier with ``checkpoint_dir``
    whose WAL ``state_digest``s are the crc32 of the state it shipped.
+21. obs — the obs plane (``fedml_tpu_torch/obs/``): (a) phase 5 (b)'s
+   FEMNIST CNN in blocks of 4 for 8 rounds with ``trace``, ``health`` and
+   ``metrics_port=0`` on beside the same run off: losses and params
+   bitwise, the same graph captures, the same ``TorchRuntimeAudit``
+   counts over the steady-state block (sync debug mode "warn": host
+   syncs, builds, captures, explicit copies), one finite ``obs.round`` row
+   a round with the collective bytes of the byte model, the trace read by
+   ``tools/fedtrace.py summarize``, ``/metrics`` parsed, s a round on and
+   off; (b) ``tests/test_fedmon.py``'s label-flip config (``lr``, 64
+   clients, 32 a round, 6 flipped, 10 rounds) on sp, fused (blocks of 5)
+   and FedBuff (the buffer the cohort): the card flags the set the CPU
+   flags, at precision and recall >= 0.9; (c) the ``trace_device`` probe
+   (``obs/devicetime.py``) on phase 8's text model at full width (f32,
+   its cohort): four measured phase times > 0 and K1–K3 counted around
+   it (each kernel once a layer a step of each client map it runs,
+   ``launches_by_path`` ``obs_probe_text``); (d) the probe's event timer
+   on phase 3's K1 text-shape call, 20 calls as one CUDA graph, within
+   ``OBS_TIMER_TOL`` of :func:`graph_ms`.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -346,9 +364,9 @@ under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
 phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
 phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``),
-phase 19's under ``"cross_silo"`` and phase 20's under ``"wire"`` beside
-them; each kernel row adds phase 12's to 20's launches a path under
-``launches_by_path``)
+phase 19's under ``"cross_silo"``, phase 20's under ``"wire"`` and
+phase 21's under ``"obs"`` beside them; each kernel row adds phase 12's
+to 21's launches a path under ``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -5894,6 +5912,276 @@ def _kernel_inputs(torch, att, gen, b, h, hkv, s, d, causal, dt):
     return q, k, v, do, o, lse, delta
 
 
+# -- phase 21: the obs plane ---------------------------------------------------
+
+#: phase 21 (a): phase 5 (b)'s FEMNIST CNN in blocks of 4 for 8 rounds
+OBS_BLOCK, OBS_ROUNDS = 4, 8
+#: phase 21 (b): tests/test_fedmon.py's label-flip config (lr, 64 clients,
+#: 32 a round, 6 flipped, 10 rounds, seed 7); FedBuff with the buffer the
+#: cohort (tests/test_torch_obs_engines.py)
+OBS_FLIP = dict(dataset="synthetic", num_classes=10, input_shape=(28, 28, 1),
+                train_size=4096, test_size=256, model="lr",
+                client_num_in_total=64, client_num_per_round=32,
+                comm_round=10, epochs=1, batch_size=16, learning_rate=0.1,
+                random_seed=7, partition_method="homo",
+                frequency_of_the_test=5, health=True)
+OBS_FLIP_RUNS = {"sp": {},
+                 "fused": dict(round_block=5,
+                               frequency_of_the_test=10 ** 9),
+                 "fedbuff": dict(federated_optimizer="fedbuff",
+                                 async_buffer_k=32,
+                                 async_latency_median_s=5.0,
+                                 async_latency_sigma=1.2,
+                                 async_inflight_gens=3,
+                                 frequency_of_the_test=4)}
+OBS_FLIP_BAR = 0.9
+#: phase 21 (c): phase 8's text model at full width, f32, its cohort (the
+#: text shape); the probe's timed repeats cut from 3 to 2 to fit the phase
+OBS_PROBE_TEXT = dict(TEXT_REALTEXT, comm_round=1)
+OBS_PROBE_REPEATS = 2
+#: phase 21 (d): the probe's event timer against graph_ms
+OBS_TIMER_TOL = 0.10
+
+
+def obs_flip_run(fedml_tpu_torch, kind, dev):
+    """Phase 21 (b)'s run of ``kind`` on ``dev``: the flagged set, the
+    flipped set and the monitor's gauges."""
+    import numpy as np
+
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.simulation.async_engine import FedBuffAPI
+    from fedml_tpu_torch.simulation.sp.fedavg_api import FedAvgAPI
+
+    args = sp_args(fedml_tpu_torch, **dict(OBS_FLIP, **OBS_FLIP_RUNS[kind]))
+    ds, n_out = data.load(args)
+    flipped = sorted(np.random.default_rng(0).choice(
+        64, size=6, replace=False).tolist())
+    for c in flipped:
+        idx = ds.client_idxs[c]
+        ds.train_y[idx] = 9 - ds.train_y[idx]
+    cls = FedBuffAPI if kind == "fedbuff" else FedAvgAPI
+    api = cls(args, dev, ds, model.create(args, n_out))
+    api.train()
+    return api.health_monitor.flagged(), flipped, \
+        api.health_monitor.gauges()
+
+
+def obs_phase(torch, fedml_tpu_torch, att, smi):
+    """Phase 21."""
+    import urllib.request
+
+    from fedml_tpu_torch import data, device, model, obs
+    from fedml_tpu_torch.analysis import TorchRuntimeAudit
+    from fedml_tpu_torch.core.compression.blockscale import \
+        collective_payload_nbytes
+    from fedml_tpu_torch.obs import devicetime
+    from fedml_tpu_torch.obs.metricsd import parse_prometheus_text, \
+        prom_value
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import fedtrace
+
+    rec, seconds = {}, {}
+    t_phase = time.time()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # (a) the fused FEMNIST CNN, obs off and on, the steady-state block
+    # under TorchRuntimeAudit (sync debug mode "warn")
+    t0 = time.time()
+    base = sp_args(fedml_tpu_torch, **SP_FEMNIST_CNN)
+    ds, n_out = data.load(base)
+    trace_path = os.path.join(out_dir, "obs_trace.json")
+    runs = {}
+    for mode, over in (("off", {}),
+                       ("on", dict(trace=True, trace_path=trace_path,
+                                   health=True, metrics_port=0))):
+        obs.configure(enabled=False, reset=True)
+        cfg = dict(SP_FEMNIST_CNN, round_block=OBS_BLOCK,
+                   comm_round=OBS_ROUNDS, **over)
+        args = sp_args(fedml_tpu_torch, **cfg)
+        api = FedMLRunner(args, device.get_device(args), ds,
+                          model.create(args, n_out)).runner.fl_trainer
+        audit = TorchRuntimeAudit(sync_debug=True)
+        block = api.train_block
+
+        def audited(r, block=block, audit=audit):
+            if r == OBS_BLOCK:     # the steady state: after every capture
+                audit.__enter__()
+            return block(r)
+
+        api.train_block = audited
+        try:
+            api.train()
+        finally:
+            audit.__exit__(None, None, None)
+        torch.cuda.synchronize()
+        runs[mode] = api, audit
+    (off, a_off), (on, a_on) = runs["off"], runs["on"]
+    l_off = [r["train_loss"] for r in off.metrics_history]
+    l_on = [r["train_loss"] for r in on.metrics_history]
+    if l_on != l_off or len(l_on) != OBS_ROUNDS:
+        fail(f"(a) the traced run's losses differ: {l_on} vs {l_off}")
+    for k, v in off.state.global_params.items():
+        if not torch.equal(on.state.global_params[k], v):
+            fail(f"(a) the traced run's param {k} differs")
+    if on._block_fn.captures != off._block_fn.captures:
+        fail(f"(a) captures {on._block_fn.captures} with obs on vs "
+             f"{off._block_fn.captures} off")
+    counts = {m: {"syncs": a.syncs, "compilations": a.compilations,
+                  "device_puts": a.device_puts,
+                  "device_gets": a.device_gets} for m, a in
+              (("off", a_off), ("on", a_on))}
+    sites = {"off": a_off.sync_sites, "on": a_on.sync_sites}
+    if counts["on"] != counts["off"] or counts["on"]["compilations"]:
+        fail(f"(a) steady-state audit differs: {counts}; sync sites "
+             f"{sites}")
+    rows = [e["args"] for e in obs.get_tracer().events()
+            if e.get("name") == "obs.round"]
+    n_params = sum(v.numel() for v in on.state.global_params.values())
+    cbytes = 2.0 * collective_payload_nbytes(n_params, "fp32")
+    if [r["round"] for r in rows] != list(range(OBS_ROUNDS)):
+        fail(f"(a) obs.round rows for rounds {[r['round'] for r in rows]}")
+    for r in rows:
+        if not all(v == v and abs(v) < float("inf") for v in r.values()):
+            fail(f"(a) non-finite obs row {r}")
+        if r["collective_bytes"] != cbytes or r["update_norm"] <= 0:
+            fail(f"(a) obs row {r} (byte model {cbytes})")
+    summary = fedtrace.summarize(fedtrace.load_trace(trace_path))
+    if summary["rounds"] != OBS_ROUNDS:
+        fail(f"(a) fedtrace summarize read {summary['rounds']} rounds")
+    with urllib.request.urlopen(on.metrics_server.url + "/metrics",
+                                timeout=10) as resp:
+        samples = parse_prometheus_text(resp.read().decode())
+    if prom_value(samples, "fedmon_gauge",
+                  name="health.rounds_observed") != OBS_ROUNDS:
+        fail("(a) /metrics: health.rounds_observed is not the rounds")
+    on.metrics_server.close()
+    steady = lambda api: sum(r["round_time"] for r in
+                             api.metrics_history[OBS_BLOCK:]) / \
+        (OBS_ROUNDS - OBS_BLOCK)
+    rec["fused"] = {"s_per_round_off": steady(off),
+                    "s_per_round_on": steady(on),
+                    "captures": on._block_fn.captures, "audit": counts,
+                    "sync_sites": sites,
+                    "collective_bytes": cbytes,
+                    "summary_phases": summary["phases"]}
+    obs.configure(enabled=False, reset=True)
+    seconds["fused"] = time.time() - t0
+    say("obs", f"(a) FEMNIST CNN, blocks of {OBS_BLOCK}, {OBS_ROUNDS} "
+               f"rounds: obs on bitwise obs off; captures "
+               f"{on._block_fn.captures} both; steady-state audit {counts}; "
+               f"{len(rows)} finite obs.round rows, collective bytes "
+               f"{cbytes:.0f} = the byte model; fedtrace phases "
+               f"{ {k: round(v, 6) for k, v in summary['phases'].items()} }; "
+               f"/metrics parsed; s/round steady state on "
+               f"{rec['fused']['s_per_round_on']:.5f} vs off "
+               f"{rec['fused']['s_per_round_off']:.5f} [{smi}]")
+    del runs, off, on
+
+    # (b) label flips on sp, fused and FedBuff: the card flags the port's
+    # CPU set, at precision and recall >= 0.9
+    t0 = time.time()
+    rec["flags"] = {}
+    for kind in OBS_FLIP_RUNS:
+        card, flipped, g = obs_flip_run(fedml_tpu_torch, kind, "cuda")
+        cpu, _, _ = obs_flip_run(fedml_tpu_torch, kind, "cpu")
+        tp = len(set(card) & set(flipped))
+        precision = tp / max(len(card), 1)
+        recall = tp / len(flipped)
+        rec["flags"][kind] = {"card": card, "cpu": cpu, "flipped": flipped,
+                              "precision": precision, "recall": recall,
+                              "staleness_p99": g["health.staleness_p99"]}
+        say("obs", f"(b) {kind}: card flags {card}, CPU {cpu}, flipped "
+                   f"{flipped}: precision {precision:.2f}, recall "
+                   f"{recall:.2f}, staleness p99 "
+                   f"{g['health.staleness_p99']}")
+        if card != cpu:
+            fail(f"(b) {kind}: the card flags {card}, the CPU {cpu}")
+        if precision < OBS_FLIP_BAR or recall < OBS_FLIP_BAR:
+            fail(f"(b) {kind}: precision {precision} / recall {recall} "
+                 f"below {OBS_FLIP_BAR}")
+    seconds["flags"] = time.time() - t0
+
+    # (c) the trace_device probe on the text model at full width (f32):
+    # the four phases measured, K1-K3 counted around the probe
+    t0 = time.time()
+    obs.configure(enabled=True, reset=True)
+    api = build_sp(sp_args(fedml_tpu_torch, **dict(
+        OBS_PROBE_TEXT, trace=True, trace_device=True)))
+    mod = api.model.module
+    if (mod.tok_embed.weight.shape, mod.n_layers,
+            mod.layer_0.ff_up.weight.shape[0]) != ((8192, 256), 4, 512):
+        fail("(c) not the text model at its full width")
+    steps = api._stage_round_arrays(0)[4]
+    att.reset_launch_counts()
+    phases = devicetime.measure_device_phases(api, round_idx=0,
+                                              repeats=OBS_PROBE_REPEATS)
+    torch.cuda.synchronize()
+    probe = launch_counts(att)
+    counters = obs.get_tracer().summary()["counters"]
+    obs.configure(enabled=False, reset=True)
+    if not all(phases[p] > 0 for p in obs.DEVICE_PHASES) or \
+            any(counters.get(f"device.{p}_s") != phases[p]
+                for p in obs.DEVICE_PHASES):
+        fail(f"(c) phases {phases}, counters {counters}")
+    # the probe runs the cohort's client map once untimed and ``repeats``
+    # times timed; the vmapped map launches each kernel once a layer a step
+    passes = OBS_PROBE_REPEATS + 1
+    want = {k: passes * mod.n_layers * steps for k in probe}
+    if probe != want:
+        fail(f"(c) probe launches {probe}, want {want} ({passes} passes x "
+             f"{mod.n_layers} layers x {steps} steps)")
+    rec["probe_text"] = {"phases_s": phases, "launches": probe,
+                         "steps": steps, "passes": passes}
+    seconds["probe_text"] = time.time() - t0
+    say("obs", f"(c) trace_device on the text model (dim 256, 4 layers, "
+               f"f32, 5 clients, {steps} steps): phases "
+               f"{ {k: round(v * 1e3, 4) for k, v in phases.items()} } ms; "
+               f"K1-K3 launches {probe} ({passes} client maps) [{smi}]")
+    del api
+
+    # (d) the probe's event timer on phase 3's K1 text-shape graph
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    _, b, h, hkv, s, d, causal, _ = [x for x in KERNEL_SHAPES
+                                     if x[0] == "text"][0]
+    q, k, v = (torch.randn((b, n, s, d), generator=gen, device="cuda")
+               for n in (h, hkv, hkv))
+    fn = lambda: att.flash_attention_fwd(q, k, v, causal)
+    ref_ms = graph_ms(torch, fn)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(20):
+            fn()
+    probe_s, _ = devicetime._timed(lambda: (graph.replay(), q)[1],
+                                   repeats=3)
+    probe_ms = probe_s * 1e3 / 20
+    del graph
+    rec["timer"] = {"probe_ms": probe_ms, "graph_ms": ref_ms,
+                    "rel": abs(probe_ms - ref_ms) / ref_ms}
+    seconds["timer"] = time.time() - t0
+    say("obs", f"(d) K1 @text: the probe's event timer {probe_ms:.5f} ms "
+               f"a call vs graph_ms {ref_ms:.5f} ms "
+               f"({100 * rec['timer']['rel']:.2f}% apart, bar "
+               f"{100 * OBS_TIMER_TOL:.0f}%) [{smi}]")
+    if rec["timer"]["rel"] > OBS_TIMER_TOL:
+        fail(f"(d) the probe's timer reads {probe_ms} ms, graph_ms "
+             f"{ref_ms} ms")
+    seconds["phase"] = time.time() - t_phase
+    rec["seconds"] = seconds
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6311,6 +6599,17 @@ def main():
             "two_tier_text"] = 0
     say("wire", f"phase 20 took {time.time() - t0:.1f} s "
                 f"({ {k: round(v, 1) for k, v in wire_rec['seconds'].items()} })")
+
+    # -- 21. obs: tracing, health, /metrics, the measured device phases ---
+    t0 = time.time()
+    obs_rec = obs_phase(torch, fedml_tpu_torch, att, smi)
+    for name, n in obs_rec["probe_text"]["launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "obs_probe_text"] = n
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "obs_probe_text"] = 0
+    say("obs", f"phase 21 took {time.time() - t0:.1f} s "
+               f"({ {k: round(v, 1) for k, v in obs_rec['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -6324,7 +6623,7 @@ def main():
                       "tp": tp,
                       "ring_blocks": list(mesh3d.pop("rows").values()),
                       "mesh3d": mesh3d, "cross_silo": cross_silo,
-                      "wire": wire_rec}))
+                      "wire": wire_rec, "obs": obs_rec}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -97,6 +97,26 @@ _DEFAULTS: Dict[str, Any] = dict(
     # shard); quant_block is the int8 quantizer's per-scale chunk
     collective_precision="fp32",
     quant_block=256,
+    # the obs plane (obs/): trace turns the global tracer on (trace_path:
+    # the Chrome trace written at the end of train()); trace_device runs
+    # the measured device-phase probe (obs/devicetime.py) once before the
+    # rounds, trace_profile_dir wraps it in a torch.profiler capture
+    trace=False,
+    trace_path=None,
+    trace_device=False,
+    trace_profile_dir=None,
+    # fedmon: health computes the per-client health lanes on the device
+    # and runs the host anomaly/drift monitor over them; metrics_port
+    # serves /metrics, /healthz and /debug/health on loopback (0 = an
+    # ephemeral port); health_slo_path names the SLO rule YAML;
+    # health_z / health_ewm_alpha / health_min_obs tune the detector
+    # (0 = its default)
+    health=False,
+    health_slo_path=None,
+    metrics_port=None,
+    health_z=0.0,
+    health_ewm_alpha=0.0,
+    health_min_obs=0,
     # two-tier silo -> server aggregation (store/hierarchy.py): num_silos
     # > 1 selects HierarchicalSiloAPI; silo_slow_rank / silo_slow_s hold
     # one silo's round open (straggler injection in run_silo_federation)

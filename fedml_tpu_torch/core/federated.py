@@ -695,6 +695,80 @@ def wire_roundtrip_partial(partial: Dict[str, Any], wire_link,
 
 
 # --------------------------------------------------------------------------
+# fedmon per-client health stats
+# --------------------------------------------------------------------------
+
+#: stat lanes of the per-client health rows (FedBuff appends a
+#: ``staleness`` lane at buffer-apply time)
+HEALTH_STAT_FIELDS = ("update_norm", "cosine", "loss_delta", "weight")
+
+
+def health_sums(old_params, client_params, ref_delta, leaf_weight=None):
+    """The sums behind the health lanes: ``(‖Δ_i‖², ⟨Δ_i, ref⟩, ‖ref‖²)``
+    with ``Δ_i`` client i's stacked params minus ``old_params``, over
+    every leaf of the ``{name: tensor}`` dicts, in f32.  ``leaf_weight(
+    name)`` scales a leaf's terms (a mesh rank whose shards of a leaf
+    repeat another rank's counts them 0)."""
+    f32 = torch.float32
+    sq = dot = ref_sq = 0.0
+    for k, op in old_params.items():
+        cp = client_params[k]
+        c = cp.shape[0]
+        d = cp.to(f32).reshape(c, -1) - op.to(f32).reshape(1, -1)
+        r = ref_delta[k].to(f32).reshape(-1)
+        terms = (torch.sum(d * d, dim=1), d @ r, torch.sum(r * r))
+        if leaf_weight is not None:
+            wk = float(leaf_weight(k))
+            terms = tuple(t * wk for t in terms)
+        sq, dot, ref_sq = sq + terms[0], dot + terms[1], ref_sq + terms[2]
+    return sq, dot, ref_sq
+
+
+def health_lanes(sq, dot, ref_sq, loss, weights, mean_loss=None
+                 ) -> Dict[str, torch.Tensor]:
+    """The ``(C,)`` f32 lanes from :func:`health_sums`' sums: ``update_norm``
+    ``‖Δ_i‖₂``, ``cosine`` ``cos(Δ_i, ref)`` (a label flip reads strongly
+    negative), ``loss_delta`` (loss_i minus the cohort's weighted-mean loss,
+    ``mean_loss`` when the caller reduced it over a mesh) and the
+    real-client ``weight`` (pad rows read 0 and the host monitor drops
+    them)."""
+    f32 = torch.float32
+    w = torch.as_tensor(weights).to(f32)
+    norm = torch.sqrt(sq)
+    cosine = dot / torch.clamp(norm * torch.sqrt(ref_sq), min=1e-12)
+    loss = torch.as_tensor(loss).to(f32)
+    if mean_loss is None:
+        mean_loss = torch.sum(w * loss) / torch.clamp(torch.sum(w),
+                                                      min=1e-12)
+    return {"update_norm": norm, "cosine": cosine,
+            "loss_delta": loss - mean_loss, "weight": w}
+
+
+def client_health_stats(old_params, client_params, ref_delta, loss,
+                        weights) -> Dict[str, torch.Tensor]:
+    """Fixed-shape per-client health rows (the JAX package's
+    ``client_health_stats``), computed on the round's device from data the
+    round already holds: the stacked client params against the broadcast
+    ``old_params`` and a reference direction ``ref_delta`` (the server
+    update ``new − old`` on the sync engines, the generation's
+    weighted-mean delta on FedBuff).  Returned through the metrics dict the
+    loss rides, so nothing is read back before the round loop's own
+    sync."""
+    return health_lanes(*health_sums(old_params, client_params, ref_delta),
+                        loss, weights)
+
+
+def cohort_mean_delta(old_params, client_params, weights):
+    """The weighted cohort-mean update ``Σ w_i Δ_i / Σ w_i``: FedBuff's
+    reference direction, computed at dispatch before any apply."""
+    w = torch.as_tensor(weights).to(torch.float32)
+    den = torch.clamp(torch.sum(w), min=1e-12)
+    return {k: torch.tensordot(w, client_params[k].to(torch.float32),
+                               dims=1) / den - op.to(torch.float32)
+            for k, op in old_params.items()}
+
+
+# --------------------------------------------------------------------------
 # spec-driven aggregates
 # --------------------------------------------------------------------------
 

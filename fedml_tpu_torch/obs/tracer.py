@@ -7,25 +7,27 @@ Design constraints (the whole point of this module):
   attribute check; ``span()`` returns a shared no-op context manager, so
   call sites on the round hot path cost a branch when tracing is off.
 - **Enabled means sync-free.** The tracer only ever reads host clocks and
-  host ints; it never touches a device value.
+  host ints; it never touches a device value.  Device-side telemetry
+  arrives through :mod:`.carry` at the driver's existing log-round sync
+  (:meth:`Tracer.round_obs`), never through a tracer-initiated transfer.
 - **Chrome trace-event output.** ``export_chrome`` writes the JSON object
   format (``{"traceEvents": [...]}``) with paired ``B``/``E`` duration
   events per thread, ``C`` counter events, and ``M`` metadata — loadable
   in Perfetto (ui.perfetto.dev) or ``chrome://tracing``.  Events sort by
   timestamp at export; still-open spans get a synthesized end so the file
   is always well-formed.
+- **Prometheus-style aggregates.** ``export_prometheus`` renders the
+  running span totals and counters as a text-format dump for scrape-style
+  consumption without parsing the full trace.
 
-What differs from the JAX module: the JAX package's ``configure`` hooks
-the tracer into jax's compile events and ``device_put``/``device_get``
-(``jaxhooks.py``), which have no counterpart here, so the port's
-``configure`` takes ``jax_hooks=False`` and raises by name when asked for
-them; and :func:`tree_nbytes` (``jaxhooks.tree_nbytes`` in the JAX
-package) lives here, walking nested dicts and lists of numpy arrays,
-tensors and bytes.  Only what the message plane calls is ported: spans,
-counters, byte counters, the Chrome export and the summary.  The
-Prometheus dump and its name escaping, the per-round device-telemetry
-record, retroactive spans, the device-carry telemetry (``carry``),
-health, ``metricsd`` and ``devicetime`` are not.
+What differs from the JAX module: ``configure(hooks=True)`` subscribes the
+tracer to the port's own hub (:mod:`.torchhooks`: CUDA-graph captures as
+``cuda_graph_capture`` events on the retroactive lane, the explicit
+host↔device copies as ``device_put_bytes``/``device_get_bytes``) where the
+JAX module hooks jax's compile events and ``device_put``/``device_get``;
+``jax_hooks=True`` raises by name.  :func:`tree_nbytes`
+(``jaxhooks.tree_nbytes`` in the JAX package) lives here, walking nested
+dicts and lists of numpy arrays, tensors and bytes.
 """
 
 from __future__ import annotations
@@ -33,12 +35,47 @@ from __future__ import annotations
 import atexit
 import json
 import os
+import re
 import socket
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from . import context as trace_context
+
+#: device phases attributed from the ObsCarry FLOP weights, in the order
+#: they appear in ``ObsCarry.phase_flops``
+DEVICE_PHASES = ("gather", "client_steps", "merge", "server_update")
+#: full per-round phase set (staging is host-measured via real spans)
+PHASES = ("staging",) + DEVICE_PHASES
+
+#: synthetic thread lane for retroactive spans (a CUDA-graph capture's
+#: duration arrives after the fact; emitting it on the caller thread would
+#: cross-nest with whatever span is open there)
+COMPILE_TID = -2
+
+_PROM_NAME_OK = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_PROM_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize_metric_name(name: str) -> str:
+    """A legal Prometheus metric name: every reserved character folds to
+    ``_`` and a leading digit gains one (``serve.tokens/s`` →
+    ``serve_tokens_s``).  The historical dump interpolated raw names —
+    a counter or span named outside ``[a-zA-Z0-9_:]`` emitted a line a
+    Prometheus parser rejects."""
+    name = _PROM_NAME_BAD.sub("_", str(name))
+    if not name or not _PROM_NAME_OK.match(name):
+        name = "_" + name
+    return name
+
+
+def escape_label_value(value) -> str:
+    """Prometheus label-value escaping: backslash, double-quote and
+    newline (the three characters the text format reserves — adapter
+    names / span args containing ``"`` previously broke the dump)."""
+    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
 
 
 class _NullSpan:
@@ -89,7 +126,7 @@ class Tracer:
         # tid -> stack of (name, ts_us, span_id) for B/E pairing and the
         # thread's current-span parentage (fedscope ids)
         self._open: Dict[int, List[tuple]] = {}
-        # name -> [count, total_seconds] for the summary
+        # name -> [count, total_seconds] for the prometheus aggregate
         self._span_agg: Dict[str, List[float]] = {}
         self._counters: Dict[str, float] = {}
         self.enabled = False
@@ -203,6 +240,34 @@ class Tracer:
             return _NULL_SPAN
         return _SpanCtx(self, name, cat, args)
 
+    def complete(self, name: str, duration_s: float, cat: str = "host",
+                 tid: int = COMPILE_TID, end_s_ago: float = 0.0, **args):
+        """Retroactive B/E pair on a synthetic lane — for events whose
+        duration is only known after the fact (XLA compiles; the fedslo
+        request span tree emitted at request finish).  ``end_s_ago``
+        shifts the pair back so finish-time emission can place child
+        phases (queue/prefill/decode) at their true host-clock offsets;
+        ``None``-valued args are dropped, mirroring ``begin``."""
+        if not self.enabled:
+            return
+        ts1 = max(self._ts() - float(end_s_ago) * 1e6, 0.0)
+        ts0 = max(ts1 - float(duration_s) * 1e6, 0.0)
+        base = {"name": name, "pid": self._pid, "tid": tid, "cat": cat,
+                "host": self.host}
+        b: Dict[str, Any] = {**base, "ph": "B", "ts": ts0}
+        b["args"] = dict(
+            {k: v for k, v in args.items() if v is not None},
+            span_id=trace_context.new_span_id())
+        e: Dict[str, Any] = {"name": name, "ph": "E", "ts": ts1,
+                             "pid": self._pid, "tid": tid,
+                             "host": self.host}
+        with self._lock:
+            self._events.extend((b, e))
+            self._dirty = True
+            agg = self._span_agg.setdefault(name, [0, 0.0])
+            agg[0] += 1
+            agg[1] += float(duration_s)
+
     # -- counters ----------------------------------------------------------
     def counter(self, name: str, value: float, **args):
         """Gauge-style counter sample (Chrome ``C`` event)."""
@@ -230,6 +295,24 @@ class Tracer:
             total = self._counters.get(name, 0.0) + float(n)
             self._counters[name] = total
             ev["args"] = {"value": total}
+            self._events.append(ev)
+            self._dirty = True
+
+    def round_obs(self, round_idx: int, round_time_s: float,
+                  obs: Dict[str, float]):
+        """One per-round device-telemetry record.  Called from the driver's
+        existing log-round flush with ALREADY-materialized host floats —
+        the tracer itself never syncs the device."""
+        if not self.enabled:
+            return
+        args: Dict[str, Any] = {"round": int(round_idx),
+                                "round_time_s": float(round_time_s)}
+        for k, v in obs.items():
+            args[k] = float(v)
+        ev = {"name": "obs.round", "ph": "C", "ts": self._ts(),
+              "pid": self._pid, "tid": threading.get_ident(),
+              "host": self.host, "args": args}
+        with self._lock:
             self._events.append(ev)
             self._dirty = True
 
@@ -275,6 +358,9 @@ class Tracer:
                 {"name": "process_name", "ph": "M", "ts": 0.0,
                  "pid": self._pid, "tid": 0,
                  "args": {"name": self.process_label()}},
+                {"name": "thread_name", "ph": "M", "ts": 0.0,
+                 "pid": self._pid, "tid": COMPILE_TID,
+                 "args": {"name": "graph-capture"}},
             ] + self.events(),
             "displayTimeUnit": "ms",
             "otherData": other,
@@ -312,8 +398,40 @@ class Tracer:
                 "dropped_ends": self.dropped_ends,
             }
 
+    def export_prometheus(self, path: Optional[str] = None) -> str:
+        """Prometheus text-format aggregate of span totals + counters.
+
+        Span / counter names ride as label VALUES (escaped — names like
+        ``serve.requests.cohort-"1"`` are data here, not metric names),
+        and the metric names themselves pass ``sanitize_metric_name`` so
+        every emitted line survives a real Prometheus parser
+        (round-tripped in tests via
+        :func:`~fedml_tpu.obs.metricsd.parse_prometheus_text`)."""
+        s = self.summary()
+        m_total = sanitize_metric_name("fedtrace_span_seconds_total")
+        m_count = sanitize_metric_name("fedtrace_span_count")
+        m_gauge = sanitize_metric_name("fedtrace_counter")
+        lines = [f"# TYPE {m_total} counter",
+                 f"# TYPE {m_count} counter",
+                 f"# TYPE {m_gauge} gauge"]
+        for name, row in s["spans"].items():
+            lbl = escape_label_value(name)
+            lines.append(f'{m_total}{{name="{lbl}"}} '
+                         f'{row["total_s"]:.9f}')
+            lines.append(f'{m_count}{{name="{lbl}"}} {row["count"]}')
+        for name, v in sorted(s["counters"].items()):
+            lines.append(f'{m_gauge}{{name="{escape_label_value(name)}"}} '
+                         f'{v:g}')
+        text = "\n".join(lines) + "\n"
+        if path:
+            with open(path, "w") as fh:
+                fh.write(text)
+        return text
+
+
 # -- global tracer ---------------------------------------------------------
 _TRACER = Tracer()
+_hooks_uninstall = None
 _atexit_registered = False
 
 
@@ -326,9 +444,16 @@ def trace_enabled() -> bool:
 
 
 def configure(enabled: Optional[bool] = None, path: Optional[str] = None,
-              reset: bool = False, jax_hooks: bool = False,
-              label: Optional[str] = None) -> Tracer:
+              reset: bool = False, hooks: bool = True,
+              label: Optional[str] = None,
+              jax_hooks: bool = False) -> Tracer:
     """Configure the global tracer.
+
+    Enabling with ``hooks`` subscribes the tracer to :mod:`.torchhooks`
+    (CUDA-graph captures, explicit host↔device byte counts); disabling
+    unsubscribes it.  The hooks never add a transfer, a sync or a capture:
+    ``TorchRuntimeAudit`` counts are equal between traced and untraced
+    runs (``tests/test_torch_obs_engines.py``).
 
     ``label`` names this process's lane on a merged multi-process
     timeline ("server", "silo2", ...).  Enabling with a ``path`` also
@@ -337,11 +462,12 @@ def configure(enabled: Optional[bool] = None, path: Optional[str] = None,
     trace file behind.  ``jax_hooks=True`` (the JAX package's compile and
     transfer hooks) raises ``NotImplementedError``: the port has no jax.
     """
-    global _atexit_registered
+    global _hooks_uninstall, _atexit_registered
     if jax_hooks:
         raise NotImplementedError(
             "obs.configure(jax_hooks=True): the jax compile and transfer "
-            "hooks are not ported (the port runs no jax)")
+            "hooks are not ported (the port runs no jax; hooks=True "
+            "installs the port's own)")
     tr = _TRACER
     if path is not None:
         tr.path = path
@@ -356,8 +482,14 @@ def configure(enabled: Optional[bool] = None, path: Optional[str] = None,
         if not _atexit_registered:
             atexit.register(tr.close)
             _atexit_registered = True
+        if hooks and _hooks_uninstall is None:
+            from . import torchhooks
+            _hooks_uninstall = torchhooks.install_tracer_hooks(tr)
     elif not enabled and tr.enabled:
         tr.enabled = False
+        if _hooks_uninstall is not None:
+            _hooks_uninstall()
+            _hooks_uninstall = None
     return tr
 
 

@@ -30,7 +30,15 @@ gathered at dispatch and written back at arrival, through the paged store
 with ``client_store``.
 
 ``async_driver.py`` is the multi-rank twin of this engine over the
-message plane and the wire codec.  The tracer counters are not ported.
+message plane and the wire codec.
+
+The obs plane: ``async.dispatch`` and ``async.arrival`` spans and the
+``async.*`` counters (buffer occupancy, staleness p50/p99, dropped
+updates, simulated time) when tracing; under ``health`` each generation's
+client pass adds the ``(C,)`` health lanes against the generation's
+weighted-mean update, which land in the buffer like the loss lane, and an
+apply reports them with the buffer's ``staleness`` lane and the host
+slot→client map (``health_clients``).
 """
 
 from __future__ import annotations
@@ -134,6 +142,8 @@ class FedBuffAPI(FedAvgAPI):
         self.clients_dispatched = 0
         self.updates_buffered = 0
         self.fastpath_applies = 0
+        # slot -> client id of the landed rows (the health lanes' ids)
+        self._slot_clients = np.zeros(self.buffer_k, np.int64)
 
     # -- the device programs -------------------------------------------------
     def _gen_key(self, g: int) -> torch.Generator:
@@ -155,6 +165,15 @@ class FedBuffAPI(FedAvgAPI):
         # staleness-weighted mean of the K landed losses
         rows["__loss"] = {"src": outs.loss, "w": w.to(torch.float32)}
         rows["__steps"] = {"src": outs.num_steps.to(torch.float32)}
+        if self._health:
+            # the lanes at dispatch, against the generation's own cohort
+            # (no post-apply params exist yet); the staleness lane joins at
+            # apply from the buffer's tau
+            rows["__health"] = federated.client_health_stats(
+                state.global_params, outs.params,
+                federated.cohort_mean_delta(state.global_params,
+                                            outs.params, w),
+                outs.loss, w)
         return rows, outs.new_client_state
 
     def _apply_buffer(self):
@@ -173,6 +192,10 @@ class FedBuffAPI(FedAvgAPI):
             "buffer_occupancy": buf["occupancy"],
             "model_version": buf["version"],
         }
+        if self._health:
+            metrics["health"] = dict(buf["rows"]["__health"],
+                                     staleness=buf["tau"])
+            metrics["health_clients"] = self._slot_clients.copy()
         self.buffer = fresh
         return metrics
 
@@ -180,11 +203,14 @@ class FedBuffAPI(FedAvgAPI):
     def _dispatch_generation(self):
         g = self._next_gen
         self._next_gen += 1
-        clients, idx, mask, w, _steps = self._stage_round_arrays(g)
-        cohort = np.asarray(clients, dtype=np.int64)
-        # the per-client state as of dispatch (what the client trains from)
-        c_stacked = self._gather_c(cohort, g)
-        args = (*self._to_device(idx, mask, w), c_stacked)
+        with self._tracer.span("async.dispatch", cat="round", gen=g,
+                               version=self._version):
+            clients, idx, mask, w, _steps = self._stage_round_arrays(g)
+            cohort = np.asarray(clients, dtype=np.int64)
+            # the per-client state as of dispatch (what the client trains
+            # from)
+            c_stacked = self._gather_c(cohort, g)
+            args = (*self._to_device(idx, mask, w), c_stacked)
         self._gens[g] = _Generation(g, self.state, args, cohort, len(cohort),
                                     self._version)
         self.sim.dispatch(g, self._version, clients)
@@ -233,9 +259,14 @@ class FedBuffAPI(FedAvgAPI):
                 self.updates_dropped += 1
                 return False
             self._ensure_rows(gen)
-            self.buffer = federated.update_buffer_add(
-                self.buffer, gen.rows, [ev.slot], [self._occ_host],
-                [float((1.0 + tau) ** (-self.async_alpha))], [float(tau)])
+            with self._tracer.span("async.arrival", cat="round",
+                                   client=ev.client, staleness=tau,
+                                   latency_s=round(ev.latency_s, 6)):
+                self.buffer = federated.update_buffer_add(
+                    self.buffer, gen.rows, [ev.slot], [self._occ_host],
+                    [float((1.0 + tau) ** (-self.async_alpha))],
+                    [float(tau)])
+            self._slot_clients[self._occ_host] = ev.client
             self._occ_host += 1
             self.updates_buffered += 1
             self._staleness_window.append(tau)
@@ -286,6 +317,13 @@ class FedBuffAPI(FedAvgAPI):
         metrics.update(staleness_mean=0.0, staleness_max=0.0,
                        buffer_occupancy=float(self.buffer_k),
                        model_version=float(self._version))
+        if self._health and metrics.get("health") is not None:
+            # the sync round's lanes are in cohort order, with zero
+            # staleness by construction
+            metrics["health"] = dict(
+                metrics["health"],
+                staleness=np.zeros(self.buffer_k, np.float32))
+            metrics["health_clients"] = np.asarray(gen.cohort, np.int64)
         return metrics
 
     # -- the driver round ------------------------------------------------------
@@ -317,10 +355,18 @@ class FedBuffAPI(FedAvgAPI):
         metrics = dict(metrics)
         window = self._staleness_window
         self._staleness_window = []
+        p50 = float(np.percentile(window, 50)) if window else 0.0
+        p99 = float(np.percentile(window, 99)) if window else 0.0
+        if self._tracer.enabled:
+            self._tracer.counter("async.buffer_occupancy", self.buffer_k)
+            self._tracer.counter("async.staleness_p50", p50)
+            self._tracer.counter("async.staleness_p99", p99)
+            self._tracer.counter("async.updates_dropped",
+                                 self.updates_dropped)
+            self._tracer.counter("async.sim_time_s", round(self.sim.now, 6))
         metrics.update(
             allocated_steps=self.buffer_k,
-            staleness_p50=float(np.percentile(window, 50)) if window else 0.0,
-            staleness_p99=float(np.percentile(window, 99)) if window else 0.0,
+            staleness_p50=p50, staleness_p99=p99,
             sim_time_s=self.sim.now,
             updates_dropped=self.updates_dropped,
             clients_dispatched=self.clients_dispatched)

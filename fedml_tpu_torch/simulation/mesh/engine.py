@@ -72,11 +72,19 @@ saved by rank 0; :meth:`MeshFedAvgAPI.maybe_resume`).
 card (``round_engine.BlockRoundFn``) with the merge's NCCL collectives
 captured inside the graph, and on the pipeline layout the stage ring's
 send/recv too.
+
+The obs plane runs as on the sp engine (``trace``, ``health``,
+``metrics_port``): the ObsCarry row carries the byte model of
+:meth:`MeshFedAvgAPI.collective_bytes` split per axis, and the health
+lanes are gathered from the ranks (pad rows weight 0), on every layout.
+``trace_device`` is refused by name here (the JAX engine warns and keeps
+the FLOP model).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 
 import numpy as np
@@ -88,8 +96,9 @@ from ...core.compression import blockscale
 from ...core.flatmodel import FlatSpec
 from ...ml.aggregator.agg_operator import ServerOptimizer, ServerState
 from ...ml.trainer.local_trainer import LocalTrainer
+from ...obs.carry import OPT_FLOPS, round_obs
 from ..round_engine import BlockRoundFn, draw_dropout, ef_numerator, \
-    next_pow2, payload_noise
+    next_pow2, param_delta, payload_noise
 from ..sp.fedavg_api import FedAvgAPI
 from ..staging import AsyncCohortStager
 from .collectives import (client_axis_bytes, model_axis_bytes,
@@ -127,7 +136,8 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
                          flat: FlatSpec, flat_pad: FlatSpec = None,
                          collective_precision: str = "fp32",
                          quant_block: int = blockscale.DEFAULT_BLOCK,
-                         train_x=None, train_y=None, data_lo=None):
+                         train_x=None, train_y=None, data_lo=None,
+                         obs_bytes=None, health: bool = False):
     """``core(state, data, mask, w, drop, cohort, table, noise,
     inplace=False) -> (new_state, metrics, table)``: one round on this
     rank.
@@ -145,7 +155,16 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
     ``inplace`` writes the table rows into ``table`` (the graph's static
     buffers).  On a 2-D mesh ``state``'s params (and in the replicated
     layout its param-shaped trees) and the table's rows are this rank's
-    model shards; ``flat_pad`` is then the padded view in both layouts."""
+    model shards; ``flat_pad`` is then the padded view in both layouts.
+
+    ``obs_bytes(steps)`` (the engine's byte model, a dict with ``client``,
+    ``stage``, ``model`` and ``total``) turns on the ObsCarry row in
+    ``metrics["obs"]``; ``health`` the cohort's ``(C,)`` health lanes in
+    ``metrics["health"]`` (pad rows weight 0), gathered from the ranks.
+    Sums over a rank's shards count each leaf once
+    (``layout.leaf_weight``) and reduce over the client shard's ranks; on
+    2-D the lanes compare whole client params with the whole update (its
+    params gathered, as the train phase gathers the old ones)."""
     mesh = layout.mesh
     spec = server_opt.spec
     scatter = update_sharding == "scatter"
@@ -169,6 +188,9 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
     n, rank = layout.n_ranks, layout.rank
     #: the ranks the cohort's clients spread over (None: every rank)
     cohort = layout.cohort_axis
+    opt_flops = OPT_FLOPS.get(server_opt.algorithm, 4.0)
+    #: the scatter merge's broadcast residual of the round (obs only)
+    qerr = {}
 
     def cohort_data(data, rows):
         if train_x is None:
@@ -289,7 +311,7 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
         fields.update(new_fields)
         out_chunk = new_gshard
         if quantized:
-            send, new_ef_bcast, _ = blockscale.quantize_broadcast(
+            send, new_ef_bcast, berr_sq = blockscale.quantize_broadcast(
                 new_gshard, state.ef_bcast, precision,
                 payload_noise(noise, 1, precision, new_gshard.shape[0],
                               quant_block, broadcast=True), quant_block)
@@ -297,6 +319,8 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             if state.ef_bcast is not None:
                 fields["ef_bcast"] = new_ef_bcast
             out_chunk = wire_cast(send, precision)
+            if obs_bytes is not None:
+                qerr["bcast"] = berr_sq
         new_params = layout.shard_tree(flat_pad.unflatten(
             mesh.all_gather(out_chunk).to(torch.float32)))
         return state.replace(round_idx=state.round_idx + 1,
@@ -342,7 +366,61 @@ def make_mesh_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             torch.sum(outs.loss * w), torch.sum(w),
             torch.sum(outs.num_steps).to(torch.float32)]), cohort)
         metrics = {"train_loss": sums[0] / sums[1], "total_steps": sums[2]}
+        if obs_bytes is not None:
+            metrics["obs"] = obs_row(state, new_state, x, w, sums)
+        if health:
+            metrics["health"] = health_rows(state, new_state, full, outs, w,
+                                            sums)
         return new_state, metrics, table
+
+    def shard_sums(tensors):
+        """Sums of per-rank shard terms over the client shard's ranks (the
+        identity on 1-D)."""
+        if not layout.sharded:
+            return tensors
+        return mesh.psum_many(tensors, axis=layout.shard_axis)
+
+    def obs_row(state, new_state, x, w, sums):
+        old, new = state.global_params, new_state.global_params
+        sq = sum(layout.leaf_weight(k) * torch.sum(
+            (new[k].to(torch.float32) - v.to(torch.float32)) ** 2)
+            for k, v in old.items())
+        (sq,) = shard_sums([sq.reshape(1)])
+        clients = mesh.psum(torch.sum((w > 0).to(torch.float32)), cohort)
+        qnorm = None
+        if quantized:
+            # each shard's merge residual (this rank's EF row or chunk)
+            # and, in the scatter layout, the broadcast residual, over
+            # every rank
+            q = torch.sum(new_state.ef_num.to(torch.float32) ** 2)
+            if "bcast" in qerr:
+                q = q + qerr.pop("bcast")
+            qnorm = torch.sqrt(mesh.psum(q))
+        b = obs_bytes(int(x.shape[1]))
+        return round_obs(
+            old, new, real_steps=sums[2], real_clients=clients,
+            batch=int(x.shape[2]), feat=math.prod(x.shape[3:]),
+            opt_flops_per_param=opt_flops, collective_bytes=b["total"],
+            collective_bytes_client=b["client"],
+            collective_bytes_stage=b["stage"],
+            collective_bytes_model=b["model"], quant_error=qnorm,
+            sq=sq[0], n_params=flat.n_params)
+
+    def health_rows(state, new_state, full, outs, w, sums):
+        old, new = state.global_params, new_state.global_params
+        if two_d:
+            # whole client params against the whole update
+            old, new = full, layout.gather_tree(new)
+        sq, dot, ref_sq = federated.health_sums(
+            old, outs.params, param_delta(new, old),
+            leaf_weight=layout.leaf_weight if pipe else None)
+        if pipe:
+            sq, dot, ref_sq = shard_sums([sq, dot, ref_sq.reshape(1)])
+            ref_sq = ref_sq[0]
+        lanes = federated.health_lanes(
+            sq, dot, ref_sq, outs.loss, w,
+            mean_loss=sums[0] / torch.clamp(sums[1], min=1e-12))
+        return {f: mesh.all_gather(v, axis=cohort) for f, v in lanes.items()}
 
     return core
 
@@ -443,6 +521,9 @@ class MeshFedAvgAPI(FedAvgAPI):
     #: the client store, data paging, a registered population and
     #: checkpoints run on the mesh (the class docstring)
     CLIENT_STATE_PLANE = True
+
+    #: the ``trace_device`` probe splits an sp round only (refused here)
+    DEVICE_PROBE = False
 
     def __init__(self, args, device, dataset, model, mesh=None):
         from .pipeline import validate_pipeline_args
@@ -767,7 +848,9 @@ class MeshFedAvgAPI(FedAvgAPI):
         return make_mesh_round_core(
             self.trainer, self.server_opt, self.layout, self.update_sharding,
             self.flat, self.flat_pad, self.collective_precision,
-            self.quant_block, train_x, train_y, data_lo)
+            self.quant_block, train_x, train_y, data_lo,
+            obs_bytes=self.collective_bytes if self._obs else None,
+            health=self._health)
 
     def _n_cohort(self) -> int:
         return min(self.clients_per_round, self.dataset.num_clients)

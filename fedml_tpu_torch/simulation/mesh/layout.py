@@ -311,6 +311,18 @@ class MeshLayout:
             out[k] = whole
         return out
 
+    def leaf_weight(self, key: str) -> float:
+        """1.0 when this rank's shard of leaf ``key`` counts in a sum over
+        the ranks of a client shard, 0.0 on the ranks that repeat it (the
+        rule of :meth:`place`: a leaf not split over an axis counts on
+        coordinate 0 of that axis only).  Always 1.0 on 1-D."""
+        if not self.sharded:
+            return 1.0
+        split_axes = {axis for _, axis in self._splits(key)}
+        axes = SHARD_AXES if self.pipeline else (MODEL_AXIS,)
+        return 0.0 if any(self.mesh.coord(a) for a in axes
+                          if a not in split_axes) else 1.0
+
     def _whole_shape(self, shape, splits) -> list:
         shape = list(shape)
         for d, axis in splits:

@@ -40,6 +40,8 @@ Three programs build on the round:
 from __future__ import annotations
 
 import gc
+import math
+import time
 import types
 from typing import Callable, Optional
 
@@ -51,6 +53,7 @@ from ..core.compression import blockscale
 from ..core.flatmodel import FlatSpec
 from ..ml.aggregator.agg_operator import ServerOptimizer, ServerState
 from ..ml.trainer.local_trainer import LocalTrainer
+from ..obs import torchhooks
 
 #: ServerState fields that hold tensors (``round_idx`` is a host counter);
 #: each is a ``{name: tensor}`` dict or, in the mesh's scatter layout and
@@ -110,11 +113,15 @@ def ef_numerator(state: ServerState, flat: FlatSpec, outs, weights, den,
 
 
 def make_quantized_update(server_opt: ServerOptimizer, reducer,
-                          precision: str, quant_block: int, flat: FlatSpec):
+                          precision: str, quant_block: int, flat: FlatSpec,
+                          with_error: bool = False):
     """``update(state, outs, weights, noise, hp) -> new_state`` of the sp
     engine's quantized collective layer (one shard): stage 1 with the
     EF-quantized numerator (the auxiliary aggregates stay fp32), stage 2
-    on the fp32 master, then the quantized broadcast copy."""
+    on the fp32 master, then the quantized broadcast copy.  With
+    ``with_error`` it returns ``(new_state, quant_error)``, the L2 norm of
+    the round's two quantization residuals (the obs row's
+    ``quant_error_norm``)."""
     spec = server_opt.spec
 
     def update(state: ServerState, outs, weights, noise, hp=None):
@@ -129,14 +136,17 @@ def make_quantized_update(server_opt: ServerOptimizer, reducer,
         new_state = server_opt.update_from_aggregates(
             state.replace(global_params=master), agg, hp)
         new_master = flat.flatten(new_state.global_params)
-        send, new_ef_bcast, _ = blockscale.quantize_broadcast(
+        send, new_ef_bcast, berr_sq = blockscale.quantize_broadcast(
             new_master, state.ef_bcast, precision,
             payload_noise(noise, 1, precision, new_master.shape[0],
                           quant_block, broadcast=True), quant_block)
-        return new_state.replace(global_params=flat.unflatten(send),
-                                 master_flat=new_master,
-                                 ef_num=new_ef,
-                                 ef_bcast=new_ef_bcast)
+        new_state = new_state.replace(global_params=flat.unflatten(send),
+                                      master_flat=new_master,
+                                      ef_num=new_ef,
+                                      ef_bcast=new_ef_bcast)
+        if not with_error:
+            return new_state
+        return new_state, torch.sqrt(torch.sum(new_ef * new_ef) + berr_sq)
 
     return update
 
@@ -165,16 +175,32 @@ def draw_member_dropout(model, generator: torch.Generator, lead,
     return tuple(torch.stack(site) for site in zip(*draws))
 
 
+def param_delta(new_params, old_params) -> dict:
+    """``new − old`` per leaf, in f32: the sync engines' health reference
+    direction."""
+    f32 = torch.float32
+    return {k: new_params[k].to(f32) - v.to(f32)
+            for k, v in old_params.items()}
+
+
 def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
                     mode: str = "scan", collective_precision: str = "fp32",
                     quant_block: int = blockscale.DEFAULT_BLOCK,
-                    flat: FlatSpec = None) -> Callable:
+                    flat: FlatSpec = None, obs: bool = False,
+                    health: bool = False) -> Callable:
     """``core(state, x, y, mask, weights, drop, c_clients=None, hp=None,
     noise=None) -> (new_state, metrics, new_client_state)`` with the
     dropout masks ``drop`` and the quantization noise ``noise`` given: the
     round with no randomness of its own.  A quantized
     ``collective_precision`` needs ``flat``, the params' unpadded flat
-    view."""
+    view.
+
+    ``obs`` adds ``metrics["obs"]``, the round's ObsCarry row
+    (``obs/carry.py``), and ``health`` ``metrics["health"]``, the cohort's
+    ``(C,)`` health lanes (``core/federated.py::client_health_stats``),
+    both on the device and read by the caller only at its own sync.
+    Neither changes the round's arithmetic."""
+    from ..obs.carry import OPT_FLOPS, param_count, round_obs
     program = federated.RoundProgram(server_opt.spec,
                                      trainer.make_local_train(), server_opt,
                                      mode)
@@ -185,15 +211,20 @@ def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             f"avg_params merge numerator, which the "
             f"{server_opt.algorithm!r} spec does not use")
     qupdate = (make_quantized_update(server_opt, program.reducer,
-                                     collective_precision, quant_block, flat)
+                                     collective_precision, quant_block, flat,
+                                     with_error=obs)
                if quantized else None)
+    opt_flops = OPT_FLOPS.get(server_opt.algorithm, 4.0)
 
     def core(state: ServerState, x, y, mask, weights, drop, c_clients=None,
              hp=None, noise=None):
+        qerr = None
         if quantized:
             outs = program.run_clients(state, x, y, mask, drop, c_clients,
                                        hp)
             new_state = qupdate(state, outs, weights, noise, hp)
+            if obs:
+                new_state, qerr = new_state
         else:
             new_state, outs, _ = program(state, x, y, mask, weights, drop,
                                          c_clients, hp)
@@ -201,6 +232,22 @@ def make_round_core(trainer: LocalTrainer, server_opt: ServerOptimizer,
             "train_loss": torch.sum(outs.loss * weights) / torch.sum(weights),
             "total_steps": torch.sum(outs.num_steps),
         }
+        old, new = state.global_params, new_state.global_params
+        if obs:
+            # modeled payload of merge + broadcast at this precision (fp32
+            # reports its dense payload, so the ratios stay meaningful)
+            n = param_count(old)
+            cbytes = 2.0 * blockscale.collective_payload_nbytes(
+                n, collective_precision, quant_block)
+            metrics["obs"] = round_obs(
+                old, new, real_steps=metrics["total_steps"],
+                real_clients=torch.sum((weights > 0).to(torch.float32)),
+                batch=int(x.shape[2]), feat=math.prod(x.shape[3:]),
+                opt_flops_per_param=opt_flops, collective_bytes=cbytes,
+                quant_error=qerr, n_params=n)
+        if health:
+            metrics["health"] = federated.client_health_stats(
+                old, outs.params, param_delta(new, old), outs.loss, weights)
         return new_state, metrics, outs.new_client_state
 
     return core
@@ -301,13 +348,16 @@ def make_population_core(core: Callable, has_table: bool) -> Callable:
 def make_population_round_fn(trainer: LocalTrainer,
                              server_opt: ServerOptimizer,
                              train_x: torch.Tensor, train_y: torch.Tensor,
-                             population, mode: str = "vmap") -> Callable:
+                             population, mode: str = "vmap",
+                             obs: bool = False) -> Callable:
     """``pop_fn(states, idx, mask, w, generator, c_stacked, hps,
     noise=None)``: the gather round mapped over the member axis of
     ``states`` / ``c_stacked`` / ``hps``; the cohort inputs are shared
-    (``noise`` is unused: a population runs fp32 collectives)."""
+    (``noise`` is unused: a population runs fp32 collectives).  ``obs``:
+    each member's ObsCarry row, ``(P,)`` leaves."""
     core = make_population_core(
-        make_gather_core(trainer, server_opt, train_x, train_y, mode),
+        make_gather_core(trainer, server_opt, train_x, train_y, mode,
+                         obs=obs),
         server_opt.spec.client_state)
     model = trainer.model
 
@@ -342,10 +392,12 @@ class BlockRoundFn:
     graph of the block function, and replayed once per round.  The graph
     reads static input buffers (state, indices, mask, weights, masks,
     cohort ids), ends by copying the new state and table rows back into
-    them and its loss and steps into a static output, which the host
-    copies into slot j of the block's metrics; nothing syncs the host
-    inside a block.  A capture that fails raises: there is no eager
-    fallback."""
+    them and its metrics (loss and steps; with obs and health on, the
+    ObsCarry row and the ``(C,)`` health lanes too) into one static f32
+    output, which the host copies into slot j of the block's metrics;
+    nothing syncs the host inside a block.  Top-level metrics stack on a
+    last ``(K,)`` axis, the ``obs``/``health`` fields on a leading one.
+    A capture that fails raises: there is no eager fallback."""
 
     def __init__(self, core: Callable, model, has_table: bool,
                  population=None):
@@ -407,8 +459,7 @@ class BlockRoundFn:
                 self._draw(gens[j], (c, sj, b)), cohort_blk[j], table, hp,
                 inplace=False)
             metrics.append(m)
-        return state, {key: torch.stack([m[key] for m in metrics], dim=-1)
-                       for key in metrics[0]}, table
+        return state, stack_round_metrics(metrics), table
 
     # -- the card: CUDA graphs -----------------------------------------------
     def _bind(self, state, table):
@@ -437,14 +488,14 @@ class BlockRoundFn:
             new, m, _ = self._round(state, slots.idx, slots.mask, slots.w,
                                     slots.drop, slots.cohort, st.table, hp,
                                     inplace=copy_back)
-            out = torch.stack([m["train_loss"].to(torch.float32),
-                               m["total_steps"].to(torch.float32)])
+            out, slots.layout = flatten_metrics(m)
             if copy_back:
                 for f, d in state_fields(new).items():
                     _copy_into(st.fields[f], d)
                 slots.out.copy_(out)
             return out
 
+        t0 = time.perf_counter()
         dev = slots.idx.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -467,6 +518,7 @@ class BlockRoundFn:
         finally:
             gc.enable()
         self.captures += 1
+        torchhooks.note_capture(time.perf_counter() - t0)
         return graph
 
     def _replay(self, state, idx_blk, mask_blk, w_blk, gens, cohort_blk,
@@ -486,7 +538,7 @@ class BlockRoundFn:
                     cohort=torch.empty_like(cohort_blk[j]),
                     drop=None if drop is None else
                     tuple(torch.empty_like(d) for d in drop), out=None,
-                    graph=None)
+                    graph=None, layout=None)
             slots.idx.copy_(idx_blk[j, :, :sj])
             slots.mask.copy_(mask_blk[j, :, :sj])
             slots.w.copy_(w_blk[j])
@@ -501,9 +553,60 @@ class BlockRoundFn:
                                   dtype=slots.out.dtype, device=idx_blk.device)
             out[j].copy_(slots.out)
         new_state = ServerState(round_idx=state.round_idx + k, **st.fields)
-        metrics = {"train_loss": out[:, 0].movedim(0, -1),
-                   "total_steps": out[:, 1].movedim(0, -1)}
-        return new_state, metrics, st.table
+        return new_state, unflatten_metrics(out, slots.layout), st.table
+
+
+def _metric_items(metrics):
+    """``(path, tensor)`` of a round's metrics: a top-level entry's path is
+    ``(key,)``, a nested dict's (``obs``, ``health``) ``(key, field)``."""
+    for key, v in metrics.items():
+        if isinstance(v, dict):
+            for sub, t in v.items():
+                yield (key, sub), t
+        else:
+            yield (key,), v
+
+
+def flatten_metrics(metrics):
+    """A round's metrics as one f32 vector (the captured graph's static
+    output) and its layout, ``[(path, shape), ...]``."""
+    items = list(_metric_items(metrics))
+    out = torch.cat([t.to(torch.float32).reshape(-1) for _, t in items])
+    return out, [(path, tuple(t.shape)) for path, t in items]
+
+
+def _nest(entries):
+    metrics = {}
+    for path, v in entries:
+        if len(path) == 1:
+            metrics[path[0]] = v
+        else:
+            metrics.setdefault(path[0], {})[path[1]] = v
+    return metrics
+
+
+def stack_round_metrics(per_round):
+    """Stack K rounds' metrics dicts as a block returns them: a top-level
+    entry on a last ``(K,)`` axis (``(P, K)`` with a population), an obs
+    or health field on a leading one (``(K,)``, ``(K, 4)``, ``(K, C)``)."""
+    paths = [p for p, _ in _metric_items(per_round[0])]
+    cols = zip(*[[t for _, t in _metric_items(m)] for m in per_round])
+    return _nest((p, torch.stack(list(c), dim=-1 if len(p) == 1 else 0))
+                 for p, c in zip(paths, cols))
+
+
+def unflatten_metrics(out, layout):
+    """The ``(K, L)`` outputs of K replayed rounds (:func:`flatten_metrics`'
+    vectors) back into :func:`stack_round_metrics`' form."""
+    rounds = []
+    for row in out:
+        lo, entries = 0, []
+        for path, shape in layout:
+            n = math.prod(shape)
+            entries.append((path, row[lo:lo + n].reshape(shape)))
+            lo += n
+        rounds.append(_nest(entries))
+    return stack_round_metrics(rounds)
 
 
 def _clone(d):
@@ -528,12 +631,16 @@ def _copy_into(dst, src) -> None:
 
 def make_block_round_fn(trainer: LocalTrainer, server_opt: ServerOptimizer,
                         train_x: torch.Tensor, train_y: torch.Tensor,
-                        mode: str = "vmap", population=None
+                        mode: str = "vmap", population=None,
+                        obs: bool = False, health: bool = False
                         ) -> BlockRoundFn:
     """The fused round block (:class:`BlockRoundFn`) over the
     device-resident dataset; with a ``population`` the block of the
-    population round (metrics ``(P, K)``, the table ``(P, rows, ...)``)."""
-    core = make_gather_core(trainer, server_opt, train_x, train_y, mode)
+    population round (metrics ``(P, K)``, the table ``(P, rows, ...)``).
+    ``obs``/``health``: the rounds' ObsCarry rows and health lanes, stacked
+    ``(K,)`` / ``(K, C)`` (:func:`make_round_core`)."""
+    core = make_gather_core(trainer, server_opt, train_x, train_y, mode,
+                            obs=obs, health=health)
     has_table = server_opt.spec.client_state
     if population is not None:
         core = make_population_core(core, has_table)

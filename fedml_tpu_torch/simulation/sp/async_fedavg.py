@@ -26,6 +26,9 @@ class AsyncFedAvgAPI(FedAvgAPI):
     #: collective layer is not ported to it
     QUANTIZED_ROUNDS = False
     CLIENT_STATE_PLANE = False
+    #: its rounds return no per-client lanes: no obs row, ``health``
+    #: refused by name
+    OBS_ROUNDS = False
     #: ``federated_optimizer`` names that select this engine
     NAMES = ("async_fedavg", "fedasync")
 

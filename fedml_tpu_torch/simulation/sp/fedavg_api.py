@@ -49,8 +49,29 @@ format with a sparse sidecar for a client store (``checkpoint_codec=
 "wire"``: as wire-fp32 payloads, ``WireCheckpointer``), and ``train()``
 resumes from the latest.
 
-Not ported, each raising ``NotImplementedError`` naming itself: the
-tracing, health and metrics options.
+The obs plane (``obs/``):
+
+- ``trace`` turns the global tracer on (``trace_path``: the Chrome trace
+  written at the end of ``train()``): ``staging``, ``eval``, ``round`` and
+  ``block`` spans, one ``obs.round`` record a round (the ObsCarry row the
+  round computes on the device when the tracer is on at build time), the
+  store's and the stager's spans and counters, graph captures and explicit
+  transfer bytes (``obs/torchhooks.py``);
+- ``trace_device`` measures the four device phases of one round before
+  the loop (``obs/devicetime.py``; ``trace_profile_dir`` adds a
+  ``torch.profiler`` Chrome trace of the probe); a failed probe raises,
+  and a config the probe cannot split (a population, quantized
+  collectives, host-staged data, the mesh engine) is refused by name;
+- ``health`` computes the cohort's ``(C,)`` health lanes on the device and
+  feeds them to a :class:`~fedml_tpu_torch.obs.health.HealthMonitor`
+  (``health_z``, ``health_ewm_alpha``, ``health_min_obs``,
+  ``health_slo_path``); not with a population (ValueError, as in the JAX
+  package);
+- ``metrics_port`` serves ``/metrics``, ``/healthz`` and ``/debug/health``
+  on loopback (0: an ephemeral port; ``api.metrics_server``).
+
+The rows and lanes are read on the host in the same copy as the round's
+loss, at the sync the round loop makes anyway, and change no result.
 """
 
 from __future__ import annotations
@@ -72,6 +93,8 @@ from ...device import get_device
 from ...ml.aggregator.agg_operator import ServerOptimizer
 from ...ml.trainer.local_trainer import LocalTrainer
 from ...models.base import TorchModel
+from ...obs import get_tracer, torchhooks
+from ...obs.carry import obs_host, obs_host_rows, obs_population_rows
 from ..round_engine import (BUCKETABLE_ALGS, draw_dropout,
                             make_block_round_fn, make_bucket_agg_fn,
                             make_gather_round_fn, make_population_round_fn,
@@ -81,22 +104,24 @@ from ..staging import AsyncCohortStager
 log = logging.getLogger(__name__)
 
 
-def _unported_options(args):
-    """Names of the set options of the JAX engine the port does not run."""
-    g = lambda k, d=None: getattr(args, k, d)
-    checks = (
-        ("trace", bool(g("trace", False))),
-        ("health", bool(g("health", False))),
-        ("metrics_port", g("metrics_port") is not None),
-    )
-    return [name for name, on in checks if on]
-
-
 def refuse_round_options(args, engine: str):
     """An engine with its own round loop refuses the round-program options
     of :class:`FedAvgAPI` by name, so none is ignored unseen: population
     (``NotImplementedError``), ``cohort_bucketing`` and ``round_block > 1``
-    (``ValueError``), as the JAX package's engines do."""
+    (``ValueError``), as the JAX package's engines do; and the obs plane's
+    options, which such an engine does not wire (the JAX package ignores
+    them there)."""
+    obs = [name for name, on in (
+        ("trace", bool(getattr(args, "trace", False))),
+        ("trace_device", bool(getattr(args, "trace_device", False))),
+        ("health", bool(getattr(args, "health", False))),
+        ("metrics_port", getattr(args, "metrics_port", None) is not None))
+        if on]
+    if obs:
+        raise NotImplementedError(
+            f"{', '.join(obs)}: not implemented by the port's {engine} (the "
+            "sp FedAvgAPI, FedBuffAPI and the mesh's MeshFedAvgAPI run "
+            "them)")
     if federated.parse_population(args) is not None:
         raise NotImplementedError(
             f"{engine} does not support population vmap (sp engine only)")
@@ -120,8 +145,43 @@ def fedavg_inside(args, engine: str, names) -> str:
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    """One explicit device→host copy (counted by ``obs/torchhooks.py``)."""
+    if isinstance(x, torch.Tensor):
+        torchhooks.note_get(x)
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+#: the nested metrics entries read on the host beside the loss
+_READ_WITH_LOSS = ("obs", "health")
+
+
+def read_metrics(metrics):
+    """A round's (or block's) ``train_loss`` and its ``obs``/``health``
+    entries on the host in one copy: the device values are concatenated
+    (an f32 vector) and copied once, so the obs plane adds no transfer and
+    no sync to the loss's own.  Returns ``(loss, {key: {field: array}})``;
+    non-tensor fields (FedBuff's host slot maps) pass through."""
+    parts = [(None, None, metrics["train_loss"])]
+    for key in _READ_WITH_LOSS:
+        for f, v in (metrics.get(key) or {}).items():
+            parts.append((key, f, v))
+    dev = [v for _, _, v in parts if isinstance(v, torch.Tensor)]
+    flat = iter(())
+    if dev:
+        host = _host(torch.cat([v.to(torch.float32).reshape(-1)
+                                for v in dev]))
+        sizes = np.cumsum([0] + [v.numel() for v in dev])
+        flat = iter(host[lo:hi].reshape(tuple(v.shape))
+                    for lo, hi, v in zip(sizes[:-1], sizes[1:], dev))
+    out, loss = {}, None
+    for key, f, v in parts:
+        val = next(flat) if isinstance(v, torch.Tensor) else np.asarray(v)
+        if key is None:
+            loss = val
+        else:
+            out.setdefault(key, {})[f] = val
+    return loss, out
 
 
 class FedAvgAPI:
@@ -147,19 +207,28 @@ class FedAvgAPI:
     #: of its own that does not refuses it
     QUANTIZED_ROUNDS = True
 
+    #: whether this class's ``train_one_round`` returns its round
+    #: program's own metrics, so the ObsCarry row and the health lanes
+    #: reach the records; an engine with a round loop of its own that does
+    #: not computes no obs row and refuses ``health`` by name
+    OBS_ROUNDS = True
+
+    #: whether the ``trace_device`` probe (``obs/devicetime.py``) can split
+    #: this class's round into its four phases; where not it is refused
+    DEVICE_PROBE = True
+
     #: whether this class runs the client-state plane and checkpoints
     #: (``client_store``, ``data_paging``, ``registered_clients``,
     #: ``checkpoint_dir``); an engine that does not refuses them by name
     CLIENT_STATE_PLANE = True
 
     def _refuse_options(self, args) -> None:
-        """The unported options raise by name, and the client-state
-        options on an engine that does not run them."""
-        unported = _unported_options(args)
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not implemented by the port's sp "
-                "engine yet (unset to run)")
+        """The client-state options and ``trace_device`` raise by name on an
+        engine or config that does not run them."""
+        if bool(getattr(args, "trace_device", False)):
+            why = self._probe_refusal(args)
+            if why:
+                raise NotImplementedError(f"trace_device: {why}")
         plane = [n for n in ("client_store", "data_paging",
                              "registered_clients", "checkpoint_dir")
                  if getattr(args, n, None)]
@@ -183,6 +252,7 @@ class FedAvgAPI:
         self.comm_rounds = int(getattr(args, "comm_round", 10))
         self.clients_per_round = int(getattr(args, "client_num_per_round", 10))
         self.eval_freq = int(getattr(args, "frequency_of_the_test", 5))
+        self._init_obs(args)
 
         self.trainer = self._make_trainer(model, args, algorithm)
         self.server_opt = ServerOptimizer(args, algorithm)
@@ -277,6 +347,7 @@ class FedAvgAPI:
                 f"client count {self.dataset.num_clients}")
         self._table_rows = self.registered_clients
         self.round_fn = self._build_round_fn(client_mode)
+        torchhooks.note_build("round")
         self.client_table = None
         self._store = None
         self._pager = None
@@ -295,6 +366,59 @@ class FedAvgAPI:
         if bool(getattr(args, "data_paging", False)):
             self._init_data_pager()
         self.metrics_history = []
+
+    def _probe_refusal(self, args):
+        """Why ``trace_device`` cannot run on this engine and config (the
+        probe splits one sp round on the device-resident dataset), or
+        None."""
+        if not self.DEVICE_PROBE:
+            return (f"the measured probe is not implemented for the port's "
+                    f"{type(self).__name__} (the sp FedAvgAPI and "
+                    "FedBuffAPI run it)")
+        if federated.parse_population(args) is not None:
+            return "a population's rounds are not split by the probe"
+        if str(getattr(args, "collective_precision", "fp32")).lower() in (
+                "bf16", "int8"):
+            return "quantized collective rounds are not split by the probe"
+        if not bool(getattr(args, "device_data", True)) or \
+                bool(getattr(args, "data_paging", False)):
+            return "needs the device-gather cohort path (device_data=True)"
+        return None
+
+    def _init_obs(self, args):
+        """The obs plane's options (module docstring): ``trace`` turns the
+        global tracer on; the round builders compute the ObsCarry row when
+        it is on now (``self._obs``), the health lanes under ``health``."""
+        if bool(getattr(args, "trace", False)):
+            from ...obs import configure
+            configure(enabled=True, path=getattr(args, "trace_path", None))
+        self._tracer = get_tracer()
+        self._obs = self._tracer.enabled and self.OBS_ROUNDS
+        self._health = bool(getattr(args, "health", False))
+        self.health_monitor = None
+        self.metrics_server = None
+        if self._health:
+            if not self.OBS_ROUNDS:
+                raise NotImplementedError(
+                    f"health: not implemented by the port's "
+                    f"{type(self).__name__} (its rounds return no per-client "
+                    "lanes; the sp FedAvgAPI, FedBuffAPI and the mesh's "
+                    "MeshFedAvgAPI run it)")
+            if federated.parse_population(args) is not None:
+                raise ValueError(
+                    "incompatible flags: health + population — per-client "
+                    "health rows are single-experiment (the stat stream "
+                    "is keyed by client id, not member)")
+            from ...obs.health import HealthMonitor
+            self.health_monitor = HealthMonitor.from_args(args)
+        if getattr(args, "metrics_port", None) is not None:
+            from ...obs.metricsd import start_from_args
+            self.metrics_server = start_from_args(
+                args, monitor=self.health_monitor)
+
+    def _obs_opts(self) -> dict:
+        """The round builders' obs arguments."""
+        return dict(obs=self._obs, health=self._health)
 
     def _make_trainer(self, model, args, algorithm):
         """The client trainer (the mesh engine's pipeline layout makes its
@@ -367,16 +491,17 @@ class FedAvgAPI:
                 # the member axis of (state, table rows, hparams)
                 return make_population_round_fn(
                     self.trainer, self.server_opt, self._dev_x, self._dev_y,
-                    self.population, mode=client_mode)
+                    self.population, mode=client_mode, obs=self._obs)
             return make_gather_round_fn(self.trainer, self.server_opt,
                                         self._dev_x, self._dev_y,
-                                        mode=client_mode, **self._quant())
+                                        mode=client_mode, **self._quant(),
+                                        **self._obs_opts())
         if self.population:
             raise ValueError(
                 "population vmap needs the device-gather cohort path "
                 "(device_data=True): members share one staged cohort")
         return make_round_fn(self.trainer, self.server_opt, mode=client_mode,
-                             **self._quant())
+                             **self._quant(), **self._obs_opts())
 
     # -- round pieces --------------------------------------------------------
     def _client_sampling(self, round_idx: int) -> np.ndarray:
@@ -501,6 +626,9 @@ class FedAvgAPI:
         return clients, idx, mask, w, steps
 
     def _to_device(self, *arrays):
+        """One explicit host→device copy (counted by
+        ``obs/torchhooks.py``)."""
+        torchhooks.note_put(arrays)
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
 
     def _table_axis(self) -> int:
@@ -542,26 +670,32 @@ class FedAvgAPI:
         gen = rng_util.round_key(self._root, round_idx)
         noise = self._noise(round_idx, gen)
         if hasattr(self, "_dev_x"):
-            clients, idx, mask, w, steps = self._stage_round_arrays(round_idx)
-            idx, mask, w = self._to_device(idx, mask, w)
+            with self._tracer.span("staging", cat="staging",
+                                   round=round_idx):
+                clients, idx, mask, w, steps = self._stage_round_arrays(
+                    round_idx)
+                idx, mask, w = self._to_device(idx, mask, w)
             c_stacked = self._gather_c(clients, round_idx)
             self.state, metrics, new_c = self.round_fn(
                 self.state, idx, mask, w, gen, c_stacked, self._hp, noise)
         else:
             clients = self._client_sampling(round_idx)
-            if self._data_pager is not None:
-                x, y, mask, w = self._paged_cohort_batches(clients, round_idx)
-            else:
-                x, y, mask, w = self.dataset.cohort_batches(
-                    self._data_ids(clients), self.batch_size, self.seed,
-                    round_idx, self.epochs)
-            steps = next_pow2(x.shape[1])
-            if steps != x.shape[1]:
-                pad = [(0, 0), (0, steps - x.shape[1])]
-                x = np.pad(x, pad + [(0, 0)] * (x.ndim - 2))
-                y = np.pad(y, pad + [(0, 0)] * (y.ndim - 2))
-                mask = np.pad(mask, pad)
-            x, y, mask, w = self._to_device(x, y, mask, w)
+            with self._tracer.span("staging", cat="staging",
+                                   round=round_idx):
+                if self._data_pager is not None:
+                    x, y, mask, w = self._paged_cohort_batches(clients,
+                                                               round_idx)
+                else:
+                    x, y, mask, w = self.dataset.cohort_batches(
+                        self._data_ids(clients), self.batch_size, self.seed,
+                        round_idx, self.epochs)
+                steps = next_pow2(x.shape[1])
+                if steps != x.shape[1]:
+                    pad = [(0, 0), (0, steps - x.shape[1])]
+                    x = np.pad(x, pad + [(0, 0)] * (x.ndim - 2))
+                    y = np.pad(y, pad + [(0, 0)] * (y.ndim - 2))
+                    mask = np.pad(mask, pad)
+                x, y, mask, w = self._to_device(x, y, mask, w)
             c_stacked = self._gather_c(clients, round_idx)
             self.state, metrics, new_c = self.round_fn(
                 self.state, x, y, mask, w, gen, c_stacked, None, noise)
@@ -584,6 +718,7 @@ class FedAvgAPI:
                 self.trainer, self.server_opt, mode=self._client_mode,
                 train_x=self._dev_x if dev else None,
                 train_y=self._dev_y if dev else None)
+            torchhooks.note_build("bucket")
         clients = self._data_ids(self._client_sampling(round_idx))
         per = [self.dataset.client_index_batches(
             int(c), self.batch_size, self.seed, round_idx, self.epochs)
@@ -648,7 +783,8 @@ class FedAvgAPI:
         return make_block_round_fn(self.trainer, self.server_opt,
                                    self._dev_x, self._dev_y,
                                    mode=self._client_mode,
-                                   population=self.population)
+                                   population=self.population,
+                                   **self._obs_opts())
 
     def _stage_block(self, start_round: int):
         """One block's stacked cohort arrays, host numpy only: every
@@ -692,6 +828,7 @@ class FedAvgAPI:
         pinned host buffers kept per shape, copied without blocking the
         host (the previous block's copy has finished before a buffer is
         refilled)."""
+        torchhooks.note_put(arrays)
         if self.device.type != "cuda":
             return tuple(torch.from_numpy(a) for a in arrays)
         if self._h2d_done is not None:
@@ -716,6 +853,7 @@ class FedAvgAPI:
         syncs the whole block at once."""
         if self._block_fn is None:
             self._block_fn = self._build_block_fn()
+            torchhooks.note_build("block")
         if self._block_stager is None:
             self._block_stager = AsyncCohortStager(
                 self._stage_block,
@@ -825,6 +963,10 @@ class FedAvgAPI:
 
     # -- evaluation and records ----------------------------------------------
     def evaluate(self):
+        with self._tracer.span("eval", cat="eval"):
+            return self._evaluate()
+
+    def _evaluate(self):
         if self._test is None:
             self._test = self._to_device(*self.dataset.test_batches())
         if self.population:
@@ -895,29 +1037,64 @@ class FedAvgAPI:
                  record["round"], record["train_loss"], test_acc, note,
                  record["round_time"])
 
+    def _observe_health(self, round_idx: int, metrics: dict, lanes: dict,
+                        dt: float):
+        """Feed one round's host health lanes to the monitor.
+        ``health_clients`` (FedBuff's slot→client map) wins over the round
+        sampling; the lanes may be cohort-padded: the monitor trims to the
+        id list and drops weight-0 rows."""
+        ids = metrics.get("health_clients")
+        if ids is None:
+            ids = self._client_sampling(round_idx)
+        self.health_monitor.observe_round(round_idx, np.asarray(ids), lanes,
+                                          round_time_s=dt)
+
     def _flush_round_records(self, pending):
         """Turn deferred per-round metrics into host records.  Reading the
         losses here is the one device→host sync for every round since the
-        last flush."""
+        last flush; the round's obs row and health lanes come in the same
+        copy (:func:`read_metrics`)."""
         while pending:
             round_idx, metrics, dt = pending.pop(0)
-            record = self._record(round_idx, _host(metrics["train_loss"]),
-                                  dt)
+            losses, extra = read_metrics(metrics)
+            if self._tracer.enabled and "obs" in extra:
+                self._tracer.round_obs(round_idx, dt, obs_population_rows(
+                    extra["obs"], losses)[0] if self.population
+                    else obs_host(extra["obs"]))
+            if self.health_monitor is not None and "health" in extra:
+                self._observe_health(round_idx, metrics, extra["health"],
+                                     dt)
+            record = self._record(round_idx, losses, dt)
             if self._is_log_round(round_idx):
                 self._attach_eval(record)
             self.metrics_history.append(record)
 
     def _train_fused(self, start_round: int = 0):
         """The fused round loop: ``round_block`` rounds a block, one host sync a
-        block (the stacked losses), the next block staged on the worker
-        thread while this one runs; one record a round, the evaluation on
-        the last round of a block that holds a log round."""
+        block (the stacked losses, with the obs rows and health lanes), the
+        next block staged on the worker thread while this one runs; one
+        record a round, the evaluation on the last round of a block that
+        holds a log round."""
         r = start_round
         while r < self.comm_rounds:
             t0 = time.time()
-            k, ms = self.train_block(r)
-            losses = ms["train_loss"].cpu().numpy()   # the block's one sync
+            with self._tracer.span("block", cat="round", start_round=r):
+                k, ms = self.train_block(r)
+                losses, extra = read_metrics(ms)   # the block's one sync
             block_dt = time.time() - t0
+            if self._tracer.enabled and "obs" in extra:
+                rows = (obs_population_rows(extra["obs"], losses)
+                        if self.population else obs_host_rows(extra["obs"]))
+                for j, row in enumerate(rows):
+                    self._tracer.round_obs(r + j, block_dt / k, row)
+            if self.health_monitor is not None and "health" in extra:
+                # the (K, C) lanes: one observe a round, ids re-derived
+                # from the sampling
+                for j in range(k):
+                    self.health_monitor.observe_round(
+                        r + j, self._client_sampling(r + j),
+                        {f: v[j] for f, v in extra["health"].items()},
+                        round_time_s=block_dt / k)
             eval_due = any(self._is_log_round(ri) for ri in range(r, r + k))
             for j in range(k):
                 record = self._record(r + j, losses[..., j], block_dt / k)
@@ -933,13 +1110,24 @@ class FedAvgAPI:
     def train(self):
         t_start = time.time()
         start_round = self.maybe_resume()
+        if self._tracer.enabled and \
+                bool(getattr(self.args, "trace_device", False)):
+            # one out-of-band probe of the four device phases before the
+            # loop: its own launches and syncs never touch the rounds; a
+            # failure raises (no silent fallback to the FLOP model)
+            from ...obs.devicetime import measure_device_phases
+            measure_device_phases(
+                self, round_idx=start_round,
+                profile_dir=getattr(self.args, "trace_profile_dir", None))
         if self._round_block > 1:
             self._train_fused(start_round)
         else:
             pending = []
             for round_idx in range(start_round, self.comm_rounds):
                 t0 = time.time()
-                metrics = self.train_one_round(round_idx)
+                with self._tracer.span("round", cat="round",
+                                       round=round_idx):
+                    metrics = self.train_one_round(round_idx)
                 pending.append((round_idx, metrics, time.time() - t0))
                 if self._is_log_round(round_idx):
                     self._flush_round_records(pending)
@@ -948,7 +1136,15 @@ class FedAvgAPI:
         if self._pager is not None:
             # the store holds the final round's rows before anyone reads it
             self._pager.drain_writebacks()
+            log.info("fedstore: %s", self._pager.stats())
+        if self._data_pager is not None:
+            log.info("fedstore data plane: %s", self._data_pager.stats())
         total = time.time() - t_start
         log.info("finished %d rounds in %.1fs (%.3fs/round)",
                  self.comm_rounds, total, total / max(self.comm_rounds, 1))
+        if self._tracer.enabled and self._tracer.path:
+            # trace_path: the Chrome trace on disk without the tracer API
+            self._tracer.export_chrome()
+            log.info("fedtrace: wrote %s (analyze with tools/fedtrace.py)",
+                     self._tracer.path)
         return self.state.global_params

@@ -1,5 +1,5 @@
 """Host cohort staging that overlaps device compute (port of
-``fedml_tpu.simulation.staging``, without its tracer hooks).
+``fedml_tpu.simulation.staging``).
 
 ``AsyncCohortStager`` double-buffers the host-side cohort build (sampling,
 batch-index materialization, padding): while the round or fused block
@@ -10,6 +10,9 @@ stager by the block's first round index.
 
 The builds here return host numpy only; the worker thread never touches
 CUDA.  The caller copies a staged block to the device on its own thread.
+Every build runs under a fedtrace ``staging`` span, and the pending depth
+is sampled as the ``staging.queue_depth`` counter (one attribute check
+each when tracing is off).
 
 ``depth`` (``args.staging_depth``) sets how many future rounds stay in
 flight: ``get(r, prefetch=nxt)`` schedules ``nxt, nxt+stride, ...`` up to
@@ -37,6 +40,8 @@ from __future__ import annotations
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from ..obs import get_tracer
+
 
 class AsyncCohortStager:
     """Double-buffered host cohort staging.
@@ -60,9 +65,16 @@ class AsyncCohortStager:
         self._misses = 0
         self._restarts = 0
 
+    def _traced_build(self, round_idx: int):
+        tr = get_tracer()
+        if not tr.enabled:
+            return self._build(round_idx)
+        with tr.span("staging", cat="staging", round=round_idx):
+            return self._build(round_idx)
+
     def _worker_build(self, round_idx: int):
         try:
-            return self._build(round_idx)
+            return self._traced_build(round_idx)
         except BaseException as e:  # surfaced via _failed at the next get()
             with self._lock:
                 if self._failed is None:
@@ -114,7 +126,7 @@ class AsyncCohortStager:
                 raise
             hit = True
         else:
-            staged = self._build(round_idx)
+            staged = self._traced_build(round_idx)
             hit = False
         with self._lock:
             if hit:
@@ -129,6 +141,10 @@ class AsyncCohortStager:
                     if nxt not in self._pending:
                         self._pending[nxt] = self._pool.submit(
                             self._worker_build, nxt)
+            depth = len(self._pending)
+        tr = get_tracer()
+        if tr.enabled:
+            tr.counter("staging.queue_depth", depth)
         return staged
 
     def stats(self) -> dict:

@@ -19,7 +19,9 @@ gathers round r and the write-back thread applies round r-1
 (``store/pager.py`` orders the value reads; the lock protects the maps).
 
 Counters (``stats()``): page hits, misses, spills, loads and the bytes
-paged in; the JAX package's tracer spans and counters are not ported.
+paged in; when the global fedtrace tracer is enabled the store also emits
+``store.page_in_bytes`` counters and ``store.page_in`` spans, which
+``tools/fedtrace.py summarize`` reads.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..obs import get_tracer
 
 from ..core import tree as tree_util
 
@@ -126,6 +130,10 @@ class ClientStateStore:
             else:
                 page = self._zeros_page()
             self._stats["page_in_bytes"] += self.page_size * self.row_nbytes
+            tr = get_tracer()
+            if tr.enabled:
+                tr.add_bytes("store.page_in_bytes",
+                             self.page_size * self.row_nbytes)
             self._pages[pid] = page
             self._evict_over_cap()
             return page
@@ -149,8 +157,15 @@ class ClientStateStore:
             slots = self._slots_of(ids, create=False)
             slots = slots[slots >= 0]
             pids = np.unique(slots // self.page_size)
-        for pid in pids:
-            self._page(int(pid))
+        tr = get_tracer()
+        if tr.enabled:
+            with tr.span("store.page_in", cat="staging",
+                         pages=int(len(pids))):
+                for pid in pids:
+                    self._page(int(pid))
+        else:
+            for pid in pids:
+                self._page(int(pid))
         return len(pids)
 
     # -- the cohort ops ----------------------------------------------------

@@ -74,6 +74,9 @@ class HierarchicalSiloAPI(FedAvgAPI):
     every silo partial passes through the encode → decode the distributed
     tier ships (each silo on its own ``partial:<i>`` EF link)."""
 
+    #: rounds of its own: no obs row, ``health`` refused by name
+    OBS_ROUNDS = False
+
     def __init__(self, args, device, dataset, model,
                  client_mode: str = "vmap"):
         super().__init__(args, device, dataset, model, client_mode)

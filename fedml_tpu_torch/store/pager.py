@@ -19,8 +19,10 @@ What makes the store-backed round bitwise the dense one:
   ``gather`` drains pending write-backs first, so reads see every
   completed round.
 
-The JAX package's tracer counters (page hit rate, write-back lag) are not
-ported; ``stats()`` carries the stager's hits and misses.
+``store.page_hit_rate`` (stager prefetch hits over builds) and
+``store.writeback_lag_rounds`` (write-backs still pending at gather time)
+ride the fedtrace counter plane beside the store's ``store.page_in_bytes``;
+``stats()`` carries the stager's hits and misses.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.tree import host_copy_tree
+from ..obs import get_tracer
 from ..simulation.staging import AsyncCohortStager
 from .clientstore import ClientStateStore
 
@@ -70,9 +73,17 @@ class CohortStatePager:
         """Cohort-stacked host rows for ``ids``, with round
         ``round_idx``'s pages resident (prefetched, else paged in now) and
         every pending write-back applied first."""
-        self.drain_writebacks()
+        lag = self.drain_writebacks()
         self._stager.get(round_idx, prefetch=prefetch)
-        return self.store.gather(ids)
+        rows = self.store.gather(ids)
+        tr = get_tracer()
+        if tr.enabled:
+            st = self._stager.stats()
+            total = st["hits"] + st["misses"]
+            tr.counter("store.page_hit_rate",
+                       st["hits"] / total if total else 0.0)
+            tr.counter("store.writeback_lag_rounds", lag)
+        return rows
 
     def write_back(self, round_idx: int, ids, new_rows: Mapping):
         """Queue the round's updated rows (tensors on any device, or
@@ -91,13 +102,16 @@ class CohortStatePager:
                 return
             self._pending_wb.append((round_idx, self._writer.submit(apply)))
 
-    def drain_writebacks(self) -> None:
-        """Apply every queued write-back, re-raising the first failure."""
+    def drain_writebacks(self) -> int:
+        """Apply every queued write-back (re-raising the first failure);
+        returns how many were still pending: the write-back lag."""
         with self._wb_lock:
             pending = list(self._pending_wb)
             self._pending_wb.clear()
+        lag = sum(1 for _, f in pending if not f.done())
         for _, f in pending:
             f.result()
+        return lag
 
     def stats(self) -> dict:
         s = self.store.stats()

@@ -357,7 +357,7 @@ def test_param_spec_is_the_jax_layouts():
 
 
 @pytest.mark.parametrize("engine,over,what", [
-    ("mesh", dict(trace=True), "trace"),
+    ("mesh", dict(trace=True, trace_device=True), "trace"),
     ("mesh", dict(mesh_data=2), "mesh_data"),
     ("mesh", dict(mesh_seq=2), "mesh_seq"),
     ("hierarchical", dict(client_store=True), "client_store"),
@@ -366,13 +366,15 @@ def test_param_spec_is_the_jax_layouts():
     ("async", dict(checkpoint_dir="/nonexistent"), "checkpoint_dir"),
     ("hierarchical", dict(mesh_shape="1,2"), "MeshHierarchicalAPI"),
     ("decentralized", dict(mesh_model=2), "MeshDecentralizedAPI"),
-    ("mesh", dict(health=True), "health"),
+    ("mesh", dict(health=True, group_num=1), "health"),
     ("tp_heads", {}, "does not divide n_heads"),
     ("make_mesh", {}, "data")])
 def test_refusals_that_stay(engine, over, what):
     """Each still raises by name: the data factor, and a seq factor on
-    the simulation engine (ring attention runs in the causal LM); the
-    tracing and health options; the client-state options
+    the simulation engine (ring attention runs in the causal LM); of the
+    obs options (run on the mesh engine since they were ported) the
+    measured ``trace_device`` probe on the mesh engine and ``health`` on
+    the hierarchical mesh engine; the client-state options
     and checkpoint_dir on the hierarchical and async_fedavg engines (the
     sp and mesh FedAvg engines run them); a model factor on the
     hierarchical and decentralized mesh engines; a TP degree that does
@@ -385,7 +387,9 @@ def test_refusals_that_stay(engine, over, what):
         MeshHierarchicalAPI
     from fedml_tpu_torch.simulation.sp.async_fedavg import AsyncFedAvgAPI
     with pytest.raises(NotImplementedError, match=what):
-        if engine == "mesh":
+        if engine == "mesh" and "group_num" in over:
+            _build(MeshHierarchicalAPI, mesh_cfg(**over))
+        elif engine == "mesh":
             # refused before any process group is made
             _build(MeshFedAvgAPI, dict(mesh_cfg(**over), backend="NCCL"))
         elif engine == "hierarchical":

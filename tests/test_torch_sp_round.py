@@ -255,11 +255,43 @@ def test_digits_cnn_learns_on_real_bytes():
     ("trace", True), ("health", True), ("metrics_port", 0),
     ("collective_precision", "bf16")])
 def test_unported_options_raise_by_name(flag, value):
-    # the quantized collective layer runs on the sp engine; what stays
-    # unported is its combination with round_block fusion
-    extra = {"round_block": 2} if flag == "collective_precision" else {}
-    with pytest.raises(NotImplementedError, match=flag):
-        _port_api("vmap", **{flag: value}, **extra)
+    """What stays unported of each option raises naming it.  The quantized
+    collective layer runs on the sp engine; its combination with
+    round_block fusion does not.  The obs options run on the sp engine
+    (``tests/test_torch_obs_*.py`` hold them to the JAX package): what
+    stays refused of them is ``trace_device`` where the probe cannot split
+    the round (a population), ``health`` on an engine whose rounds return
+    no per-client lanes (the hierarchical engine) and the serving
+    server's ``metrics_port``."""
+    from fedml_tpu_torch import obs
+    if flag == "collective_precision":
+        with pytest.raises(NotImplementedError, match=flag):
+            _port_api("vmap", **{flag: value}, round_block=2)
+        return
+    try:
+        api = _port_api("vmap", **{flag: value})
+        if api.metrics_server is not None:
+            api.metrics_server.close()
+        with pytest.raises(NotImplementedError, match=flag):
+            if flag == "trace":
+                _port_api("vmap", trace=True, trace_device=True,
+                          population=2)
+            elif flag == "health":
+                from fedml_tpu_torch.simulation.sp.hierarchical_fl import \
+                    HierarchicalFedAvgAPI
+                args = t_arguments().update(**tiny(
+                    health=True, federated_optimizer="HierarchicalFL",
+                    group_num=2, group_comm_round=1))
+                ds, out = t_data.load(args)
+                HierarchicalFedAvgAPI(args, "cpu", ds,
+                                      t_model.create(args, out))
+            else:
+                from fedml_tpu_torch.serving.templates import openai_compat
+                openai_compat.OpenAICompatServer(None, None,
+                                                 metrics_port=0)
+    finally:
+        obs.configure(enabled=False)
+        obs.get_tracer().reset()
 
 
 @pytest.mark.parametrize("over,what", [
