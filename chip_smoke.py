@@ -72,10 +72,9 @@ Phases, each printing its own lines:
    warm block, replayed a round), timed after the warm block, fused ≡
    unfused to 1e-6 (per-round losses, params, state, table rows), a graph
    captured, host launch calls and device kernels a round counted under
-   ``torch.profiler``; (c) cohort bucketing on the FEMNIST CNN at α 0.5 and
-   0.3 beside the unbucketed rounds (the same real steps; fewer allocated
-   on the skewed split) and on ``tests/test_e2e_sp.py``'s own split (eval
-   within 2e-4); (d) a population of 4 client learning rates on the
+   ``torch.profiler``; (c) cohort bucketing on the FEMNIST CNN at α 0.3
+   beside the unbucketed rounds (the same real steps over fewer allocated
+   ones) and on ``tests/test_e2e_sp.py``'s own split (eval within 2e-4); (d) a population of 4 client learning rates on the
    FEMNIST CNN, unfused and in blocks of 4 (fused ≡ unfused to 1e-6),
    seconds a member beside the single run, member 0 ≡ the single run on
    ``cnn_web`` to 1e-6 (reported on FEMNIST); (e) the same 4 FEMNIST
@@ -351,6 +350,37 @@ Phases, each printing its own lines:
    ``launches_by_path`` ``obs_probe_text``); (d) the probe's event timer
    on phase 3's K1 text-shape call, 20 calls as one CUDA graph, within
    ``OBS_TIMER_TOL`` of :func:`graph_ms`.
+22. trust — serving's obs hooks and the trust stack (``core/security/``,
+   ``core/dp/``): (a) at phase 15's end, on phase 14's model and engine,
+   4 slots, 8 requests over two adapters and a trailing one after a pause,
+   once with ``metrics_port=0``, ``slo_rules`` (a TTFT objective, an
+   error-rate rule) and ``hist_labels=2`` under the tracer and once with
+   all off: tokens bitwise, ``/metrics`` parsed, ``serve.tokens_total``
+   and the per-adapter request counters equal the host's counts, the
+   ``traceparent``'s trace id on the span tree, the same host syncs by
+   site under ``TorchRuntimeAudit``, ms a step on and off; (b) phase 19
+   (b)'s text model at full width as 5 silos for 2 rounds through a FedAvg
+   ``ServerAggregator`` whose hooks inject the byzantine attack (random,
+   the first silo), keep krum's choice and add global Gaussian DP: finite
+   params and eval loss, krum's kept silo never the attacked one (printed
+   with its scores), K1–K3 launches the expected count
+   (``launches_by_path`` ``trust_text``), round 0's silo passes the same
+   as the undefended run's (one round of it, run first), none inside the
+   trust hooks; the defense + DP seconds beside the round's, the model
+   message's bytes;
+   (b-small) phase 8 (e)'s narrow text model through the same pipeline as
+   4 silos on the card and in a CPU process, the CPU's noise draws carried
+   to the card, every round's params within ``TEXT_CARD_CPU_TOL``; (c)
+   every registered defense on a ``(C=8, D = (b)'s parameter count)``
+   stack with 2 rows shifted by +100, on the card against the same
+   defense in that CPU process, the CPU's noise draws carried: the kept
+   or selected positions equal (a krum or bulyan choice that flips at a
+   near tie is printed with both devices' scores), the merges within
+   ``TRUST_DEFENSE_TOL`` relative, or, where the f32 rounding at this D is
+   itself above it (FoolsGold's cosines, cclip's and the clips' norms),
+   card and CPU each within ``TRUST_WITNESS_FACTOR`` times the CPU f32
+   run's distance from the defense's float64 run; each defense's ms on
+   the card.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -364,9 +394,10 @@ under ``"models"``, phase 11's under ``"engines"``, phase 12's under
 phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
 phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
 phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``),
-phase 19's under ``"cross_silo"``, phase 20's under ``"wire"`` and
-phase 21's under ``"obs"`` beside them; each kernel row adds phase 12's
-to 21's launches a path under ``launches_by_path``)
+phase 19's under ``"cross_silo"``, phase 20's under ``"wire"``,
+phase 21's under ``"obs"`` and phase 22's under ``"trust"`` beside them;
+each kernel row adds phase 12's to 22's launches a path under
+``launches_by_path``)
 and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -374,6 +405,7 @@ that line; so does a host without CUDA, or a directory without the port.
 """
 
 import argparse
+import atexit
 import json
 import os
 import subprocess
@@ -1153,10 +1185,11 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
             torch, fedml_tpu_torch, f"(b) FEMNIST CNN {alg}",
             dict(SP_FEMNIST_CNN, federated_optimizer=alg), 8, 17, 8, smi)
 
-    # (c) cohort bucketing on the FEMNIST CNN, at the reference split (α
-    # 0.5) and a skewed one (α 0.3); the JAX test's own skewed lr split
+    # (c) cohort bucketing on the FEMNIST CNN at a skewed split (α 0.3);
+    # the JAX test's own skewed lr split
+    t_c = time.time()
     rec = {}
-    for alpha in (0.5, 0.3):
+    for alpha in (0.3,):
         for mode, on in (("unbucketed", False), ("bucketed", True)):
             api = build_sp(sp_args(fedml_tpu_torch, **dict(
                 SP_FEMNIST_CNN, comm_round=3, partition_alpha=alpha,
@@ -1181,12 +1214,11 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
                       f"loss {u['test_loss']:.6f} vs {b['test_loss']:.6f} "
                       f"(reported); peak {u['peak_gib']:.3f} / "
                       f"{b['peak_gib']:.3f} GiB [{smi}]")
-        # a bucket's cohort pads to a power of two, so at α 0.5 a round
-        # without a long straggler can allocate more; on the skewed split
-        # every timed round allocates fewer
-        if u["total_steps"] != b["total_steps"] or (alpha == 0.3 and not all(
+        # a bucket's cohort pads to a power of two; on the skewed split
+        # every timed round allocates fewer steps
+        if u["total_steps"] != b["total_steps"] or not all(
                 x < y for x, y in zip(b["allocated_steps"],
-                                      u["allocated_steps"]))):
+                                      u["allocated_steps"])):
             fail(f"(c) α {alpha}: bucketed rounds do not do the unbucketed "
                  f"rounds' real work over fewer steps: {u}, {b}")
     # the eval bar on the JAX test's own split (lr, 24 clients, α 0.15),
@@ -1209,6 +1241,8 @@ def fusion_phase(torch, fedml_tpu_torch, smi):
                   f"steps over fewer allocated: {steps_eq} [{smi}]")
     if not (steps_eq and abs(l0 - l1) < 2e-4 and abs(a0 - a1) < 2e-2):
         fail("(c) bucketed lr rounds disagree with the unbucketed ones")
+    rec["seconds"] = time.time() - t_c
+    say("fusion", f"(c) took {rec['seconds']:.1f} s")
     out["bucketing"] = rec
 
     # (d) a client-lr population of 4 on the FEMNIST CNN, unfused and fused
@@ -4991,12 +5025,13 @@ def xs_args(fedml_tpu_torch, cfg, rank, run_id, **over):
 
 
 def xs_federation(torch, fedml_tpu_torch, cfg, device, run_id, ds, n_out,
-                  init=None, record=False, **over):
+                  init=None, record=False, agg_factory=None, **over):
     """A server and its silos as threads (one model each, the dataset
     shared); returns the server, the silos and the seconds, and with
     ``record`` each silo's first (round-0) upload as the server received
-    it, by silo index.  Each join has a deadline: a stalled federation
-    fails the run."""
+    it, by silo index.  ``agg_factory(model, args)`` builds the server's
+    user ``ServerAggregator``.  Each join has a deadline: a stalled
+    federation fails the run."""
     from fedml_tpu_torch import model
     from fedml_tpu_torch.cross_silo.client import Client
     from fedml_tpu_torch.cross_silo.server import Server
@@ -5011,7 +5046,9 @@ def xs_federation(torch, fedml_tpu_torch, cfg, device, run_id, ds, n_out,
 
     def server():
         a = xs_args(fedml_tpu_torch, cfg, 0, run_id, **over)
-        srv = Server(a, device, ds, model.create(a, n_out))
+        m = model.create(a, n_out)
+        srv = Server(a, device, ds, m,
+                     agg_factory(m, a) if agg_factory else None)
         if init is not None:
             srv.aggregator.set_global_model_params(init)
         if record:
@@ -6182,6 +6219,667 @@ def obs_phase(torch, fedml_tpu_torch, att, smi):
     return rec
 
 
+# -- 22. trust: serving's obs hooks, the defended DP text federation ---------
+#: (a): phase 14's engine on its model: 4 slots, 8 requests over two
+#: adapters (prompts of 24..64 byte tokens, 8 new tokens each), then a
+#: 2-token request after a pause that rolls the engine's token window
+TRUST_SERVE_SLOTS = 4
+TRUST_SERVE_NEW = 8
+TRUST_SERVE_BUF = 128
+TRUST_SERVE_PAUSE_S = 0.6
+TRUST_SERVE_RULES = [
+    {"name": "ttft", "objective": {"metric": "serve_ttft_seconds",
+                                   "threshold": 5.0, "compliance": 0.99}},
+    {"name": "error_rate", "metric": "serve.error_rate", "max": 0.01}]
+TRUST_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+TRUST_TRACEPARENT = f"00-{TRUST_TRACE_ID}-00f067aa0ba902b7-01"
+#: (b): phase 19 (b)'s text model at full width as 5 silos for 2 rounds,
+#: through a FedAvg ServerAggregator's hooks with these flags: the
+#: byzantine attack (random mode) on the first silo, krum, global Gaussian
+#: DP (σ = 1e-3·√(2 ln 1.25e5)/10)
+TRUST_TEXT = dict(TEXT_REALTEXT, client_num_per_round=5,
+                  client_id_list=[1, 2, 3, 4, 5], comm_round=2)
+TRUST_FLAGS = dict(enable_attack=True, attack_type="byzantine",
+                   attack_mode="random", byzantine_client_num=1,
+                   enable_defense=True, defense_type="krum", enable_dp=True,
+                   dp_solution_type="global_dp", dp_mechanism_type="gaussian",
+                   dp_epsilon=10.0, dp_sensitivity=1e-3)
+#: (b-small): phase 8 (e)'s narrow text model as 4 silos, 2 rounds, the
+#: same flags, card vs the CPU process
+TRUST_SMALL = dict(TEXT_SMALL, client_num_per_round=4,
+                   client_id_list=[1, 2, 3, 4], comm_round=2,
+                   random_seed=3)
+#: (c): the stack: 8 clients, honest ones at noise 0.01·(1 + i/4) around a
+#: common N(0, 1) base (distinct krum scores), clients 0 and 1 shifted by
+#: +100, weights 10 + i
+TRUST_C = 8
+TRUST_SHIFTED = 2
+#: (c): card vs CPU merges, relative (f32 sums in another order)
+TRUST_DEFENSE_TOL = 1e-6
+#: (c): a merge whose f32 rounding is itself above TRUST_DEFENSE_TOL at
+#: this D (norms and cosines summed over 4.2 M f32 terms: FoolsGold's
+#: logits of 1 − max cosine, cclip's and the clips' scales) is held to its
+#: float64 run instead: card and CPU each within this many times the CPU
+#: f32 run's own distance from it
+TRUST_WITNESS_FACTOR = 4.0
+#: (c): a krum or bulyan choice that differs card vs CPU is a near tie when
+#: the scores of the clients in only one choice lie within this relative
+#: distance (f32 squared distances by the product identity at this D round
+#: to ~1e-3 of their size); a tie is reported and its merge not compared
+TRUST_TIE_REL = 1e-3
+#: the CPU process's deadline once phase 22 waits for it
+TRUST_CPU_JOIN_S = 240
+
+
+def trust_args(fedml_tpu_torch, **over):
+    return fedml_tpu_torch.load_arguments().update(**over)
+
+
+def trust_serve(eng, prompts, adapters, traceparent=None):
+    """The 8 requests submitted while the engine waits on its lock (so
+    every run admits them in one order), drained, then the trailing
+    request after a pause: (tokens, seconds of the 8, decode steps of the
+    8: read after the pause, once the engine has counted its last)."""
+    with eng._cond:
+        t0 = time.time()
+        ticks0 = eng._ticks
+        qs = [eng.submit(p, max_new_tokens=TRUST_SERVE_NEW, adapter=a,
+                         traceparent=traceparent if i == 0 else None)
+              for i, (p, a) in enumerate(zip(prompts, adapters))]
+    toks = [[t for t in iter(lambda q=q: q.get(timeout=600), None)]
+            for q in qs]
+    dt = time.time() - t0
+    time.sleep(TRUST_SERVE_PAUSE_S)
+    ticks = eng._ticks - ticks0
+    q = eng.submit(prompts[0][:8], max_new_tokens=2, adapter=adapters[1])
+    toks.append([t for t in iter(lambda: q.get(timeout=600), None)])
+    return toks, dt, ticks
+
+
+def serving_obs_phase(torch, fedml_tpu_torch, smi, carry):
+    """Phase 22 (a), on phase 14's model (carried like phase 15's)."""
+    import collections
+    import urllib.request
+
+    import numpy as np
+
+    from fedml_tpu_torch import obs
+    from fedml_tpu_torch.analysis import TorchRuntimeAudit
+    from fedml_tpu_torch.obs.metricsd import (parse_prometheus_text,
+                                              prom_value)
+    from fedml_tpu_torch.serving import ContinuousBatchingEngine
+    from fedml_tpu_torch.serving.templates import openai_compat as oc
+
+    t0 = time.time()
+    dev = torch.device("cuda", 0)
+    model = carry["model"]
+    tok = oc.ByteTokenizer()
+    prompts = serve_prompts(np, tok, 8, 24, 64, 22)
+    adapters = ["a0", "a1"] * 4
+    loras = saturated_adapters(torch, model, 2, dev)
+    runs = {}
+    for mode in ("off", "on"):
+        on = mode == "on"
+        obs.configure(enabled=on, reset=True)
+        if on:
+            os.environ["FEDML_SERVE_LEGACY_ADAPTER_COUNTERS"] = "1"
+        kw = dict(metrics_port=0, slo_rules=TRUST_SERVE_RULES,
+                  hist_labels=2) if on else {}
+        eng = ContinuousBatchingEngine(model, None, slots=TRUST_SERVE_SLOTS,
+                                       buf_len=TRUST_SERVE_BUF,
+                                       adapter_slots=3, **kw)
+        try:
+            for name, lora in zip(("a0", "a1"), loras):
+                eng.registry.register(name, lora)
+            warm = eng.generate(prompts[0][:8], max_new_tokens=2,
+                                adapter="a0")
+            torch.cuda.synchronize()
+            with TorchRuntimeAudit(sync_debug=True) as audit:
+                toks, dt, ticks = trust_serve(
+                    eng, prompts, adapters,
+                    TRUST_TRACEPARENT if on else None)
+            text = None
+            if on:
+                with urllib.request.urlopen(eng.metrics_server.url +
+                                            "/metrics", timeout=30) as r:
+                    text = r.read().decode()
+        finally:
+            eng.stop()
+            os.environ.pop("FEDML_SERVE_LEGACY_ADAPTER_COUNTERS", None)
+        events = obs.get_tracer().events() if on else []
+        obs.configure(enabled=False, reset=True)
+        runs[mode] = dict(toks=[warm] + toks, ms=dt * 1e3 / max(ticks, 1),
+                          ticks=ticks, sites=collections.Counter(
+                              audit.sync_sites), stats=eng.serve_stats,
+                          text=text, events=events, eng=eng)
+    off, on = runs["off"], runs["on"]
+    if on["toks"] != off["toks"]:
+        fail("(a) the tokens with the obs hooks on differ from off")
+    if on["ticks"] != off["ticks"] or on["sites"] != off["sites"]:
+        fail(f"(a) host syncs by site differ on vs off: {on['ticks']} vs "
+             f"{off['ticks']} steps, {dict(on['sites'])} vs "
+             f"{dict(off['sites'])}")
+    # the host's own counts: the warm request, the 8 and the trailing one
+    n_tok = sum(len(t) for t in on["toks"])
+    want = collections.Counter(["a0"] + adapters + ["a1"])
+    samples = parse_prometheus_text(on["text"])
+    counters = collections.defaultdict(list)
+    spans = collections.Counter()
+    tagged = []
+    for ev in on["events"]:
+        if ev.get("ph") == "C":
+            counters[ev["name"]].append(ev["args"])
+        elif ev.get("ph") == "B":
+            spans[ev["name"]] += 1
+            tp = ev.get("args", {}).get("traceparent")
+            if ev["name"] == "serve.request" and tp:
+                tagged.append(tp)
+    by_label = {a: max(c["value"] for c in counters[
+        "serve.requests_by_adapter"] if c.get("adapter") == a)
+        for a in want}
+    legacy = {a: counters[f"serve.requests.{a}"][-1]["value"] for a in want}
+    total = counters["serve.tokens_total"][-1]["value"]
+    scraped = prom_value(samples, "fedtrace_counter",
+                         name="serve.tokens_total")
+    if not (total == scraped == n_tok == on["stats"]["tokens"]):
+        fail(f"(a) serve.tokens_total {total} (scraped {scraped}) is not "
+             f"the host's {n_tok} tokens")
+    if by_label != dict(want) or legacy != dict(want):
+        fail(f"(a) request counters {by_label} / {legacy} != the host's "
+             f"{dict(want)}")
+    if tagged != [TRUST_TRACEPARENT] or TRUST_TRACE_ID not in tagged[0]:
+        fail(f"(a) the span tree's traceparents {tagged}")
+    n_req = sum(want.values())
+    for name in ("serve.request", "serve.queue", "serve.decode",
+                 "serve.admit", "serve.prefill"):
+        if spans[name] != n_req:
+            fail(f"(a) {spans[name]} {name} spans for {n_req} requests")
+    e2e = prom_value(samples, "serve_e2e_seconds_count", adapter="a1")
+    if e2e != want["a1"]:
+        fail(f"(a) /metrics: serve_e2e_seconds_count a1 {e2e}")
+    rec = {"ms_per_step_on": on["ms"], "ms_per_step_off": off["ms"],
+           "steps": on["ticks"], "tokens": n_tok,
+           "syncs_by_site": dict(on["sites"]),
+           "requests_by_adapter": by_label,
+           "seconds": time.time() - t0}
+    say("trust", f"(a) serving obs on phase 14's model ({model.cfg.n_layers} "
+                 f"layers), 4 slots, 8 requests over 2 adapters (+ a warm "
+                 f"and a trailing one): tokens "
+                 f"bitwise on vs off; {on['ms']:.2f} ms/step on vs "
+                 f"{off['ms']:.2f} off over {on['ticks']} steps; host syncs "
+                 f"by site equal ({sum(on['sites'].values())} each); "
+                 f"serve.tokens_total {total:g} = host {n_tok}; "
+                 f"requests_by_adapter {by_label}; /metrics {len(samples)} "
+                 f"samples parsed; trace id on serve.request [{smi}]")
+    return rec
+
+
+def trust_fedavg(times, kept, att=None, snaps=None):
+    """A minimal FedAvg ``ServerAggregator`` class whose hooks record the
+    defense + DP seconds (host clock, synchronized) and krum's choice;
+    with ``att``, K1–K3's counts as each round's aggregation starts (the
+    silos' passes so far) in ``snaps``, and the launches inside the hooks
+    under ``snaps["hooks"]``."""
+    from fedml_tpu_torch.core import tree as tree_util
+    from fedml_tpu_torch.core.alg_frame.server_aggregator import \
+        ServerAggregator
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+
+    def timed(fn, *a):
+        import torch
+        if att is not None:
+            before = launch_counts(att)
+        t0 = time.perf_counter()
+        out = fn(*a)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if att is not None:
+            hooks = snaps.setdefault("hooks", dict.fromkeys(before, 0))
+            for k, n in launch_counts(att).items():
+                hooks[k] += n - before[k]
+        return out
+
+    class FedAvg(ServerAggregator):
+        def get_model_params(self):
+            return self._params
+
+        def set_model_params(self, p):
+            self._params = p
+
+        def on_before_aggregation(self, raw):
+            if att is not None:
+                snaps.setdefault("rounds", []).append(launch_counts(att))
+            out = timed(super().on_before_aggregation, raw)
+            d = FedMLDefender.get_instance().defender
+            if d is not None and getattr(d, "last_selected", None) \
+                    is not None:
+                kept.append((list(d.last_selected),
+                             [float(x) for x in d.last_scores.tolist()]))
+            return out
+
+        def aggregate(self, raw):
+            return tree_util.weighted_average([p for _, p in raw],
+                                              [n for n, _ in raw])
+
+        def on_after_aggregation(self, agg):
+            return timed(super().on_after_aggregation, agg)
+
+        def test(self, test_data, device, args):
+            return None
+
+    return FedAvg
+
+
+def trust_history(history):
+    """An aggregator factory whose ``on_after_aggregation`` output (each
+    round's global params) is kept, on the host, in ``history``."""
+    times, kept = [], []
+    cls = trust_fedavg(times, kept)
+
+    class Recorded(cls):
+        def on_after_aggregation(self, agg):
+            out = super().on_after_aggregation(agg)
+            history.append({k: v.detach().cpu().clone()
+                            for k, v in out.items()})
+            return out
+
+    return Recorded, times, kept
+
+
+class trust_draws:
+    """Inside the block, every noise draw of the trust stack
+    (``core/noise.py::draw``) is recorded into ``log`` (``{purpose: [CPU
+    tensors]}``), or, given ``replay``, taken from it in order (moved to
+    the draw's device): how the CPU's draws reach the card."""
+
+    def __init__(self, log=None, replay=None):
+        self.log, self.replay = log, replay
+
+    def __enter__(self):
+        import torch
+
+        from fedml_tpu_torch.core import noise
+        self.noise, real = noise, noise.draw
+        self.real = real
+
+        def recorded(source, shape, dev, kind="normal", dtype=torch.float32):
+            z = real(source, shape, dev, kind, dtype)
+            self.log.setdefault(source.purpose, []).append(
+                z.detach().cpu().clone())
+            return z
+
+        def replayed(source, shape, dev, kind="normal", dtype=torch.float32):
+            queue = self.replay.get(source.purpose)
+            if not queue or tuple(queue[0].shape) != tuple(shape):
+                fail(f"a {source.purpose} draw of {tuple(shape)} has no "
+                     "recorded draw of its shape")
+            return queue.pop(0).to(device=dev, dtype=dtype)
+
+        noise.draw = recorded if self.replay is None else replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.noise.draw = self.real
+
+
+def trust_small_run(torch, fedml_tpu_torch, device, draws=None):
+    """(b-small) on ``device``: the narrow text federation with the trust
+    flags, every noise draw recorded (``draws`` None) or replayed from
+    ``draws`` (with ``"_init"``, the params to start from); the init, each
+    round's params, krum's choices and the draws."""
+    from fedml_tpu_torch import data
+
+    args = xs_args(fedml_tpu_torch, TRUST_SMALL, 0, "trust_small")
+    ds, n_out = data.load(args)
+    history, log = [], {}
+    factory, times, kept = trust_history(history)
+    init = None
+    if draws is not None:
+        init = {k: v.to(device) for k, v in draws.pop("_init").items()}
+    with trust_draws(log=log, replay=draws):
+        fed = xs_federation(torch, fedml_tpu_torch, TRUST_SMALL, device,
+                            f"trust_small_{'replay' if draws else 'record'}",
+                            ds, n_out, init=init,
+                            agg_factory=factory, **TRUST_FLAGS)
+    return {"init": {k: v.cpu() for k, v in fed["init"].items()},
+            "history": history, "kept": [k for k, _ in kept],
+            "draws": log}
+
+
+def trust_stack(torch, shapes, device):
+    """(c)'s client list from a seeded CPU generator (the same in both
+    processes), on ``device``, and its base."""
+    g = torch.Generator().manual_seed(22)
+    base = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    raw = []
+    for i in range(TRUST_C):
+        p = {k: v + (0.01 * (1 + i / 4)) * torch.randn(v.shape, generator=g)
+             for k, v in base.items()}
+        if i < TRUST_SHIFTED:
+            p = {k: v + 100.0 for k, v in p.items()}
+        raw.append((10.0 + i, {k: v.to(device) for k, v in p.items()}))
+    return raw, {k: v.to(device) for k, v in base.items()}
+
+
+def trust_rel(got, want):
+    """Elementwise relative distance: max |got − want| / (1 + |want|)."""
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def trust_defend(d, raw, extra):
+    """``BaseDefense.run`` phase by phase: (the kept positions or None, the
+    output: the merge)."""
+    from fedml_tpu_torch.core.security.defense.common import merge_list
+    lst, kept = raw, None
+    if hasattr(d, "defend_before_aggregation"):
+        lst = d.defend_before_aggregation(raw, extra)
+        ids = {id(e): i for i, e in enumerate(raw)}
+        if all(id(e) in ids for e in lst):
+            kept = [ids[id(e)] for e in lst]
+    if hasattr(d, "defend_on_aggregation"):
+        out = d.defend_on_aggregation(lst, merge_list, extra)
+    else:
+        out = merge_list(lst)
+        if hasattr(d, "defend_after_aggregation"):
+            out = d.defend_after_aggregation(out)
+    return kept, out
+
+
+def trust_text_shapes(fedml_tpu_torch):
+    """(b)'s text model: its parameter shapes in order, and the model."""
+    from fedml_tpu_torch import data, model
+    args = xs_args(fedml_tpu_torch, TRUST_TEXT, 0, "trust_shapes")
+    _, n_out = data.load(args)
+    m = model.create(args, n_out)
+    return {n: tuple(p.shape) for n, p in m.module.named_parameters()}, m
+
+
+def trust_cpu_reference(work):
+    """The CPU process of phase 22: (b-small) on the CPU (its draws,
+    init and rounds) and (c)'s defenses on the CPU, written under
+    ``work``."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core.security.defense import (common,
+                                                       create_defender,
+                                                       registered_names)
+    torch.set_num_threads(4)
+    t0 = time.time()
+    small = trust_small_run(torch, fedml_tpu_torch, "cpu")
+    torch.save(small, os.path.join(work, "small.pt"))
+    t1 = time.time()
+    shapes, m = trust_text_shapes(fedml_tpu_torch)
+    common.use_layout(m)
+    raw, base = trust_stack(torch, shapes, "cpu")
+    raw64 = [(n, {k: v.double() for k, v in p.items()}) for n, p in raw]
+    base64 = {k: v.double() for k, v in base.items()}
+    flat = common.tree_flatten_1d
+    for name in registered_names():
+        args = trust_args(fedml_tpu_torch, defense_type=name,
+                          byzantine_client_num=2, random_seed=22)
+        d, log = create_defender(name, args), {}
+        with trust_draws(log=log):
+            kept, out = trust_defend(d, raw, base)
+        # the float64 run on the same draws: the f32 run's rounding
+        with trust_draws(replay={k: list(v) for k, v in log.items()}):
+            _, out64 = trust_defend(create_defender(name, args), raw64,
+                                    base64)
+        e_cpu = trust_rel(flat(out).double(), flat(out64))
+        rec = {"kept": kept, "out": out, "draws": log, "e_cpu": e_cpu,
+               "selected": getattr(d, "last_selected", None),
+               "scores": getattr(d, "last_scores", None)}
+        if e_cpu * TRUST_WITNESS_FACTOR > TRUST_DEFENSE_TOL:
+            rec["out64"] = out64
+        torch.save(rec, os.path.join(work, f"c_{name}.pt"))
+    with open(os.path.join(work, "done.json"), "w") as f:
+        json.dump({"small_s": t1 - t0, "defenses_s": time.time() - t1}, f)
+
+
+def trust_cpu_start():
+    """Start the CPU process of phase 22 (no card: ``CUDA_VISIBLE_DEVICES``
+    empty); it runs beside the phases before 22."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".phase22_trust")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    log = open(os.path.join(work, "cpu.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.trust_cpu_reference({work!r})"], cwd=root, env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+    # a failed check exits early: the process must not outlive this one
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "work": work, "log": log, "t0": time.time()}
+
+
+def trust_cpu_join(child):
+    """Wait for the CPU process; its log on failure."""
+    try:
+        code = child["proc"].wait(timeout=TRUST_CPU_JOIN_S)
+    except subprocess.TimeoutExpired:
+        child["proc"].kill()
+        code = "timeout"
+    child["log"].close()
+    if code != 0:
+        with open(os.path.join(child["work"], "cpu.log")) as f:
+            tail = f.read()[-3000:]
+        fail(f"phase 22's CPU process exited {code}: {tail}")
+    with open(os.path.join(child["work"], "done.json")) as f:
+        return json.load(f)
+
+
+def trust_defenses(torch, fedml_tpu_torch, smi, work, shapes, model):
+    """(c): every registered defense on the card, the CPU's noise draws
+    carried, against the CPU process's run of it."""
+    from fedml_tpu_torch.core.security.defense import (common,
+                                                       create_defender,
+                                                       registered_names)
+    dev = torch.device("cuda", 0)
+    common.use_layout(model)
+    raw, base = trust_stack(torch, shapes, dev)
+    flat = common.tree_flatten_1d
+    d_params = sum(v.numel() for v in raw[0][1].values())
+    rec, ties = {}, []
+    for name in registered_names():
+        args = trust_args(fedml_tpu_torch, defense_type=name,
+                          byzantine_client_num=2, random_seed=22)
+        ref = torch.load(os.path.join(work, f"c_{name}.pt"))
+        d = create_defender(name, args)
+        with trust_draws(replay={k: list(v) for k, v in
+                                 ref["draws"].items()}):
+            kept, out = trust_defend(d, raw, base)
+        sel = getattr(d, "last_selected", None)
+        if sel != ref["selected"]:
+            # krum's or bulyan's choice differs: a near tie is reported
+            # with both devices' scores and its merge not compared
+            cs, gs = ref["scores"].tolist(), d.last_scores.tolist()
+            vals = [cs[i] for i in set(sel) ^ set(ref["selected"])]
+            tie = max(vals) - min(vals) <= TRUST_TIE_REL * max(map(abs,
+                                                                 vals))
+            ties.append({"defense": name, "card": sel,
+                         "cpu": ref["selected"], "card_scores": gs,
+                         "cpu_scores": cs, "tie": tie})
+            say("trust", f"(c) {name}: the card keeps {sel}, the CPU "
+                         f"{ref['selected']} ({'a near tie' if tie else 'NOT a tie'}); "
+                         f"card scores {gs}, CPU scores {cs}")
+            if not tie:
+                fail(f"(c) {name}: the card's choice {sel} differs from the "
+                     f"CPU's {ref['selected']} beyond a tie")
+            continue
+        if kept != ref["kept"]:
+            fail(f"(c) {name}: kept {kept} on the card vs {ref['kept']} on "
+                 "the CPU")
+        got = flat(out)
+        gap = trust_rel(got, flat(ref["out"]).to(dev))
+        bar, e_card = TRUST_DEFENSE_TOL, None
+        if gap > bar and "out64" in ref:
+            bar = TRUST_WITNESS_FACTOR * ref["e_cpu"]
+            e_card = trust_rel(got.double(), flat(ref["out64"]).to(dev))
+        if not (gap <= bar and (e_card is None or e_card <= bar)):
+            fail(f"(c) {name}: card vs CPU merge {gap:.3e}, card vs its "
+                 f"float64 run {e_card}, bar {bar:.3e} (the CPU f32 run "
+                 f"{ref['e_cpu']:.3e} from it)")
+        # the device time: CUDA events around a second call (warm)
+        d = create_defender(name, args)
+        trust_defend(d, raw, base)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        trust_defend(d, raw, base)
+        end.record()
+        end.synchronize()
+        rec[name] = {"ms": start.elapsed_time(end), "gap": gap, "bar": bar,
+                     "e_cpu": ref["e_cpu"], "e_card": e_card,
+                     "kept": kept, "selected": sel}
+    held = [n for n, r in rec.items() if r["e_card"] is not None]
+    say("trust", f"(c) {len(rec)} defenses on the card at C {TRUST_C}, D "
+                 f"{d_params:,} ({TRUST_SHIFTED} rows +100) vs the CPU "
+                 f"process, its noise draws carried: kept sets equal "
+                 f"({len(ties)} near ties), merges within "
+                 f"{TRUST_DEFENSE_TOL:g} relative; held to their float64 "
+                 f"runs instead (f32 rounding above the bar at this D): "
+                 + ", ".join(f"{n} (card vs CPU {rec[n]['gap']:.2e}, card "
+                             f"{rec[n]['e_card']:.2e} and CPU "
+                             f"{rec[n]['e_cpu']:.2e} from float64)"
+                             for n in held) + f" [{smi}]")
+    say("trust", "  ms on the card (CUDA events, a warm call): " + ", ".join(
+        f"{n} {r['ms']:.2f}" for n, r in rec.items()))
+    return {"defenses": rec, "ties": ties, "d_params": d_params}
+
+
+def trust_phase(torch, fedml_tpu_torch, att, smi, child, serve_rec):
+    """Phase 22 (b), (b-small) and (c); (a) ran at phase 15's end."""
+    import math
+
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.core import rng as rng_util
+
+    out, seconds = {"serving_obs": serve_rec}, {}
+    t_phase = time.time()
+
+    # (b) the text model at full width, 5 silos, trust on and off
+    t0 = time.time()
+    targs = xs_args(fedml_tpu_torch, TRUST_TEXT, 0, "trust_b")
+    tds, t_out = data.load(targs)
+    seed, bs = int(targs.random_seed), int(targs.batch_size)
+    rounds, n_silo = TRUST_TEXT["comm_round"], len(TRUST_TEXT[
+        "client_id_list"])
+    steps = sum(tds.client_index_batches(int(c), bs, seed, r).shape[0]
+                for r in range(rounds)
+                for c in rng_util.sample_clients(
+                    seed, r, TRUST_TEXT["client_num_in_total"], n_silo))
+    n_eval = len(tds.test_batches()[0])
+    evals = sum(1 for r in range(rounds)
+                if r % int(targs.frequency_of_the_test) == 0
+                or r == rounds - 1)
+    want = expect_launches(4, steps + n_eval * evals, steps)
+    steps0 = sum(tds.client_index_batches(int(c), bs, seed, 0).shape[0]
+                 for c in rng_util.sample_clients(
+                     seed, 0, TRUST_TEXT["client_num_in_total"], n_silo))
+    # the undefended run for round 0's silo passes (first: it also takes
+    # the card's first-use costs), then the defended run
+    runs = {}
+    for name, over in (("off", dict(comm_round=1)), ("on", TRUST_FLAGS)):
+        times, kept, snaps = [], [], {}
+        factory = trust_fedavg(times, kept, att, snaps)
+        cfg = dict(TRUST_TEXT, **over)
+        fed, got = counted(torch, att, lambda: xs_federation(
+            torch, fedml_tpu_torch, cfg, "cuda", f"trust_b_{name}", tds,
+            t_out, agg_factory=factory))
+        runs[name] = dict(fed=fed, launches=got, times=times, kept=kept,
+                          snaps=snaps)
+    on, off = runs["on"], runs["off"]
+    pass0 = expect_launches(4, steps0, steps0)
+    passes = [on["snaps"]["rounds"][0]] + [
+        {k: b[k] - a[k] for k in a}
+        for a, b in zip(on["snaps"]["rounds"], on["snaps"]["rounds"][1:])]
+    if not (on["launches"] == want and passes[0] == pass0
+            and off["snaps"]["rounds"][0] == pass0
+            and not any(on["snaps"]["hooks"].values())):
+        fail(f"(b) K1-K3 launches: the defended run {on['launches']} "
+             f"(expected {want}), its round-0 silo passes {passes[0]} vs "
+             f"the undefended run's {off['snaps']['rounds'][0]} (expected "
+             f"{pass0}), inside the trust hooks {on['snaps']['hooks']}")
+    params = on["fed"]["params"]
+    ev = on["fed"]["server"].aggregator.last_eval
+    if not all(math.isfinite(float(v.abs().max())) for v in
+               params.values()) or not math.isfinite(ev["loss"]):
+        fail(f"(b) non-finite params or eval loss {ev}")
+    if len(on["kept"]) != rounds or any(0 in k for k, _ in on["kept"]):
+        fail(f"(b) krum kept the attacked silo: {on['kept']}")
+    nbytes = xs_message_bytes(params)
+    trust_s = [a + b for a, b in zip(on["times"][0::2], on["times"][1::2])]
+    # a round as a silo sees it: its local pass, then upload to next sync
+    round_s = [r["local_pass_s"] + r["upload_to_sync_s"]
+               for r in xs_split(on["fed"])]
+    for r, ((k, sc), ts, rs) in enumerate(zip(on["kept"], trust_s,
+                                              round_s)):
+        say("trust", f"(b) round {r}: krum keeps silo {k} (scores "
+                     f"{', '.join(f'{x:.4e}' for x in sc)}; the attacked silo "
+                     f"is 0); defense + DP {ts:.4f} s of the round's "
+                     f"{rs:.3f} s (a silo's local pass + upload to sync)")
+    say("trust", f"(b) text at full width, {n_silo} silos × {rounds} rounds, "
+                 f"attack + krum + global DP: eval loss {ev['loss']:.4f}, "
+                 f"acc {ev['acc']:.4f}; model message {nbytes:,} bytes; "
+                 f"K1-K3 launches {on['launches']} = expected (layers 4 × "
+                 f"({steps} silo steps + {n_eval} eval batches × {evals})); "
+                 f"the silo passes by round {passes}, round 0's = the "
+                 f"undefended run's {off['snaps']['rounds'][0]}; inside the "
+                 f"trust hooks {on['snaps']['hooks']} [{smi}]")
+    out["text"] = {"launches": on["launches"], "passes": passes,
+                   "hooks": on["snaps"]["hooks"],
+                   "undefended_round0": off["snaps"]["rounds"][0],
+                   "seconds": on["fed"]["seconds"],
+                   "seconds_off_one_round": off["fed"]["seconds"],
+        "trust_seconds": trust_s, "round_seconds": round_s,
+        "kept": on["kept"], "message_bytes": nbytes, "eval": ev}
+    seconds["b"] = time.time() - t0
+
+    # the CPU process: (b-small)'s CPU run and (c)'s CPU defenses
+    t0 = time.time()
+    done = trust_cpu_join(child)
+    seconds["cpu_wait"] = time.time() - t0
+    out["cpu_process"] = done
+
+    # (b-small) card vs CPU, the CPU's draws carried
+    t0 = time.time()
+    small = torch.load(os.path.join(child["work"], "small.pt"))
+    draws = dict(small["draws"], _init=small["init"])
+    card = trust_small_run(torch, fedml_tpu_torch, "cuda", draws)
+    left = {k: len(v) for k, v in draws.items() if v}
+    if left:
+        fail(f"(b-small) the card drew fewer noise draws than the CPU: {left}")
+    errs = [max(max_err(a[k], b[k]) for k in b)
+            for a, b in zip(card["history"], small["history"])]
+    if len(errs) != TRUST_SMALL["comm_round"] or card["kept"] != \
+            small["kept"] or max(errs) > TEXT_CARD_CPU_TOL:
+        fail(f"(b-small) card vs CPU: rounds {errs}, kept {card['kept']} vs "
+             f"{small['kept']}")
+    say("trust", f"(b-small) narrow text, 4 silos × 2 rounds, attack + krum "
+                 f"+ global DP, the CPU's draws carried: card vs CPU params "
+                 f"max abs diff by round {[f'{e:.2e}' for e in errs]} (tol "
+                 f"{TEXT_CARD_CPU_TOL:g}); krum kept {card['kept']} on both")
+    out["small"] = {"errs": errs, "kept": card["kept"]}
+    seconds["b_small"] = time.time() - t0
+
+    # (c) every defense on the card against the CPU process
+    t0 = time.time()
+    shapes = {n: tuple(v.shape) for n, v in params.items()}
+    out["defenses"] = trust_defenses(
+        torch, fedml_tpu_torch, smi, child["work"], shapes,
+        on["fed"]["server"].aggregator.model)
+    seconds["c"] = time.time() - t0
+    import shutil
+    shutil.rmtree(child["work"], ignore_errors=True)
+    seconds["phase"] = time.time() - t_phase
+    out["seconds"] = seconds
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6499,7 +7197,6 @@ def main():
     t0 = time.time()
     att.reset_launch_counts()
     spec = serving_rest_phase(torch, fedml_tpu_torch, att, smi, carry)
-    del carry
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     spec["launches"] = launch_counts(att)
@@ -6515,6 +7212,16 @@ def main():
                         f"); peak GiB by sub-phase "
                         f"{ {k: round(v, 2) for k, v in spec['peak_gib'].items()} }"
                         f"; K1-K3 launches {spec['launches']}")
+    # phase 22 (a): serving's obs hooks on the same model, while it lives
+    t0 = time.time()
+    att.reset_launch_counts()
+    serve_obs = serving_obs_phase(torch, fedml_tpu_torch, smi, carry)
+    if any(launch_counts(att).values()):
+        fail(f"phase 22 (a) launched a flash-attention kernel: "
+             f"{launch_counts(att)}")
+    say("trust", f"phase 22 (a) took {time.time() - t0:.1f} s")
+    del carry
+    torch.cuda.empty_cache()
 
     # -- 16. the sp planes: FedBuff, the client store, checkpoints ----------
     t0 = time.time()
@@ -6589,6 +7296,9 @@ def main():
     say("cross_silo", f"phase 19 took {time.time() - t0:.1f} s "
                       f"({ {k: round(v, 1) for k, v in cross_silo['seconds'].items()} })")
 
+    # phase 22's CPU process (its CPU references) runs beside phases 20-21
+    trust_child = trust_cpu_start()
+
     # -- 20. wire: the codec, the two-tier and buffered-async drivers -----
     t0 = time.time()
     wire_rec = wire_phase(torch, fedml_tpu_torch, att, smi)
@@ -6610,6 +7320,19 @@ def main():
             "obs_probe_text"] = 0
     say("obs", f"phase 21 took {time.time() - t0:.1f} s "
                f"({ {k: round(v, 1) for k, v in obs_rec['seconds'].items()} })")
+
+    # -- 22. trust: the defended DP text federation, every defense --------
+    t0 = time.time()
+    trust = trust_phase(torch, fedml_tpu_torch, att, smi, trust_child,
+                        serve_obs)
+    for name, n in trust["text"]["launches"].items():
+        rows[f"{name}@text"].setdefault("launches_by_path", {})[
+            "trust_text"] = n
+        rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+            "trust_text"] = 0
+    say("trust", f"phase 22 took {time.time() - t0:.1f} s "
+                 f"({ {k: round(v, 1) for k, v in trust['seconds'].items()} }"
+                 f"; (a) {serve_obs['seconds']:.1f} s at phase 15's end)")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -6623,7 +7346,7 @@ def main():
                       "tp": tp,
                       "ring_blocks": list(mesh3d.pop("rows").values()),
                       "mesh3d": mesh3d, "cross_silo": cross_silo,
-                      "wire": wire_rec, "obs": obs_rec}))
+                      "wire": wire_rec, "obs": obs_rec, "trust": trust}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

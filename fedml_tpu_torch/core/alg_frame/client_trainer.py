@@ -2,16 +2,16 @@
 frame (port of ``fedml_tpu.core.alg_frame.client_trainer``).
 
 Surface parity: ``train / get_model_params / set_model_params`` plus the
-``on_before_local_training`` / ``on_after_local_training`` hook pair.
-"params" is the port's ``{name: tensor}`` dict.
+``on_before_local_training`` / ``on_after_local_training`` hook pair
+through which the trust plugins are threaded: data poisoning before the
+local pass, local DP noise and model poisoning after it.  "params" is the
+port's ``{name: tensor}`` dict.
 
-What differs from the JAX module: the trust plugins the JAX hooks thread
-through (the red-team attacker, differential privacy, FHE) and the upload
-compression and contribution assessment beside them are not ported.  The
-hooks run as the JAX package runs them with every plugin off (identity),
-and an ``args`` that enables one raises ``NotImplementedError`` naming
-the flag (:func:`refuse_trust_stack`) when a trainer, an aggregator or a
-cross-silo ``Server``/``Client`` is built.
+What differs from the JAX module: FHE, upload compression and
+contribution assessment are not ported; an ``args`` that enables one
+raises ``NotImplementedError`` naming the flag (:func:`refuse_trust_stack`)
+when a trainer, an aggregator or a cross-silo ``Server``/``Client`` is
+built.
 """
 
 from __future__ import annotations
@@ -19,12 +19,13 @@ from __future__ import annotations
 import abc
 from typing import Any
 
-#: the flags of the JAX package's trust stack and upload compression, none
-#: of which the port implements
+from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+from ..security.defense.common import use_layout
+from ..security.fedml_attacker import FedMLAttacker
+
+#: the flags of the JAX package's trust stack and upload compression that
+#: the port does not implement
 TRUST_STACK_FLAGS = {
-    "enable_defense": "the robust-aggregation defenses (core/security/)",
-    "enable_dp": "differential privacy (core/dp/)",
-    "enable_attack": "the red-team attacker (core/security/)",
     "enable_fhe": "homomorphic encryption (core/fhe/)",
     "enable_compression": "upload compression (core/compression/)",
     "enable_contribution": "contribution assessment (core/contribution/)",
@@ -49,6 +50,9 @@ class ClientTrainer(abc.ABC):
         self.local_sample_number = 0
         self.rid = 0
         self.template_model_params = None
+        use_layout(model)
+        FedMLAttacker.get_instance().init(args)
+        FedMLDifferentialPrivacy.get_instance().init(args)
 
     def set_id(self, trainer_id):
         self.id = trainer_id
@@ -65,8 +69,10 @@ class ClientTrainer(abc.ABC):
         ...
 
     def on_before_local_training(self, train_data, device, args):
-        """Data poisoning and FHE decrypt in the JAX package; with both off,
-        the data passes unchanged."""
+        """Data poisoning (red-team) of the local data."""
+        atk = FedMLAttacker.get_instance()
+        if atk.is_data_poisoning_attack() and atk.is_to_poison_data():
+            train_data = atk.poison_data(train_data)
         return train_data
 
     @abc.abstractmethod
@@ -74,8 +80,14 @@ class ClientTrainer(abc.ABC):
         ...
 
     def on_after_local_training(self, train_data, device, args):
-        """Local DP noise, model poisoning and FHE encrypt in the JAX
-        package; with all three off, nothing happens."""
+        """Local DP noise, then model poisoning, of the trained params."""
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_local_dp_enabled():
+            self.set_model_params(dp.add_local_noise(self.get_model_params()))
+        atk = FedMLAttacker.get_instance()
+        if atk.is_model_attack():
+            self.set_model_params(atk.attack_model(
+                self.get_model_params(), self.local_sample_number))
 
     def test(self, test_data, device, args) -> Any:
         return None

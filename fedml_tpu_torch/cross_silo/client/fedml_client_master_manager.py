@@ -29,6 +29,7 @@ import torch
 from ...core import rng as rng_util
 from ...core.distributed.communication.message import Message, to_host
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
+from ...core.security.fedml_attacker import FedMLAttacker
 from ...core.wire import tensor_tree
 from ...ml.trainer.local_trainer import LocalTrainer, ServerCtx
 from ..message_define import MyMessage
@@ -115,6 +116,9 @@ class TrainerDistAdapter:
         self.dataset = dataset
         self.device = get_device(args, device)
         self.trainer = LocalTrainer(model, args)
+        # red-team wiring: an edge-case backdoor attacker gets the
+        # dataset's edge-example pool (if any) at startup
+        FedMLAttacker.get_instance().provide_edge_pool(dataset)
         self.local_train = self.trainer.make_local_train()
         self.order = [n for n, _ in model.module.named_parameters()]
         self.seed = int(getattr(args, "random_seed", 0))

@@ -4,16 +4,19 @@
 Buffers client updates per round (flag-array ``check_whether_all_receive``
 semantics), then runs the same server optimizer the simulators use
 (``ServerOptimizer.update`` on the stacked client params and their sample
-counts), or a user ``ServerAggregator``'s hook pipeline
-(``on_before_aggregation`` → ``aggregate`` → ``on_after_aggregation``).
-Silo partials (``add_local_partial_aggregate``) combine exactly through
+counts) inside the trust stack's hook pipeline — defend before
+aggregation → global DP clip → either the defense's own merge or the
+server optimizer → defend after aggregation → global DP noise — or a user
+``ServerAggregator``'s (``on_before_aggregation`` → ``aggregate`` →
+``on_after_aggregation``).  Silo partials
+(``add_local_partial_aggregate``) combine exactly through
 ``federated.combine_partial_aggregates``.
 
-What differs from the JAX module: the trust stack around the default
-merge (defense, global DP) and the contribution assessment are not ported
-(an ``args`` enabling one raises by name at construction); the state
-lives on ``device`` (the card unless the CPU is asked for), and uploads
-that arrive as host arrays are moved there.
+What differs from the JAX module: the contribution assessment is not
+ported (an ``args`` enabling it raises by name at construction); the
+state lives on ``device`` (the card unless the CPU is asked for), uploads
+that arrive as host arrays are moved there, and the defenses and DP run
+on it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from ...core import federated
 from ...core import rng as rng_util
 from ...core import tree as tree_util
 from ...core.alg_frame.client_trainer import refuse_trust_stack
+from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+from ...core.security.defense.common import use_layout
+from ...core.security.fedml_defender import FedMLDefender
 from ...core.wire import tensor_tree
 from ...ml.aggregator.agg_operator import ServerOptimizer
 from ...ml.trainer.local_trainer import LocalTrainer
@@ -60,6 +66,9 @@ class FedMLAggregator:
         self._test = None
         #: the last server evaluation: {"round", "loss", "acc"} or None
         self.last_eval = None
+        use_layout(model)
+        FedMLDefender.get_instance().init(args)
+        FedMLDifferentialPrivacy.get_instance().init(args)
 
     def get_global_model_params(self):
         return self.state.global_params
@@ -125,12 +134,33 @@ class FedMLAggregator:
                     for i in idxs]
         if self.user_aggregator is not None:
             return self._aggregate_via_user_hooks(idxs, raw_list)
-        stacked = tree_util.tree_stack([p for _, p in raw_list])
-        weights = torch.tensor([n for n, _ in raw_list], dtype=torch.float32,
-                               device=self.device)
-        self.state = self.server_opt.update(self.state, stacked, weights)
+        defender = FedMLDefender.get_instance()
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if defender.is_defense_enabled():
+            raw_list = defender.defend_before_aggregation(
+                raw_list, self.state.global_params)
+        if dp.is_global_dp_enabled() and dp.is_clipping():
+            raw_list = dp.global_clip(raw_list)
+        if defender.is_defense_on_aggregation():
+            new_params = defender.defend_on_aggregation(
+                raw_list, base_aggregation_func=lambda lst:
+                tree_util.weighted_average([p for _, p in lst],
+                                           [n for n, _ in lst]))
+            self.state = self.state.replace(
+                round_idx=self.state.round_idx + 1, global_params=new_params)
+        else:
+            stacked = tree_util.tree_stack([p for _, p in raw_list])
+            weights = torch.tensor([n for n, _ in raw_list],
+                                   dtype=torch.float32, device=self.device)
+            self.state = self.server_opt.update(self.state, stacked, weights)
+        new_params = self.state.global_params
+        if defender.is_defense_after_aggregation():
+            new_params = defender.defend_after_aggregation(new_params)
+        if dp.is_global_dp_enabled():
+            new_params = dp.add_global_noise(new_params)
+        self.state = self.state.replace(global_params=new_params)
         self.model_dict.clear()
-        return self.state.global_params
+        return new_params
 
     def _aggregate_via_user_hooks(self, idxs, raw_list):
         """The server flow when a user ServerAggregator is given:

@@ -38,14 +38,22 @@ and a sampled request draws from its own ``torch.Generator`` in the same
 order there and here.  A daemon thread drives the card, its device set
 explicitly.
 
-Not ported, each refused by name: the observability hooks
-(``metrics_port``, ``slo_rules``, ``hist_labels``, ``traceparent``).
+Observability, as the JAX engine's: per-request lifecycle histograms
+(``ServeHistograms``, ``hist_labels`` adapter labels) and objective windows
+(``slo_rules``), a ``/metrics`` endpoint (``metrics_port``), and, when the
+tracer is on, each request's span tree (``serve.request`` with its
+``traceparent``, ``serve.queue``, ``serve.decode``; the live
+``serve.admit``/``serve.prefill`` spans) and the loop's ``serve.*``
+counters.  They read host clocks and host ints only: the hooks add no
+device sync (``analysis/runtime.py::TorchRuntimeAudit`` counts them on
+the card).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import queue
 import threading
 import time
@@ -55,12 +63,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..obs import get_tracer
+from ..obs.histogram import ServeHistograms
 from .adapters import AdapterMissError, AdapterRegistry
 from .paged_kv import PagedBlockPool, PagedPrefixCache, PageExhaustedError
 from .speculative import propose_block, sync_rows, verify_greedy_block
-from .templates.openai_compat import (_LEFT_OUT, TAIL_BLOCK, PrefixCache,
-                                      _apply, _build_cached_decode,
-                                      _check_params, _not_ported,
+from .templates.openai_compat import (TAIL_BLOCK, PrefixCache, _apply,
+                                      _build_cached_decode, _check_params,
                                       _replay_tail, _sample_live,
                                       _sample_rows)
 
@@ -86,6 +95,11 @@ class _Slot:
                  # ids and replay cursor, adapter token, reserved blocks
                  "prefilling", "pf_ids", "pf_next", "pf_n", "pf_atok",
                  "n_blocks",
+                 # request-lifecycle telemetry (host monotonic clocks,
+                 # engine-thread-confined like the decode state)
+                 "t_submit", "t_admit", "t_prefill_end", "t_first",
+                 "prompt_tokens", "out_tokens", "adapter_label",
+                 "traceparent",
                  # speculative engine: this request's draft proposals
                  "drafts_proposed", "drafts_accepted")
 
@@ -104,6 +118,14 @@ class _Slot:
         self.pf_n = 0
         self.pf_atok = None
         self.n_blocks = 0
+        self.t_submit = 0.0
+        self.t_admit: Optional[float] = None
+        self.t_prefill_end = 0.0
+        self.t_first: Optional[float] = None
+        self.prompt_tokens = 0
+        self.out_tokens = 0
+        self.adapter_label = "base"
+        self.traceparent: Optional[str] = None
         self.drafts_proposed = 0
         self.drafts_accepted = 0
 
@@ -127,13 +149,6 @@ class ContinuousBatchingEngine:
                  prefill_chunk_tokens: int = 0, prefill_lanes: int = 1,
                  adapter_cache_slots: int = 0,
                  adapter_store_dir: Optional[str] = None):
-        for name, val in (("metrics_port", metrics_port),
-                          ("slo_rules", slo_rules)):
-            if val is not None:
-                raise _not_ported(name, _LEFT_OUT[name])
-        if hist_labels != 8:
-            raise _not_ported("hist_labels",
-                              "the serving histograms (observability)")
         tp = getattr(model, "tp", None)
         if tp is not None and tp.size > 1:
             raise NotImplementedError(
@@ -141,6 +156,23 @@ class ContinuousBatchingEngine:
                 "batching engine runs on one card, as in the JAX package "
                 "(tensor-parallel decode is generate's)")
         _check_params(params)
+        # per-request lifecycle histograms, bounded to hist_labels adapter
+        # labels (+ "other"), and the objective windows of slo_rules
+        self.serve_hists = ServeHistograms(max_labels=int(hist_labels))
+        self.slo_windows: Dict[str, Any] = {}
+        if slo_rules:
+            from ..obs.slo import windows_for_rules
+            self.slo_windows = windows_for_rules(slo_rules)
+        # metrics_port serves /metrics + /healthz over the tracer's serve.*
+        # gauges, the histograms appended, the windows behind /healthz
+        self.metrics_server = None
+        if metrics_port is not None:
+            from ..obs.metricsd import MetricsServer
+            self.metrics_server = MetricsServer(
+                port=int(metrics_port), slo_rules=slo_rules,
+                extra_text=[self.serve_hists.render_prometheus],
+                objectives=self.slo_windows or None)
+            self.metrics_server.start()
         self.model = model
         self.device = next(model.parameters()).device
         self.raw_params = params
@@ -234,8 +266,13 @@ class ContinuousBatchingEngine:
         # thread once live slots drain (admission pauses meanwhile)
         self._pending_params = None
         self._ticks = 0
+        # host-side serving telemetry (always kept; mirrored onto tracer
+        # counters when tracing is on: host ints only, no device sync)
         self.serve_stats: Dict[str, Any] = {
             "admits": 0, "tokens": 0, "requests": {}}
+        self._tok_window = [time.monotonic(), 0]
+        # guards serve_stats and _tok_window; innermost (taken alone or
+        # inside _cond, never the reverse)
         self._stats_lock = threading.Lock()
         if self._store_mode:
             self.registry.on_fetch_done = self._on_adapter_fetched
@@ -250,10 +287,9 @@ class ContinuousBatchingEngine:
                traceparent: Optional[str] = None) -> "queue.Queue":
         """Enqueue a request; returns a queue yielding token ids then
         ``None``.  ``adapter`` names a registered bank row (``KeyError`` for
-        unknown names), pinned until the request finishes."""
-        if traceparent is not None:
-            raise _not_ported("traceparent",
-                              "request tracing (observability)")
+        unknown names), pinned until the request finishes.
+        ``traceparent`` (a W3C header value) joins the request's span tree
+        to the caller's trace."""
         out: "queue.Queue" = queue.Queue()
         row, atok = 0, None
         if self._store_mode:
@@ -280,11 +316,26 @@ class ContinuousBatchingEngine:
                     "adapter": adapter,
                     "adapter_row": row,
                     "adapter_token": atok,
+                    "adapter_label": name,
+                    "traceparent": traceparent,
+                    "t_submit": time.monotonic(),
                     "q": out,
                 })
                 with self._stats_lock:
                     reqs = self.serve_stats["requests"]
                     reqs[name] = reqs.get(name, 0) + 1
+                    nreq = reqs[name]
+                # bounded-cardinality request counter: one metric with an
+                # adapter label (at most hist_labels + "other"); the old
+                # per-adapter metric names only behind the legacy flag
+                label, label_n = self.serve_hists.labels.resolve(name)
+                tracer = get_tracer()
+                if tracer.enabled:
+                    tracer.counter("serve.requests_by_adapter", label_n,
+                                   adapter=label)
+                    if os.environ.get(
+                            "FEDML_SERVE_LEGACY_ADAPTER_COUNTERS") == "1":
+                        tracer.counter(f"serve.requests.{name}", nreq)
                 self._cond.notify()
         except BaseException:
             if self.registry is not None:
@@ -343,6 +394,9 @@ class ContinuousBatchingEngine:
         with self._cond:
             self._cond.notify()
         self._thread.join(timeout=10)
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         if self._owns_registry and self.registry is not None:
             self.registry.close()
 
@@ -440,8 +494,11 @@ class ContinuousBatchingEngine:
                 return i
         return None
 
-    def _finish(self, i: int):
+    def _finish(self, i: int, aborted: bool = False):
         s = self._slots[i]
+        if not aborted and s.t_admit is not None:
+            self._observe_finish(i, s)
+        s.t_admit = None
         s.live = False
         s.prefilling = False
         s.pf_ids = None
@@ -461,6 +518,64 @@ class ContinuousBatchingEngine:
             s.adapter_row = 0
         self._pin_released = True
 
+    def _observe_finish(self, i: int, s: "_Slot") -> None:
+        """Request-lifecycle telemetry at a natural finish (engine thread,
+        host clocks only): the phase breakdown into the histograms and the
+        objective windows, and, when tracing is on, a retroactive span tree
+        on a per-slot synthetic lane (one slot's requests never overlap)."""
+        now = time.monotonic()
+        queue_s = max(s.t_admit - s.t_submit, 0.0)
+        prefill_s = max(s.t_prefill_end - s.t_admit, 0.0)
+        e2e_s = max(now - s.t_submit, 0.0)
+        decode_s = max(now - s.t_prefill_end, 0.0)
+        ttft_s = max(s.t_first - s.t_submit, 0.0) \
+            if s.t_first is not None else None
+        self.serve_hists.record_request(
+            s.adapter_label, queue_s=queue_s, prefill_s=prefill_s,
+            e2e_s=e2e_s, ttft_s=ttft_s, decode_s=decode_s,
+            output_tokens=s.out_tokens)
+        for win in self.slo_windows.values():
+            v = {"serve_ttft_seconds": ttft_s,
+                 "serve_e2e_seconds": e2e_s,
+                 "serve_queue_wait_seconds": queue_s,
+                 "serve_prefill_seconds": prefill_s,
+                 "serve_decode_seconds": decode_s}.get(win.metric)
+            if v is not None:
+                win.observe(v)
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return
+        lane = -16 - i   # per-slot synthetic lane, clear of COMPILE_TID
+        tracer.complete(
+            "serve.request", e2e_s, cat="serve", tid=lane,
+            adapter=s.adapter_label, slot=i,
+            prompt_tokens=s.prompt_tokens, output_tokens=s.out_tokens,
+            queue_s=round(queue_s, 6), prefill_s=round(prefill_s, 6),
+            ttft_s=round(ttft_s, 6) if ttft_s is not None else None,
+            decode_s=round(decode_s, 6), e2e_s=round(e2e_s, 6),
+            traceparent=s.traceparent,
+            drafts_proposed=s.drafts_proposed or None,
+            drafts_accepted=(s.drafts_accepted if s.drafts_proposed
+                             else None))
+        tracer.complete("serve.queue", queue_s, cat="serve", tid=lane,
+                        end_s_ago=max(e2e_s - queue_s, 0.0), slot=i)
+        tracer.complete("serve.decode", decode_s, cat="serve", tid=lane,
+                        slot=i)
+
+    def _start_request(self, s: "_Slot", req: dict, t_admit: float,
+                       t_prefill_end: float, n: int) -> None:
+        """The slot's lifecycle telemetry for an admitted request."""
+        s.t_submit = req.get("t_submit", t_admit)
+        s.t_admit = t_admit
+        s.t_prefill_end = t_prefill_end
+        s.t_first = None
+        s.prompt_tokens = n
+        s.out_tokens = 0
+        s.adapter_label = req.get("adapter_label", "base")
+        s.traceparent = req.get("traceparent")
+        s.drafts_proposed = 0
+        s.drafts_accepted = 0
+
     def _emit(self, i: int, tok: int) -> bool:
         """Deliver one sampled token; False when the slot is done (eos,
         budget, buffer end), with ``generate()``'s delivery rules: eos is
@@ -474,8 +589,12 @@ class ContinuousBatchingEngine:
         s.q.put(tok)
         s.remaining -= 1
         s.cur_tok = tok
+        if s.t_first is None:
+            s.t_first = time.monotonic()
+        s.out_tokens += 1
         with self._stats_lock:
             self.serve_stats["tokens"] += 1
+            self._tok_window[1] += 1
         return s.remaining > 0 and s.pos < self.buf_len
 
     def _new_gen(self, seed: int) -> torch.Generator:
@@ -486,6 +605,7 @@ class ContinuousBatchingEngine:
     def _admit(self, req: dict, slot: int):
         """Dense admission: prefill (or a prefix-cache replay) into a
         one-row cache, then copy it into the slot's row."""
+        t_admit = time.monotonic()
         ids = req["prompt_ids"]
         n = len(ids)
         buf = torch.zeros((1, self.buf_len), dtype=torch.long,
@@ -501,18 +621,25 @@ class ContinuousBatchingEngine:
         hit_len, hit_cache = (self.prefix_cache.lookup(ids, ref, atok)
                               if self.prefix_cache is not None and n > 0
                               else (0, None))
-        if hit_cache is not None:
-            start = min(hit_len, n - 1)
-            max_seq = getattr(getattr(self.model, "cfg", None),
-                              "max_seq_len", self.buf_len)
-            tok, cache = _replay_tail(
-                partial(self._tail_step, self.raw_params, lora),
-                partial(self._tail_block, self.raw_params, lora),
-                hit_cache, buf, ids, start, n, max_seq, gen, temp)
-        else:
-            tok, cache = self._prefill(self.raw_params, lora, buf, n, gen,
-                                       temp)
-        tok_host = int(tok)
+        # serve.prefill, the one live phase span (inside the caller's
+        # serve.admit), closes on the int() below: the admission's own
+        # read-back, not a new sync
+        with get_tracer().span("serve.prefill", cat="serve", slot=slot,
+                               prompt_tokens=n,
+                               cache_hit=int(hit_cache is not None)):
+            if hit_cache is not None:
+                start = min(hit_len, n - 1)
+                max_seq = getattr(getattr(self.model, "cfg", None),
+                                  "max_seq_len", self.buf_len)
+                tok, cache = _replay_tail(
+                    partial(self._tail_step, self.raw_params, lora),
+                    partial(self._tail_block, self.raw_params, lora),
+                    hit_cache, buf, ids, start, n, max_seq, gen, temp)
+            else:
+                tok, cache = self._prefill(self.raw_params, lora, buf, n,
+                                           gen, temp)
+            tok_host = int(tok)
+        t_prefill_end = time.monotonic()
         if self.prefix_cache is not None and n > 0:
             self.prefix_cache.insert(ids, cache, ref, atok)
         self._caches.copy_rows_(slice(slot, slot + 1), cache)
@@ -524,6 +651,7 @@ class ContinuousBatchingEngine:
         s.eos_id = req["eos_id"]
         s.adapter_row = row
         s.gen = gen
+        self._start_request(s, req, t_admit, t_prefill_end, n)
         self._aids[slot] = row
         self._temps[slot] = temp
         if not self._emit(slot, tok_host):
@@ -574,6 +702,7 @@ class ContinuousBatchingEngine:
         """Enter the prefilling state: the block table is wired; the chunk
         lanes in :meth:`_prefill_tick` replay the prompt from the shared
         page boundary and make the slot live on the final chunk."""
+        t_admit = time.monotonic()
         ids = req["prompt_ids"]
         full, need_blocks = req.pop("_kv")
         s = self._slots[slot]
@@ -591,6 +720,7 @@ class ContinuousBatchingEngine:
         s.pf_next = full * self.kv_page_tokens
         s.pf_atok = req.get("adapter_token")
         s.n_blocks = need_blocks
+        self._start_request(s, req, t_admit, t_admit, len(ids))
         self._aids[slot] = s.adapter_row
         self._temps[slot] = req["temperature"]
 
@@ -629,6 +759,7 @@ class ContinuousBatchingEngine:
             s.prefilling = False
             s.live = True
             s.pos = n
+            s.t_prefill_end = time.monotonic()
             if self.prefix_cache is not None and n > 0:
                 fullpages = n // self.kv_page_tokens
                 if fullpages:
@@ -640,7 +771,7 @@ class ContinuousBatchingEngine:
             if not self._emit(i, tok_host):
                 self._finish(i)
 
-    def _admit_one(self, req: dict, slot: int) -> bool:
+    def _admit_one(self, req: dict, slot: int, tracer) -> bool:
         """The cache-mode adapter pin and the page reservation (paged
         engines), then the admission.  False when the request parked (its
         adapter paging in, or the pool dry) or failed open."""
@@ -670,10 +801,12 @@ class ContinuousBatchingEngine:
                 self.registry.release(req["adapter_row"])
             req["q"].put(None)
             return False
-        if self.paged:
-            self._admit_paged(req, slot)
-        else:
-            self._admit(req, slot)
+        with tracer.span("serve.admit", cat="serve", slot=slot,
+                         adapter_row=req.get("adapter_row", 0)):
+            if self.paged:
+                self._admit_paged(req, slot)
+            else:
+                self._admit(req, slot)
         with self._stats_lock:
             self.serve_stats["admits"] += 1
         return True
@@ -714,7 +847,7 @@ class ContinuousBatchingEngine:
                 self._stopped = True
                 for i, s in enumerate(self._slots):
                     if s.live or s.prefilling:
-                        self._finish(i)
+                        self._finish(i, aborted=True)
                 self._drain_waiting()
                 self._cond.notify_all()  # wake update_params waiters
 
@@ -730,7 +863,7 @@ class ContinuousBatchingEngine:
                 if self._stopped:
                     for i, s in enumerate(self._slots):
                         if s.live or s.prefilling:
-                            self._finish(i)
+                            self._finish(i, aborted=True)
                     self._drain_waiting()
                     self._cond.notify_all()
                     return
@@ -755,6 +888,7 @@ class ContinuousBatchingEngine:
             # admission is paused while a swap waits for the drain; parked
             # requests retry first, and a parked head never blocks fresh
             # admissions behind it
+            tracer = get_tracer()
             if retry_parked:
                 retry, self._parked = self._parked, []
                 for j, req in enumerate(retry):
@@ -762,12 +896,15 @@ class ContinuousBatchingEngine:
                     if slot is None:
                         self._parked.extend(retry[j:])
                         break
-                    self._admit_one(req, slot)
+                    self._admit_one(req, slot, tracer)
             while not swap_pending and not self._waiting.empty():
                 slot = self._free_slot()
                 if slot is None:
                     break
-                self._admit_one(self._waiting.get(), slot)
+                self._admit_one(self._waiting.get(), slot, tracer)
+            if tracer.enabled:
+                tracer.counter("serve.queue_depth",
+                               self._waiting.qsize() + len(self._parked))
 
             if self.paged:
                 self._prefill_tick()
@@ -776,6 +913,43 @@ class ContinuousBatchingEngine:
                 self._dispatch(live)
                 with self._stats_lock:
                     self._ticks += 1
+            elif not any(s.prefilling for s in self._slots):
+                continue
+            if tracer.enabled:
+                self._loop_counters(tracer)
+
+    def _loop_counters(self, tracer) -> None:
+        """The loop's ``serve.*`` counters, from host ints: the token
+        rate over a window of at least 0.5 s and the running total, the
+        page pool, the chunk count and the adapter cache."""
+        now = time.monotonic()
+        rolled = None
+        with self._stats_lock:
+            t0, ntok = self._tok_window
+            if now - t0 >= 0.5:
+                rolled = (ntok, self.serve_stats["tokens"])
+                self._tok_window = [now, 0]
+        if rolled is not None:   # counters emit outside _stats_lock
+            tracer.counter("serve.tokens_per_s", rolled[0] / (now - t0))
+            tracer.counter("serve.tokens_total", rolled[1])
+        if self.paged:
+            with self._stats_lock:
+                shared = self._pages_shared
+                tot = shared + self._pages_private
+                chunks = self._chunks_total
+            tracer.counter("serve.kv_pages_free", self.page_pool.pages_free)
+            tracer.counter("serve.kv_page_hit_rate",
+                           shared / tot if tot else 0.0)
+            tracer.counter("serve.prefill_chunks", chunks)
+        if self._store_mode:
+            st = self.registry.stats
+            tracer.counter("serve.adapter_cache_hits", st["cache_hits"])
+            tracer.counter("serve.adapter_cache_misses", st["cache_misses"])
+            tracer.counter("serve.adapter_cache_evictions",
+                           st["cache_evictions"])
+            tot = st["cache_hits"] + st["cache_misses"]
+            tracer.counter("serve.adapter_miss_rate",
+                           st["cache_misses"] / tot if tot else 0.0)
 
     def _dispatch(self, live):
         """One step call for the live slots: ``horizon`` batched steps, one
@@ -918,8 +1092,6 @@ class SpeculativeBatchingEngine(ContinuousBatchingEngine):
         _, dcache = self._d_prefill(self.raw_draft, None, buf, n, None, 0.0)
         self._d_caches.copy_rows_(slice(slot, slot + 1), dcache)
         self._fds[slot] = n
-        s = self._slots[slot]
-        s.drafts_proposed = s.drafts_accepted = 0
 
     def _emit(self, i: int, tok: int) -> bool:
         s = self._slots[i]

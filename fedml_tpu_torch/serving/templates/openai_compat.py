@@ -25,9 +25,12 @@
   the same output as plain greedy decode.
 - **No extra dependencies.**  The stdlib HTTP server, bound to loopback by
   default, and a byte-level tokenizer unless one is given.
-
-Not ported, each refused by name: the observability hooks
-(``metrics_port``, ``slo_rules``; a ``traceparent`` header is not read).
+- **Observability.**  ``slo_rules`` ride into the batching engine;
+  ``metrics_port`` serves ``/metrics`` and ``/healthz`` beside the API
+  (with the engine's request histograms and objective windows); a valid
+  W3C ``traceparent`` header joins a request's span tree to the caller's
+  trace, and the fall-through path and streams emit their own
+  ``serve.request`` and ``serve.stream`` spans.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from typing import Callable, List, Mapping, Optional
 import torch
 
 from ...llm.quantization import QuantizedParams, weight_dtype
+from ...obs.context import parse_traceparent
+from ...obs.tracer import get_tracer
 
 log = logging.getLogger(__name__)
 
@@ -68,10 +73,6 @@ class ByteTokenizer:
     def decode(self, ids) -> str:
         data = bytes(i for i in ids if 0 <= int(i) < 256)
         return data.decode("utf-8", errors="replace")
-
-
-def _not_ported(name: str, what: str):
-    return NotImplementedError(f"{name}: {what} is not ported")
 
 
 def _check_params(params) -> None:
@@ -449,10 +450,6 @@ class OpenAICompatServer:
         .speculative_generate` with the request's adapter.  Both models need
         ``max_seq_len >= buf_len + spec_k + 1`` with the engine; a draft
         refuses ``decode_horizon > 1`` and ``kv_page_tokens``."""
-        for name, val in (("metrics_port", metrics_port),
-                          ("slo_rules", slo_rules)):
-            if val is not None:
-                raise _not_ported(name, _LEFT_OUT[name])
         _check_params(params)
         if draft_model is not None and model is None:
             raise ValueError("draft_model requires `model` (a KV-cached "
@@ -466,6 +463,12 @@ class OpenAICompatServer:
         self.tokenizer = tokenizer or ByteTokenizer()
         self.model_name = model_name
         self.host, self.port = host, port
+        # /metrics + /healthz beside the API, started and stopped with it
+        self.metrics_port = metrics_port
+        self.metrics_server = None
+        # objective-style SLO rules: into the engine (per-request burn-rate
+        # windows) and the metrics endpoint (/healthz)
+        self.slo_rules = slo_rules
         self.buf_len = buf_len
         self.model = model
         self.prefix_cache = None
@@ -539,7 +542,8 @@ class OpenAICompatServer:
                     slots=int(batch_slots), buf_len=buf_len,
                     k=int(spec_k),
                     prefix_cache_slots=int(prefix_cache_slots),
-                    prefix_max_tail=int(prefix_max_tail))
+                    prefix_max_tail=int(prefix_max_tail),
+                    slo_rules=slo_rules)
                 self._engine_greedy_only = True
             else:
                 from ..batching import ContinuousBatchingEngine
@@ -549,6 +553,7 @@ class OpenAICompatServer:
                     prefix_cache_slots=int(prefix_cache_slots),
                     prefix_max_tail=int(prefix_max_tail),
                     adapter_registry=self.registry,
+                    slo_rules=slo_rules,
                     kv_page_tokens=int(kv_page_tokens),
                     kv_pool_pages=int(kv_pool_pages),
                     prefill_chunk_tokens=int(prefill_chunk_tokens),
@@ -566,13 +571,17 @@ class OpenAICompatServer:
 
     # -- request handling --------------------------------------------------
     def _complete(self, prompt: str, req: dict,
-                  on_text: Optional[Callable[[str], None]] = None) -> str:
+                  on_text: Optional[Callable[[str], None]] = None,
+                  traceparent: Optional[str] = None) -> str:
         """Run generation; ``on_text`` (if given) receives incremental text
         on UTF-8 boundaries (a raw per-token decode would shred multi-byte
-        characters with the byte tokenizer)."""
+        characters with the byte tokenizer).  ``traceparent`` (a validated
+        W3C header value) joins the request's span tree to the caller's
+        trace."""
         tok = self.tokenizer
         ids: List[int] = []
         sent = 0
+        t_submit = time.monotonic()
 
         def emit(t: int):
             nonlocal sent
@@ -626,7 +635,7 @@ class OpenAICompatServer:
                     temperature=temp,
                     seed=int(req.get("seed", 0)),
                     eos_id=getattr(tok, "eos_id", None),
-                    adapter=adapter_name)
+                    adapter=adapter_name, traceparent=traceparent)
             except KeyError as e:
                 raise RequestError(str(e.args[0] if e.args else e),
                                    status=404)
@@ -689,6 +698,18 @@ class OpenAICompatServer:
             finally:
                 if release_row is not None:
                     self.registry.release(release_row)
+            # the engine emits its own request span tree at its finish; the
+            # single-request path emits one here (the HTTP thread's lane,
+            # host clocks), so every served request has a serve.request
+            tracer = get_tracer()
+            if tracer.enabled:
+                e2e_s = time.monotonic() - t_submit
+                tracer.complete(
+                    "serve.request", e2e_s, cat="serve",
+                    tid=threading.get_ident(),
+                    adapter=adapter_name or "base",
+                    output_tokens=len(out), e2e_s=round(e2e_s, 6),
+                    traceparent=traceparent, path="fallthrough")
         text = tok.decode(out)
         if on_text and len(text) > sent:
             on_text(text[sent:])  # flush any held-back tail
@@ -732,7 +753,8 @@ class OpenAICompatServer:
                     self.wfile.write(f"data: {data}\n\n".encode())
                     self.wfile.flush()
 
-                run(write_piece)
+                with get_tracer().span("serve.stream", cat="serve"):
+                    run(write_piece)
                 self.wfile.write(b"data: [DONE]\n\n")
 
             def do_POST(self):
@@ -744,6 +766,11 @@ class OpenAICompatServer:
                     return
                 rid = f"cmpl-{uuid.uuid4().hex[:24]}"
                 now = int(time.time())
+                # a valid W3C traceparent header joins this request's span
+                # tree to the caller's trace (a malformed one is dropped)
+                tp_raw = self.headers.get("traceparent")
+                tparent = tp_raw if (tp_raw and
+                                     parse_traceparent(tp_raw)) else None
                 try:
                     if self.path == "/v1/chat/completions":
                         prompt = _render_chat(req.get("messages", []))
@@ -757,9 +784,11 @@ class OpenAICompatServer:
                                                  {"content": p},
                                                  "finish_reason": None}]},
                                 lambda writer: outer._complete(
-                                    prompt, req, on_text=writer))
+                                    prompt, req, on_text=writer,
+                                    traceparent=tparent))
                             return
-                        text = outer._complete(prompt, req)
+                        text = outer._complete(prompt, req,
+                                               traceparent=tparent)
                         self._send_json(200, {
                             "id": rid, "object": "chat.completion",
                             "created": now, "model": outer.model_name,
@@ -769,7 +798,7 @@ class OpenAICompatServer:
                                          "finish_reason": "stop"}]})
                     elif self.path == "/v1/completions":
                         text = outer._complete(str(req.get("prompt", "")),
-                                               req)
+                                               req, traceparent=tparent)
                         self._send_json(200, {
                             "id": rid, "object": "text_completion",
                             "created": now, "model": outer.model_name,
@@ -847,6 +876,19 @@ class OpenAICompatServer:
         self.port = self._server.server_address[1]
         threading.Thread(target=self._server.serve_forever,
                          daemon=True).start()
+        if self.metrics_port is not None and self.metrics_server is None:
+            from ...obs.metricsd import MetricsServer
+            extra, objectives = [], None
+            if self._engine is not None:
+                # the engine's request histograms append to /metrics; its
+                # objective windows drive /healthz burn rates
+                extra = [self._engine.serve_hists.render_prometheus]
+                objectives = self._engine.slo_windows or None
+            self.metrics_server = MetricsServer(
+                port=int(self.metrics_port), host=self.host,
+                slo_rules=self.slo_rules, extra_text=extra,
+                objectives=objectives)
+            self.metrics_server.start()
         log.info("openai-compatible endpoint on %s:%d", self.host, self.port)
         return self.port
 
@@ -855,13 +897,9 @@ class OpenAICompatServer:
             self._server.shutdown()
             self._server.server_close()
             self._server = None
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         if self._engine is not None:
             self._engine.stop()
             self._engine = None
-
-
-#: what each refused option of the JAX server belongs to
-_LEFT_OUT = {
-    "metrics_port": "the serving metrics endpoint (observability)",
-    "slo_rules": "the serving SLO rules (observability)",
-}

@@ -369,3 +369,61 @@ def test_wire_modules_run_with_jax_flax_and_msgpack_unimportable():
               (ROOT / "fedml_tpu_torch").rglob("*.py")}
     assert {"fedml_tpu_torch/" + m.replace(".", "/") + ".py"
             for m in modules} <= walked
+
+
+def test_trust_stack_and_serving_obs_run_with_jax_unimportable():
+    """The attacks, every defense, DP and the serving engine's obs hooks
+    import and run in a process where ``jax`` and ``fedml_tpu`` cannot be
+    imported at all."""
+    import subprocess
+    import sys
+
+    modules = ("core.noise", "core.security.fedml_attacker",
+               "core.security.fedml_defender",
+               "core.security.defense.common",
+               "core.security.defense.robust_aggregation",
+               "core.security.defense.clipping",
+               "core.security.defense.reweighting",
+               "core.security.defense.outlier",
+               "core.security.defense.soteria_defense",
+               "core.security.attack.byzantine_attack",
+               "core.security.attack.backdoor_attack",
+               "core.security.attack.label_flipping_attack",
+               "core.security.attack.lazy_worker_attack",
+               "core.security.attack.model_replacement_attack",
+               "core.security.attack.gradient_inversion",
+               "core.dp.mechanisms", "core.dp.frames",
+               "core.dp.budget_accountant",
+               "core.dp.fedml_differential_privacy", "serving.batching")
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "from fedml_tpu_torch.core.security.defense import (\n"
+        "    create_defender, registered_names)\n"
+        "from fedml_tpu_torch.core.dp.fedml_differential_privacy import \\\n"
+        "    FedMLDifferentialPrivacy\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "raw = [(1.0, {'w': torch.randn(3, 2, generator=g)})\n"
+        "       for _ in range(6)]\n"
+        "for name in registered_names():\n"
+        "    d = create_defender(name, load_arguments().update(\n"
+        "        defense_type=name))\n"
+        "    d.run(raw, extra=raw[0][1])\n"
+        "dp = FedMLDifferentialPrivacy()\n"
+        "dp.init(load_arguments().update(enable_dp=True,\n"
+        "                                dp_solution_type='nbafl'))\n"
+        "assert torch.isfinite(dp.add_global_noise(raw[0][1])['w']).all()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    for m in modules:
+        path = "fedml_tpu_torch/" + m.replace(".", "/")
+        assert {path + ".py", path + "/__init__.py"} & walked, m

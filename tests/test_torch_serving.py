@@ -530,10 +530,6 @@ def test_server_http_matches_jax_fields(lm):
 
 
 LEFT_OUT = [
-    ("metrics_port", lambda m: t_oc.OpenAICompatServer(
-        None, None, model=m, metrics_port=0)),
-    ("slo_rules", lambda m: t_oc.OpenAICompatServer(
-        None, None, model=m, slo_rules=[])),
     ("export", lambda m: __import__(
         "fedml_tpu_torch.serving", fromlist=["x"]).save_model_artifact(
         "/nonexistent", m, None)),

@@ -261,8 +261,9 @@ def test_unported_options_raise_by_name(flag, value):
     (``tests/test_torch_obs_*.py`` hold them to the JAX package): what
     stays refused of them is ``trace_device`` where the probe cannot split
     the round (a population), ``health`` on an engine whose rounds return
-    no per-client lanes (the hierarchical engine) and the serving
-    server's ``metrics_port``."""
+    no per-client lanes (the hierarchical engine) and ``metrics_port`` on
+    the decentralized engine (the serving server's runs,
+    ``tests/test_torch_serving_obs.py``)."""
     from fedml_tpu_torch import obs
     if flag == "collective_precision":
         with pytest.raises(NotImplementedError, match=flag):
@@ -286,9 +287,12 @@ def test_unported_options_raise_by_name(flag, value):
                 HierarchicalFedAvgAPI(args, "cpu", ds,
                                       t_model.create(args, out))
             else:
-                from fedml_tpu_torch.serving.templates import openai_compat
-                openai_compat.OpenAICompatServer(None, None,
-                                                 metrics_port=0)
+                from fedml_tpu_torch.runner import FedMLRunner
+                args = t_arguments().update(**tiny(
+                    metrics_port=0, federated_optimizer="dsgd",
+                    topology="symmetric", topology_neighbors=2))
+                ds, out = t_data.load(args)
+                FedMLRunner(args, "cpu", ds, t_model.create(args, out))
     finally:
         obs.configure(enabled=False)
         obs.get_tracer().reset()
