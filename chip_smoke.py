@@ -364,9 +364,8 @@ Phases, each printing its own lines:
    the first silo), keep krum's choice and add global Gaussian DP: finite
    params and eval loss, krum's kept silo never the attacked one (printed
    with its scores), K1–K3 launches the expected count
-   (``launches_by_path`` ``trust_text``), round 0's silo passes the same
-   as the undefended run's (one round of it, run first), none inside the
-   trust hooks; the defense + DP seconds beside the round's, the model
+   (``launches_by_path`` ``trust_text``), round 0's silo passes the
+   formula's, none inside the trust hooks; the defense + DP seconds beside the round's, the model
    message's bytes;
    (b-small) phase 8 (e)'s narrow text model through the same pipeline as
    4 silos on the card and in a CPU process, the CPU's noise draws carried
@@ -380,7 +379,34 @@ Phases, each printing its own lines:
    itself above it (FoolsGold's cosines, cclip's and the clips' norms),
    card and CPU each within ``TRUST_WITNESS_FACTOR`` times the CPU f32
    run's distance from the defense's float64 run; each defense's ms on
-   the card.
+   the card;
+23. trust2 — the trust stack's second half (``core/fhe/``,
+   ``core/contribution/``, ``core/mpc/``, ``cross_silo/{secagg,
+   lightsecagg}/``), with a CPU process started at the phase's start:
+   (c) the text model at full width as 3 silos (the port's cross-silo
+   silo trainer on the card) through the SecAgg and the LightSecAgg FSMs
+   (a server and 3 clients on threads over ``local``, 1 round): the
+   server's params bitwise the host witness of the same field arithmetic
+   and, unless the printed headroom max_e Σ_i n_i·|x_i,e| passes the
+   field's (p − 1)/2 / 2^16, within 3·2^-17/Σn + 2^-23·max|avg| of the
+   float64 plaintext weighted average; K1–K3 launches the silos' passes
+   (``trust2_secagg``, ``trust2_lightsecagg``); (a) (c)'s three SecAgg
+   silos encrypted on the card by a ``ClientTrainer``'s hook, merged by
+   ``fhe_fedavg`` and decrypted by a ``ServerAggregator``'s hook: every
+   element within the scheme's error of the float64 plaintext average
+   (2^-17·Σ|x_i| + 2^-30 + W·max|e|/2^46 + 2^-24·|avg|), the ciphertext
+   65,536 · ceil(D / 2048) bytes, silo 0's c0, c1 and decryption bitwise
+   the CPU process's with the card's draws carried, two codecs of one
+   seed drawing different c1; encrypt, aggregate and decrypt ms; (b) the
+   text model as 4 silos, 1 round, silo 0 replaced by the byzantine
+   attack, exact MR-Shapley through the cross-silo server: the attacked
+   silo's φ the lowest, Σφ = U(all) within ``TRUST2_EFFICIENCY_TOL``,
+   K1–K3 the silos' passes plus one forward over the test batches a
+   coalition (15) and the server's evaluation (``trust2_contribution``),
+   GTG and LOO on the same list, the assessment's seconds beside the
+   round's; (b-small) the narrow text model's run on the card and in the
+   CPU process (its attack draws carried): utilities equal or apart by
+   whole test examples (counted), φ equal where none differs.
 
 The second-to-last lines are a JSON object of per-kernel numbers (a row
 per kernel at the slice shape and at the text shape, with its launches on
@@ -395,8 +421,9 @@ phase 15's under ``"serving_spec"``, phase 16's under ``"planes"``,
 phase 17's under ``"tp"`` (its kernel rows under ``"tp_shards"``) and
 phase 18's under ``"mesh3d"`` (its kernel rows under ``"ring_blocks"``),
 phase 19's under ``"cross_silo"``, phase 20's under ``"wire"``,
-phase 21's under ``"obs"`` and phase 22's under ``"trust"`` beside them;
-each kernel row adds phase 12's to 22's launches a path under
+phase 21's under ``"obs"``, phase 22's under ``"trust"`` and phase 23's
+under ``"trust2"`` beside them; each kernel row adds phase 12's to 23's
+launches a path under
 ``launches_by_path``)
 and the card's
 name and power limit; the last line is
@@ -6267,7 +6294,8 @@ TRUST_WITNESS_FACTOR = 4.0
 #: distance (f32 squared distances by the product identity at this D round
 #: to ~1e-3 of their size); a tie is reported and its merge not compared
 TRUST_TIE_REL = 1e-3
-#: the CPU process's deadline once phase 22 waits for it
+#: a phase's CPU process's deadline once the phase waits for it (phases
+#: 22 and 23), and how long phase 23's waits for (a)'s input
 TRUST_CPU_JOIN_S = 240
 
 
@@ -6637,27 +6665,29 @@ def trust_cpu_reference(work):
         json.dump({"small_s": t1 - t0, "defenses_s": time.time() - t1}, f)
 
 
-def trust_cpu_start():
-    """Start the CPU process of phase 22 (no card: ``CUDA_VISIBLE_DEVICES``
-    empty); it runs beside the phases before 22."""
+def cpu_process_start(phase, entry):
+    """Start the CPU process of phase ``phase`` (no card:
+    ``CUDA_VISIBLE_DEVICES`` empty), running ``chip_smoke.<entry>(work)``
+    with its work directory ``.phase<phase>_trust/``."""
     import shutil
     root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, ".phase22_trust")
+    work = os.path.join(root, f".phase{phase}_trust")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     log = open(os.path.join(work, "cpu.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke as c; "
-         f"c.trust_cpu_reference({work!r})"], cwd=root, env=env,
+         f"c.{entry}({work!r})"], cwd=root, env=env,
         stdout=log, stderr=subprocess.STDOUT)
     # a failed check exits early: the process must not outlive this one
     atexit.register(lambda: proc.poll() is None and proc.kill())
-    return {"proc": proc, "work": work, "log": log, "t0": time.time()}
+    return {"proc": proc, "work": work, "log": log, "phase": phase}
 
 
-def trust_cpu_join(child):
-    """Wait for the CPU process; its log on failure."""
+def cpu_process_join(child):
+    """Wait for a phase's CPU process (``TRUST_CPU_JOIN_S``); its log on
+    failure, else its ``done.json``."""
     try:
         code = child["proc"].wait(timeout=TRUST_CPU_JOIN_S)
     except subprocess.TimeoutExpired:
@@ -6667,7 +6697,7 @@ def trust_cpu_join(child):
     if code != 0:
         with open(os.path.join(child["work"], "cpu.log")) as f:
             tail = f.read()[-3000:]
-        fail(f"phase 22's CPU process exited {code}: {tail}")
+        fail(f"phase {child['phase']}'s CPU process exited {code}: {tail}")
     with open(os.path.join(child["work"], "done.json")) as f:
         return json.load(f)
 
@@ -6780,30 +6810,22 @@ def trust_phase(torch, fedml_tpu_torch, att, smi, child, serve_rec):
     steps0 = sum(tds.client_index_batches(int(c), bs, seed, 0).shape[0]
                  for c in rng_util.sample_clients(
                      seed, 0, TRUST_TEXT["client_num_in_total"], n_silo))
-    # the undefended run for round 0's silo passes (first: it also takes
-    # the card's first-use costs), then the defended run
-    runs = {}
-    for name, over in (("off", dict(comm_round=1)), ("on", TRUST_FLAGS)):
-        times, kept, snaps = [], [], {}
-        factory = trust_fedavg(times, kept, att, snaps)
-        cfg = dict(TRUST_TEXT, **over)
-        fed, got = counted(torch, att, lambda: xs_federation(
-            torch, fedml_tpu_torch, cfg, "cuda", f"trust_b_{name}", tds,
-            t_out, agg_factory=factory))
-        runs[name] = dict(fed=fed, launches=got, times=times, kept=kept,
-                          snaps=snaps)
-    on, off = runs["on"], runs["off"]
+    times, kept, snaps = [], [], {}
+    factory = trust_fedavg(times, kept, att, snaps)
+    fed, got = counted(torch, att, lambda: xs_federation(
+        torch, fedml_tpu_torch, dict(TRUST_TEXT, **TRUST_FLAGS), "cuda",
+        "trust_b_on", tds, t_out, agg_factory=factory))
+    on = dict(fed=fed, launches=got, times=times, kept=kept, snaps=snaps)
     pass0 = expect_launches(4, steps0, steps0)
     passes = [on["snaps"]["rounds"][0]] + [
         {k: b[k] - a[k] for k in a}
         for a, b in zip(on["snaps"]["rounds"], on["snaps"]["rounds"][1:])]
     if not (on["launches"] == want and passes[0] == pass0
-            and off["snaps"]["rounds"][0] == pass0
             and not any(on["snaps"]["hooks"].values())):
         fail(f"(b) K1-K3 launches: the defended run {on['launches']} "
-             f"(expected {want}), its round-0 silo passes {passes[0]} vs "
-             f"the undefended run's {off['snaps']['rounds'][0]} (expected "
-             f"{pass0}), inside the trust hooks {on['snaps']['hooks']}")
+             f"(expected {want}), its round-0 silo passes {passes[0]} "
+             f"(expected {pass0}), inside the trust hooks "
+             f"{on['snaps']['hooks']}")
     params = on["fed"]["params"]
     ev = on["fed"]["server"].aggregator.last_eval
     if not all(math.isfinite(float(v.abs().max())) for v in
@@ -6828,20 +6850,18 @@ def trust_phase(torch, fedml_tpu_torch, att, smi, child, serve_rec):
                  f"K1-K3 launches {on['launches']} = expected (layers 4 × "
                  f"({steps} silo steps + {n_eval} eval batches × {evals})); "
                  f"the silo passes by round {passes}, round 0's = the "
-                 f"undefended run's {off['snaps']['rounds'][0]}; inside the "
-                 f"trust hooks {on['snaps']['hooks']} [{smi}]")
+                 f"formula's {pass0}; inside the trust hooks "
+                 f"{on['snaps']['hooks']} [{smi}]")
     out["text"] = {"launches": on["launches"], "passes": passes,
                    "hooks": on["snaps"]["hooks"],
-                   "undefended_round0": off["snaps"]["rounds"][0],
                    "seconds": on["fed"]["seconds"],
-                   "seconds_off_one_round": off["fed"]["seconds"],
         "trust_seconds": trust_s, "round_seconds": round_s,
         "kept": on["kept"], "message_bytes": nbytes, "eval": ev}
     seconds["b"] = time.time() - t0
 
     # the CPU process: (b-small)'s CPU run and (c)'s CPU defenses
     t0 = time.time()
-    done = trust_cpu_join(child)
+    done = cpu_process_join(child)
     seconds["cpu_wait"] = time.time() - t0
     out["cpu_process"] = done
 
@@ -6873,6 +6893,582 @@ def trust_phase(torch, fedml_tpu_torch, att, smi, child, serve_rec):
         torch, fedml_tpu_torch, smi, child["work"], shapes,
         on["fed"]["server"].aggregator.model)
     seconds["c"] = time.time() - t0
+    import shutil
+    shutil.rmtree(child["work"], ignore_errors=True)
+    seconds["phase"] = time.time() - t_phase
+    out["seconds"] = seconds
+    return out
+
+
+#: phase 23 (c): the text model at full width as 3 silos (the first 3 of
+#: the 10 realtext clients, each its own silo) for 1 round through the
+#: SecAgg and the LightSecAgg FSMs: a server and 3 clients on threads
+TRUST2_SECURE = dict(TEXT_REALTEXT, client_id_list=[1, 2, 3], comm_round=1)
+#: (b): the text model as 4 silos (4 of 10 realtext clients) for 1 round
+#: through a FedAvg ServerAggregator with exact MR-Shapley (15 non-empty
+#: coalitions), the first silo replaced by phase 22 (b)'s server-side
+#: byzantine attack (random mode)
+TRUST2_CONTRIB = dict(TEXT_REALTEXT, client_num_per_round=4,
+                      client_id_list=[1, 2, 3, 4], comm_round=1)
+TRUST2_FLAGS = dict(enable_contribution=True, contribution_alg="mr",
+                    enable_attack=True, attack_type="byzantine",
+                    attack_mode="random", byzantine_client_num=1)
+#: (b-small): phase 8 (e)'s narrow text model as 4 silos, 1 round, the
+#: same flags, card vs the CPU process
+TRUST2_SMALL = dict(TEXT_SMALL, client_num_per_round=4,
+                    client_id_list=[1, 2, 3, 4], comm_round=1,
+                    random_seed=3)
+#: (a): the seed of the FHE run (the codec's secret derives from it)
+TRUST2_FHE_SEED = 23
+#: (b): Shapley's efficiency under exact enumeration, Σφ = U(all)
+TRUST2_EFFICIENCY_TOL = 1e-9
+
+
+class ckks_draws:
+    """Inside the block, every draw of the CKKS codec (``ckks.draw``) is
+    recorded into ``log`` (CPU copies, in order), or, given ``replay``,
+    taken from it in order (moved to the draw's device)."""
+
+    def __init__(self, log=None, replay=None):
+        self.log, self.replay = log, replay
+
+    def __enter__(self):
+        from fedml_tpu_torch.core.fhe import ckks
+        self.ckks, real = ckks, ckks.draw
+
+        def recorded(gen, shape, p=None):
+            z = real(gen, shape, p)
+            self.log.append(z.cpu())
+            return z
+
+        def replayed(gen, shape, p=None):
+            z = self.replay.pop(0)
+            if tuple(z.shape) != tuple(shape):
+                fail(f"a CKKS draw of {tuple(shape)} has no recorded draw of "
+                     "its shape")
+            return z.to(gen.device)
+
+        self.real = real
+        ckks.draw = recorded if self.replay is None else replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.ckks.draw = self.real
+
+
+def digest(t):
+    """sha256 of a tensor's bytes on the host: bitwise equality across
+    processes."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def ckks_encrypt_digests(torch, vec, draws, device):
+    """Encrypt ``vec`` on ``device`` with the carried ``draws`` and decrypt
+    it: the digests of c0, c1 and the decrypted vector, and the seconds."""
+    from fedml_tpu_torch.core.fhe.ckks import CkksCodec
+    codec = CkksCodec(TRUST2_FHE_SEED ^ 0xF4E)
+    t0 = time.time()
+    with ckks_draws(replay=list(draws)):
+        ct = codec.encrypt(vec.to(device))
+    dec = codec.decrypt(ct)
+    return {"c0": digest(ct.c0), "c1": digest(ct.c1), "dec": digest(dec),
+            "seconds": time.time() - t0}
+
+
+def contrib_aggregator(rec, att=None):
+    """A FedAvg ``ServerAggregator`` class whose ``assess_contribution``
+    records each utility (in call order), φ, the assessment's seconds,
+    the list it assessed and, with ``att``, K1–K3's launches inside it."""
+    base = trust_fedavg([], [])
+
+    class Assessed(base):
+        def assess_contribution(self, client_idxs, model_list,
+                                aggregated_model, val_fn):
+            utils = rec.setdefault("utilities", [])
+
+            def val(params):
+                u = val_fn(params)
+                utils.append(u)
+                return u
+
+            before = launch_counts(att) if att is not None else None
+            t0 = time.perf_counter()
+            super().assess_contribution(client_idxs, model_list,
+                                        aggregated_model, val)
+            rec["seconds"] = time.perf_counter() - t0
+            if att is not None:
+                rec["launches"] = {k: n - before[k] for k, n in
+                                   launch_counts(att).items()}
+            rec.update(phi=dict(self.final_contribution_assigned_by_group),
+                       idxs=list(client_idxs), models=model_list,
+                       aggregated=aggregated_model, val_fn=val_fn)
+
+    return Assessed
+
+
+def mr_coalitions(m):
+    """The coalitions exact MR-Shapley evaluates, in the order it first
+    evaluates them (its loops, its cache): the utilities' call order."""
+    import itertools
+    seen, order = {frozenset()}, []
+    for k in range(m):
+        others = [i for i in range(m) if i != k]
+        for r in range(m):
+            for S in itertools.combinations(others, r):
+                for c in (frozenset(S) | {k}, frozenset(S)):
+                    if c not in seen:
+                        seen.add(c)
+                        order.append(c)
+    return order
+
+
+def contrib_small_run(torch, fedml_tpu_torch, device, draws=None):
+    """(b-small) on ``device``: the narrow text federation with
+    ``TRUST2_FLAGS``, the attack's draws recorded (``draws`` None) or
+    replayed from ``draws`` (with ``"_init"``, the params to start from):
+    the init, the draws, each utility and φ."""
+    from fedml_tpu_torch import data
+
+    args = xs_args(fedml_tpu_torch, TRUST2_SMALL, 0, "trust2_small")
+    ds, n_out = data.load(args)
+    rec, log = {}, {}
+    init = None
+    if draws is not None:
+        init = {k: v.to(device) for k, v in draws.pop("_init").items()}
+    with trust_draws(log=log, replay=draws):
+        fed = xs_federation(torch, fedml_tpu_torch, TRUST2_SMALL, device,
+                            f"trust2_small_{'replay' if draws else 'record'}",
+                            ds, n_out, init=init,
+                            agg_factory=contrib_aggregator(rec),
+                            **TRUST2_FLAGS)
+    return {"init": {k: v.cpu() for k, v in fed["init"].items()},
+            "draws": log, "utilities": rec["utilities"], "phi": rec["phi"],
+            "n_test": len(ds.test_x)}
+
+
+def trust2_cpu_reference(work):
+    """The CPU process of phase 23: (b-small) on the CPU, then, once the
+    card has written (a)'s input, one silo's encryption and decryption
+    on the CPU with the card's draws; results under ``work``."""
+    import torch
+
+    import fedml_tpu_torch
+    torch.set_num_threads(4)
+    t0 = time.time()
+    small = contrib_small_run(torch, fedml_tpu_torch, "cpu")
+    torch.save(small, os.path.join(work, "small.pt"))
+    small_s = time.time() - t0
+    path = os.path.join(work, "ckks_in.pt")
+    while not os.path.exists(path):
+        if time.time() - t0 > TRUST_CPU_JOIN_S:
+            raise SystemExit("phase 23 (a)'s input never came")
+        time.sleep(0.2)
+    a = torch.load(path)
+    cpu = ckks_encrypt_digests(torch, a["vec"], a["draws"], "cpu")
+    with open(os.path.join(work, "done.json"), "w") as f:
+        json.dump({"small_s": small_s, "ckks": cpu}, f)
+
+
+def secure_run(torch, fedml_tpu_torch, att, kind, ds, n_out):
+    """(c): the SecAgg (``kind`` "sa") or LightSecAgg ("lsa") FSM, a
+    server and 3 clients on threads over ``local``, each client the
+    port's cross-silo text silo trainer on the card: the server's params,
+    each silo's (samples, trained params on the host), the seconds and
+    K1–K3's launches."""
+    from fedml_tpu_torch import model
+    from fedml_tpu_torch.core import rng as rng_util
+    from fedml_tpu_torch.core.distributed.communication.local.\
+        local_comm_manager import reset_run
+    from fedml_tpu_torch.cross_silo.client import TrainerDistAdapter
+    if kind == "sa":
+        from fedml_tpu_torch.cross_silo.secagg import (SAClientManager as C,
+                                                       SAServerManager as S)
+    else:
+        from fedml_tpu_torch.cross_silo.lightsecagg import (
+            LSAClientManager as C, LSAServerManager as S)
+    run_id = f"trust2_{kind}"
+    reset_run(run_id)
+    cfg = TRUST2_SECURE
+    ranks = range(1, len(cfg["client_id_list"]) + 1)
+    args = {r: xs_args(fedml_tpu_torch, cfg, r, run_id) for r in
+            [0, *ranks]}
+    silos, errors = {}, []
+
+    class Silo:
+        def __init__(self, rank):
+            a = args[rank]
+            self.rank = rank
+            self.adapter = TrainerDistAdapter(a, model.create(a, n_out), ds,
+                                              device="cuda")
+
+        def train(self, global_params, round_idx):
+            params, n = self.adapter.train(global_params, self.rank - 1,
+                                           round_idx)
+            silos[self.rank] = (n, params)
+            return params, n
+
+    m0 = model.create(args[0], n_out)
+    init = m0.init(rng_util.purpose_key(rng_util.root_key(
+        int(args[0].random_seed)), "init"))
+    server = S(args[0], init, rank=0, size=len(ranks) + 1, device="cuda")
+    clients = [C(args[r], Silo(r), rank=r, size=len(ranks) + 1)
+               for r in ranks]
+    # the server's unmasking: its host field work at the round's end
+    finish, finish_s = server._finish_round, []
+
+    def timed_finish():
+        t0 = time.perf_counter()
+        finish()
+        finish_s.append(time.perf_counter() - t0)
+    server._finish_round = timed_finish
+
+    def guard(m):
+        try:
+            m.run()
+        except BaseException as e:   # noqa: BLE001 — failed below
+            errors.append(repr(e))
+
+    def run():
+        threads = [threading.Thread(target=guard, args=(m,), daemon=True)
+                   for m in [server] + clients]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=XS_JOIN_S)
+        if errors:
+            fail(f"(c) {kind}: {errors[0]}")
+        if any(t.is_alive() for t in threads) or server.round_idx != 1:
+            fail(f"(c) {kind}: the federation stalled past {XS_JOIN_S} s "
+                 "a join")
+
+    t0 = time.time()
+    _, got = counted(torch, att, run)
+    return {"params": server.global_params, "silos": silos,
+            "seconds": time.time() - t0, "launches": got,
+            "unmask_s": finish_s[0]}
+
+
+def secure_check(torch, fedml_tpu_torch, kind, run, smi):
+    """(c)'s checks of one FSM against the host witness of its field
+    arithmetic and the float64 plaintext weighted average."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.mpc.secagg import P, dequantize, quantize
+    from fedml_tpu_torch.cross_silo.secagg.sa_fedml_client_manager import \
+        flatten_params
+    silos = [run["silos"][r] for r in sorted(run["silos"])]
+    ns = [float(n) for n, _ in silos]
+    xs = [flatten_params(p).astype(np.float64) for _, p in silos]
+    total_w = sum(ns)
+    plain = sum(n * x for n, x in zip(ns, xs)) / total_w
+    headroom = float(sum(n * np.abs(x) for n, x in zip(ns, xs)).max())
+    limit = (P - 1) / 2 / (1 << 16)
+    witness_sum = np.zeros(xs[0].size, dtype=np.int64)
+    for n, x in zip(ns, xs):
+        witness_sum = (witness_sum + quantize(x * n)) % P
+    witness = dequantize(witness_sum) / max(total_w, 1e-12)
+    got = flatten_params(run["params"])
+    if not np.array_equal(got, np.asarray(witness, np.float32)):
+        fail(f"(c) {kind}: the server's params are not the host witness of "
+             "the same field arithmetic")
+    wrapped = headroom > limit
+    err = float(np.abs(got.astype(np.float64) - plain).max())
+    bound = 3 * 2.0 ** -17 / total_w + 2.0 ** -23 * float(np.abs(plain).max())
+    if not wrapped and err > bound:
+        fail(f"(c) {kind}: {err:.3e} from the float64 plaintext average, "
+             f"bound {bound:.3e}")
+    say("trust2", f"(c) {kind}: 3 text silos at full width (samples "
+                  f"{[int(n) for n in ns]}), field headroom max_e "
+                  f"Σ_i n_i·|x_i,e| = {headroom:,.1f} beside {limit:,.1f} "
+                  f"({'WRAPS: the params are bitwise the host witness, as '
+                      'the JAX arithmetic gives' if wrapped else 'no wrap'}"
+                  f"); params bitwise the host witness; {err:.3e} from the "
+                  f"float64 plaintext average (bound {bound:.3e}"
+                  f"{', not held: wrapped' if wrapped else ''}); "
+                  f"{run['seconds']:.1f} s, the server's unmasking "
+                  f"{run['unmask_s']:.2f} s; K1-K3 {run['launches']} [{smi}]")
+    return {"samples": ns, "headroom": headroom, "limit": limit,
+            "wrapped": wrapped, "err": err, "bound": bound,
+            "seconds": run["seconds"], "unmask_s": run["unmask_s"],
+            "launches": run["launches"]}
+
+
+def fhe_phase(torch, fedml_tpu_torch, silos, model, work, smi):
+    """(a): three silos' trained params through a port ``ClientTrainer``'s
+    encrypt hook on the card, ``fhe_fedavg`` and a ``ServerAggregator``'s
+    decrypt hook, against the float64 plaintext average and the CPU
+    process (silo 0's ciphertext and its decryption, the card's draws
+    carried)."""
+    import math
+
+    import numpy as np
+
+    from fedml_tpu_torch.core.alg_frame.client_trainer import ClientTrainer
+    from fedml_tpu_torch.core.alg_frame.server_aggregator import \
+        ServerAggregator
+    from fedml_tpu_torch.core.fhe import ckks
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+    from fedml_tpu_torch.core.security.defense.common import tree_flatten_1d
+    dev = torch.device("cuda", 0)
+
+    class Trainer(ClientTrainer):
+        def get_model_params(self):
+            return self.params
+
+        def set_model_params(self, p):
+            self.params = p
+
+        def train(self, train_data, device, args):
+            return None
+
+    class Aggregator(ServerAggregator):
+        def get_model_params(self):
+            return None
+
+        def set_model_params(self, p):
+            pass
+
+        def aggregate(self, raw):
+            return FedMLFHE.get_instance().fhe_fedavg(raw)
+
+        def test(self, test_data, device, args):
+            return None
+
+    args = trust_args(fedml_tpu_torch, enable_fhe=True,
+                      random_seed=TRUST2_FHE_SEED)
+    trainer, agg = Trainer(model, args), Aggregator(model, args)
+    fhe = FedMLFHE.get_instance()
+    if not isinstance(fhe.codec, ckks.CkksCodec):
+        fail(f"(a) the FHE codec is {type(fhe.codec).__name__}, not CKKS")
+    raw, flats, logs, enc_ms = [], [], [], []
+    for n, p in silos:
+        p = {k: torch.as_tensor(v, device=dev) for k, v in p.items()}
+        flats.append(tree_flatten_1d(p).to(torch.float32))
+        trainer.set_model_params(p)
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ckks_draws(log=log):
+            trainer.on_after_local_training(None, dev, args)
+        torch.cuda.synchronize()
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+        raw.append((n, trainer.get_model_params()))
+        logs.append(log)
+    ct0 = raw[0][1]
+    if ct0.c0.device != dev:
+        fail(f"(a) the ciphertext lives on {ct0.c0.device}, not the card")
+    # the CPU process re-encrypts silo 0's vector with the card's draws
+    tmp = os.path.join(work, "ckks_in.tmp")
+    torch.save({"vec": flats[0].cpu(), "draws": logs[0]}, tmp)
+    os.replace(tmp, os.path.join(work, "ckks_in.pt"))
+    card0 = {"c0": digest(ct0.c0), "c1": digest(ct0.c1),
+             "dec": digest(fhe.codec.decrypt(ct0))}
+    passed, _ = agg.on_before_aggregation(raw)
+    if any(a is not b for (_, a), (_, b) in zip(passed, raw)):
+        fail("(a) on_before_aggregation did not pass the ciphertexts through")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged_ct = agg.aggregate(passed)
+    torch.cuda.synchronize()
+    agg_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = agg.on_after_aggregation(merged_ct)
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0)
+    # the float64 plaintext weighted average, and the scheme's error: the
+    # weights' quantization, the encoding, the RLWE error and the f32 cast
+    ns = [float(n) for n, _ in silos]
+    total = sum(ns)
+    plain = sum(n / total * f.double() for n, f in zip(ns, flats))
+    got = tree_flatten_1d(out).double()
+    weights = sum(int(round(n / total * (1 << ckks.WEIGHT_BITS)))
+                  for n in ns)
+    e_max = max(float(torch.round(log[0]).abs().max()) for log in logs)
+    bound = (2.0 ** -17 * sum(f.double().abs() for f in flats) + 2.0 ** -30
+             + weights * e_max / 2.0 ** 46 + 2.0 ** -24 * got.abs())
+    err = (got - plain).abs()
+    over = int((err > bound).sum())
+    # the weights' and the encoding's terms alone, without the RLWE error
+    # and the cast: how many elements they miss
+    two_terms = int((err > 2.0 ** -17 * sum(f.double().abs() for f in flats)
+                     + 2.0 ** -30).sum())
+    # two codecs of one seed draw different (a, e)
+    a, b = ckks.CkksCodec(7), ckks.CkksCodec(7)
+    reuse = torch.equal(a.encrypt(flats[0]).c1, b.encrypt(flats[0]).c1)
+    d = flats[0].numel()
+    nbytes, model_bytes = ct0.nbytes, 65536 * math.ceil(d / ckks.N)
+    if over or reuse or nbytes != model_bytes or not all(
+            torch.isfinite(v).all() for v in out.values()):
+        fail(f"(a) CKKS FedAvg: {over} elements over the bound, randomness "
+             f"reused {reuse}, ciphertext {nbytes} B vs {model_bytes} B")
+    say("trust2", f"(a) CKKS FedAvg of {len(silos)} silos at D {d:,} on the "
+                  f"card: max |err| {float(err.max()):.3e} from the float64 "
+                  f"plaintext average, every element within 2^-17·Σ|x_i| + "
+                  f"2^-30 + W·max|e|/2^46 + 2^-24·|avg| (W {weights}, max|e| "
+                  f"{e_max:g}; worst element at {float((err / bound).max()):.3f}"
+                  f" of its bound; {two_terms} elements over the first two "
+                  f"terms alone); a ciphertext {nbytes:,} B = 65,536 · "
+                  f"ceil(D / 2048); encrypt {', '.join(f'{m:.1f}' for m in enc_ms)}"
+                  f" ms, aggregate {agg_ms:.1f} ms, decrypt {dec_ms:.1f} ms; "
+                  f"two codecs of one seed draw different c1 [{smi}]")
+    return {"d": d, "nbytes": nbytes, "err": float(err.max()),
+            "worst_of_bound": float((err / bound).max()), "e_max": e_max,
+            "over_two_terms": two_terms,
+            "weights": weights, "encrypt_ms": enc_ms, "aggregate_ms": agg_ms,
+            "decrypt_ms": dec_ms, "card0": card0}
+
+
+def trust2_phase(torch, fedml_tpu_torch, att, smi, child):
+    """Phase 23: (c) SecAgg and LightSecAgg, (a) CKKS FedAvg on (c)'s
+    silos, (b) contribution at full width, (b-small) card vs CPU."""
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.core import rng as rng_util
+    from fedml_tpu_torch.core.contribution.gtg_shapley import GTGShapleyValue
+    from fedml_tpu_torch.core.contribution.loo import LeaveOneOut
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+
+    out, seconds = {}, {}
+    t_phase = time.time()
+
+    # (c) SecAgg and LightSecAgg, 3 text silos at full width
+    t0 = time.time()
+    sargs = xs_args(fedml_tpu_torch, TRUST2_SECURE, 0, "trust2_shapes")
+    sds, s_out = data.load(sargs)
+    seed, bs = int(sargs.random_seed), int(sargs.batch_size)
+    steps = sum(sds.client_index_batches(c, bs, seed, 0).shape[0]
+                for c in range(len(TRUST2_SECURE["client_id_list"])))
+    want = expect_launches(4, steps, steps)
+    runs = {}
+    for kind in ("sa", "lsa"):
+        run = secure_run(torch, fedml_tpu_torch, att, kind, sds, s_out)
+        if run["launches"] != want:
+            fail(f"(c) {kind}: K1-K3 launches {run['launches']}, expected "
+                 f"{want} (layers 4 × {steps} silo steps)")
+        out[kind] = secure_check(torch, fedml_tpu_torch, kind, run, smi)
+        runs[kind] = run
+    say("trust2", f"(c) K1-K3 launches each run {want} = layers 4 × {steps} "
+                  "silo steps")
+    seconds["c"] = time.time() - t0
+
+    # (a) CKKS FedAvg of (c)'s SecAgg silos on the card
+    t0 = time.time()
+    from fedml_tpu_torch import model as model_mod
+    m = model_mod.create(sargs, s_out)
+    silos = [runs["sa"]["silos"][r] for r in sorted(runs["sa"]["silos"])]
+    out["fhe"] = fhe_phase(torch, fedml_tpu_torch, silos, m, child["work"],
+                           smi)
+    FedMLFHE.get_instance().init(None)
+    del runs
+    torch.cuda.empty_cache()
+    seconds["a"] = time.time() - t0
+
+    # (b) contribution at full width: 4 silos, MR exact, one attacked
+    t0 = time.time()
+    bargs = xs_args(fedml_tpu_torch, TRUST2_CONTRIB, 0, "trust2_b")
+    bds, b_out = data.load(bargs)
+    n_silo = len(TRUST2_CONTRIB["client_id_list"])
+    steps = sum(bds.client_index_batches(int(c), bs, seed, 0).shape[0]
+                for c in rng_util.sample_clients(
+                    seed, 0, TRUST2_CONTRIB["client_num_in_total"], n_silo))
+    n_eval = len(bds.test_batches()[0])
+    coalitions = mr_coalitions(n_silo)
+    want = expect_launches(4, steps + n_eval * (len(coalitions) + 1), steps)
+    rec = {}
+    fed, got = counted(torch, att, lambda: xs_federation(
+        torch, fedml_tpu_torch, TRUST2_CONTRIB, "cuda", "trust2_b", bds,
+        b_out, agg_factory=contrib_aggregator(rec, att), **TRUST2_FLAGS))
+    phi, utils = rec["phi"], rec["utilities"]
+    in_assess = expect_launches(4, n_eval * len(coalitions), 0)
+    if got != want or rec["launches"] != in_assess or \
+            len(utils) != len(coalitions):
+        fail(f"(b) K1-K3 launches {got} (expected {want}: layers 4 × "
+             f"({steps} silo steps + {n_eval} eval batches × "
+             f"({len(coalitions)} coalitions + the server's eval))), inside "
+             f"the assessment {rec['launches']} (expected {in_assess}); "
+             f"{len(utils)} utilities for {len(coalitions)} coalitions")
+    u_all = utils[coalitions.index(frozenset(range(n_silo)))]
+    low = min(phi, key=phi.get)
+    if low != 0 or abs(sum(phi.values()) - u_all) > TRUST2_EFFICIENCY_TOL:
+        fail(f"(b) φ {phi}: the lowest is silo {low}, not the attacked silo "
+             f"0; Σφ {sum(phi.values())!r} vs U(all) {u_all!r}")
+    others = {}
+    for name, cls in (("gtg", GTGShapleyValue), ("loo", LeaveOneOut)):
+        t1 = time.perf_counter()
+        others[name] = cls(bargs).compute(rec["idxs"], rec["models"],
+                                          rec["aggregated"], rec["val_fn"])
+        others[name + "_s"] = time.perf_counter() - t1
+    round_s = [r["local_pass_s"] + r["upload_to_sync_s"]
+               for r in xs_split(fed)]
+    say("trust2", f"(b) text at full width, {n_silo} silos × 1 round, silo 0 "
+                  f"attacked (byzantine, random): MR φ "
+                  f"{ {k: round(v, 6) for k, v in phi.items()} } (lowest: "
+                  f"silo {low}); Σφ - U(all) = "
+                  f"{sum(phi.values()) - u_all:.2e} (U(all) {u_all:.6f}); "
+                  f"GTG {({k: round(v, 6) for k, v in others['gtg'].items()})}"
+                  f" in {others['gtg_s']:.2f} s, LOO "
+                  f"{({k: round(v, 6) for k, v in others['loo'].items()})} "
+                  f"in {others['loo_s']:.2f} s; the assessment "
+                  f"{rec['seconds']:.2f} s beside the round's "
+                  f"{max(round_s):.2f} s (a silo's pass + upload to sync); "
+                  f"K1-K3 {got} = layers 4 × ({steps} silo steps + {n_eval} "
+                  f"eval batches × ({len(coalitions)} coalitions + the "
+                  f"server's eval)) [{smi}]")
+    out["contribution"] = {
+        "phi": phi, "utilities": utils, "u_all": u_all,
+        "gtg": others["gtg"], "loo": others["loo"],
+        "gtg_s": others["gtg_s"], "loo_s": others["loo_s"],
+        "assess_s": rec["seconds"], "round_s": round_s, "launches": got,
+        "assess_launches": rec["launches"]}
+    del fed, rec
+    seconds["b"] = time.time() - t0
+
+    # the CPU process: (b-small)'s CPU run and (a)'s CPU encryption
+    t0 = time.time()
+    done = cpu_process_join(child)
+    seconds["cpu_wait"] = time.time() - t0
+    cpu0, card0 = done["ckks"], out["fhe"].pop("card0")
+    same = {k: cpu0[k] == card0[k] for k in card0}
+    if not all(same.values()):
+        fail(f"(a) silo 0's ciphertext and decryption card vs CPU: {same}")
+    say("trust2", f"(a) silo 0's c0, c1 and decryption: bitwise the CPU "
+                  f"process's with the card's draws carried (sha256 "
+                  f"{card0['c0'][:12]}…, {card0['c1'][:12]}…, "
+                  f"{card0['dec'][:12]}…; CPU encrypt + decrypt "
+                  f"{cpu0['seconds']:.2f} s)")
+    out["fhe"]["cpu_bitwise"] = same
+
+    # (b-small) card vs CPU, the CPU's draws carried
+    t0 = time.time()
+    small = torch.load(os.path.join(child["work"], "small.pt"))
+    draws = dict(small["draws"], _init=small["init"])
+    card = contrib_small_run(torch, fedml_tpu_torch, "cuda", draws)
+    left = {k: len(v) for k, v in draws.items() if v}
+    if left or len(card["utilities"]) != len(small["utilities"]):
+        fail(f"(b-small) draws left {left}; utilities "
+             f"{len(card['utilities'])} vs {len(small['utilities'])}")
+    n_test = small["n_test"]
+    diffs = [abs(a - b) * n_test for a, b in zip(card["utilities"],
+                                                   small["utilities"])]
+    flips = [round(d) for d in diffs]
+    if any(abs(d - f) > 1e-3 for d, f in zip(diffs, flips)):
+        fail(f"(b-small) utilities differ by other than whole test examples: "
+             f"{diffs}")
+    if not any(flips) and card["phi"] != small["phi"]:
+        fail(f"(b-small) equal utilities but φ {card['phi']} vs "
+             f"{small['phi']}")
+    say("trust2", f"(b-small) narrow text, 4 silos × 1 round, MR exact, the "
+                  f"CPU's draws carried: {len(flips)} utilities, "
+                  f"{sum(1 for f in flips if f)} differ, by {sum(flips)} "
+                  f"test examples of {n_test} in all; φ "
+                  f"{'equal' if card['phi'] == small['phi'] else 'apart'} "
+                  f"(card {card['phi']}, CPU {small['phi']})")
+    out["small"] = {"flips": flips, "n_test": n_test, "phi_card": card["phi"],
+                    "phi_cpu": small["phi"]}
+    seconds["b_small"] = time.time() - t0
+    out["cpu_process"] = {"small_s": done["small_s"],
+                          "ckks_s": cpu0["seconds"]}
     import shutil
     shutil.rmtree(child["work"], ignore_errors=True)
     seconds["phase"] = time.time() - t_phase
@@ -7297,7 +7893,7 @@ def main():
                       f"({ {k: round(v, 1) for k, v in cross_silo['seconds'].items()} })")
 
     # phase 22's CPU process (its CPU references) runs beside phases 20-21
-    trust_child = trust_cpu_start()
+    trust_child = cpu_process_start(22, "trust_cpu_reference")
 
     # -- 20. wire: the codec, the two-tier and buffered-async drivers -----
     t0 = time.time()
@@ -7333,6 +7929,22 @@ def main():
     say("trust", f"phase 22 took {time.time() - t0:.1f} s "
                  f"({ {k: round(v, 1) for k, v in trust['seconds'].items()} }"
                  f"; (a) {serve_obs['seconds']:.1f} s at phase 15's end)")
+
+    # -- 23. trust2: CKKS FedAvg, contribution, SecAgg and LightSecAgg ----
+    t0 = time.time()
+    trust2 = trust2_phase(torch, fedml_tpu_torch, att, smi,
+                          cpu_process_start(23, "trust2_cpu_reference"))
+    for path, n_by in (("trust2_secagg", trust2["sa"]["launches"]),
+                       ("trust2_lightsecagg", trust2["lsa"]["launches"]),
+                       ("trust2_contribution",
+                        trust2["contribution"]["launches"])):
+        for name, n in n_by.items():
+            rows[f"{name}@text"].setdefault("launches_by_path", {})[
+                path] = n
+            rows[f"{name}@slice"].setdefault("launches_by_path", {})[
+                path] = 0
+    say("trust2", f"phase 23 took {time.time() - t0:.1f} s "
+                  f"({ {k: round(v, 1) for k, v in trust2['seconds'].items()} })")
     say("done", f"all phases in {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": list(rows.values()), "fwd_bwd": fwd_bwd,
@@ -7346,7 +7958,8 @@ def main():
                       "tp": tp,
                       "ring_blocks": list(mesh3d.pop("rows").values()),
                       "mesh3d": mesh3d, "cross_silo": cross_silo,
-                      "wire": wire_rec, "obs": obs_rec, "trust": trust}))
+                      "wire": wire_rec, "obs": obs_rec, "trust": trust,
+                      "trust2": trust2}, default=str))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

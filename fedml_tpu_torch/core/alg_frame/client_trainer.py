@@ -3,15 +3,15 @@ frame (port of ``fedml_tpu.core.alg_frame.client_trainer``).
 
 Surface parity: ``train / get_model_params / set_model_params`` plus the
 ``on_before_local_training`` / ``on_after_local_training`` hook pair
-through which the trust plugins are threaded: data poisoning before the
-local pass, local DP noise and model poisoning after it.  "params" is the
-port's ``{name: tensor}`` dict.
+through which the trust plugins are threaded: data poisoning and the FHE
+decrypt of the incoming global model before the local pass; local DP
+noise, model poisoning and the FHE encrypt of the update after it.
+"params" is the port's ``{name: tensor}`` dict.
 
-What differs from the JAX module: FHE, upload compression and
-contribution assessment are not ported; an ``args`` that enables one
-raises ``NotImplementedError`` naming the flag (:func:`refuse_trust_stack`)
-when a trainer, an aggregator or a cross-silo ``Server``/``Client`` is
-built.
+What differs from the JAX module: upload compression is not ported; an
+``args`` that enables it raises ``NotImplementedError`` naming the flag
+(:func:`refuse_trust_stack`) when a trainer, an aggregator or a
+cross-silo ``Server``/``Client`` is built.
 """
 
 from __future__ import annotations
@@ -20,15 +20,14 @@ import abc
 from typing import Any
 
 from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+from ..fhe.fhe_agg import FedMLFHE
 from ..security.defense.common import use_layout
 from ..security.fedml_attacker import FedMLAttacker
 
 #: the flags of the JAX package's trust stack and upload compression that
 #: the port does not implement
 TRUST_STACK_FLAGS = {
-    "enable_fhe": "homomorphic encryption (core/fhe/)",
     "enable_compression": "upload compression (core/compression/)",
-    "enable_contribution": "contribution assessment (core/contribution/)",
 }
 
 
@@ -53,6 +52,7 @@ class ClientTrainer(abc.ABC):
         use_layout(model)
         FedMLAttacker.get_instance().init(args)
         FedMLDifferentialPrivacy.get_instance().init(args)
+        FedMLFHE.get_instance().init(args)
 
     def set_id(self, trainer_id):
         self.id = trainer_id
@@ -69,10 +69,14 @@ class ClientTrainer(abc.ABC):
         ...
 
     def on_before_local_training(self, train_data, device, args):
-        """Data poisoning (red-team) of the local data."""
+        """Data poisoning (red-team) of the local data, then the FHE decrypt
+        of the incoming global model."""
         atk = FedMLAttacker.get_instance()
         if atk.is_data_poisoning_attack() and atk.is_to_poison_data():
             train_data = atk.poison_data(train_data)
+        if FedMLFHE.get_instance().is_fhe_enabled():
+            self.set_model_params(
+                FedMLFHE.get_instance().fhe_dec("local", self.get_model_params()))
         return train_data
 
     @abc.abstractmethod
@@ -80,7 +84,8 @@ class ClientTrainer(abc.ABC):
         ...
 
     def on_after_local_training(self, train_data, device, args):
-        """Local DP noise, then model poisoning, of the trained params."""
+        """Local DP noise, model poisoning, then the FHE encrypt of the
+        trained params."""
         dp = FedMLDifferentialPrivacy.get_instance()
         if dp.is_local_dp_enabled():
             self.set_model_params(dp.add_local_noise(self.get_model_params()))
@@ -88,6 +93,9 @@ class ClientTrainer(abc.ABC):
         if atk.is_model_attack():
             self.set_model_params(atk.attack_model(
                 self.get_model_params(), self.local_sample_number))
+        if FedMLFHE.get_instance().is_fhe_enabled():
+            self.set_model_params(
+                FedMLFHE.get_instance().fhe_enc("local", self.get_model_params()))
 
     def test(self, test_data, device, args) -> Any:
         return None

@@ -12,11 +12,17 @@ server optimizer → defend after aggregation → global DP noise — or a user
 (``add_local_partial_aggregate``) combine exactly through
 ``federated.combine_partial_aggregates``.
 
-What differs from the JAX module: the contribution assessment is not
-ported (an ``args`` enabling it raises by name at construction); the
-state lives on ``device`` (the card unless the CPU is asked for), uploads
-that arrive as host arrays are moved there, and the defenses and DP run
-on it.
+With a user ``ServerAggregator`` whose contribution assessor is on, the
+round ends with ``assess_contribution``: each coalition's merge and its
+utility — the server trainer's accuracy on ``dataset.test_batches()`` —
+on ``device``.
+
+What differs from the JAX module: the state lives on ``device`` (the card
+unless the CPU is asked for), uploads that arrive as host arrays are moved
+there, and the defenses and DP run on it; ``assess_contribution`` gets the
+round's ``(num_samples, params)`` pairs, which the assessors merge by —
+the JAX aggregator passes the params alone, and its assessors then fail
+to unpack them (a recorded divergence).
 """
 
 from __future__ import annotations
@@ -165,15 +171,31 @@ class FedMLAggregator:
     def _aggregate_via_user_hooks(self, idxs, raw_list):
         """The server flow when a user ServerAggregator is given:
         ``on_before_aggregation`` → ``aggregate`` →
-        ``on_after_aggregation`` (no contribution assessor is ported)."""
+        ``on_after_aggregation`` → ``assess_contribution``."""
         ua = self.user_aggregator
         ua.set_model_params(self.state.global_params)
+        n_before = len(raw_list)
         raw_list, _ = ua.on_before_aggregation(raw_list)
         new_params = ua.aggregate(raw_list)
         new_params = ua.on_after_aggregation(new_params)
         self.state = self.state.replace(
             round_idx=self.state.round_idx + 1,
             global_params=tensor_tree(new_params, self.device, self.order))
+        mgr = getattr(ua, "contribution_assessor_mgr", None)
+        if mgr is not None and mgr.get_assessor() is not None \
+                and self.dataset is not None:
+            if len(raw_list) != n_before:
+                # a filtering defense changed the list; positional mapping
+                # to client ids is gone — crediting would be wrong
+                log.warning("skipping contribution assessment: defense "
+                            "filtered the cohort (%d -> %d)", n_before,
+                            len(raw_list))
+            else:
+                test = self._test_batches()
+                ua.assess_contribution(
+                    idxs, raw_list, self.state.global_params,
+                    lambda params: float(self.trainer.evaluate(params,
+                                                               *test)[1]))
         self.model_dict.clear()
         return self.state.global_params
 
@@ -183,6 +205,13 @@ class FedMLAggregator:
             int(getattr(self.args, "random_seed", 0)), round_idx,
             client_num_in_total, client_num_per_round).tolist()
 
+    def _test_batches(self):
+        """The dataset's test batches on ``device`` (copied once)."""
+        if self._test is None:
+            self._test = tuple(torch.as_tensor(a, device=self.device)
+                               for a in self.dataset.test_batches())
+        return self._test
+
     def test_on_server_for_all_clients(self, round_idx: int) -> Optional[float]:
         if self.dataset is None:
             return None
@@ -190,11 +219,8 @@ class FedMLAggregator:
         rounds = int(getattr(self.args, "comm_round", 0))
         if round_idx % freq != 0 and round_idx != rounds - 1:
             return None
-        if self._test is None:
-            self._test = tuple(torch.as_tensor(a, device=self.device)
-                               for a in self.dataset.test_batches())
         loss, acc = self.trainer.evaluate(self.state.global_params,
-                                          *self._test)
+                                          *self._test_batches())
         self.last_eval = {"round": round_idx, "loss": loss, "acc": acc}
         log.info("server eval round %d: loss=%.4f acc=%.4f", round_idx, loss,
                  acc)

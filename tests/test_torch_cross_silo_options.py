@@ -230,8 +230,9 @@ def test_user_aggregator_with_a_trust_flag_raises_by_name():
         get_model_params = set_model_params = aggregate = test = \
             lambda *a: None
 
-    with pytest.raises(NotImplementedError, match="enable_fhe"):
-        Agg(None, fedml_tpu_torch.load_arguments().update(enable_fhe=True))
+    with pytest.raises(NotImplementedError, match="enable_compression"):
+        Agg(None, fedml_tpu_torch.load_arguments().update(
+            enable_compression=True))
 
 
 def test_cross_device_training_type_raises_by_name():

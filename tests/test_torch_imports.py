@@ -427,3 +427,53 @@ def test_trust_stack_and_serving_obs_run_with_jax_unimportable():
     for m in modules:
         path = "fedml_tpu_torch/" + m.replace(".", "/")
         assert {path + ".py", path + "/__init__.py"} & walked, m
+
+
+def test_trust_stack_second_half_runs_with_jax_unimportable():
+    """CKKS and its hooks, the contribution assessors, the field
+    arithmetic and the SecAgg and LightSecAgg FSMs import and run in a
+    process where ``jax`` and ``fedml_tpu`` cannot be imported at all."""
+    import subprocess
+    import sys
+
+    modules = ("core.fhe.ckks", "core.fhe.fhe_agg",
+               "core.contribution.contribution_assessor_manager",
+               "core.contribution.gtg_shapley", "core.contribution.loo",
+               "core.contribution.mr_shapley", "core.mpc.secagg",
+               "core.mpc.lightsecagg", "cross_silo.secagg",
+               "cross_silo.lightsecagg")
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('fedml_tpu_torch.' + m)\n"
+        "from fedml_tpu_torch.arguments import load_arguments\n"
+        "from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE\n"
+        "from fedml_tpu_torch.core.contribution.contribution_assessor_manager\\\n"
+        "    import ContributionAssessorManager\n"
+        "from fedml_tpu_torch.core.mpc.lightsecagg import lightsecagg_round\n"
+        "fhe = FedMLFHE()\n"
+        "fhe.init(load_arguments().update(enable_fhe=True))\n"
+        "raw = [(1.0 + i, {'w': torch.full((3, 2), float(i))})\n"
+        "       for i in range(3)]\n"
+        "out = fhe.fhe_dec('global', fhe.fhe_fedavg(\n"
+        "    [(n, fhe.fhe_enc('local', p)) for n, p in raw]))\n"
+        "assert torch.allclose(out['w'], torch.full((3, 2), 8 / 6))\n"
+        "phi = {}\n"
+        "ContributionAssessorManager(load_arguments().update(\n"
+        "    enable_contribution=True, contribution_alg='mr')).run(\n"
+        "    [0, 1, 2], raw, None, lambda p: -float(p['w'].mean()), phi)\n"
+        "assert sorted(phi) == [0, 1, 2]\n"
+        "xs = [np.full(4, 0.5, np.float32)] * 3\n"
+        "assert np.allclose(lightsecagg_round(xs, 3, 2, 1, [0, 1, 2]), 1.5)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    walked = {str(f.relative_to(ROOT)) for f in
+              (ROOT / "fedml_tpu_torch").rglob("*.py")}
+    for m in modules:
+        path = "fedml_tpu_torch/" + m.replace(".", "/")
+        assert {path + ".py", path + "/__init__.py"} & walked, m

@@ -55,7 +55,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
-    child = chip_smoke.trust_cpu_start()
+    child = chip_smoke.cpu_process_start(22, "trust_cpu_reference")
     t0 = time.time()
     cuda_build.build()
     print(f"kernels built in {time.time() - t0:.1f} s", flush=True)
